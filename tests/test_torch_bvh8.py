@@ -1,0 +1,174 @@
+"""The port's BVH8 walk (K3) against the real Pallas kernel and brute force.
+
+On the CPU the port's walk is its plain twin (`walk_twin`); it is held
+against the JAX package's K3 kernel `_walk_kernel8` run unchanged in Pallas
+interpret mode (intersect_bvh_pallas8(fast=False) / occluded_bvh_pallas8),
+on a pack built by the JAX package's build_bvh_pack8, and against
+intersect_brute. Bars: prim agrees on >= 99.9% of rays (expected 100%), t
+within rtol 1e-5 where prim agrees, occlusion agrees on >= 99.9%. The t bar
+has an absolute floor of 1e-6: the plane form's numerator N.o + nc cancels
+to the point-plane distance, so its rounding error is absolute, about eps
+times the scene extent (~5e-7 here), and dominates on short hits.
+
+The CUDA kernel itself is held against the twin in test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tungsten_tpu_torch.ops import bvh8
+from tungsten_tpu_torch.ops.intersect import TriangleSoA
+
+BAR = 0.999
+T_RTOL = 1e-5
+T_ATOL = 1e-6
+
+
+def _scene(rng, n_tris=600):
+    v0 = rng.uniform(-2.0, 2.0, (n_tris, 3)).astype(np.float32)
+    e1 = rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
+    e2[::50] = e1[::50] * 2.0  # degenerate slots: all-zero planes
+    return v0, e1, e2
+
+
+def _rays(rng, n_random=384, n_camera=256):
+    """Random incoherent rays plus a pinhole-like camera fan, with dead lanes."""
+    o = rng.uniform(-3.0, 3.0, (n_random, 3))
+    d = rng.normal(size=(n_random, 3))
+    eye = np.array([0.3, 0.5, 6.0])
+    tgt = rng.uniform(-1.5, 1.5, (n_camera, 3)) * np.array([1.0, 1.0, 0.0])
+    o = np.concatenate([o, np.broadcast_to(eye, (n_camera, 3))])
+    d = np.concatenate([d, tgt - eye])
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    n = len(o)
+    tnear = np.full(n, 1e-4)
+    tfar = np.full(n, 3.0e38)
+    tfar[::9] = 0.0  # dead lanes: tnear >= tfar
+    tfar[5::9] = rng.uniform(0.5, 4.0, len(tfar[5::9]))  # bounded segments
+    return [np.ascontiguousarray(a, np.float32) for a in (o, d, tnear, tfar)]
+
+
+@pytest.fixture(scope="module")
+def case():
+    from tungsten_tpu.ops.intersect import TriangleSoA as JTris
+    from tungsten_tpu.ops.pallas_bvh8 import build_bvh_pack8
+
+    rng = np.random.default_rng(0xB8)
+    v0, e1, e2 = _scene(rng)
+    jpack = build_bvh_pack8(v0, e1, e2, leaf_size=128)
+    pack = bvh8.Bvh8Pack.from_arrays(
+        {k: np.asarray(getattr(jpack, k)) for k in ("boxes", "kid", "order", "planes", "prim_map")},
+        torch.device("cpu"))
+    jtris = JTris(v0=jnp.asarray(v0), e1=jnp.asarray(e1), e2=jnp.asarray(e2))
+    tris = TriangleSoA(*(torch.as_tensor(a) for a in (v0, e1, e2)))
+    return jpack, jtris, pack, tris, _rays(rng)
+
+
+def _t(arrs):
+    return [torch.as_tensor(a) for a in arrs]
+
+
+def _agree_closest(prim_a, t_a, prim_b, t_b, label):
+    same = prim_a == prim_b
+    assert same.mean() >= BAR, f"{label}: prim agrees on {same.mean():.4%}"
+    hit = same & (prim_a >= 0)
+    np.testing.assert_allclose(t_a[hit], t_b[hit], rtol=T_RTOL, atol=T_ATOL, err_msg=label)
+
+
+def test_twin_matches_pallas_k3(case):
+    from jax.experimental.pallas import tpu as pltpu
+    from tungsten_tpu.ops.pallas_bvh8 import intersect_bvh_pallas8, occluded_bvh_pallas8
+
+    jpack, jtris, pack, tris, rays = case
+    jr = [jnp.asarray(a) for a in rays]
+    with pltpu.force_tpu_interpret_mode():
+        hk = intersect_bvh_pallas8(jpack, jtris, *jr, rt=128, walks=1, fast=False)
+        occ_k = np.asarray(occluded_bvh_pallas8(jpack, *jr, rt=128, walks=1))
+    ht = bvh8.intersect(pack, tris, *_t(rays))
+    _agree_closest(ht.prim.numpy(), ht.t.numpy(), np.asarray(hk.prim), np.asarray(hk.t), "vs K3")
+    np.testing.assert_allclose(ht.u.numpy(), np.asarray(hk.u), rtol=T_RTOL, atol=1e-6)
+    np.testing.assert_allclose(ht.v.numpy(), np.asarray(hk.v), rtol=T_RTOL, atol=1e-6)
+    occ_t = bvh8.occluded(pack, *_t(rays)).numpy()
+    assert (occ_t == occ_k).mean() >= BAR
+    assert 0.2 < occ_t.mean() < 0.9  # the case exercises both outcomes
+
+
+def test_twin_matches_brute_force(case):
+    from tungsten_tpu_torch.ops.intersect import intersect_brute
+
+    _, _, pack, tris, rays = case
+    ht = bvh8.intersect(pack, tris, *_t(rays))
+    hb = intersect_brute(tris, *_t(rays))
+    _agree_closest(ht.prim.numpy(), ht.t.numpy(), hb.prim.numpy(), hb.t.numpy(), "vs brute")
+    occ = bvh8.occluded(pack, *_t(rays)).numpy()
+    assert (occ == (hb.prim.numpy() >= 0)).mean() >= BAR
+    # dead lanes do no work and report a miss
+    dead = rays[3] <= rays[2]
+    assert (ht.prim.numpy()[dead] == -1).all() and not occ[dead].any()
+
+
+def test_port_brute_force_matches_jax_brute_force(case):
+    from tungsten_tpu.ops.intersect import intersect_brute as jbrute
+    from tungsten_tpu_torch.ops.intersect import intersect_brute
+
+    _, jtris, _, tris, rays = case
+    hj = jbrute(jtris, *(jnp.asarray(a) for a in rays))
+    ht = intersect_brute(tris, *_t(rays))
+    np.testing.assert_array_equal(ht.prim.numpy(), np.asarray(hj.prim))
+    hit = ht.prim.numpy() >= 0
+    np.testing.assert_allclose(ht.t.numpy()[hit], np.asarray(hj.t)[hit], rtol=T_RTOL, atol=T_ATOL)
+
+
+def test_mixed_latch_gives_closest_hit_booleans(case):
+    """The merged shadow + next-ray walk: latched lanes stop at their first
+    hit, yet report the same `blocked = prim >= 0` as an all-closest walk
+    (the TPU configuration's merged walk), and unlatched lanes are exact
+    closest hits."""
+    _, _, pack, tris, rays = case
+    o, d, tn, tf = _t(rays)
+    n = o.shape[0]
+    latch = torch.arange(n) % 2 == 0
+    hm = bvh8.intersect_mixed(pack, tris, o, d, tn, tf, latch)
+    hc = bvh8.intersect(pack, tris, o, d, tn, tf)
+    np.testing.assert_array_equal((hm.prim >= 0).numpy(), (hc.prim >= 0).numpy())
+    free = ~latch
+    np.testing.assert_array_equal(hm.prim[free].numpy(), hc.prim[free].numpy())
+    np.testing.assert_array_equal(hm.t[free].numpy(), hc.t[free].numpy())
+
+
+def test_walk_dispatches_by_device(case):
+    """CPU tensors run the twin and count its launch; the kernel's count
+    moves only where it launches."""
+    _, _, pack, _, rays = case
+    k0, t0 = bvh8.walk_cuda.launches, bvh8.walk_twin.launches
+    bvh8.walk(pack, *_t(rays))
+    assert bvh8.walk_twin.launches == t0 + 1 and bvh8.walk_cuda.launches == k0
+    with pytest.raises(ValueError):
+        bvh8.walk_cuda(pack, *_t(rays))  # CPU tensors are refused, not served
+
+
+def test_pack_stack_bound_is_checked():
+    """The per-ray stack holds DEPTH entries; a tree too deep for it is
+    refused at build time (pallas_bvh8.py:454's assert)."""
+    from tungsten_tpu_torch.accel.bvh import BvhArrays
+
+    # a binary chain: every inner node has one leaf child and one inner child
+    depth = 8 * (bvh8.DEPTH // 8 + 4)  # each 8-ary node spans 7 chain levels
+    m = 2 * depth + 1
+    count = np.zeros(m, np.int32)
+    skip = np.zeros(m, np.int32)
+    for i in range(depth):
+        left, right = 2 * i + 1, 2 * i + 2
+        count[left] = 1
+        skip[left] = right
+        skip[2 * i] = m
+    count[m - 1] = 1
+    skip[m - 1] = m
+    bvh = BvhArrays(node_min=np.zeros((m, 3), np.float32), node_max=np.ones((m, 3), np.float32),
+                    first=np.zeros(m, np.int32), count=count, skip=skip,
+                    prim_order=np.zeros(1, np.int32))
+    with pytest.raises(ValueError, match="DEPTH"):
+        bvh8._collapse8(bvh, np.cumsum(count > 0) - 1)

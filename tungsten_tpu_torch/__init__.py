@@ -1,0 +1,32 @@
+"""tungsten_tpu_torch: the PyTorch + CUDA port of tungsten_tpu.
+
+Counterpart of tungsten_tpu/__init__.py. The JAX package stays the
+reference; this package runs its main path (scene load -> flatten ->
+regenerating wavefront path tracer -> framebuffer) with plain torch tensor
+code and one hand-written CUDA kernel for the BVH8 walk
+(ops/bvh8.py + csrc/bvh8_walk.cu). It imports torch and numpy, never jax.
+
+Package layout mirrors tungsten_tpu/ module for module; only the slice the
+main path needs is ported, and every feature it lacks raises
+NotImplementedError naming the missing piece.
+"""
+import torch as _torch
+
+__version__ = "0.1.0"
+
+# Geometry is f32 end to end. TF32 (the Hopper analog of the TPU's bf16 MXU
+# default that tungsten_tpu/__init__.py turns off) would quantize camera-ray
+# rotations (`local @ rot.T`) and env lookups (`d @ inv_rot.T`) to ~10
+# mantissa bits and shift the image.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+
+def device(name: str = "cuda") -> _torch.device:
+    """torch.device for `name`; raises when CUDA is asked for and absent
+    (the port never falls back to the CPU on its own)."""
+    dev = _torch.device(name)
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda.is_available() is False")
+    return dev

@@ -1,0 +1,240 @@
+"""Texture table: host-side assembly + batched evaluation on torch tensors.
+
+Port of tungsten_tpu/models/textures/textures.py for the constant, checker
+and bitmap types. The host side is the same numpy code (same ids, same packed
+rows), so tables built here equal the JAX package's; disk, blade and IES
+textures raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+TEX_CONSTANT = 0
+TEX_CHECKER = 1
+TEX_BITMAP = 2
+
+_PARAMS = 8
+_TEX4_MAX = 1 << 23  # texel count above which the 2x2-block pack is skipped
+
+
+@dataclass
+class TextureTable:
+    tpack: torch.Tensor  # (K, 9) [params(8) | type]
+    data: torch.Tensor  # (P, 3) concatenated bitmap texels
+    data4: Optional[torch.Tensor]  # (P, 12) 2x2-block pack, or None
+    present: tuple  # static texture types present
+
+    @staticmethod
+    def from_arrays(tpack, data, data4, device) -> "TextureTable":
+        tpack = np.array(tpack, np.float32)
+        return TextureTable(
+            tpack=torch.as_tensor(tpack, device=device),
+            data=torch.as_tensor(np.array(data, np.float32), device=device),
+            data4=None if data4 is None else torch.as_tensor(
+                np.array(data4, np.float32), device=device),
+            present=tuple(sorted({int(t) for t in tpack[:, -1]})),
+        )
+
+
+class TextureBuilder:
+    """Host-side accumulation of scene textures (textures.py TextureBuilder)."""
+
+    def __init__(self):
+        self.types: List[int] = []
+        self.params: List[np.ndarray] = []
+        self.blobs: List[np.ndarray] = []
+        self._blob_meta: List[tuple] = []
+        self._blob_off = 0
+        self._cache = {}
+
+    def add_constant(self, rgb) -> int:
+        rgb = np.asarray(rgb, np.float32).ravel()
+        if rgb.size == 1:
+            rgb = np.repeat(rgb, 3)
+        key = ("const", tuple(rgb))
+        if key in self._cache:
+            return self._cache[key]
+        p = np.zeros(_PARAMS, np.float32)
+        p[:3] = rgb
+        idx = self._push(TEX_CONSTANT, p)
+        self._cache[key] = idx
+        return idx
+
+    def add_checker(self, on_color, off_color, res_u=20, res_v=20) -> int:
+        on = np.asarray(on_color, np.float32).ravel()
+        off = np.asarray(off_color, np.float32).ravel()
+        if on.size == 1:
+            on = np.repeat(on, 3)
+        if off.size == 1:
+            off = np.repeat(off, 3)
+        p = np.zeros(_PARAMS, np.float32)
+        p[:3] = on
+        p[3:6] = off
+        p[6] = res_u
+        p[7] = res_v
+        return self._push(TEX_CHECKER, p)
+
+    def add_bitmap(self, img: np.ndarray, path_key=None) -> int:
+        """A repeat-wrapped bitmap (the clamped kind serves IES, not ported;
+        eval_texture still reads clamped rows of a carried-across table)."""
+        key = ("bitmap", path_key, False, 1.0)
+        if path_key is not None and key in self._cache:
+            return self._cache[key]
+        img = np.asarray(img, np.float32)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        h, w = img.shape[:2]
+        p = np.zeros(_PARAMS, np.float32)
+        p[0] = self._blob_off
+        p[1] = w
+        p[2] = h
+        p[4] = 1.0  # scale
+        self.blobs.append(img.reshape(-1, 3))
+        self._blob_meta.append((h, w))
+        self._blob_off += h * w
+        idx = self._push(TEX_BITMAP, p)
+        if path_key is not None:
+            self._cache[key] = idx
+        return idx
+
+    def _push(self, t: int, p: np.ndarray) -> int:
+        self.types.append(t)
+        self.params.append(p)
+        return len(self.types) - 1
+
+    def image(self, tex_id: int) -> np.ndarray:
+        """Host-side texels (H, W, 3) of a bitmap (env-map distributions)."""
+        assert self.types[tex_id] == TEX_BITMAP
+        off, w, h = (int(self.params[tex_id][i]) for i in range(3))
+        flat = np.concatenate(self.blobs, axis=0)
+        return flat[off: off + w * h].reshape(h, w, 3)
+
+    def build_arrays(self) -> dict:
+        """{"tpack", "data", "data4"} as numpy, laid out as textures.py
+        TextureBuilder.build lays them out."""
+        if not self.types:
+            self.add_constant([0.0, 0.0, 0.0])
+        data = (np.concatenate(self.blobs, axis=0) if self.blobs
+                else np.zeros((1, 3), np.float32))
+        data4 = None
+        if self.blobs and data.shape[0] <= _TEX4_MAX:
+            packs = []
+            for img, (h, w) in zip(self.blobs, self._blob_meta):
+                t = img.reshape(h, w, 3)
+                iu1 = (np.arange(w) + 1) % w
+                iv1 = (np.arange(h) + 1) % h
+                packs.append(np.concatenate(
+                    [t, t[:, iu1], t[iv1], t[iv1][:, iu1]], axis=-1).reshape(-1, 12))
+            data4 = np.concatenate(packs, axis=0)
+        tpack = np.concatenate(
+            [np.stack(self.params), np.asarray(self.types, np.float32)[:, None]],
+            axis=1).astype(np.float32)
+        return {"tpack": tpack, "data": data, "data4": data4}
+
+
+def _eval_constant(params, uv):
+    return params[..., 0:3]
+
+
+def _eval_checker(params, uv):
+    # CheckerTexture::operator[]: on = (iu ^ iv) & 1 (truncating casts)
+    iu = (uv[..., 0] * params[..., 6]).to(torch.int32)
+    iv = (uv[..., 1] * params[..., 7]).to(torch.int32)
+    on = ((iu ^ iv) & 1) == 1
+    return torch.where(on[..., None], params[..., 0:3], params[..., 3:6])
+
+
+def _eval_bitmap(data, params, uv, data4=None):
+    off = params[..., 0].to(torch.int64)
+    w = params[..., 1].to(torch.int64)
+    h = params[..., 2].to(torch.int64)
+    clamp = params[..., 3] > 0.5
+
+    u = uv[..., 0] * params[..., 1] - 0.5
+    v = (1.0 - uv[..., 1]) * params[..., 2] - 0.5
+    iu0 = torch.floor(u).to(torch.int64)
+    iv0 = torch.floor(v).to(torch.int64)
+    fu = u - iu0
+    fv = v - iv0
+
+    def wrap(i, n):
+        n = torch.clamp(n, min=1)
+        return torch.where(clamp, torch.minimum(torch.clamp(i, min=0), n - 1),
+                           ((i % n) + n) % n)
+
+    iu1 = wrap(iu0 + 1, w)
+    iv1 = wrap(iv0 + 1, h)
+    iu0 = wrap(iu0, w)
+    iv0 = wrap(iv0, h)
+    fu = fu[..., None]
+    fv = fv[..., None]
+    if data4 is not None:
+        row = data4[torch.clamp(off + iu0 + iv0 * w, 0, data4.shape[0] - 1)]
+        c00, c10 = row[..., 0:3], row[..., 3:6]
+        c01, c11 = row[..., 6:9], row[..., 9:12]
+    else:
+        def safe(idx):
+            return torch.clamp(idx, 0, data.shape[0] - 1)
+
+        c00 = data[safe(off + iu0 + iv0 * w)]
+        c10 = data[safe(off + iu1 + iv0 * w)]
+        c01 = data[safe(off + iu0 + iv1 * w)]
+        c11 = data[safe(off + iu1 + iv1 * w)]
+    return (c00 * (1 - fu) + c10 * fu) * (1 - fv) + (c01 * (1 - fu) + c11 * fu) * fv
+
+
+def eval_texture(table: TextureTable, tex_id, uv, may=None, pre=None):
+    """Batched lookup: tex_id (N,), uv (N, 2) -> rgb (N, 3), masked over the
+    texture types present (narrowed by the static `may` hint). `pre` is an
+    optional (params, type) pair the caller already gathered."""
+    if pre is not None:
+        params, ttype = pre
+    else:
+        row = table.tpack[torch.clamp(tex_id, 0, table.tpack.shape[0] - 1)]
+        params = row[..., :-1]
+        ttype = row[..., -1].to(torch.int64)
+    kinds = table.present if may is None else tuple(t for t in table.present if t in may)
+    out = torch.zeros(uv.shape[:-1] + (3,), dtype=torch.float32, device=uv.device)
+    for t in kinds:
+        if t == TEX_CONSTANT:
+            val = _eval_constant(params, uv)
+        elif t == TEX_CHECKER:
+            val = _eval_checker(params, uv)
+        elif t == TEX_BITMAP:
+            val = _eval_bitmap(table.data, params, uv, table.data4)
+        else:
+            raise NotImplementedError(f"texture type id {t} is not ported")
+        out = torch.where((ttype == t)[..., None], val, out)
+    return out
+
+
+def texture_from_spec(spec, tex_builder: TextureBuilder, resolve_path=None) -> int:
+    """JSON texture value -> table id (constant, checker, bitmap)."""
+    if isinstance(spec, str):
+        from ...io.imageio import load_image
+
+        if spec.lower().endswith(".ies"):
+            raise NotImplementedError("IES textures are not ported")
+        img = load_image(resolve_path(spec) if resolve_path else spec)
+        return tex_builder.add_bitmap(img, path_key=spec)
+    if isinstance(spec, dict):
+        t = spec.get("type")
+        if t == "checker":
+            return tex_builder.add_checker(
+                spec.get("on_color", 0.8), spec.get("off_color", 0.2),
+                spec.get("res_u", 20), spec.get("res_v", 20),
+            )
+        if t == "constant":
+            return tex_builder.add_constant(spec.get("value", 1.0))
+        if t == "bitmap":
+            from ...io.imageio import load_image
+
+            f = spec["file"]
+            img = load_image(resolve_path(f) if resolve_path else f)
+            return tex_builder.add_bitmap(img, path_key=f)
+        raise NotImplementedError(f"texture type {t!r} is not ported")
+    return tex_builder.add_constant(spec)

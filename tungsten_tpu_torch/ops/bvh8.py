@@ -1,0 +1,423 @@
+"""8-wide BVH: host-side pack build, the CUDA walk (K3) and its plain twin.
+
+Host half: numpy copies of `_woop_planes` (tungsten_tpu/ops/pallas_bvh2.py)
+and `_collapse8` / `build_bvh_pack8` (tungsten_tpu/ops/pallas_bvh8.py), so the
+pack (boxes, kid, order, planes, prim_map) is identical to the JAX package's.
+
+Kernel half: the port of K3, `_walk_kernel8` (pallas_bvh8.py), as the CUDA
+kernel csrc/bvh8_walk.cu (one thread per ray, private stack, per-ray latch)
+and `walk_twin`, its plain PyTorch version: the same walk vectorised over the
+lanes still walking, with the stack as an (n, DEPTH) tensor. `walk` picks by
+the tensors' device: CUDA launches the kernel (or raises), CPU runs the twin.
+Each keeps a plain integer launch count (`walk_cuda.launches`,
+`walk_twin.launches`) so a run can show which one served it.
+
+The public queries keep the JAX package's semantics: `intersect` is
+intersect_bvh_pallas8(fast=False) (winner slot -> prim_map, u/v recomputed
+in exact f32 as `_recompute_uv` does), `occluded` is occluded_bvh_pallas8,
+and `intersect_mixed` latches the lanes flagged in `latch` (the rule of
+intersect_bvh_gather_mixed).
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..accel.bvh import build_bvh_best
+from .intersect import INF, Hit
+
+LEAF = 128
+DEPTH = 160  # per-ray stack bound: ~ (binary depth / 3) * 8 pushes
+_TWIN_LEAF_CHUNK = 16384  # leaf lanes evaluated per twin step (bounds memory)
+
+
+# ---------------------------------------------------------------------------
+# host half
+# ---------------------------------------------------------------------------
+
+def _woop_planes(v0, e1, e2):
+    """Per-triangle affine plane functionals (t/u/v barycentric planes).
+    Degenerate triangles get all-zero planes -> t = -0/0 = nan -> no hit."""
+    n = np.cross(e1, e2)
+    n2 = np.einsum("ij,ij->i", n, n)
+    ok = n2 > 1e-30
+    n2s = np.where(ok, n2, 1.0)
+    U = np.cross(e2, n) / n2s[:, None]
+    V = np.cross(n, e1) / n2s[:, None]
+    nc = -np.einsum("ij,ij->i", n, v0)
+    uc = -np.einsum("ij,ij->i", U, v0)
+    vc = -np.einsum("ij,ij->i", V, v0)
+    N4 = np.concatenate([n, nc[:, None]], axis=1)
+    U4 = np.concatenate([U, uc[:, None]], axis=1)
+    V4 = np.concatenate([V, vc[:, None]], axis=1)
+    z = ~ok
+    N4[z] = 0.0
+    U4[z] = 0.0
+    V4[z] = 0.0
+    return N4.astype(np.float32), U4.astype(np.float32), V4.astype(np.float32)
+
+
+def _collapse8(bvh, leaf_ids):
+    """Collapse the binary skip-BVH into 8-ary nodes (greedy largest-volume
+    3-level expansion). Returns (boxes (M8*8, 8), kid (8, M8), order (8, M8))."""
+    count = bvh.count
+    skip = bvh.skip
+    nmin, nmax = bvh.node_min, bvh.node_max
+    area = np.prod(np.maximum(nmax - nmin, 0.0), axis=1)
+
+    def children(b):
+        left = b + 1
+        return left, int(skip[left])
+
+    nodes8 = []
+    memo = {}
+
+    def build8(b):
+        if b in memo:
+            return memo[b]
+        id8 = len(nodes8)
+        nodes8.append(None)
+        memo[b] = id8
+        if count[b] > 0:
+            slots = [b]
+        else:
+            slots = list(children(b))
+            while len(slots) < 8:
+                inner = [s for s in slots if count[s] == 0]
+                if not inner:
+                    break
+                s = max(inner, key=lambda x: area[x])
+                slots.remove(s)
+                slots.extend(children(s))
+        nodes8[id8] = slots
+        return id8
+
+    build8(0)
+    i = 0
+    while i < len(nodes8):
+        for s in list(nodes8[i]):
+            if count[s] == 0:
+                build8(s)
+        i += 1
+
+    m8 = len(nodes8)
+    # the per-ray stack must hold 8 pushes per level of the 8-ary tree
+    depth8 = np.zeros(m8, np.int32)
+    for id8 in range(m8 - 1, -1, -1):
+        kids8 = [memo[sq] for sq in nodes8[id8] if count[sq] == 0]
+        depth8[id8] = 1 + max((int(depth8[kq]) for kq in kids8), default=0)
+    if 8 * int(depth8[0]) > DEPTH:
+        raise ValueError(
+            f"BVH8 depth {int(depth8[0])} needs {8 * int(depth8[0])} stack slots "
+            f"> DEPTH={DEPTH}")
+    boxes = np.zeros((m8, 8, 8), np.float32)
+    boxes[:, :, 0:3] = np.float32(3e38)  # absent: inverted box, never hits
+    boxes[:, :, 3:6] = np.float32(-3e38)
+    kid = np.full((8, m8), -1, np.int32)
+    order = np.zeros((8, m8), np.int32)
+    centers = 0.5 * (nmin + nmax)
+    sgn = np.array(
+        [[1 if o & 4 else -1, 1 if o & 2 else -1, 1 if o & 1 else -1] for o in range(8)],
+        np.float32,
+    )  # octant bit layout: x<<2 | y<<1 | z
+    for id8, slots in enumerate(nodes8):
+        cs = []
+        for c, s in enumerate(slots):
+            boxes[id8, c, 0:3] = nmin[s]
+            boxes[id8, c, 3:6] = nmax[s]
+            kid[c, id8] = -(int(leaf_ids[s]) + 2) if count[s] > 0 else memo[s]
+            cs.append(centers[s])
+        cs = np.asarray(cs, np.float32)
+        for o in range(8):
+            key = cs @ sgn[o]
+            perm = list(np.argsort(key, kind="stable")) + list(range(len(slots), 8))
+            packed = 0
+            for k, c in enumerate(perm):
+                packed |= int(c) << (3 * k)
+            order[o, id8] = packed
+    return boxes.reshape(m8 * 8, 8), kid, order
+
+
+def build_bvh_pack8(v0, e1, e2, leaf_size: int = LEAF) -> dict:
+    """Numpy BVH8 pack in the JAX package's layout:
+    {"boxes" (M8*8, 8), "kid" (8, M8), "order" (8, M8),
+     "planes" (n_leaves*8, 3*leaf), "prim_map" (n_leaves*leaf,)}."""
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    p1, p2 = v0 + e1, v0 + e2
+    lo = np.minimum(np.minimum(v0, p1), p2)
+    hi = np.maximum(np.maximum(v0, p1), p2)
+    bvh = build_bvh_best(lo, hi, leaf_size=leaf_size)
+
+    leaf_mask = bvh.count > 0
+    leaf_ids = np.cumsum(leaf_mask) - 1
+    n_leaves = int(leaf_mask.sum())
+
+    N4, U4, V4 = _woop_planes(v0, e1, e2)
+    L = leaf_size
+    planes = np.zeros((n_leaves * 8, 3 * L), np.float32)
+    prim_map = np.full((n_leaves * L,), -1, np.int32)
+    for n in np.where(leaf_mask)[0]:
+        s = int(leaf_ids[n])
+        f, c = int(bvh.first[n]), int(bvh.count[n])
+        gid = bvh.prim_order[f: f + c]
+        r = s * 8
+        planes[r: r + 4, 0:c] = N4[gid].T
+        planes[r: r + 4, L: L + c] = U4[gid].T
+        planes[r: r + 4, 2 * L: 2 * L + c] = V4[gid].T
+        prim_map[s * L: s * L + c] = gid
+
+    boxes, kid, order = _collapse8(bvh, leaf_ids)
+    return {"boxes": boxes, "kid": kid, "order": order, "planes": planes,
+            "prim_map": prim_map}
+
+
+@dataclass
+class Bvh8Pack:
+    """The BVH8 pack on one device: the JAX layouts (boxes, kid, order,
+    planes, prim_map) plus the walk's own layouts, made once per scene."""
+
+    boxes: torch.Tensor  # (M8*8, 8) f32 child boxes [min3 | max3 | 0 0]
+    kid: torch.Tensor  # (8, M8) i32 child code (>=0 node, <=-2 leaf, -1 none)
+    order: torch.Tensor  # (8, M8) i32 per-octant push order, 3 bits/slot
+    planes: torch.Tensor  # (n_leaves*8, 3*leaf) f32 Woop plane slabs
+    prim_map: torch.Tensor  # (n_leaves*leaf,) i32 slot -> scene tri id
+    kid_t: torch.Tensor  # (M8, 8) i32, node-major
+    order_t: torch.Tensor  # (M8, 8) i32, [node, octant]
+    tri_planes: torch.Tensor  # (n_leaves, leaf, 12) f32: N4 | U4 | V4 per slot
+    leaf: int = LEAF
+
+    @staticmethod
+    def from_arrays(arrays: dict, device) -> "Bvh8Pack":
+        a = {k: np.asarray(arrays[k]) for k in ("boxes", "kid", "order", "planes", "prim_map")}
+        L = a["planes"].shape[1] // 3
+        n_leaves = a["planes"].shape[0] // 8
+        tri = (a["planes"].reshape(n_leaves, 8, 3, L)[:, :4]
+               .transpose(0, 3, 2, 1).reshape(n_leaves, L, 12))
+
+        def t(x, dtype):
+            return torch.as_tensor(np.array(x, dtype, order="C"), device=device)
+
+        return Bvh8Pack(
+            boxes=t(a["boxes"], np.float32), kid=t(a["kid"], np.int32),
+            order=t(a["order"], np.int32), planes=t(a["planes"], np.float32),
+            prim_map=t(a["prim_map"], np.int32),
+            kid_t=t(a["kid"].T, np.int32), order_t=t(a["order"].T, np.int32),
+            tri_planes=t(tri, np.float32), leaf=L,
+        )
+
+
+# ---------------------------------------------------------------------------
+# kernel half
+# ---------------------------------------------------------------------------
+
+def _latch_mode(latch):
+    """(mode, per-lane tensor): 0 = none latched, 1 = all, 2 = per lane."""
+    if latch is None:
+        return 0, None
+    if latch is True:
+        return 1, None
+    return 2, latch
+
+
+def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
+    """Plain PyTorch BVH8 walk with the kernel's exact per-ray semantics.
+    Returns (t (n,) f32, local slot (n,) i64; -1 = miss)."""
+    walk_twin.launches += 1
+    n = o.shape[0]
+    dev = o.device
+    mode, lane_latch = _latch_mode(latch)
+    if mode == 0:
+        latched = torch.zeros(n, dtype=torch.bool, device=dev)
+    elif mode == 1:
+        latched = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        latched = lane_latch.to(torch.bool)
+    tfar = torch.clamp(tfar, max=INF)
+    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    octant = (((d[:, 0] >= 0).long() << 2) | ((d[:, 1] >= 0).long() << 1)
+              | (d[:, 2] >= 0).long())
+    best = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    local = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, DEPTH), dtype=torch.int32, device=dev)  # root = node 0
+    sp = (tnear < tfar).long()  # dead lanes start with an empty stack
+    push_k = torch.arange(7, -1, -1, device=dev) * 3  # slot k = 7 pushed first
+    L = pack.leaf
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        top = sp[act] - 1
+        v = stack[act, top].long()
+        sp[act] = top
+        is_inner = v >= 0
+
+        ia = act[is_inner]
+        if ia.numel():
+            node = v[is_inner]
+            b = pack.boxes.view(-1, 8, 8)[node]  # (k, 8, 8)
+            oo = o[ia][:, None, :]
+            ii = inv[ia][:, None, :]
+            t0 = (b[..., 0:3] - oo) * ii
+            t1 = (b[..., 3:6] - oo) * ii
+            lo, hi = torch.fmin(t0, t1), torch.fmax(t0, t1)
+            tmin = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
+            tmax = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+            tn = tnear[ia][:, None]
+            lim = torch.minimum(tfar[ia], best[ia])[:, None]
+            hit = (tmin <= tmax) & (tmax > tn) & (tmin < lim)  # (k, 8) by slot
+            perm = pack.order_t[node, octant[ia]].long()
+            cs = (perm[:, None] >> push_k[None, :]) & 7  # slot pushed at step j
+            kv = pack.kid_t[node[:, None], cs]
+            push = hit.gather(1, cs) & (kv != -1)
+            pos = sp[ia][:, None] + torch.cumsum(push.long(), 1) - 1
+            rows = ia[:, None].expand_as(pos)
+            stack[rows[push], pos[push]] = kv[push]
+            sp[ia] += push.sum(1)
+
+        la = act[~is_inner]
+        blk_all = -(v[~is_inner] + 2)
+        for c0 in range(0, la.numel(), _TWIN_LEAF_CHUNK):
+            lanes = la[c0:c0 + _TWIN_LEAF_CHUNK]
+            blk = blk_all[c0:c0 + _TWIN_LEAF_CHUNK]
+            P = pack.tri_planes[blk]  # (k, L, 12)
+            ox, oy, oz = (o[lanes, j:j + 1] for j in range(3))
+            dx, dy, dz = (d[lanes, j:j + 1] for j in range(3))
+            ao = P[..., 0] * ox + P[..., 1] * oy + P[..., 2] * oz + P[..., 3]
+            ad = P[..., 0] * dx + P[..., 1] * dy + P[..., 2] * dz
+            t = -ao / ad
+            u = ((P[..., 4] * ox + P[..., 5] * oy + P[..., 6] * oz + P[..., 7])
+                 + t * (P[..., 4] * dx + P[..., 5] * dy + P[..., 6] * dz))
+            w = ((P[..., 8] * ox + P[..., 9] * oy + P[..., 10] * oz + P[..., 11])
+                 + t * (P[..., 8] * dx + P[..., 9] * dy + P[..., 10] * dz))
+            cur = best[lanes]
+            lim = torch.minimum(tfar[lanes], cur)[:, None]
+            h = ((u >= 0.0) & (w >= 0.0) & (u + w <= 1.0)
+                 & (t > tnear[lanes][:, None]) & (t < lim))
+            tb, slot = torch.min(torch.where(h, t, INF), dim=1)
+            first = torch.argmax(h.to(torch.uint8), dim=1)
+            any_h = h.any(dim=1)
+            lat = latched[lanes]
+            take_latch = lat & any_h
+            take_best = ~lat & any_h
+            best[lanes] = torch.where(take_latch, 0.0, torch.where(take_best, tb, cur))
+            local[lanes] = torch.where(
+                take_latch, blk * L + first,
+                torch.where(take_best, blk * L + slot, local[lanes]))
+            sp[lanes] = torch.where(take_latch, 0, sp[lanes])
+    return best, local
+
+
+walk_twin.launches = 0
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr()) if x is not None else ctypes.c_void_p(0)
+
+
+def _check_cuda(name, x, dtype, shape=None):
+    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, got "
+                         f"{x.device} {x.dtype} contiguous={x.is_contiguous()}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
+
+
+def _kernel_fn():
+    from ._build import load_library
+
+    fn = load_library("bvh8_walk").bvh8_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def walk_cuda(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
+    """Launch the CUDA BVH8 walk (csrc/bvh8_walk.cu) on the current stream.
+    Returns (t (n,) f32, local slot (n,) i64; -1 = miss)."""
+    n = o.shape[0]
+    _check_cuda("o", o, torch.float32, (n, 3))
+    _check_cuda("d", d, torch.float32, (n, 3))
+    _check_cuda("tnear", tnear, torch.float32, (n,))
+    _check_cuda("tfar", tfar, torch.float32, (n,))
+    mode, lane_latch = _latch_mode(latch)
+    if mode == 2:
+        lane_latch = lane_latch.to(torch.uint8).contiguous()
+        _check_cuda("latch", lane_latch, torch.uint8, (n,))
+    for name in ("boxes", "kid_t", "order_t", "tri_planes"):
+        x = getattr(pack, name)
+        _check_cuda(name, x, torch.int32 if name in ("kid_t", "order_t") else torch.float32)
+        if x.device != o.device:
+            raise ValueError(f"pack.{name} is on {x.device}, rays on {o.device}")
+    out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
+    fn = _kernel_fn()
+    err = fn(_ptr(o), _ptr(d), _ptr(tnear), _ptr(tfar), _ptr(lane_latch), mode,
+             _ptr(pack.boxes), _ptr(pack.kid_t), _ptr(pack.order_t), _ptr(pack.tri_planes),
+             n, pack.leaf, _ptr(out_t), _ptr(out_local),
+             ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"bvh8_walk launch failed: CUDA error {err}")
+    walk_cuda.launches += 1
+    return out_t, out_local.long()
+
+
+walk_cuda.launches = 0
+
+
+def walk(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
+    """BVH8 walk on the rays' device: CUDA -> the kernel, CPU -> the twin."""
+    if o.is_cuda:
+        return walk_cuda(pack, o, d, tnear, tfar, latch)
+    if o.device.type == "cpu":
+        return walk_twin(pack, o, d, tnear, tfar, latch)
+    raise ValueError(f"no BVH8 walk for device {o.device}")
+
+
+def _recompute_uv(tris, o, d, prim):
+    """Exact f32 Moller-Trumbore for the winning prim (pallas_bvh2.py
+    _recompute_uv): clipped barycentrics of the winner, 0 for misses."""
+    tri = torch.clamp(prim, min=0)
+    a, ee1, ee2 = tris.v0[tri], tris.e1[tri], tris.e2[tri]
+    p = torch.linalg.cross(d, ee2, dim=-1)
+    det = torch.sum(ee1 * p, dim=-1)
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    tv = o - a
+    u = torch.sum(tv * p, dim=-1) * inv_det
+    q = torch.linalg.cross(tv, ee1, dim=-1)
+    v = torch.sum(d * q, dim=-1) * inv_det
+    ok = prim >= 0
+    return (torch.where(ok, torch.clamp(u, 0.0, 1.0), 0.0),
+            torch.where(ok, torch.clamp(v, 0.0, 1.0), 0.0))
+
+
+def _hit(pack, tris, o, d, t, local) -> Hit:
+    prim_map = pack.prim_map
+    prim = torch.where(
+        local >= 0, prim_map[torch.clamp(local, 0, prim_map.shape[0] - 1)].long(), -1)
+    u, v = _recompute_uv(tris, o, d, prim)
+    return Hit(t=torch.where(prim >= 0, t, INF), prim=prim, u=u, v=v)
+
+
+def intersect(pack: Bvh8Pack, tris, o, d, tnear, tfar) -> Hit:
+    """Closest hit (intersect_bvh_pallas8 with fast=False); prim = scene tri id."""
+    t, local = walk(pack, o, d, tnear, tfar)
+    return _hit(pack, tris, o, d, t, local)
+
+
+def intersect_mixed(pack: Bvh8Pack, tris, o, d, tnear, tfar, latch) -> Hit:
+    """ONE walk for a mixed wavefront: lanes with latch=True stop at their
+    first hit (only prim >= 0 is meaningful), the rest run closest-hit."""
+    t, local = walk(pack, o, d, tnear, tfar, latch)
+    return _hit(pack, tris, o, d, t, local)
+
+
+def occluded(pack: Bvh8Pack, o, d, tnear, tfar):
+    """Any-hit query -> bool per ray (occluded_bvh_pallas8)."""
+    _, local = walk(pack, o, d, tnear, tfar, True)
+    return local >= 0

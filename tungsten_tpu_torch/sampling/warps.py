@@ -1,0 +1,55 @@
+"""Sampling warps on torch tensors.
+
+Port of the forward warps of tungsten_tpu/sampling/warps.py that the slice
+calls (the inverse warps serve RJ-MLT and wait for it). Directions are in the
+local frame (+z = normal).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+INV_PI = 1.0 / math.pi
+INV_TWO_PI = 1.0 / (2.0 * math.pi)
+INV_FOUR_PI = 1.0 / (4.0 * math.pi)
+
+
+def cosine_hemisphere(u):
+    phi = u[..., 0] * (2.0 * math.pi)
+    r = torch.sqrt(u[..., 1])
+    z = torch.sqrt(torch.clamp(1.0 - u[..., 1], min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def cosine_hemisphere_pdf(w):
+    return torch.clamp(w[..., 2], min=0.0) * INV_PI
+
+
+def uniform_sphere(u):
+    phi = u[..., 0] * (2.0 * math.pi)
+    z = u[..., 1] * 2.0 - 1.0
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def power_heuristic(pdf0, pdf1):
+    """Veach power heuristic with beta=2 (SampleWarp.hpp:189)."""
+    p0 = pdf0 * pdf0
+    p1 = pdf1 * pdf1
+    return p0 / torch.clamp(p0 + p1, min=1e-38)
+
+
+def tent_filter_sample(u):
+    """Analytic inverse-CDF sample of the tent filter on [-1, 1]."""
+    return torch.where(
+        u < 0.5, torch.sqrt(2.0 * u) - 1.0,
+        1.0 - torch.sqrt(torch.clamp(2.0 - 2.0 * u, min=0.0)))
+
+
+def gaussian_filter_sample(u0, u1, width=2.0, alpha=2.0):
+    """Box-Muller sample of the gaussian filter."""
+    r = torch.sqrt(-torch.log(torch.clamp(
+        1.0 - u0 * (1.0 - math.exp(-alpha * width * width)), min=1e-7)) / alpha)
+    phi = 2.0 * math.pi * u1
+    return r * torch.cos(phi), r * torch.sin(phi)

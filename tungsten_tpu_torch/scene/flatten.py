@@ -1,0 +1,366 @@
+"""Scene flattening: SceneDocument -> device-resident tables (torch).
+
+Port of the slice subset of tungsten_tpu/scene/flatten.py. The host build
+(`flatten_arrays`) is the same numpy code as the JAX package's, so it yields
+the same tables: the triangle SoA in BVH leaf order, the packed shading rows
+(`shade_pack`), the packed material rows (`gpack2`), the texture table, the
+env light with its alias-table Distribution2D, the pinhole camera, the
+static SceneMeta and the BVH8 pack (`pbvh8`, always built with 128-triangle
+leaves: the JAX package's 13 MB VMEM gate is a TPU limit).
+
+`from_arrays(arrays, meta, device)` is the one constructor of FlatScene. It
+takes the arrays under the JAX FlatScene's own attribute paths (ARRAY_KEYS),
+so the JAX package's flattened scene can be carried across as numpy arrays
+and both packages render the very same tables.
+
+The slice supports mesh / quad / cube geometry, lambert and rough_conductor
+materials, constant / checker / bitmap textures, one samplable
+infinite_sphere as the only light and a pinhole camera. Everything else
+raises NotImplementedError naming the missing piece.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..accel.bvh import build_bvh_best
+from ..io.meshio import compute_smooth_normals, load_mesh
+from ..math import transform as tf
+from ..models.bsdfs.dispatch import MaterialTable, pack_materials
+from ..models.primitives import tessellate
+from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
+from ..ops.bvh8 import Bvh8Pack, build_bvh_pack8
+from ..ops.intersect import TriangleSoA
+from ..sampling.distributions import Distribution2D
+from .load import SceneDocument
+
+DEFAULT_EPSILON = 5e-4  # TraceableScene.hpp:39
+
+# numpy arrays a FlatScene is made from, under the JAX FlatScene's attribute
+# paths (functools.reduce(getattr, key.split("."), jax_scene) reads one)
+ARRAY_KEYS = (
+    "tris.v0", "tris.e1", "tris.e2", "shade_pack",
+    "materials.gpack2", "textures.tpack", "textures.data", "textures.data4",
+    "env.rot", "env.inv_rot", "env.tex",
+    "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
+    "camera.rot", "camera.pos", "camera.plane_dist",
+    "pbvh8.boxes", "pbvh8.kid", "pbvh8.order", "pbvh8.planes", "pbvh8.prim_map",
+)
+
+_TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
+
+
+@dataclass
+class CameraParams:
+    rot: torch.Tensor  # (3, 3) camera-to-world rotation (columns = x, y, z)
+    pos: torch.Tensor  # (3,)
+    plane_dist: torch.Tensor  # ()
+
+
+@dataclass
+class EnvLight:
+    rot: torch.Tensor  # (3, 3)
+    inv_rot: torch.Tensor  # (3, 3)
+    tex: int  # emission texture id
+    dist: Distribution2D  # over the emission bitmap (sin-weighted, dilated)
+    tex_kind: int  # static texture type of `tex`
+
+
+@dataclass(frozen=True)
+class SceneMeta:
+    """Static scene facts: the fields of flatten.py SceneMeta."""
+
+    res_x: int
+    res_y: int
+    camera_type: str
+    tonemap: str
+    filter: str
+    fov_deg: float
+    n_lights: int
+    has_env: bool
+    env_light_index: int
+    env_is_constant: bool
+    min_bounces: int
+    max_bounces: int
+    enable_light_sampling: bool
+    enable_volume_light_sampling: bool
+    low_order_scattering: bool
+    include_surfaces: bool
+    enable_two_sided: bool
+    has_media: bool
+    has_forward: bool
+    camera_medium: int
+    spp: int
+    spp_step: int
+    use_bvh: bool
+    aovs: tuple = ()
+    stratified: bool = False
+    has_cap: bool = False
+    cap_light_index: int = -1
+    cap_after_env: bool = False
+    n_envs: int = 0
+    env_const: tuple = ()
+    env_light_idx: tuple = ()
+    n_caps: int = 0
+    cap_light_idx: tuple = ()
+    esc_caps: tuple = ()
+    point_light_index: int = -1
+    aperture_kind: str = "disk"
+    ap_blades: int = 6
+    cateye: float = 0.0
+    has_fiber_tan: bool = False
+    has_analytic: bool = False
+    bdpt_max_vertices: int = 16
+
+
+@dataclass
+class FlatScene:
+    tris: TriangleSoA
+    # (T, 20) packed shading row [ng | n0 n1 n2 | uv0 uv1 uv2 | mat | light]
+    shade_pack: torch.Tensor
+    materials: MaterialTable
+    textures: TextureTable
+    env: EnvLight
+    camera: CameraParams
+    pbvh8: Bvh8Pack
+    meta: SceneMeta
+
+
+def _check_slice(doc: SceneDocument):
+    """Raise NotImplementedError for every scene feature the port lacks."""
+    if doc.media:
+        raise NotImplementedError("participating media are not ported")
+    cam = doc.camera
+    if cam.get("type", "pinhole") != "pinhole":
+        raise NotImplementedError(f"camera type {cam.get('type')!r} is not ported")
+    if any(b.get("type") in ("depth", "normal", "albedo")
+           for b in doc.renderer.get("output_buffers", [])):
+        raise NotImplementedError("AOV output buffers are not ported")
+    n_env = 0
+    for prim in doc.primitives:
+        ptype = prim.get("type", "mesh")
+        if ptype == "infinite_sphere":
+            if "emission" in prim or "power" in prim:
+                if not prim.get("sample", True):
+                    raise NotImplementedError("an unsampled infinite_sphere is not ported")
+                n_env += 1
+            continue
+        if ptype not in ("mesh", "quad", "cube"):
+            raise NotImplementedError(f"primitive type '{ptype}' is not ported")
+        if "emission" in prim or "power" in prim:
+            raise NotImplementedError("area lights (emissive primitives) are not ported")
+    if n_env != 1:
+        raise NotImplementedError(
+            f"the port needs exactly one infinite_sphere light, the scene has {n_env}")
+
+
+def _env_weights(img: np.ndarray) -> np.ndarray:
+    """Env importance weights: max-channel * sin(theta), 3x3 max-dilated
+    with wraparound (flatten.py _env_weights)."""
+    h = img.shape[0]
+    w = img.max(axis=-1)
+    row_theta = np.sin(np.arange(h) * np.pi / h)
+    w = w * row_theta[:, None]
+    w = np.maximum(np.maximum(np.roll(w, 1, 1), np.roll(w, -1, 1)), w)
+    w = np.maximum(np.maximum(np.roll(w, 1, 0), np.roll(w, -1, 0)), w)
+    return w.astype(np.float32)
+
+
+def flatten_arrays(doc: SceneDocument):
+    """Host build: SceneDocument -> ({ARRAY_KEYS: numpy}, SceneMeta)."""
+    _check_slice(doc)
+    tex_builder = TextureBuilder()
+
+    # ---- geometry (flatten.py primitive loop, tessellated types only) ----
+    pos_l, n_l, uv_l, idx_l, mat_l = [], [], [], [], []
+    env_specs = []
+    vert_base = 0
+    for pi, prim in enumerate(doc.primitives):
+        ptype = prim.get("type", "mesh")
+        m = tf.mat4_from_json(prim.get("transform"))
+        if ptype == "infinite_sphere":
+            if "emission" in prim or "power" in prim:
+                env_specs.append((prim, m))
+            continue
+        if ptype == "mesh":
+            mesh = load_mesh(doc.resolve_path(prim["file"]))
+            smooth = prim.get("smooth", True)
+            if prim.get("recompute_normals", False) or (smooth and not np.any(mesh.normal)):
+                compute_smooth_normals(mesh)
+            soup = tessellate.TriSoup(pos=mesh.pos, normal=mesh.normal if smooth else None,
+                                      uv=mesh.uv, indices=mesh.indices)
+        else:
+            soup = _TESSELLATED[ptype]()
+        wpos = tf.transform_point(m, soup.pos).astype(np.float32)
+        if soup.normal is not None:
+            wn = tf.transform_normal(m, soup.normal)
+            lens = np.linalg.norm(wn, axis=-1, keepdims=True)
+            wn = np.where(lens > 1e-20, wn / np.maximum(lens, 1e-20), 0.0).astype(np.float32)
+        else:
+            wn = None
+        pos_l.append(wpos)
+        n_l.append(wn)
+        uv_l.append(soup.uv.astype(np.float32))
+        idx_l.append(soup.indices + vert_base)
+        mat_l.append(np.full(len(soup.indices), prim["_bsdf_index"], np.int32))
+        vert_base += len(wpos)
+    if not idx_l:
+        raise ValueError("scene has no finite geometry")
+
+    all_pos = np.concatenate(pos_l)
+    all_uv = np.concatenate(uv_l)
+    indices = np.concatenate(idx_l)
+    tri_mat = np.concatenate(mat_l)
+    p0, p1, p2 = (all_pos[indices[:, k]] for k in range(3))
+    face_n = np.cross(p1 - p0, p2 - p0)
+    norm = np.linalg.norm(face_n, axis=-1, keepdims=True)
+    tri_ng = (face_n / np.maximum(norm, 1e-30)).astype(np.float32)
+
+    # shading normals: vertex normals where present, face normal otherwise
+    all_n = np.zeros_like(all_pos)
+    off = 0
+    for wpos, wn in zip(pos_l, n_l):
+        if wn is not None:
+            all_n[off: off + len(wpos)] = wn
+        off += len(wpos)
+    n0, n1, n2 = (all_n[indices[:, k]] for k in range(3))
+    missing = (np.linalg.norm(n0, axis=-1) < 0.5)[:, None]
+    n0 = np.where(missing, tri_ng, n0)
+    n1 = np.where(missing, tri_ng, n1)
+    n2 = np.where(missing, tri_ng, n2)
+
+    # ---- BVH leaf order (the binary leaf-4 tree fixes the permutation) ----
+    bvh = build_bvh_best(np.minimum(np.minimum(p0, p1), p2), np.maximum(np.maximum(p0, p1), p2))
+    perm = bvh.prim_order
+
+    def permute(a):
+        return np.ascontiguousarray(a[perm])
+
+    p0, p1, p2 = permute(p0), permute(p1), permute(p2)
+    tri_ng = permute(tri_ng)
+    n0, n1, n2 = permute(n0), permute(n1), permute(n2)
+    uv0, uv1, uv2 = (permute(all_uv[indices[:, k]]) for k in range(3))
+    tri_mat = permute(tri_mat)
+
+    # ---- materials, textures, the env light ----
+    mats = pack_materials(doc.bsdfs, tex_builder)
+    tex_builder.add_constant([0.0, 0.0, 0.0])  # flatten.py _default_env's texture
+    prim, m = env_specs[0]
+    rot = m[:3, :3].astype(np.float64)
+    rot = rot / np.maximum(np.linalg.norm(rot, axis=0, keepdims=True), 1e-30)
+    if "power" in prim:
+        pw = np.asarray(prim["power"], np.float64)
+        if pw.ndim == 0:
+            pw = np.repeat(pw, 3)
+        etex = tex_builder.add_constant((pw / np.pi).astype(np.float32))
+    else:
+        etex = texture_from_spec(prim["emission"], tex_builder, doc.resolve_path)
+    is_const = not isinstance(prim.get("emission"), str)
+    if is_const:
+        dist = Distribution2D.build_arrays(np.ones((1, 1), np.float32))
+    else:
+        dist = Distribution2D.build_arrays(_env_weights(tex_builder.image(etex)))
+
+    tex = tex_builder.build_arrays()
+    gpack = mats["gpack"]
+    at = gpack[:, -1].astype(np.int64)
+    gpack2 = np.concatenate(
+        [gpack, mats["lobes"].astype(np.float32)[:, None],
+         tex["tpack"][np.clip(at, 0, tex["tpack"].shape[0] - 1)]], axis=1).astype(np.float32)
+
+    # ---- camera ----
+    cam = doc.camera
+    cam_m = tf.mat4_from_json(cam.get("transform"))
+    cam_m[:3, 0] = -cam_m[:3, 0]  # Camera.cpp:63 setRight(-right)
+    fov = float(cam.get("fov", 60.0))
+    plane_dist = 1.0 / np.tan(np.deg2rad(fov) * 0.5)
+
+    shade_pack = np.concatenate(
+        [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
+         np.full((len(tri_mat), 1), -1.0, np.float32)], axis=1).astype(np.float32)
+    e1, e2 = p1 - p0, p2 - p0
+    pack8 = build_bvh_pack8(p0, e1, e2, leaf_size=128)
+    arrays = {
+        "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
+        "materials.gpack2": gpack2,
+        "textures.tpack": tex["tpack"], "textures.data": tex["data"],
+        "textures.data4": tex["data4"],
+        "env.rot": rot.astype(np.float32), "env.inv_rot": rot.T.astype(np.float32),
+        "env.tex": np.int32(etex),
+        "env.dist.alias_pack": dist["alias_pack"], "env.dist.joint_pdf": dist["joint_pdf"],
+        "env.dist.shape": np.asarray(dist["shape"]),
+        "camera.rot": cam_m[:3, :3].astype(np.float32),
+        "camera.pos": cam_m[:3, 3].astype(np.float32),
+        "camera.plane_dist": np.float32(plane_dist),
+        **{f"pbvh8.{k}": v for k, v in pack8.items()},
+    }
+
+    res = cam.get("resolution", [1000, 563])
+    if isinstance(res, (int, float)):
+        res = [int(res), int(res)]
+    integ = doc.integrator
+    max_b = int(integ.get("max_bounces", 64))
+    meta = SceneMeta(
+        res_x=int(res[0]), res_y=int(res[1]),
+        camera_type="pinhole", tonemap=cam.get("tonemap", "gamma"),
+        filter=cam.get("reconstruction_filter", "tent"), fov_deg=fov,
+        n_lights=1, has_env=True, env_light_index=0, env_is_constant=is_const,
+        stratified=bool(doc.renderer.get("stratified_sampler", False)),
+        n_envs=1, env_const=(is_const,), env_light_idx=(0,),
+        min_bounces=int(integ.get("min_bounces", 0)), max_bounces=max_b,
+        enable_light_sampling=bool(integ.get("enable_light_sampling", True)),
+        enable_volume_light_sampling=bool(integ.get("enable_volume_light_sampling", True)),
+        low_order_scattering=bool(integ.get("low_order_scattering", True)),
+        include_surfaces=bool(integ.get("include_surfaces", True)),
+        enable_two_sided=bool(integ.get("enable_two_sided_shading", True)),
+        has_media=False, has_forward=False, camera_medium=-1,
+        spp=int(doc.renderer.get("spp", 32)),
+        spp_step=int(doc.renderer.get("spp_step", 16)),
+        use_bvh=bool(doc.renderer.get("scene_bvh", True)),
+        bdpt_max_vertices=int(integ.get("bdpt_max_vertices", min(max_b + 1, 16))),
+    )
+    return arrays, meta
+
+
+def from_arrays(arrays: dict, meta, device) -> FlatScene:
+    """FlatScene on `device` from numpy arrays under ARRAY_KEYS and a meta
+    object with SceneMeta's fields (the port's or the JAX package's)."""
+    missing = [k for k in ARRAY_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"from_arrays: missing arrays {missing}")
+    meta = SceneMeta(**{f.name: getattr(meta, f.name) for f in dataclasses.fields(SceneMeta)})
+
+    def t(key):
+        return torch.as_tensor(np.array(arrays[key], np.float32), device=device)
+
+    textures = TextureTable.from_arrays(
+        arrays["textures.tpack"], arrays["textures.data"], arrays["textures.data4"], device)
+    env_tex = int(np.asarray(arrays["env.tex"]))
+    env = EnvLight(
+        rot=t("env.rot"), inv_rot=t("env.inv_rot"), tex=env_tex,
+        dist=Distribution2D.from_arrays(arrays["env.dist.alias_pack"],
+                                        arrays["env.dist.joint_pdf"],
+                                        np.asarray(arrays["env.dist.shape"]), device),
+        tex_kind=int(np.asarray(arrays["textures.tpack"])[env_tex, -1]),
+    )
+    return FlatScene(
+        tris=TriangleSoA(v0=t("tris.v0"), e1=t("tris.e1"), e2=t("tris.e2")),
+        shade_pack=t("shade_pack"),
+        materials=MaterialTable.from_arrays(arrays["materials.gpack2"], device),
+        textures=textures,
+        env=env,
+        camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),
+                            plane_dist=t("camera.plane_dist")),
+        pbvh8=Bvh8Pack.from_arrays(
+            {k.split(".", 1)[1]: arrays[k] for k in ARRAY_KEYS if k.startswith("pbvh8.")},
+            device),
+        meta=meta,
+    )
+
+
+def flatten_scene(doc: SceneDocument, device) -> FlatScene:
+    arrays, meta = flatten_arrays(doc)
+    return from_arrays(arrays, meta, device)

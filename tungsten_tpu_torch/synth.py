@@ -1,0 +1,129 @@
+"""Scenes built in code: a materialtest-like scene in two sizes.
+
+`write_scene(out_dir, size)` writes scene.json, ball.obj and sky.pfm into
+out_dir and returns the scene.json path. The scene has materialtest's
+features and uses only primitive types that tessellate (the default sphere
+is analytic in the JAX package):
+
+  * a lambert floor quad with a checker albedo;
+  * a rough_conductor ball (Cu, GGX, roughness 0.1): a UV-sphere OBJ with
+    smooth normals (its pole triangles are degenerate, as real meshes' are);
+  * a lambert cube;
+  * an infinite_sphere lit by a procedural lat-long sky with a bright sun
+    blob, so the env's alias table is far from uniform.
+
+Sizes:
+  materialtest-synth  80,000-triangle ball, 512x256 sky, 1000x563, 32 spp,
+                      max_bounces 64 (materialtest's renderer block; the
+                      triangle count is materialtest's, pallas_bvh8.py:40)
+  small               2,000-triangle ball, 128x64 sky, 64x48, 4 spp,
+                      max_bounces 6 (the CPU tests' size)
+
+Usage: python -m tungsten_tpu_torch.synth OUT_DIR [materialtest-synth|small]
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+
+from .io.imageio import save_pfm
+
+SIZES = {
+    # name: (sphere u segments, v segments, sky w, sky h, res, spp, max_bounces)
+    "materialtest-synth": (400, 100, 512, 256, (1000, 563), 32, 64),
+    "small": (50, 20, 128, 64, (64, 48), 4, 6),
+}
+
+
+def _write_sphere_obj(path: str, nu: int, nv: int):
+    """Unit UV sphere, 2 * nu * nv triangles, with normals and uvs."""
+    us = np.linspace(0.0, 2.0 * np.pi, nu + 1)
+    vs = np.linspace(0.0, np.pi, nv + 1)
+    uu, vv = np.meshgrid(us, vs, indexing="xy")
+    pos = np.stack([np.sin(vv) * np.cos(uu), np.cos(vv), np.sin(vv) * np.sin(uu)],
+                   axis=-1).reshape(-1, 3)
+    uv = np.stack([uu / (2.0 * np.pi), 1.0 - vv / np.pi], axis=-1).reshape(-1, 2)
+    j, i = np.meshgrid(np.arange(nv), np.arange(nu), indexing="ij")
+    a = (j * (nu + 1) + i).ravel()
+    b, c = a + 1, a + nu + 1
+    dd = c + 1
+    faces = np.concatenate([np.stack([a, b, dd], 1), np.stack([a, dd, c], 1)]) + 1
+    lines = [f"v {x:.7f} {y:.7f} {z:.7f}\nvn {x:.7f} {y:.7f} {z:.7f}" for x, y, z in pos]
+    lines += [f"vt {s:.7f} {t:.7f}" for s, t in uv]
+    lines += [f"f {p}/{p}/{p} {q}/{q}/{q} {r}/{r}/{r}" for p, q, r in faces]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _sky(w: int, h: int) -> np.ndarray:
+    """Lat-long sky (row 0 = up): blue gradient, dim ground, bright sun."""
+    v = (np.arange(h) + 0.5) / h
+    u = (np.arange(w) + 0.5) / w
+    theta = v[:, None] * np.pi  # 0 at the zenith
+    phi = (u[None, :] - 0.5) * 2.0 * np.pi
+    up = np.cos(theta)
+    sky = np.where(up[..., None] > 0.0,
+                   np.array([0.35, 0.55, 1.0]) * (0.4 + 0.6 * up[..., None]),
+                   np.array([0.25, 0.22, 0.2]) * np.ones_like(up)[..., None])
+    sky = np.broadcast_to(sky, (h, w, 3)).copy()
+    # sun at theta 40 deg, phi 60 deg, ~3 deg radius, radiance ~ 400
+    sun_t, sun_p = np.deg2rad(40.0), np.deg2rad(60.0)
+    dirs = np.stack([np.sin(theta) * np.cos(phi), np.cos(theta) * np.ones_like(phi),
+                     np.sin(theta) * np.sin(phi)], axis=-1)
+    sun = np.array([np.sin(sun_t) * np.cos(sun_p), np.cos(sun_t), np.sin(sun_t) * np.sin(sun_p)])
+    cosang = np.clip(dirs @ sun, -1.0, 1.0)
+    blob = 400.0 * np.exp(-((np.arccos(cosang) / np.deg2rad(3.0)) ** 2))
+    sky += blob[..., None] * np.array([1.0, 0.9, 0.75])
+    return sky.astype(np.float32)
+
+
+def scene_dict(size: str) -> dict:
+    nu, nv, sw, sh, res, spp, max_b = SIZES[size]
+    return {
+        "bsdfs": [
+            {"name": "floor", "type": "lambert",
+             "albedo": {"type": "checker", "on_color": [0.8, 0.8, 0.8],
+                        "off_color": [0.2, 0.2, 0.2], "res_u": 20, "res_v": 20}},
+            {"name": "ball", "type": "rough_conductor", "material": "Cu",
+             "distribution": "ggx", "roughness": 0.1},
+            {"name": "inner", "type": "lambert", "albedo": [0.6, 0.3, 0.2]},
+        ],
+        "primitives": [
+            {"type": "quad", "bsdf": "floor",
+             "transform": {"position": [0, 0, 0], "scale": [12, 1, 12]}},
+            {"type": "mesh", "file": "ball.obj", "smooth": True, "bsdf": "ball",
+             "transform": {"position": [0, 1, 0]}},
+            {"type": "cube", "bsdf": "inner",
+             "transform": {"position": [1.9, 0.5, 0.6], "scale": 1.0,
+                           "rotation": [0, 30, 0]}},
+            {"type": "infinite_sphere", "emission": "sky.pfm",
+             "transform": {"rotation": [0, 20, 0]}},
+        ],
+        "camera": {"type": "pinhole", "tonemap": "filmic", "fov": 40,
+                   "resolution": list(res),
+                   "transform": {"position": [0.5, 2.2, 6.5], "look_at": [0.4, 0.8, 0],
+                                 "up": [0, 1, 0]}},
+        "integrator": {"type": "path_tracer", "max_bounces": max_b},
+        "renderer": {"spp": spp, "spp_step": spp},
+    }
+
+
+def write_scene(out_dir: str, size: str = "small") -> str:
+    """Write the scene of `size` into out_dir; returns the scene.json path."""
+    if size not in SIZES:
+        raise ValueError(f"unknown size {size!r}; one of {sorted(SIZES)}")
+    nu, nv, sw, sh = SIZES[size][:4]
+    os.makedirs(out_dir, exist_ok=True)
+    _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
+    save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
+    path = os.path.join(out_dir, "scene.json")
+    with open(path, "w") as f:
+        json.dump(scene_dict(size), f, indent=1)
+    return path
+
+
+if __name__ == "__main__":
+    print(write_scene(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else "small"))
