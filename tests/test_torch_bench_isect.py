@@ -1,0 +1,46 @@
+"""The port's intersector benchmark (tungsten_tpu_torch/tools/bench_isect.py)
+on the CPU: the `small` scene at n = 2,048, where every walk is its plain
+twin. Every agreement the tool prints must reach its 99.9% bar, and every
+kernel name it cannot serve must raise with its reason.
+"""
+import copy
+
+import pytest
+
+from tungsten_tpu_torch import synth
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8
+from tungsten_tpu_torch.tools import bench_isect
+
+COUNTERS = ((bvh8.walk_cuda, bvh8.walk_twin), (bvh2.walk3_cuda, bvh2.walk3_twin),
+            (bvh.walk_packet_cuda, bvh.walk_packet_twin))
+
+
+def test_entry_point_on_small(tmp_path, capsys):
+    path = synth.write_scene(str(tmp_path / "small"), "small")
+    before = [(copy.copy(k.launches), copy.copy(t.launches)) for k, t in COUNTERS]
+    res = bench_isect.main(["--scene", path, "--device", "cpu", "--n", "2048", "--trials", "1"])
+    out = capsys.readouterr().out
+    assert res["device"] == "cpu" and res["n"] == 2048 and res["n_tris"] > 2000
+    assert set(res["times"]) == {(k, n) for k in bench_isect.RAY_KINDS
+                                 for n in bench_isect.KERNELS}
+    for r in res["times"].values():
+        assert r["ms"] is None and r["twin_ms"] > 0.0  # the CPU runs only the twins
+    for (kernel, twin), (k0, t0) in zip(COUNTERS, before):
+        assert kernel.launches == k0
+        if isinstance(t0, dict):  # K4: one count per mode
+            assert all(twin.launches[m] > t0[m] for m in t0)
+        else:
+            assert twin.launches > t0
+    # brute force for each of the 6 walks (+ t for the 4 closest-hit ones),
+    # K4 vs K5 (mask and t), and each any-hit walk vs its closest-hit walk
+    assert len(res["agree"]) == 6 + 4 + 2 + 2
+    assert all(v >= bench_isect.BAR for v in res["agree"].values()), res["agree"]
+    assert out.count("agreement ") == len(res["agree"])
+    assert out.count("not run (CPU)") == 18
+
+
+@pytest.mark.parametrize("name,reason", [("bvhx", "pallas_bvhx"), ("gather", "K1"),
+                                         ("gatherany", "K1"), ("bvh9", "unknown")])
+def test_unsupported_kernels_raise(name, reason):
+    with pytest.raises(ValueError, match=reason):
+        bench_isect.main(["--device", "cpu", "--n", "16", "--kernels", f"bvh8,{name}"])

@@ -6,17 +6,20 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Bars: local slot (prim) agrees on >= 99.9% of rays. Where it agrees, t is
-within rtol 1e-5 plus 1e-6 absolute on >= 99.9% of hits and within rtol 1e-3
-on all: the plane form's numerator cancels to the point-plane distance, so
-its rounding error is absolute (~eps * |o|) and grows as 1 / |cos| on
-grazing hits, and the kernel fuses multiply-adds where the twin does not.
+Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K4 (bvh2_walk.cu: ordered,
+skip, any) and K5 (bvh_walk.cu). Bars: local slot (prim) agrees on >= 99.9%
+of rays. Where it agrees, t is within rtol 1e-5 plus 1e-6 absolute on
+>= 99.9% of hits and within rtol 1e-3 on all: the plane form's numerator
+cancels to the point-plane distance, so its rounding error is absolute
+(~eps * |o|) and grows as 1 / |cos| on grazing hits, and the kernel fuses
+multiply-adds where the twin does not. K5's u and v are within 1e-5 on
+>= 99.9% and within 1e-3 on all (Moller-Trumbore's u cancels in tv . p).
 """
 import numpy as np
 import pytest
 import torch
 
-from tungsten_tpu_torch.ops import bvh8
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8
 
 BAR = 0.999
 
@@ -34,7 +37,12 @@ def _case(dev, n_tris=3000, n_rays=20000, seed=7):
     e1 = rng.normal(0, 0.3, (n_tris, 3)).astype(np.float32)
     e2 = rng.normal(0, 0.3, (n_tris, 3)).astype(np.float32)
     e2[::50] = e1[::50] * 2.0  # degenerate slots: all-zero planes
-    pack = bvh8.Bvh8Pack.from_arrays(bvh8.build_bvh_pack8(v0, e1, e2), dev)
+    tree = bvh8.tri_tree(v0, e1, e2)
+    pack8 = bvh8.Bvh8Pack.from_arrays(bvh8.build_bvh_pack8(v0, e1, e2, tree), dev)
+    packs = {"bvh8": pack8,
+             "bvh3": bvh2.Bvh3Pack.from_arrays(bvh2.build_bvh_pack3(tree), pack8),
+             "bvh": bvh.BvhPack.from_arrays(bvh.build_bvh_pack(v0, e1, e2, tree),
+                                            len(tree.count), dev)}
     o = rng.uniform(-3.0, 3.0, (n_rays, 3))
     d = rng.normal(size=(n_rays, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -43,13 +51,14 @@ def _case(dev, n_tris=3000, n_rays=20000, seed=7):
     tfar[5::9] = rng.uniform(0.5, 4.0, len(tfar[5::9]))
     rays = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
             for a in (o, d, np.full(n_rays, 1e-4), tfar)]
-    return pack, rays
+    return packs, rays
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
 def test_kernel_matches_twin(cuda, mode):
-    pack, (o, d, tn, tf) = _case(cuda)
+    packs, (o, d, tn, tf) = _case(cuda)
+    pack = packs["bvh8"]
     latch = {"closest": None, "any": True,
              "mixed": torch.arange(o.shape[0], device=cuda) % 2 == 0}[mode]
     k0 = bvh8.walk_cuda.launches
@@ -70,7 +79,59 @@ def test_kernel_matches_twin(cuda, mode):
 
 @pytest.mark.cuda
 def test_walk_routes_cuda_tensors_to_the_kernel(cuda):
-    pack, rays = _case(cuda, n_rays=512)
+    packs, rays = _case(cuda, n_rays=512)
     k0, t0 = bvh8.walk_cuda.launches, bvh8.walk_twin.launches
-    bvh8.walk(pack, *rays)
+    bvh8.walk(packs["bvh8"], *rays)
     assert bvh8.walk_cuda.launches == k0 + 1 and bvh8.walk_twin.launches == t0
+
+
+def _k4_k5(packs, walk):
+    """(pack, kernel walk, twin walk) of K4 in one mode, or of K5."""
+    if walk == "packet":
+        return packs["bvh"], bvh.walk_packet_cuda, bvh.walk_packet_twin
+    kernel = lambda *a: bvh2.walk3_cuda(*a, mode=walk)  # noqa: E731
+    twin = lambda *a: bvh2.walk3_twin(*a, mode=walk)  # noqa: E731
+    return packs["bvh3"], kernel, twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["ordered", "skip", "any", "packet"])
+def test_k4_k5_kernels_match_twins(cuda, walk):
+    packs, (o, d, tn, tf) = _case(cuda)
+    pack, kernel, twin = _k4_k5(packs, walk)
+    def count():
+        return bvh.walk_packet_cuda.launches if walk == "packet" else bvh2.walk3_cuda.launches[walk]
+
+    k0 = count()
+    out_k = kernel(pack, o, d, tn, tf)
+    torch.cuda.synchronize()
+    assert count() == k0 + 1
+    out_t = twin(pack, o, d, tn, tf)
+    (tk, lk), (tt, lt) = out_k[:2], out_t[:2]
+    same = (lk == lt).cpu().numpy()
+    assert same.mean() >= BAR, f"{walk}: local agrees on {same.mean():.5f}"
+    hit = same & (lk >= 0).cpu().numpy()
+    assert 0.1 < hit.mean() < 0.9
+    tk_h, tt_h = tk.cpu().numpy()[hit], tt.cpu().numpy()[hit]
+    assert np.isclose(tk_h, tt_h, rtol=1e-5, atol=1e-6).mean() >= BAR
+    np.testing.assert_allclose(tk_h, tt_h, rtol=1e-3)
+    for a, b in zip(out_k[2:], out_t[2:]):  # K5's u and v
+        a, b = a.cpu().numpy()[hit], b.cpu().numpy()[hit]
+        assert np.isclose(a, b, rtol=0, atol=1e-5).mean() >= BAR
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+    dead = (tf <= tn).cpu().numpy()
+    assert (lk.cpu().numpy()[dead] == -1).all()
+
+
+@pytest.mark.cuda
+def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
+    packs, rays = _case(cuda, n_rays=512)
+    def counts():
+        return (*bvh2.walk3_cuda.launches.values(), sum(bvh2.walk3_twin.launches.values()),
+                bvh.walk_packet_cuda.launches, bvh.walk_packet_twin.launches)
+
+    before = counts()
+    for mode in bvh2.MODES:
+        bvh2.walk3(packs["bvh3"], *rays, mode)
+    bvh.walk_packet(packs["bvh"], *rays)
+    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 0]

@@ -3,7 +3,8 @@
 The port's own flatten_scene(load_scene(p)) must equal the JAX package's
 FlatScene carried across with from_arrays: integer tables exactly, float
 tables at rtol 1e-6 (they come out of the same numpy code, so in practice
-bit for bit), the BVH8 pack exactly, and the static facts equal.
+bit for bit), the BVH packs (pbvh8, pbvh3, pbvh) exactly, and the static
+facts equal.
 """
 import dataclasses
 import functools
@@ -45,6 +46,10 @@ def _tensors(scene):
     }
     for k in ("boxes", "kid", "order", "planes", "prim_map", "kid_t", "order_t", "tri_planes"):
         out[f"pbvh8.{k}"] = getattr(scene.pbvh8, k)
+    for k in ("nf", "ni", "box_t", "ni_t"):
+        out[f"pbvh3.{k}"] = getattr(scene.pbvh3, k)
+    for k in ("nodes", "tris", "prim_map", "box_t", "ni_t", "tri_t"):
+        out[f"pbvh.{k}"] = getattr(scene.pbvh, k)
     return out
 
 
@@ -67,7 +72,7 @@ def test_flatten_matches_jax_flatscene(numpy_bvh, tmp_path):
     for k in a:
         x, y = a[k].numpy(), b[k].numpy()
         assert x.shape == y.shape and x.dtype == y.dtype, k
-        if k.startswith("pbvh8.") or not np.issubdtype(x.dtype, np.floating):
+        if k.startswith("pbvh") or not np.issubdtype(x.dtype, np.floating):
             np.testing.assert_array_equal(x, y, err_msg=k)
         else:
             np.testing.assert_allclose(x, y, rtol=1e-6, atol=0, err_msg=k)
@@ -79,6 +84,10 @@ def test_flatten_matches_jax_flatscene(numpy_bvh, tmp_path):
     assert mine.materials.albedo_kinds == js.materials.albedo_kinds
     assert mine.textures.present == js.textures.present
     assert mine.pbvh8.leaf == js.pbvh8.leaf == 128
+    # pbvh3 and pbvh come from pbvh8's tree; pbvh3 shares its leaf tensors
+    assert mine.pbvh3.n_nodes == theirs.pbvh.n_nodes == js.pbvh3.n_nodes == js.pbvh.n_nodes
+    for s in (mine, theirs):
+        assert s.pbvh3.prim_map is s.pbvh8.prim_map and s.pbvh3.tri_planes is s.pbvh8.tri_planes
     for f in dataclasses.fields(SceneMeta):
         assert getattr(mine.meta, f.name) == getattr(js.meta, f.name), f.name
 

@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources into a shared library and load it.
+"""Build the port's CUDA sources into shared libraries, load and call them.
 
 The kernels have a plain C interface (no PyTorch headers), so one `nvcc`
 call builds each in seconds:
@@ -9,8 +9,9 @@ call builds each in seconds:
 The library lands in build/tungsten_tpu_torch/ of the checkout, named by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is built once per checkout. The sources in csrc/ are the only
-input. No default fast-math flags: the BVH8 leaf test relies on IEEE NaN
-semantics (bvh8_walk.cu header).
+input. `build(*names)` starts one nvcc per missing library, all at once, and
+waits for them all. No default fast-math flags: the plane-form leaf tests
+rely on IEEE NaN semantics (bvh8_walk.cu header).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -36,19 +39,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Build csrc/<name>.cu if needed and return the loaded library."""
+def _paths(name: str):
+    """(source, library) paths of csrc/<name>.cu."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
-    if not os.path.exists(out):
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
+
+
+def build(*names: str):
+    """Build csrc/<name>.cu for each name whose library is missing: one nvcc
+    per source, all started together. Raises naming every failed source."""
+    procs = []
+    for name in names:
+        src, out = _paths(name)
+        if os.path.exists(out):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.tmp{os.getpid()}"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        procs.append((src, out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(out)
+            errors.append(f"nvcc failed for {src}:\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build csrc/<name>.cu if needed and return the loaded library."""
+    build(name)
+    return ctypes.CDLL(_paths(name)[1])
+
+
+def ptr(x):
+    """A tensor's device pointer as a ctypes argument (None -> NULL)."""
+    return ctypes.c_void_p(x.data_ptr()) if x is not None else ctypes.c_void_p(0)
+
+
+def stream_of(x):
+    """The current CUDA stream of x's device, as a ctypes argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def check_cuda(name, x, dtype, shape=None, like=None):
+    """Raise unless x is a contiguous CUDA tensor of dtype (and shape, and on
+    like's device): the kernels take nothing else."""
+    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, got "
+                         f"{x.device} {x.dtype} contiguous={x.is_contiguous()}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
+    if like is not None and x.device != like.device:
+        raise ValueError(f"{name} is on {x.device}, rays on {like.device}")

@@ -26,7 +26,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..accel.bvh import build_bvh_best
+from ..accel.bvh import BvhArrays, build_bvh_best
+from . import _build
 from .intersect import INF, Hit
 
 LEAF = 128
@@ -141,17 +142,27 @@ def _collapse8(bvh, leaf_ids):
     return boxes.reshape(m8 * 8, 8), kid, order
 
 
-def build_bvh_pack8(v0, e1, e2, leaf_size: int = LEAF) -> dict:
-    """Numpy BVH8 pack in the JAX package's layout:
+def tri_tree(v0, e1, e2, leaf_size: int = LEAF) -> BvhArrays:
+    """The binary SAH tree over the triangles' bounds. The BVH8 pack, the
+    binary pack (ops/bvh2.py) and the packet pack (ops/bvh.py) of a scene
+    are all built from this one tree, as the JAX package's disk-cached
+    builder makes them share one."""
+    v0 = np.asarray(v0, np.float32)
+    p1 = v0 + np.asarray(e1, np.float32)
+    p2 = v0 + np.asarray(e2, np.float32)
+    lo = np.minimum(np.minimum(v0, p1), p2)
+    hi = np.maximum(np.maximum(v0, p1), p2)
+    return build_bvh_best(lo, hi, leaf_size=leaf_size)
+
+
+def build_bvh_pack8(v0, e1, e2, bvh: BvhArrays, leaf_size: int = LEAF) -> dict:
+    """Numpy BVH8 pack in the JAX package's layout, from the triangles'
+    tri_tree `bvh` (built with the same leaf_size):
     {"boxes" (M8*8, 8), "kid" (8, M8), "order" (8, M8),
      "planes" (n_leaves*8, 3*leaf), "prim_map" (n_leaves*leaf,)}."""
     v0 = np.asarray(v0, np.float32)
     e1 = np.asarray(e1, np.float32)
     e2 = np.asarray(e2, np.float32)
-    p1, p2 = v0 + e1, v0 + e2
-    lo = np.minimum(np.minimum(v0, p1), p2)
-    hi = np.maximum(np.maximum(v0, p1), p2)
-    bvh = build_bvh_best(lo, hi, leaf_size=leaf_size)
 
     leaf_mask = bvh.count > 0
     leaf_ids = np.cumsum(leaf_mask) - 1
@@ -215,6 +226,42 @@ class Bvh8Pack:
 # kernel half
 # ---------------------------------------------------------------------------
 
+def box_hit(b, o, inv, tnear, lim):
+    """Slab test with `_box_test`'s rule (pallas_bvh2.py):
+    (tmin <= tmax) & (tmax > tnear) & (tmin < lim), for boxes b[..., min3 |
+    max3 ...] against rays (o, inv = 1 / d, tnear, lim) broadcast to them.
+    fmin / fmax drop NaN, as CUDA's fminf / fmaxf do in the kernels."""
+    t0 = (b[..., 0:3] - o) * inv
+    t1 = (b[..., 3:6] - o) * inv
+    lo, hi = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    tmin = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
+    tmax = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+    return (tmin <= tmax) & (tmax > tnear) & (tmin < lim)
+
+
+def plane_leaf(P, o, d, tnear, lim):
+    """k rays against their leaves' plane slabs P (k, L, 12) = N4 | U4 | V4
+    per slot (`_leaf_tuv` and its accept rule): (t (k, L), hit (k, L)).
+    All-zero (empty, degenerate) slots give t = NaN and never hit."""
+    ox, oy, oz = (o[:, j:j + 1] for j in range(3))
+    dx, dy, dz = (d[:, j:j + 1] for j in range(3))
+    ao = P[..., 0] * ox + P[..., 1] * oy + P[..., 2] * oz + P[..., 3]
+    ad = P[..., 0] * dx + P[..., 1] * dy + P[..., 2] * dz
+    t = -ao / ad
+    u = ((P[..., 4] * ox + P[..., 5] * oy + P[..., 6] * oz + P[..., 7])
+         + t * (P[..., 4] * dx + P[..., 5] * dy + P[..., 6] * dz))
+    w = ((P[..., 8] * ox + P[..., 9] * oy + P[..., 10] * oz + P[..., 11])
+         + t * (P[..., 8] * dx + P[..., 9] * dy + P[..., 10] * dz))
+    h = ((u >= 0.0) & (w >= 0.0) & (u + w <= 1.0)
+         & (t > tnear[:, None]) & (t < lim[:, None]))
+    return t, h
+
+
+def safe_inv(d):
+    """1 / d with d == 0 read as 1e-30, as every walk does."""
+    return 1.0 / torch.where(d == 0.0, 1e-30, d)
+
+
 def _latch_mode(latch):
     """(mode, per-lane tensor): 0 = none latched, 1 = all, 2 = per lane."""
     if latch is None:
@@ -238,7 +285,7 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     else:
         latched = lane_latch.to(torch.bool)
     tfar = torch.clamp(tfar, max=INF)
-    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    inv = safe_inv(d)
     octant = (((d[:, 0] >= 0).long() << 2) | ((d[:, 1] >= 0).long() << 1)
               | (d[:, 2] >= 0).long())
     best = torch.full((n,), INF, dtype=torch.float32, device=dev)
@@ -260,16 +307,9 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
         if ia.numel():
             node = v[is_inner]
             b = pack.boxes.view(-1, 8, 8)[node]  # (k, 8, 8)
-            oo = o[ia][:, None, :]
-            ii = inv[ia][:, None, :]
-            t0 = (b[..., 0:3] - oo) * ii
-            t1 = (b[..., 3:6] - oo) * ii
-            lo, hi = torch.fmin(t0, t1), torch.fmax(t0, t1)
-            tmin = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
-            tmax = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
-            tn = tnear[ia][:, None]
             lim = torch.minimum(tfar[ia], best[ia])[:, None]
-            hit = (tmin <= tmax) & (tmax > tn) & (tmin < lim)  # (k, 8) by slot
+            hit = box_hit(b, o[ia][:, None, :], inv[ia][:, None, :], tnear[ia][:, None],
+                          lim)  # (k, 8) by slot
             perm = pack.order_t[node, octant[ia]].long()
             cs = (perm[:, None] >> push_k[None, :]) & 7  # slot pushed at step j
             kv = pack.kid_t[node[:, None], cs]
@@ -284,20 +324,9 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
         for c0 in range(0, la.numel(), _TWIN_LEAF_CHUNK):
             lanes = la[c0:c0 + _TWIN_LEAF_CHUNK]
             blk = blk_all[c0:c0 + _TWIN_LEAF_CHUNK]
-            P = pack.tri_planes[blk]  # (k, L, 12)
-            ox, oy, oz = (o[lanes, j:j + 1] for j in range(3))
-            dx, dy, dz = (d[lanes, j:j + 1] for j in range(3))
-            ao = P[..., 0] * ox + P[..., 1] * oy + P[..., 2] * oz + P[..., 3]
-            ad = P[..., 0] * dx + P[..., 1] * dy + P[..., 2] * dz
-            t = -ao / ad
-            u = ((P[..., 4] * ox + P[..., 5] * oy + P[..., 6] * oz + P[..., 7])
-                 + t * (P[..., 4] * dx + P[..., 5] * dy + P[..., 6] * dz))
-            w = ((P[..., 8] * ox + P[..., 9] * oy + P[..., 10] * oz + P[..., 11])
-                 + t * (P[..., 8] * dx + P[..., 9] * dy + P[..., 10] * dz))
             cur = best[lanes]
-            lim = torch.minimum(tfar[lanes], cur)[:, None]
-            h = ((u >= 0.0) & (w >= 0.0) & (u + w <= 1.0)
-                 & (t > tnear[lanes][:, None]) & (t < lim))
+            t, h = plane_leaf(pack.tri_planes[blk], o[lanes], d[lanes], tnear[lanes],
+                              torch.minimum(tfar[lanes], cur))
             tb, slot = torch.min(torch.where(h, t, INF), dim=1)
             first = torch.argmax(h.to(torch.uint8), dim=1)
             any_h = h.any(dim=1)
@@ -315,22 +344,17 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
 walk_twin.launches = 0
 
 
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr()) if x is not None else ctypes.c_void_p(0)
-
-
-def _check_cuda(name, x, dtype, shape=None):
-    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, got "
-                         f"{x.device} {x.dtype} contiguous={x.is_contiguous()}")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
+def check_rays(o, d, tnear, tfar):
+    """Raise unless the rays are contiguous CUDA f32 (n, 3), (n, 3), (n,), (n,)."""
+    n = o.shape[0]
+    _build.check_cuda("o", o, torch.float32, (n, 3))
+    _build.check_cuda("d", d, torch.float32, (n, 3), like=o)
+    _build.check_cuda("tnear", tnear, torch.float32, (n,), like=o)
+    _build.check_cuda("tfar", tfar, torch.float32, (n,), like=o)
 
 
 def _kernel_fn():
-    from ._build import load_library
-
-    fn = load_library("bvh8_walk").bvh8_walk
+    fn = _build.load_library("bvh8_walk").bvh8_walk
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -341,26 +365,20 @@ def walk_cuda(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     """Launch the CUDA BVH8 walk (csrc/bvh8_walk.cu) on the current stream.
     Returns (t (n,) f32, local slot (n,) i64; -1 = miss)."""
     n = o.shape[0]
-    _check_cuda("o", o, torch.float32, (n, 3))
-    _check_cuda("d", d, torch.float32, (n, 3))
-    _check_cuda("tnear", tnear, torch.float32, (n,))
-    _check_cuda("tfar", tfar, torch.float32, (n,))
+    check_rays(o, d, tnear, tfar)
     mode, lane_latch = _latch_mode(latch)
     if mode == 2:
         lane_latch = lane_latch.to(torch.uint8).contiguous()
-        _check_cuda("latch", lane_latch, torch.uint8, (n,))
+        _build.check_cuda("latch", lane_latch, torch.uint8, (n,), like=o)
     for name in ("boxes", "kid_t", "order_t", "tri_planes"):
-        x = getattr(pack, name)
-        _check_cuda(name, x, torch.int32 if name in ("kid_t", "order_t") else torch.float32)
-        if x.device != o.device:
-            raise ValueError(f"pack.{name} is on {x.device}, rays on {o.device}")
+        _build.check_cuda(f"pack.{name}", getattr(pack, name),
+                          torch.int32 if name in ("kid_t", "order_t") else torch.float32, like=o)
     out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
     out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
-    fn = _kernel_fn()
-    err = fn(_ptr(o), _ptr(d), _ptr(tnear), _ptr(tfar), _ptr(lane_latch), mode,
-             _ptr(pack.boxes), _ptr(pack.kid_t), _ptr(pack.order_t), _ptr(pack.tri_planes),
-             n, pack.leaf, _ptr(out_t), _ptr(out_local),
-             ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+    p = _build.ptr
+    err = _kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(lane_latch), mode,
+                       p(pack.boxes), p(pack.kid_t), p(pack.order_t), p(pack.tri_planes),
+                       n, pack.leaf, p(out_t), p(out_local), _build.stream_of(o))
     if err != 0:
         raise RuntimeError(f"bvh8_walk launch failed: CUDA error {err}")
     walk_cuda.launches += 1
@@ -396,8 +414,9 @@ def _recompute_uv(tris, o, d, prim):
             torch.where(ok, torch.clamp(v, 0.0, 1.0), 0.0))
 
 
-def _hit(pack, tris, o, d, t, local) -> Hit:
-    prim_map = pack.prim_map
+def hit_from_slots(prim_map, tris, o, d, t, local) -> Hit:
+    """The Hit of a walk's (t, local slot): slot -> scene tri id through
+    prim_map, u/v recomputed in exact f32, t = INF on a miss."""
     prim = torch.where(
         local >= 0, prim_map[torch.clamp(local, 0, prim_map.shape[0] - 1)].long(), -1)
     u, v = _recompute_uv(tris, o, d, prim)
@@ -407,14 +426,14 @@ def _hit(pack, tris, o, d, t, local) -> Hit:
 def intersect(pack: Bvh8Pack, tris, o, d, tnear, tfar) -> Hit:
     """Closest hit (intersect_bvh_pallas8 with fast=False); prim = scene tri id."""
     t, local = walk(pack, o, d, tnear, tfar)
-    return _hit(pack, tris, o, d, t, local)
+    return hit_from_slots(pack.prim_map, tris, o, d, t, local)
 
 
 def intersect_mixed(pack: Bvh8Pack, tris, o, d, tnear, tfar, latch) -> Hit:
     """ONE walk for a mixed wavefront: lanes with latch=True stop at their
     first hit (only prim >= 0 is meaningful), the rest run closest-hit."""
     t, local = walk(pack, o, d, tnear, tfar, latch)
-    return _hit(pack, tris, o, d, t, local)
+    return hit_from_slots(pack.prim_map, tris, o, d, t, local)
 
 
 def occluded(pack: Bvh8Pack, o, d, tnear, tfar):

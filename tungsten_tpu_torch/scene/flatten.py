@@ -5,8 +5,12 @@ Port of the slice subset of tungsten_tpu/scene/flatten.py. The host build
 the same tables: the triangle SoA in BVH leaf order, the packed shading rows
 (`shade_pack`), the packed material rows (`gpack2`), the texture table, the
 env light with its alias-table Distribution2D, the pinhole camera, the
-static SceneMeta and the BVH8 pack (`pbvh8`, always built with 128-triangle
-leaves: the JAX package's 13 MB VMEM gate is a TPU limit).
+static SceneMeta and three BVH packs built from one binary tree with
+128-triangle leaves: the BVH8 pack (`pbvh8`, K3, which the render walks),
+the binary pack (`pbvh3`, K4; it shares pbvh8's plane slabs) and the packet
+pack (`pbvh`, K5), which the intersector benchmark walks (python -m
+tungsten_tpu_torch.tools.bench_isect). The JAX package builds them only
+under its TPU VMEM gates (13 MB and 10 MB); the port always builds them.
 
 `from_arrays(arrays, meta, device)` is the one constructor of FlatScene. It
 takes the arrays under the JAX FlatScene's own attribute paths (ARRAY_KEYS),
@@ -32,7 +36,9 @@ from ..math import transform as tf
 from ..models.bsdfs.dispatch import MaterialTable, pack_materials
 from ..models.primitives import tessellate
 from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
-from ..ops.bvh8 import Bvh8Pack, build_bvh_pack8
+from ..ops.bvh import BvhPack, build_bvh_pack
+from ..ops.bvh2 import Bvh3Pack, build_bvh_pack3
+from ..ops.bvh8 import Bvh8Pack, build_bvh_pack8, tri_tree
 from ..ops.intersect import TriangleSoA
 from ..sampling.distributions import Distribution2D
 from .load import SceneDocument
@@ -48,6 +54,7 @@ ARRAY_KEYS = (
     "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
     "camera.rot", "camera.pos", "camera.plane_dist",
     "pbvh8.boxes", "pbvh8.kid", "pbvh8.order", "pbvh8.planes", "pbvh8.prim_map",
+    "pbvh3.nf", "pbvh3.ni", "pbvh.nodes", "pbvh.tris", "pbvh.prim_map",
 )
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
@@ -126,6 +133,8 @@ class FlatScene:
     env: EnvLight
     camera: CameraParams
     pbvh8: Bvh8Pack
+    pbvh3: Bvh3Pack
+    pbvh: BvhPack
     meta: SceneMeta
 
 
@@ -282,7 +291,12 @@ def flatten_arrays(doc: SceneDocument):
         [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
          np.full((len(tri_mat), 1), -1.0, np.float32)], axis=1).astype(np.float32)
     e1, e2 = p1 - p0, p2 - p0
-    pack8 = build_bvh_pack8(p0, e1, e2, leaf_size=128)
+    tree = tri_tree(p0, e1, e2, leaf_size=128)
+    packs = {
+        **{f"pbvh8.{k}": v for k, v in build_bvh_pack8(p0, e1, e2, tree, 128).items()},
+        **{f"pbvh3.{k}": v for k, v in build_bvh_pack3(tree).items()},
+        **{f"pbvh.{k}": v for k, v in build_bvh_pack(p0, e1, e2, tree).items()},
+    }
     arrays = {
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
         "materials.gpack2": gpack2,
@@ -295,7 +309,7 @@ def flatten_arrays(doc: SceneDocument):
         "camera.rot": cam_m[:3, :3].astype(np.float32),
         "camera.pos": cam_m[:3, 3].astype(np.float32),
         "camera.plane_dist": np.float32(plane_dist),
-        **{f"pbvh8.{k}": v for k, v in pack8.items()},
+        **packs,
     }
 
     res = cam.get("resolution", [1000, 563])
@@ -346,6 +360,12 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
                                         np.asarray(arrays["env.dist.shape"]), device),
         tex_kind=int(np.asarray(arrays["textures.tpack"])[env_tex, -1]),
     )
+
+    def sub(prefix):
+        return {k.split(".", 1)[1]: arrays[k] for k in ARRAY_KEYS if k.startswith(prefix + ".")}
+
+    pbvh8 = Bvh8Pack.from_arrays(sub("pbvh8"), device)
+    pbvh3 = Bvh3Pack.from_arrays(sub("pbvh3"), pbvh8)
     return FlatScene(
         tris=TriangleSoA(v0=t("tris.v0"), e1=t("tris.e1"), e2=t("tris.e2")),
         shade_pack=t("shade_pack"),
@@ -354,9 +374,11 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         env=env,
         camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),
                             plane_dist=t("camera.plane_dist")),
-        pbvh8=Bvh8Pack.from_arrays(
-            {k.split(".", 1)[1]: arrays[k] for k in ARRAY_KEYS if k.startswith("pbvh8.")},
-            device),
+        pbvh8=pbvh8,
+        pbvh3=pbvh3,
+        # the padded `pbvh.nodes` does not record the node count; it is the
+        # same tree as pbvh3's
+        pbvh=BvhPack.from_arrays(sub("pbvh"), pbvh3.n_nodes, device),
         meta=meta,
     )
 

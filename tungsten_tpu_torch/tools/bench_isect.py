@@ -1,0 +1,250 @@
+"""Intersector benchmark of the port: every BVH walk on the same rays.
+
+    python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
+        [--kernels bvh8,bvh8any,bvh3,bvh3skip,bvh3any,bvh] [--trials 5]
+        [--device cuda|cpu]
+
+The port's counterpart of the JAX package's tools/bench_isect.py and
+tools/bench_kernel.py. It flattens a scene at 250x141 (as both tools do) and
+times each walk on three ray kinds, n rays each:
+  coherent    camera rays through the tiled pixels, jittered by
+              Sampler.create((1, 0), arange(n)) (bench_isect.make_rays);
+  incoherent  origins uniform in the triangles' v0 box, normalised normal
+              directions, numpy seed 0;
+  dead        the incoherent rays with tfar = 0 (bench_kernel.py's all-dead
+              case): the cost of a launch whose rays all leave at once.
+Kernels (each a walk of one pack of the flattened scene):
+  bvh8      K3 closest hit (csrc/bvh8_walk.cu)    bvh8any   K3 latched any-hit
+  bvh3      K4 ordered closest hit (bvh2_walk.cu) bvh3skip  K4 skip closest hit
+  bvh3any   K4 any-hit                            bvh       K5 closest hit (bvh_walk.cu)
+On a CUDA device each walk's kernel and its plain twin are timed with CUDA
+events after a warm-up, as the median of --trials runs; on the CPU only the
+twins run (the port's CPU path), timed by the host clock. Nothing falls back
+from one to the other. The JAX tools chain calls inside one jit to hide the
+TPU runtime's dispatch cost; that protocol is not carried over.
+
+Agreement, as both JAX tools check it: each kernel against intersect_brute
+on 4,096 incoherent rays (seed 1): hit mask, and t within rtol 1e-3 where
+both hit (occlusion only for the any-hit walks); K4 (bvh3) against K5 (bvh)
+on the coherent rays: hit mask and t within rtol 1e-4; each any-hit walk
+against its closest-hit walk's hit mask. The run fails when an agreement is
+below 99.9%.
+
+The default scene is materialtest-synth (tungsten_tpu_torch/synth.py),
+written into build/bench_isect/ of the checkout.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import device as get_device
+from .. import synth
+from ..models.cameras.pinhole import camera_rays_w
+from ..ops import bvh, bvh2, bvh8
+from ..ops.intersect import INF, intersect_brute
+from ..sampling.sampler import Sampler
+from ..scene.flatten import flatten_scene
+from ..scene.load import load_scene
+
+KERNELS = ("bvh8", "bvh8any", "bvh3", "bvh3skip", "bvh3any", "bvh")
+ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3"}  # any-hit walk -> its closest-hit walk
+UNSUPPORTED = {
+    "bvhx": "the JAX tool imports tungsten_tpu/ops/pallas_bvhx.py, which the JAX "
+            "package does not contain",
+    "gather": "K1 (tungsten_tpu/ops/gather_bvh.py, XLA gathers) is not ported",
+    "gatherany": "K1 (tungsten_tpu/ops/gather_bvh.py, XLA gathers) is not ported",
+}
+RAY_KINDS = ("coherent", "incoherent", "dead")
+BAR = 0.999
+RESOLUTION = (250, 141)
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def parse_kernels(names):
+    """Validate kernel names: an unsupported or unknown name raises, naming
+    why; none is skipped."""
+    names = list(names)
+    for k in names:
+        if k in UNSUPPORTED:
+            raise ValueError(f"kernel {k!r} is not supported: {UNSUPPORTED[k]}")
+        if k not in KERNELS:
+            raise ValueError(f"unknown kernel {k!r}; one of {', '.join(KERNELS)}")
+    return names
+
+
+def walks(scene, name):
+    """(kernel walk, twin walk) of one kernel name; each takes (o, d, tnear, tfar)."""
+    p8, p3, pv = scene.pbvh8, scene.pbvh3, scene.pbvh
+    P = functools.partial
+    return {
+        "bvh8": (P(bvh8.walk_cuda, p8), P(bvh8.walk_twin, p8)),
+        "bvh8any": (P(bvh8.walk_cuda, p8, latch=True), P(bvh8.walk_twin, p8, latch=True)),
+        "bvh3": (P(bvh2.walk3_cuda, p3, mode="ordered"), P(bvh2.walk3_twin, p3, mode="ordered")),
+        "bvh3skip": (P(bvh2.walk3_cuda, p3, mode="skip"), P(bvh2.walk3_twin, p3, mode="skip")),
+        "bvh3any": (P(bvh2.walk3_cuda, p3, mode="any"), P(bvh2.walk3_twin, p3, mode="any")),
+        "bvh": (P(bvh.walk_packet_cuda, pv), P(bvh.walk_packet_twin, pv)),
+    }[name]
+
+
+def query(scene, name, rays):
+    """The public query of one kernel name on the rays' device: (hit mask,
+    t or None for the any-hit walks)."""
+    if name == "bvh8":
+        h = bvh8.intersect(scene.pbvh8, scene.tris, *rays)
+    elif name in ("bvh3", "bvh3skip"):
+        h = bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *rays, ordered=name == "bvh3")
+    elif name == "bvh":
+        h = bvh.intersect_bvh(scene.pbvh, *rays)
+    elif name == "bvh8any":
+        return bvh8.occluded(scene.pbvh8, *rays), None
+    else:
+        return bvh2.occluded_bvh3(scene.pbvh3, *rays), None
+    return h.prim >= 0, h.t
+
+
+def make_rays(scene, n, kind, seed=0):
+    """(o, d, tnear, tfar) of one ray kind (bench_isect.make_rays)."""
+    dev = scene.tris.v0.device
+    meta = scene.meta
+    if kind == "coherent":
+        reps = int(np.ceil(n / (meta.res_x * meta.res_y)))
+        px = np.tile(np.tile(np.arange(meta.res_x), meta.res_y), reps)[:n]
+        py = np.tile(np.repeat(np.arange(meta.res_y), meta.res_x), reps)[:n]
+        smp = Sampler.create((1, 0), torch.arange(n, device=dev))
+        u_cam, smp = smp.next_2d()
+        o, d, _ = camera_rays_w(scene.camera, meta, torch.as_tensor(px, device=dev),
+                                torch.as_tensor(py, device=dev), u_cam)
+    else:
+        v0 = scene.tris.v0.cpu().numpy()
+        rng = np.random.default_rng(seed)
+        o = rng.uniform(v0.min(0), v0.max(0), (n, 3)).astype(np.float32)
+        dn = rng.normal(size=(n, 3)).astype(np.float32)
+        o = torch.as_tensor(o, device=dev)
+        d = torch.as_tensor(dn / np.linalg.norm(dn, axis=1, keepdims=True), device=dev)
+    far = 0.0 if kind == "dead" else INF
+    return (o.contiguous(), d.contiguous(), torch.full((n,), 1e-4, device=dev),
+            torch.full((n,), far, device=dev))
+
+
+def time_ms(fn, args, trials):
+    """Median ms of fn(*args) over `trials` runs after one warm-up: CUDA
+    events on a card, the host clock on the CPU."""
+    fn(*args)
+    times = []
+    for _ in range(trials):
+        if args[0].is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _mask_agree(a, b):
+    return (a == b).float().mean().item()
+
+
+def _t_agree(ha, ta, hb, tb, rtol):
+    both = ha & hb
+    if not bool(both.any()):
+        return 1.0
+    return torch.isclose(ta[both], tb[both], rtol=rtol, atol=0.0).float().mean().item()
+
+
+def load(scene_path, dev):
+    """The scene at the benchmark's 250x141 (materialtest-synth by default)."""
+    if scene_path is None:
+        scene_path = synth.write_scene(os.path.join(_REPO, "build", "bench_isect"),
+                                       "materialtest-synth")
+    doc = load_scene(scene_path)
+    doc.camera["resolution"] = list(RESOLUTION)
+    return flatten_scene(doc, dev)
+
+
+def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
+    """Time and check the walks; returns {"scene", "device", "n", "times":
+    {(kind, kernel): {"ms", "twin_ms"}}, "agree": {label: fraction}}.
+    "ms" is None on the CPU, where only the twins run."""
+    kernels = parse_kernels(kernels)
+    dev = dev or get_device("cuda")
+    on_card = dev.type == "cuda"
+    scene = load(scene_path, dev)
+    out = {"scene": scene_path or "materialtest-synth", "n_tris": scene.tris.v0.shape[0],
+           "device": torch.cuda.get_device_name(dev) if on_card else "cpu", "n": n,
+           "times": {}, "agree": {}}
+    coherent = None
+    for kind in RAY_KINDS:
+        rays = make_rays(scene, n, kind)
+        if kind == "coherent":
+            coherent = rays
+        for name in kernels:
+            kernel, twin = walks(scene, name)
+            out["times"][(kind, name)] = {
+                "ms": time_ms(kernel, rays, trials) if on_card else None,
+                "twin_ms": time_ms(twin, rays, trials)}
+
+    sub = make_rays(scene, 4096, "incoherent", seed=1)
+    hb = intersect_brute(scene.tris, *sub, chunk=2048)
+    hit_b = hb.prim >= 0
+    for name in kernels:
+        hit, t = query(scene, name, sub)
+        out["agree"][f"{name} vs brute: hit mask"] = _mask_agree(hit, hit_b)
+        if t is not None:
+            out["agree"][f"{name} vs brute: t rtol 1e-3"] = _t_agree(hit, t, hit_b, hb.t, 1e-3)
+    res = {name: query(scene, name, coherent) for name in kernels}
+    if "bvh3" in res and "bvh" in res:
+        (h3, t3), (h5, t5) = res["bvh3"], res["bvh"]
+        out["agree"]["bvh3 vs bvh: hit mask"] = _mask_agree(h3, h5)
+        out["agree"]["bvh3 vs bvh: t rtol 1e-4"] = _t_agree(h3, t3, h5, t5, 1e-4)
+    for any_name, closest in ANY_OF.items():
+        if any_name in res and closest in res:
+            out["agree"][f"{any_name} vs {closest}: hit mask"] = _mask_agree(
+                res[any_name][0], res[closest][0])
+    return out
+
+
+def report(res):
+    """Print one line per (ray kind, kernel) and one per agreement."""
+    print(f"scene {res['scene']}: {res['n_tris']} triangles, {RESOLUTION[0]}x{RESOLUTION[1]}; "
+          f"{res['n']} rays; device {res['device']}")
+    for (kind, name), r in res["times"].items():
+        kern = (f"kernel {r['ms']:9.3f} ms {res['n'] / r['ms'] / 1e3:9.2f} Mrays/s"
+                if r["ms"] is not None else "kernel       not run (CPU)")
+        print(f"{kind:10s} {name:8s}: {kern} | twin {r['twin_ms']:10.3f} ms")
+    for label, frac in res["agree"].items():
+        print(f"agreement {label}: {frac:.6f}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scene", default=None, help="scene.json (default: materialtest-synth)")
+    ap.add_argument("--n", type=int, default=131072)
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--trials", type=int, default=5)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    res = run(args.scene, get_device(args.device), args.n, args.kernels.split(","), args.trials)
+    report(res)
+    low = {k: v for k, v in res["agree"].items() if v < BAR}
+    if low:
+        raise SystemExit(f"agreement below {BAR}: {low}")
+    return res
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
