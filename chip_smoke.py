@@ -6,8 +6,9 @@
 Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
-  2. build    - nvcc builds the three walks (csrc/bvh8_walk.cu, bvh2_walk.cu,
-                bvh_walk.cu) into build/, one nvcc per source, all at once;
+  2. build    - nvcc builds the four kernel sources (csrc/bvh8_walk.cu,
+                bvh2_walk.cu, bvh_walk.cu, intersect_stream.cu) into build/,
+                one nvcc per source, all at once;
   3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch)
@@ -16,23 +17,53 @@ printing a result):
                 same scene's packs, each against its twin on the 65,536
                 random rays and the 563,000 camera rays, and through its
                 public query against brute force on the 8,192 rays; each
-                kernel's launch count must move there and its twin's not;
+                kernel's launch count must move there and its twin's not.
+                K5 also on the 2N closest-hit batch that the render's K5 and
+                K2 routes give the walk: the camera rays plus shadow lanes
+                from their hit points, half with a finite tfar, half with
+                INF, and tfar = 0 (dead) where the camera ray missed;
+  3c. kernels - K2 (intersect_stream) and K5-v1 (bvh_walk, prune=0) the same
+                way: against their twins on the 65,536 random rays, the
+                563,000 camera rays and the 2N batch, and through the walk
+                plus its prim lookup against brute force on the 8,192 rays,
+                with the launch counts checked;
   4. small    - the `small` scene through render_scene, its per-channel
                 means against the JAX package's (tests/data/...json);
+  4b. analytic - `small-analytic` (three analytic prims) the same way,
+                against tests/data/torch_port_analytic_ref.json;
   5. slice    - materialtest-synth at 1000x563 and 32 spp through
                 load_scene / flatten_scene / render_flat, with the walk's
                 launch counts reset just before and read just after;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
-                at n = 131,072 on both ray kinds and the all-dead case, all six
-                walks, with every agreement >= 99.9% and the K4 / K5 launch
-                counts reset just before and read just after.
-The kernels line gives, per kernel: the launches of its main path (the
-render for K3, the benchmark for K4 / K5), the largest |t| difference
-against its twin (2N batch for K3, camera rays for K4 / K5), and the kernel's
-and twin's ms (2N batch for K3, the benchmark's coherent rays for K4 / K5).
+                at n = 131,072 on both ray kinds and the all-dead case, all
+                eight walks (24 timed rows), with every agreement >= 99.9%
+                (K2 the brute-force reference of every walk on the coherent
+                rays) and the launch counts reset just before and read just
+                after;
+  7. routes   - materialtest-analytic at 1000x563 and 32 spp through
+                render_flat on three FlatScenes of one flatten: all packs
+                (the render walks K3), pbvh8 = pbvh3 = None (K5-v2) and
+                pbvh8 = pbvh3 = pbvh = None (K2). Each route launches its
+                kernel and nothing else; each image is finite and
+                non-negative; the K5 and K2 images' channel means lie within
+                5e-3 of the K3 image's, >= 90% of their pixels within
+                1e-3 + 1e-3 |K3|. Wall time and Mpaths/s per route.
+The kernels line gives, per kernel: the launches of its main path (phase 5's
+render for K3, phase 7's route renders for K5-v2 and K2, the benchmark for
+K4 and K5-v1), the largest |t| difference against its twin (the 2N batch
+for K3, K5 and K2, camera rays for K4), the kernel's and twin's ms (2N
+batch for K3, the benchmark's coherent rays for the others), and the
+kernel's bound: the larger of the bytes it must move (inputs read once,
+outputs written once) over 3.35 TB/s and the f32 operations its rays need
+over 67 TFLOP/s (H100 SXM data sheet), the operations counted by the twin
+on the same rays (box and triangle tests; for K2 the triangles of each
+chunk whose box the ray itself hits, not its whole tile's) at the OPS costs
+below. No single PyTorch call
+computes a BVH walk or a brute-force closest hit, so library_ms is null.
 It needs nvcc and one CUDA card, no network and no JAX. The last line is the
 JSON result; the line before it the card's name and power limit.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,7 +83,9 @@ BAR = 0.999  # prim / occlusion agreement, kernel vs twin and vs brute force
 # is absolute (~eps * |o|) and grows as 1 / |cos| on grazing hits; the kernel
 # fuses multiply-adds where the twin does not.
 T_RTOL, T_ATOL_PER_EXTENT, T_RTOL_ALL = 1e-5, 1e-6, 1e-3
-MEAN_RTOL = 5e-3  # small render per-channel means vs the JAX package's
+MEAN_RTOL = 5e-3  # render per-channel means vs the JAX package's, and route vs route
+# routes: a hit that flips between two walks reshades the rest of its path
+PIX_ATOL, PIX_RTOL, PIX_BAR = 1e-3, 1e-3, 0.90
 # K5's u / v where the slot agrees: >= 99.9% within 1e-5, all within 1e-3.
 # Moller-Trumbore's u = (tv . p) / det cancels, so any other rounding shows;
 # the kernel rounds each operation as the twin does (bvh_walk.cu header).
@@ -68,6 +101,18 @@ NEW_KERNELS = (
     ("bvh_walk", "bvh", "tungsten_tpu_torch/csrc/bvh_walk.cu",
      "tungsten_tpu/ops/pallas_bvh.py:298"),
 )
+# phase 3c's kernels, in the same form
+K2_K5V1 = (
+    ("intersect_stream", "tri", "tungsten_tpu_torch/csrc/intersect_stream.cu",
+     "tungsten_tpu/ops/pallas_intersect.py:41"),
+    ("bvh_walk_v1", "bvh1", "tungsten_tpu_torch/csrc/bvh_walk.cu",
+     "tungsten_tpu/ops/pallas_bvh.py:51"),
+)
+# the bound: f32 operations per test (adds, multiplies, min / max, compares,
+# divides, each one): a slab test against one box, a plane-form slot
+# (bvh8_walk.cu's leaf), a Moller-Trumbore slot (bvh_walk.cu, intersect_stream.cu)
+OPS = {"box": 25, "plane": 45, "mt": 54}
+F32_PEAK, HBM_RATE = 67e12, 3.35e12  # H100 SXM: f32 FLOP/s outside the tensor cores, B/s
 
 
 def log(msg):
@@ -93,13 +138,42 @@ def t_close(a, b, atol):
     return near and bool(torch.isclose(a, b, rtol=T_RTOL_ALL, atol=0.0).all())
 
 
-def reset_k4_k5_counts():
-    """Set the launch counts of the K4 (per mode) and K5 kernels and twins to 0."""
-    from tungsten_tpu_torch.ops import bvh, bvh2
+def counted():
+    """Every kernel wrapper and twin that keeps a launch count."""
+    from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
 
-    for k in (bvh2.walk3_cuda, bvh2.walk3_twin):
-        k.launches = dict.fromkeys(bvh2.MODES, 0)
-    bvh.walk_packet_cuda.launches = bvh.walk_packet_twin.launches = 0
+    return (bvh8.walk_cuda, bvh8.walk_twin, bvh2.walk3_cuda, bvh2.walk3_twin,
+            bvh.walk_packet_cuda, bvh.walk_packet_twin, intersect_stream.stream_cuda,
+            intersect_stream.stream_twin)
+
+
+def reset_counts():
+    """Set every launch count (per mode where a wrapper has modes) to 0."""
+    for f in counted():
+        f.launches = dict.fromkeys(f.launches, 0) if isinstance(f.launches, dict) else 0
+
+
+def counts():
+    """{"<wrapper>[.<mode>]": launches} over every counted wrapper."""
+    out = {}
+    for f in counted():
+        name = f"{f.__module__.rsplit('.', 1)[-1]}.{f.__name__}"
+        if isinstance(f.launches, dict):
+            out.update({f"{name}.{m}": v for m, v in f.launches.items()})
+        else:
+            out[name] = f.launches
+    return out
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the f32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_RATE * 1e3, ops / F32_PEAK * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 def cuda_ms(fn, reps):
@@ -114,16 +188,67 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def agree(a, b):
+    return (a == b).float().mean().item()
+
+
+def kernel_vs_twin(name, kernel, twin, cases, t_atol):
+    """A kernel against its twin on each (label, rays) case: slot agreement,
+    the t bar where the slot agrees, and the u / v bar for walks that return
+    u and v. Returns the largest |t| difference on the last case."""
+    for label, rr in cases:
+        out_k = kernel(*rr)
+        torch.cuda.synchronize()
+        out_t = twin(*rr)
+        (tk, lk), (tt, lt) = out_k[:2], out_t[:2]
+        check(agree(lk, lt) >= BAR, f"{name} {label}: kernel vs twin slot agree "
+              f"{agree(lk, lt):.6f}")
+        same = (lk == lt) & (lk >= 0)
+        t_err = (tk[same] - tt[same]).abs().max().item()
+        check(t_close(tk[same], tt[same], t_atol), f"{name} {label}: t within rtol {T_RTOL} "
+              f"atol {t_atol:.2g} (>= {BAR}), rtol {T_RTOL_ALL} (all); max abs err {t_err:.3e}")
+        for uv, a, b in zip("uv", out_k[2:], out_t[2:]):
+            err = (a[same] - b[same]).abs()
+            check((err <= UV_ATOL).float().mean().item() >= BAR
+                  and err.max().item() <= UV_ATOL_ALL,
+                  f"{name} {label}: {uv} within {UV_ATOL} (>= {BAR}), {UV_ATOL_ALL} (all); "
+                  f"max abs err {err.max().item():.3e}")
+    return t_err
+
+
+def render_vs_ref(label, path, ref_file, dev):
+    """render_scene of a small scene against the JAX package's channel
+    means; K3 must launch and no twin."""
+    from tungsten_tpu_torch.renderer.render import render_scene
+
+    with open(os.path.join(REPO, "tests", "data", ref_file)) as f:
+        ref = json.load(f)
+    log(f"[{label}] render_scene of the {ref['scene']} scene")
+    reset_counts()
+    hdr, _ = render_scene(path, dev, seed=ref["seed"])
+    c = counts()
+    twins = sum(v for k, v in c.items() if "twin" in k)
+    check(c["bvh8.walk_cuda"] > 0 and twins == 0,
+          f"{ref['scene']}: kernel launches {c['bvh8.walk_cuda']}, twins {twins}")
+    check(np.isfinite(hdr).all() and (hdr >= 0).all(), f"{ref['scene']}: image finite and "
+          f"non-negative")
+    means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
+    rel = np.abs(means - ref["channel_means"]) / np.abs(ref["channel_means"])
+    check((rel <= MEAN_RTOL).all(), f"{ref['scene']}: channel means {means.round(6).tolist()} vs "
+          f"JAX {np.round(ref['channel_means'], 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL})")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
     from tungsten_tpu_torch import device
     from tungsten_tpu_torch import synth
-    from tungsten_tpu_torch.ops import _build, bvh8
+    from tungsten_tpu_torch.ops import _build, bvh, bvh2, bvh8, intersect_stream
     from tungsten_tpu_torch.ops.intersect import INF, intersect_brute
-    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat, render_scene
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.tools import bench_isect
 
     dev = device("cuda")
     card = card_line()
@@ -131,7 +256,7 @@ def main():
     log(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.time()
-    sources = ("bvh8_walk", "bvh2_walk", "bvh_walk")
+    sources = ("bvh8_walk", "bvh2_walk", "bvh_walk", "intersect_stream")
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
@@ -150,16 +275,14 @@ def main():
     gen = np.random.default_rng(0)
     lo = scene.tris.v0.min(0).values.cpu().numpy() - 0.5
     hi = scene.tris.v0.max(0).values.cpu().numpy() + 0.5
-    T_ATOL = T_ATOL_PER_EXTENT * float(np.abs(np.concatenate([lo, hi])).max())
+    extent = float(np.abs(np.concatenate([lo, hi])).max())
+    T_ATOL = T_ATOL_PER_EXTENT * extent
 
     def rand_rays(n):
         o = torch.tensor(gen.uniform(lo, hi, (n, 3)), dtype=torch.float32, device=dev)
         d = torch.tensor(gen.normal(size=(n, 3)), dtype=torch.float32, device=dev)
         return (o, d / d.norm(dim=1, keepdim=True), torch.full((n,), 1e-4, device=dev),
                 torch.full((n,), INF, device=dev))
-
-    def agree(a, b):
-        return (a == b).float().mean().item()
 
     # 65,536 random incoherent rays: closest hit and occlusion
     rays = rand_rays(65536)
@@ -207,6 +330,7 @@ def main():
     tk, lk = bvh8.walk_cuda(pack, o2, d2, n2, f2, latch)
     torch.cuda.synchronize()
     tt, lt = bvh8.walk_twin(pack, o2, d2, n2, f2, latch)
+    k3_work = dict(bvh8.walk_twin.work)
     blocked_agree = agree(lk[:n_pix] >= 0, lt[:n_pix] >= 0)
     prim_agree = agree(lk[n_pix:], lt[n_pix:])
     check(blocked_agree >= BAR, f"2N={2 * n_pix}: shadow occlusion agree {blocked_agree:.6f}")
@@ -220,37 +344,27 @@ def main():
     ms = cuda_ms(lambda: bvh8.walk_cuda(pack, o2, d2, n2, f2, latch), reps=10)
     plain_ms = cuda_ms(lambda: bvh8.walk_twin(pack, o2, d2, n2, f2, latch), reps=1)
     log(f"[3 kernel] 2N={2 * n_pix} mixed walk on {card}: CUDA kernel {ms:.3f} ms, "
-        f"plain PyTorch twin {plain_ms:.3f} ms")
+        f"plain PyTorch twin {plain_ms:.3f} ms; twin counts {k3_work}")
+    k3_bytes = (nbytes(o2, d2, n2, f2, latch, pack.boxes, pack.kid_t, pack.order_t,
+                       pack.tri_planes) + 8 * o2.shape[0])
 
     # K4 and K5 on the same scene: kernel vs twin, public query vs brute force
-    from tungsten_tpu_torch.ops import bvh, bvh2
-    from tungsten_tpu_torch.tools import bench_isect
-
     log(f"[3b kernels] K4 and K5 on materialtest-synth: {scene.pbvh3.n_nodes} binary nodes, "
         f"{scene.pbvh.tri_t.shape[0]} leaves")
     cam = (oc, dc, near, torch.full((n_pix,), INF, device=dev))
+    cases = (("random 65536", rays), (f"camera {n_pix}", cam))
+    # the K5 / K2 routes' 2N batch, all closest hit: shadow lanes with a
+    # finite or INF tfar (dead where the camera ray missed), then the camera rays
+    finite = torch.tensor(gen.random(n_pix) < 0.5, device=dev)
+    dist = torch.tensor(gen.uniform(0.05, 1.0, n_pix) * extent, dtype=torch.float32, device=dev)
+    f_mix = torch.cat([torch.where(hc.prim >= 0, torch.where(finite, dist, INF), 0.0),
+                       torch.full((n_pix,), INF, device=dev)])
+    with_mixed = cases + ((f"mixed 2N={2 * n_pix}", (o2, d2, n2, f_mix)),)
     new_err = {}
     for name, bname, _, _ in NEW_KERNELS:
-        kernel, twin = bench_isect.walks(scene, bname)
-        for label, rr in (("random 65536", rays), (f"camera {n_pix}", cam)):
-            out_k = kernel(*rr)
-            torch.cuda.synchronize()
-            out_t = twin(*rr)
-            (tk, lk), (tt, lt) = out_k[:2], out_t[:2]
-            check(agree(lk, lt) >= BAR, f"{name} {label}: kernel vs twin slot agree "
-                  f"{agree(lk, lt):.6f}")
-            same = (lk == lt) & (lk >= 0)
-            t_err = (tk[same] - tt[same]).abs().max().item()
-            check(t_close(tk[same], tt[same], T_ATOL), f"{name} {label}: t within rtol {T_RTOL} "
-                  f"atol {T_ATOL:.2g} (>= {BAR}), rtol {T_RTOL_ALL} (all); max abs err {t_err:.3e}")
-            for uv, a, b in zip("uv", out_k[2:], out_t[2:]):
-                err = (a[same] - b[same]).abs()
-                check((err <= UV_ATOL).float().mean().item() >= BAR
-                      and err.max().item() <= UV_ATOL_ALL,
-                      f"{name} {label}: {uv} within {UV_ATOL} (>= {BAR}), {UV_ATOL_ALL} (all); "
-                      f"max abs err {err.max().item():.3e}")
-        new_err[name] = t_err  # camera rays
-    reset_k4_k5_counts()
+        new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname),
+                                       with_mixed if bname == "bvh" else cases, T_ATOL)
+    reset_counts()
     for label, prim in (("K4 ordered", bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *sub).prim),
                         ("K4 skip", bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *sub,
                                                         ordered=False).prim),
@@ -260,34 +374,40 @@ def main():
     occ = bvh2.occluded_bvh3(scene.pbvh3, *sub)
     check(agree(occ, hb.prim >= 0) >= BAR, f"8192 rays: K4 any vs brute force occlusion agree "
           f"{agree(occ, hb.prim >= 0):.6f}")
-    counts = (bvh2.walk3_cuda.launches, bvh2.walk3_twin.launches,
-              bvh.walk_packet_cuda.launches, bvh.walk_packet_twin.launches)
-    check(all(v == 1 for v in counts[0].values()) and not any(counts[1].values())
-          and counts[2] == 1 and counts[3] == 0,
-          f"8192 rays: the queries launched the kernels {counts[0]}, {counts[2]}, "
-          f"the twins {counts[1]}, {counts[3]}")
+    c = counts()
+    check(all(c[f"bvh2.walk3_cuda.{m}"] == 1 for m in bvh2.MODES) and c["bvh.walk_packet_cuda.v2"] == 1
+          and not any(v for k, v in c.items() if "twin" in k),
+          f"8192 rays: the queries launched the kernels once each and no twin: {c}")
 
-    # small render against the JAX package's means
-    with open(os.path.join(REPO, "tests", "data", "torch_port_small_ref.json")) as f:
-        ref = json.load(f)
-    small_path = synth.write_scene(os.path.join(work, "small"), "small")
-    log("[4 small] render_scene of the small scene")
-    bvh8.walk_cuda.launches = bvh8.walk_twin.launches = 0
-    hdr, _ = render_scene(small_path, dev, seed=ref["seed"])
-    k_small, t_small = bvh8.walk_cuda.launches, bvh8.walk_twin.launches
-    check(k_small > 0 and t_small == 0, f"small: kernel launches {k_small}, twin {t_small}")
-    check(np.isfinite(hdr).all() and (hdr >= 0).all(), "small: image finite and non-negative")
-    means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
-    rel = np.abs(means - ref["channel_means"]) / np.abs(ref["channel_means"])
-    check((rel <= MEAN_RTOL).all(), f"small: channel means {means.round(6).tolist()} vs JAX "
-          f"{np.round(ref['channel_means'], 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL})")
+    # K2 and K5-v1 on the same scene, the same way
+    log(f"[3c kernels] K2 and K5-v1 on materialtest-synth: {scene.ptris.n_chunks} chunks of "
+        f"{intersect_stream.CHUNK} triangles")
+    for name, bname, _, _ in K2_K5V1:
+        new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname), with_mixed,
+                                       T_ATOL)
+    reset_counts()
+    for label, h in (("K2", intersect_stream.intersect_stream(scene.ptris, *sub)),
+                     ("K5-v1", bvh.hit_from_local(scene.pbvh, *bvh.walk_packet(
+                         scene.pbvh, *sub, prune=False)))):
+        check(agree(h.prim, hb.prim) >= BAR, f"8192 rays: {label} vs brute force prim agree "
+              f"{agree(h.prim, hb.prim):.6f}")
+    c = counts()
+    check(c["intersect_stream.stream_cuda"] == 1 and c["bvh.walk_packet_cuda.v1"] == 1
+          and not any(v for k, v in c.items() if "twin" in k),
+          f"8192 rays: the queries launched K2 and K5-v1 once each and no twin: {c}")
+
+    # small renders against the JAX package's means
+    render_vs_ref("4 small", synth.write_scene(os.path.join(work, "small"), "small"),
+                  "torch_port_small_ref.json", dev)
+    render_vs_ref("4b analytic", synth.write_scene(os.path.join(work, "sa"), "small-analytic"),
+                  "torch_port_analytic_ref.json", dev)
 
     # the full slice: materialtest-synth, 1000x563, 32 spp
     log("[5 slice] load_scene + flatten_scene + render_flat of materialtest-synth")
     scene = flatten_scene(load_scene(big_path), dev)
     spp = scene.meta.spp
     torch.cuda.synchronize()
-    bvh8.walk_cuda.launches = bvh8.walk_twin.launches = 0
+    reset_counts()
     t0 = time.time()
     img = render_flat(scene, spp=spp, seed=DEFAULT_SEED)
     dt = time.time() - t0
@@ -302,29 +422,99 @@ def main():
 
     # the intersector benchmark: every walk on the same rays
     log("[6 isect] tungsten_tpu_torch.tools.bench_isect on materialtest-synth, n = 131072")
-    reset_k4_k5_counts()
+    reset_counts()
     t0 = time.time()
     res = bench_isect.run(big_path, dev, n=131072, kernels=bench_isect.KERNELS, trials=5)
-    new_launches = dict(bvh2.walk3_cuda.launches, packet=bvh.walk_packet_cuda.launches)
+    bench_launches = counts()
     bench_isect.report(res)
-    check(len(res["times"]) == 18 and all(
+    k2_work = res["times"][("coherent", "tri")]["work"]
+    log(f"[6 isect] K2 twin counts on the coherent rays {k2_work}: the tiles run "
+        f"{k2_work['tri_tile'] / k2_work['tri']:.4f}x the triangle tests the rays need")
+    n_walks = len(bench_isect.KERNELS)
+    check(len(res["times"]) == 3 * n_walks and all(
         r["ms"] > 0.0 and r["twin_ms"] > 0.0 for r in res["times"].values()),
-        f"isect: kernel and twin times for 3 ray kinds x 6 walks in {time.time() - t0:.1f} s")
+        f"isect: kernel and twin times for 3 ray kinds x {n_walks} walks in "
+        f"{time.time() - t0:.1f} s")
     check(min(res["agree"].values()) >= BAR, f"isect: all {len(res['agree'])} agreements >= "
           f"{BAR} (lowest {min(res['agree'].values()):.6f})")
-    check(all(v > 0 for v in new_launches.values()), f"isect: K4 / K5 launches {new_launches}")
+    new_keys = [f"bvh2.walk3_cuda.{m}" for m in bvh2.MODES] + [
+        "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda"]
+    check(all(bench_launches[k] > 0 for k in new_keys),
+          f"isect: K4 / K5 / K2 launches {[bench_launches[k] for k in new_keys]}")
 
-    entries = [{
-        "name": "bvh8_walk", "route": "cuda",
-        "source": "tungsten_tpu_torch/csrc/bvh8_walk.cu",
-        "replaces": "tungsten_tpu/ops/pallas_bvh8.py:130",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-    }]
-    for (name, bname, source, replaces), n_launch in zip(NEW_KERNELS, new_launches.values()):
+    # the render's three intersector routes on one flattened scene
+    ana_path = synth.write_scene(os.path.join(work, "mta"), "materialtest-analytic")
+    t0 = time.time()
+    full = flatten_scene(load_scene(ana_path), dev)
+    m = full.meta
+    log(f"[7 routes] materialtest-analytic flattened in {time.time() - t0:.1f} s: "
+        f"{full.tris.v0.shape[0]} triangles, {full.ana.n} analytic prims; "
+        f"{m.res_x}x{m.res_y}, {m.spp} spp")
+    routes = (
+        ("K3", "bvh8.walk_cuda", full),
+        ("K5-v2", "bvh.walk_packet_cuda.v2", dataclasses.replace(full, pbvh8=None, pbvh3=None)),
+        ("K2", "intersect_stream.stream_cuda",
+         dataclasses.replace(full, pbvh8=None, pbvh3=None, pbvh=None)),
+    )
+    imgs, route_launches = {}, {}
+    for label, key, sc in routes:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        img = render_flat(sc, spp=m.spp, seed=DEFAULT_SEED)
+        dt = time.time() - t0
+        c = counts()
+        others = {k: v for k, v in c.items() if k != key and v}
+        check(c[key] > 0 and not others, f"route {label}: {key} launched {c[key]} times, "
+              f"every other walk and twin none {others}")
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all() and (img >= 0).all(),
+              f"route {label}: image finite and non-negative")
+        log(f"[7 routes] {label}: {m.res_x}x{m.res_y} {m.spp} spp in {dt:.2f} s: "
+            f"{m.res_x * m.res_y * m.spp / dt / 1e6:.4f} Mpaths/s on {card}")
+        imgs[label], route_launches[label] = img, c[key]
+    ref_img = imgs["K3"]
+    ref_means = ref_img.reshape(-1, 3).astype(np.float64).mean(0)
+    for label in ("K5-v2", "K2"):
+        img = imgs[label]
+        means = img.reshape(-1, 3).astype(np.float64).mean(0)
+        rel = np.abs(means - ref_means) / np.abs(ref_means)
+        check((rel <= MEAN_RTOL).all(), f"route {label}: channel means "
+              f"{means.round(6).tolist()} vs K3's {ref_means.round(6).tolist()} "
+              f"(rel {rel.max():.2e} <= {MEAN_RTOL})")
+        close = np.all(np.abs(img - ref_img) <= PIX_ATOL + PIX_RTOL * np.abs(ref_img), axis=-1)
+        check(close.mean() >= PIX_BAR, f"route {label}: {close.mean():.6f} of pixels within "
+              f"{PIX_ATOL} + {PIX_RTOL} |K3| (>= {PIX_BAR})")
+
+    def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops):
+        b_ms, b_by = bound(n_bytes, ops)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launch, "max_abs_err": err, "ms": t_ms, "plain_ms": t_plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    entries = [entry("bvh8_walk", "tungsten_tpu_torch/csrc/bvh8_walk.cu",
+                     "tungsten_tpu/ops/pallas_bvh8.py:130", launches, max_abs_err, ms, plain_ms,
+                     k3_bytes, k3_work["box"] * OPS["box"] + k3_work["tri"] * OPS["plane"])]
+    n_bench = res["n"]
+    # what each benchmark walk reads besides the rays, its output bytes per
+    # ray, its slot cost, and the run whose launches are its main path's
+    k4 = ((scene.pbvh3.box_t, scene.pbvh3.ni_t, scene.pbvh3.tri_planes), 8, "plane")
+    k5 = ((scene.pbvh.box_t, scene.pbvh.ni_t, scene.pbvh.tri_t), 16, "mt")
+    k2 = ((scene.ptris.tri_c, scene.ptris.clusters), 16, "mt")
+    walk_io = {"bvh3": k4, "bvh3skip": k4, "bvh3any": k4, "bvh": k5, "bvh1": k5, "tri": k2}
+    main_launches = {
+        "bvh3": bench_launches["bvh2.walk3_cuda.ordered"],
+        "bvh3skip": bench_launches["bvh2.walk3_cuda.skip"],
+        "bvh3any": bench_launches["bvh2.walk3_cuda.any"],
+        "bvh": route_launches["K5-v2"],
+        "bvh1": bench_launches["bvh.walk_packet_cuda.v1"],
+        "tri": route_launches["K2"],
+    }
+    for name, bname, source, replaces in NEW_KERNELS + K2_K5V1:
         r = res["times"][("coherent", bname)]
-        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n_launch, "max_abs_err": new_err[name], "ms": r["ms"],
-                        "plain_ms": r["twin_ms"]})
+        tensors, out_b, slot = walk_io[bname]
+        entries.append(entry(name, source, replaces, main_launches[bname], new_err[name],
+                             r["ms"], r["twin_ms"], nbytes(*tensors) + n_bench * (32 + out_b),
+                             r["work"]["box"] * OPS["box"] + r["work"]["tri"] * OPS[slot]))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

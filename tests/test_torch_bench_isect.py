@@ -8,11 +8,12 @@ import copy
 import pytest
 
 from tungsten_tpu_torch import synth
-from tungsten_tpu_torch.ops import bvh, bvh2, bvh8
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
 from tungsten_tpu_torch.tools import bench_isect
 
 COUNTERS = ((bvh8.walk_cuda, bvh8.walk_twin), (bvh2.walk3_cuda, bvh2.walk3_twin),
-            (bvh.walk_packet_cuda, bvh.walk_packet_twin))
+            (bvh.walk_packet_cuda, bvh.walk_packet_twin),
+            (intersect_stream.stream_cuda, intersect_stream.stream_twin))
 
 
 def test_entry_point_on_small(tmp_path, capsys):
@@ -23,20 +24,22 @@ def test_entry_point_on_small(tmp_path, capsys):
     assert res["device"] == "cpu" and res["n"] == 2048 and res["n_tris"] > 2000
     assert set(res["times"]) == {(k, n) for k in bench_isect.RAY_KINDS
                                  for n in bench_isect.KERNELS}
-    for r in res["times"].values():
+    for (kind, _), r in res["times"].items():
         assert r["ms"] is None and r["twin_ms"] > 0.0  # the CPU runs only the twins
+        assert (r["work"]["box"] > 0) == (kind != "dead")  # dead rays do no work
     for (kernel, twin), (k0, t0) in zip(COUNTERS, before):
         assert kernel.launches == k0
-        if isinstance(t0, dict):  # K4: one count per mode
+        if isinstance(t0, dict):  # K4 and K5: one count per mode
             assert all(twin.launches[m] > t0[m] for m in t0)
         else:
             assert twin.launches > t0
-    # brute force for each of the 6 walks (+ t for the 4 closest-hit ones),
-    # K4 vs K5 (mask and t), and each any-hit walk vs its closest-hit walk
-    assert len(res["agree"]) == 6 + 4 + 2 + 2
+    # brute force for each of the 8 walks (+ t for the 6 closest-hit ones),
+    # K4 vs K5 (mask and t), each any-hit walk vs its closest-hit walk, and
+    # each of the 7 other walks vs K2 on the coherent rays
+    assert len(res["agree"]) == 8 + 6 + 2 + 2 + 7
     assert all(v >= bench_isect.BAR for v in res["agree"].values()), res["agree"]
     assert out.count("agreement ") == len(res["agree"])
-    assert out.count("not run (CPU)") == 18
+    assert out.count("not run (CPU)") == 24
 
 
 @pytest.mark.parametrize("name,reason", [("bvhx", "pallas_bvhx"), ("gather", "K1"),

@@ -2,8 +2,10 @@
 
 On the CPU the port's walk is its plain twin (`walk_packet_twin`); it is held
 against the JAX package's K5-v2 kernel `_walk_kernel2` run unchanged in
-Pallas interpret mode (intersect_bvh_pallas, V2 = True), on a pack built by
-the JAX package's build_bvh_pack; both packages use the numpy BVH builder.
+Pallas interpret mode (intersect_bvh_pallas, V2 = True), and in its v1 mode
+(prune=False) against `_walk_kernel` (intersect_bvh_pallas with V2
+monkeypatched to False in the test only), on a pack built by the JAX
+package's build_bvh_pack; both packages use the numpy BVH builder.
 Bars: prim agrees on >= 99.9% of rays (expected 100%: the lockstep tile and
 the per-ray walk differ only where rounding puts a hit on a box boundary),
 t within rtol 1e-5 plus atol 1e-6 and u / v within atol 1e-5 where it
@@ -84,6 +86,33 @@ def test_twin_matches_pallas_k5(case):
     assert 0.2 < (pt >= 0).mean() < 0.9  # both outcomes occur
 
 
+def test_twin_v1_matches_pallas_k5_v1(case, monkeypatch):
+    """K5-v1 (no best-t pruning in the box tests): the same closest hit, by
+    more leaf visits."""
+    from jax.experimental.pallas import tpu as pltpu
+    from tungsten_tpu.ops import pallas_bvh
+
+    monkeypatch.setattr(pallas_bvh, "V2", False)  # intersect_bvh_pallas runs _walk_kernel
+    monkeypatch.setattr(bvh, "V2", False)  # and intersect_bvh its v1 mode
+    rays = case["rays"]
+    with pltpu.force_tpu_interpret_mode():
+        hk = pallas_bvh.intersect_bvh_pallas(case["jpack"], *(jnp.asarray(a) for a in rays))
+    v1_0 = bvh.walk_packet_twin.launches["v1"]
+    ht = bvh.intersect_bvh(case["pack"], *_t(rays))
+    assert bvh.walk_packet_twin.launches["v1"] == v1_0 + 1
+    leaves_v1 = bvh.walk_packet_twin.work["tri"]
+    pk, pt = np.asarray(hk.prim), ht.prim.numpy()
+    _agree_closest(pt, ht.t.numpy(), pk, np.asarray(hk.t), "vs _walk_kernel")
+    same = pk == pt
+    np.testing.assert_allclose(ht.u.numpy()[same], np.asarray(hk.u)[same], rtol=0, atol=UV_ATOL)
+    np.testing.assert_allclose(ht.v.numpy()[same], np.asarray(hk.v)[same], rtol=0, atol=UV_ATOL)
+    # the same hits as v2, with at least as many leaf slots tested
+    monkeypatch.setattr(bvh, "V2", True)
+    h2 = bvh.intersect_bvh(case["pack"], *_t(rays))
+    np.testing.assert_array_equal(h2.prim.numpy(), pt)
+    assert leaves_v1 >= bvh.walk_packet_twin.work["tri"] > 0
+
+
 def test_twin_matches_brute_force(case):
     rays = _t(case["rays"])
     ht = bvh.intersect_bvh(case["pack"], *rays)
@@ -109,11 +138,14 @@ def test_padding_slots_never_win(case):
 
 def test_walk_packet_dispatches_by_device(case):
     pack, rays = case["pack"], _t(case["rays"])
-    k0, t0 = bvh.walk_packet_cuda.launches, bvh.walk_packet_twin.launches
+    k0, t0 = dict(bvh.walk_packet_cuda.launches), dict(bvh.walk_packet_twin.launches)
     bvh.walk_packet(pack, *rays)
-    assert bvh.walk_packet_twin.launches == t0 + 1 and bvh.walk_packet_cuda.launches == k0
-    with pytest.raises(ValueError):
-        bvh.walk_packet_cuda(pack, *rays)
+    bvh.walk_packet(pack, *rays, prune=False)
+    assert bvh.walk_packet_twin.launches == {"v1": t0["v1"] + 1, "v2": t0["v2"] + 1}
+    assert bvh.walk_packet_cuda.launches == k0
+    for prune in (True, False):
+        with pytest.raises(ValueError):
+            bvh.walk_packet_cuda(pack, *rays, prune=prune)
 
 
 def test_from_arrays_checks_the_node_table(case):

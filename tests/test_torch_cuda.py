@@ -7,19 +7,22 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K4 (bvh2_walk.cu: ordered,
-skip, any) and K5 (bvh_walk.cu). Bars: local slot (prim) agrees on >= 99.9%
+skip, any), K5 (bvh_walk.cu: v2 and v1) and K2 (intersect_stream.cu).
+Bars: local slot (prim) agrees on >= 99.9%
 of rays. Where it agrees, t is within rtol 1e-5 plus 1e-6 absolute on
 >= 99.9% of hits and within rtol 1e-3 on all: the plane form's numerator
 cancels to the point-plane distance, so its rounding error is absolute
 (~eps * |o|) and grows as 1 / |cos| on grazing hits, and the kernel fuses
-multiply-adds where the twin does not. K5's u and v are within 1e-5 on
->= 99.9% and within 1e-3 on all (Moller-Trumbore's u cancels in tv . p).
+multiply-adds where the twin does not. K5's and K2's u and v are within
+1e-5 on >= 99.9% and within 1e-3 on all (Moller-Trumbore's u cancels in
+tv . p). K5 and K2 round each operation as their twins do, so they are
+expected to agree bit for bit; the bars leave the room the other walks need.
 """
 import numpy as np
 import pytest
 import torch
 
-from tungsten_tpu_torch.ops import bvh, bvh2, bvh8
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
 
 BAR = 0.999
 
@@ -42,7 +45,9 @@ def _case(dev, n_tris=3000, n_rays=20000, seed=7):
     packs = {"bvh8": pack8,
              "bvh3": bvh2.Bvh3Pack.from_arrays(bvh2.build_bvh_pack3(tree), pack8),
              "bvh": bvh.BvhPack.from_arrays(bvh.build_bvh_pack(v0, e1, e2, tree),
-                                            len(tree.count), dev)}
+                                            len(tree.count), dev),
+             "tri": intersect_stream.TriPack.from_arrays(
+                 intersect_stream.build_tri_pack(v0, e1, e2), dev)}
     o = rng.uniform(-3.0, 3.0, (n_rays, 3))
     d = rng.normal(size=(n_rays, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -86,22 +91,27 @@ def test_walk_routes_cuda_tensors_to_the_kernel(cuda):
 
 
 def _k4_k5(packs, walk):
-    """(pack, kernel walk, twin walk) of K4 in one mode, or of K5."""
-    if walk == "packet":
-        return packs["bvh"], bvh.walk_packet_cuda, bvh.walk_packet_twin
+    """(pack, kernel walk, twin walk, launch count) of K4 in one mode, of K5
+    (v2: "packet", v1: "packet_v1") or of K2 ("stream")."""
+    if walk == "stream":
+        return (packs["tri"], intersect_stream.stream_cuda, intersect_stream.stream_twin,
+                lambda: intersect_stream.stream_cuda.launches)
+    if walk.startswith("packet"):
+        prune = walk == "packet"
+        kernel = lambda *a: bvh.walk_packet_cuda(*a, prune=prune)  # noqa: E731
+        twin = lambda *a: bvh.walk_packet_twin(*a, prune=prune)  # noqa: E731
+        return (packs["bvh"], kernel, twin,
+                lambda: bvh.walk_packet_cuda.launches["v2" if prune else "v1"])
     kernel = lambda *a: bvh2.walk3_cuda(*a, mode=walk)  # noqa: E731
     twin = lambda *a: bvh2.walk3_twin(*a, mode=walk)  # noqa: E731
-    return packs["bvh3"], kernel, twin
+    return packs["bvh3"], kernel, twin, lambda: bvh2.walk3_cuda.launches[walk]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", ["ordered", "skip", "any", "packet"])
+@pytest.mark.parametrize("walk", ["ordered", "skip", "any", "packet", "packet_v1", "stream"])
 def test_k4_k5_kernels_match_twins(cuda, walk):
     packs, (o, d, tn, tf) = _case(cuda)
-    pack, kernel, twin = _k4_k5(packs, walk)
-    def count():
-        return bvh.walk_packet_cuda.launches if walk == "packet" else bvh2.walk3_cuda.launches[walk]
-
+    pack, kernel, twin, count = _k4_k5(packs, walk)
     k0 = count()
     out_k = kernel(pack, o, d, tn, tf)
     torch.cuda.synchronize()
@@ -115,7 +125,7 @@ def test_k4_k5_kernels_match_twins(cuda, walk):
     tk_h, tt_h = tk.cpu().numpy()[hit], tt.cpu().numpy()[hit]
     assert np.isclose(tk_h, tt_h, rtol=1e-5, atol=1e-6).mean() >= BAR
     np.testing.assert_allclose(tk_h, tt_h, rtol=1e-3)
-    for a, b in zip(out_k[2:], out_t[2:]):  # K5's u and v
+    for a, b in zip(out_k[2:], out_t[2:]):  # K5's and K2's u and v
         a, b = a.cpu().numpy()[hit], b.cpu().numpy()[hit]
         assert np.isclose(a, b, rtol=0, atol=1e-5).mean() >= BAR
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
@@ -128,10 +138,14 @@ def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
     packs, rays = _case(cuda, n_rays=512)
     def counts():
         return (*bvh2.walk3_cuda.launches.values(), sum(bvh2.walk3_twin.launches.values()),
-                bvh.walk_packet_cuda.launches, bvh.walk_packet_twin.launches)
+                *bvh.walk_packet_cuda.launches.values(),
+                sum(bvh.walk_packet_twin.launches.values()),
+                intersect_stream.stream_cuda.launches, intersect_stream.stream_twin.launches)
 
     before = counts()
     for mode in bvh2.MODES:
         bvh2.walk3(packs["bvh3"], *rays, mode)
     bvh.walk_packet(packs["bvh"], *rays)
-    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 0]
+    bvh.walk_packet(packs["bvh"], *rays, prune=False)
+    intersect_stream.stream(packs["tri"], *rays)
+    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 1, 0, 1, 0]

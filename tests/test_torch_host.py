@@ -3,11 +3,10 @@
 The port's own flatten_scene(load_scene(p)) must equal the JAX package's
 FlatScene carried across with from_arrays: integer tables exactly, float
 tables at rtol 1e-6 (they come out of the same numpy code, so in practice
-bit for bit), the BVH packs (pbvh8, pbvh3, pbvh) exactly, and the static
-facts equal.
+bit for bit), the intersector packs (pbvh8, pbvh3, pbvh, ptris) and the
+analytic table exactly, and the static facts equal.
 """
 import dataclasses
-import functools
 import json
 import os
 import subprocess
@@ -31,6 +30,20 @@ def numpy_bvh(monkeypatch, tmp_path):
     monkeypatch.setattr(jbvh, "_CACHE_DIR", str(tmp_path / "bvh_cache"))
 
 
+def jax_arrays(js):
+    """The JAX FlatScene's arrays under the port's ARRAY_KEYS, None where a
+    pack on the way is None (a pack the JAX flatten left out)."""
+    from tungsten_tpu_torch.scene.flatten import ARRAY_KEYS
+
+    out = {}
+    for k in ARRAY_KEYS:
+        v = js
+        for part in k.split("."):
+            v = None if v is None else getattr(v, part)
+        out[k] = None if v is None else np.asarray(v)
+    return out
+
+
 def _tensors(scene):
     """Every table of a port FlatScene by name."""
     out = {
@@ -50,23 +63,32 @@ def _tensors(scene):
         out[f"pbvh3.{k}"] = getattr(scene.pbvh3, k)
     for k in ("nodes", "tris", "prim_map", "box_t", "ni_t", "tri_t"):
         out[f"pbvh.{k}"] = getattr(scene.pbvh, k)
+    for k in ("tris_t", "clusters", "tri_c"):
+        out[f"ptris.{k}"] = getattr(scene.ptris, k)
+    if scene.ana is not None:
+        for k in dataclasses.fields(scene.ana):
+            out[f"ana.{k.name}"] = getattr(scene.ana, k.name)
     return out
 
 
-def test_flatten_matches_jax_flatscene(numpy_bvh, tmp_path):
+def _flatten_both(tmp_path, size):
+    """(port scene, JAX scene carried across, JAX scene) of a synth size."""
     from tungsten_tpu.scene.flatten import flatten_scene as jflatten
     from tungsten_tpu.scene.load import load_scene as jload
     from tungsten_tpu_torch import synth
-    from tungsten_tpu_torch.scene.flatten import ARRAY_KEYS, SceneMeta, flatten_scene, from_arrays
+    from tungsten_tpu_torch.scene.flatten import flatten_scene, from_arrays
     from tungsten_tpu_torch.scene.load import load_scene
 
-    path = synth.write_scene(str(tmp_path / "small"), "small")
+    path = synth.write_scene(str(tmp_path / size), size)
     cpu = torch.device("cpu")
-    mine = flatten_scene(load_scene(path), cpu)
     js = jflatten(jload(path))
-    arrays = {k: None if (v := functools.reduce(getattr, k.split("."), js)) is None
-              else np.asarray(v) for k in ARRAY_KEYS}
-    theirs = from_arrays(arrays, js.meta, cpu)
+    return flatten_scene(load_scene(path), cpu), from_arrays(jax_arrays(js), js.meta, cpu), js
+
+
+def test_flatten_matches_jax_flatscene(numpy_bvh, tmp_path):
+    from tungsten_tpu_torch.scene.flatten import SceneMeta
+
+    mine, theirs, js = _flatten_both(tmp_path, "small")
 
     a, b = _tensors(mine), _tensors(theirs)
     for k in a:
@@ -90,6 +112,80 @@ def test_flatten_matches_jax_flatscene(numpy_bvh, tmp_path):
         assert s.pbvh3.prim_map is s.pbvh8.prim_map and s.pbvh3.tri_planes is s.pbvh8.tri_planes
     for f in dataclasses.fields(SceneMeta):
         assert getattr(mine.meta, f.name) == getattr(js.meta, f.name), f.name
+    assert mine.ana is None and theirs.ana is None and js.ana is None
+    assert mine.pbvh.n_nodes == js.pbvh.n_nodes and mine.ptris.n_tris == js.ptris.n_tris
+
+
+def test_flatten_matches_jax_flatscene_analytic(numpy_bvh, tmp_path):
+    """small-analytic: the analytic table, the virtual shading rows (one per
+    analytic prim, after the triangles) and meta.has_analytic."""
+    from tungsten_tpu_torch.scene.flatten import SceneMeta
+
+    mine, theirs, js = _flatten_both(tmp_path, "small-analytic")
+    a, b = _tensors(mine), _tensors(theirs)
+    assert a.keys() == b.keys() and "ana.inv_rot" in a
+    for k in a:
+        x, y = a[k].numpy(), b[k].numpy()
+        assert x.shape == y.shape and x.dtype == y.dtype, k
+        if k.startswith(("pbvh", "ptris", "ana")) or not np.issubdtype(x.dtype, np.floating):
+            np.testing.assert_array_equal(x, y, err_msg=k)
+        else:
+            np.testing.assert_allclose(x, y, rtol=1e-6, atol=0, err_msg=k)
+    n_tris, n_ana = mine.tris.v0.shape[0], mine.ana.n
+    assert n_ana == 3 and mine.shade_pack.shape[0] == n_tris + n_ana
+    rows = mine.shade_pack[n_tris:].numpy()
+    assert (rows[:, :18] == 0).all() and (rows[:, 19] == -1).all()
+    np.testing.assert_array_equal(rows[:, 18], [3, 2, 4])  # accent, inner, chrome
+    for f in dataclasses.fields(SceneMeta):
+        assert getattr(mine.meta, f.name) == getattr(js.meta, f.name), f.name
+    assert mine.meta.has_analytic
+
+
+def test_from_arrays_takes_each_pack_all_or_none(numpy_bvh, tmp_path):
+    """A JAX scene whose VMEM gates dropped pbvh8 / pbvh3 / pbvh carries
+    across without them; a pack given in part, or pbvh3 without the pbvh8
+    whose leaves it shares, is refused."""
+    from tungsten_tpu.scene.flatten import flatten_scene as jflatten
+    from tungsten_tpu.scene.load import load_scene as jload
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.scene.flatten import from_arrays
+
+    path = synth.write_scene(str(tmp_path / "s"), "small-analytic")
+    js = jflatten(jload(path))
+    arrays = jax_arrays(js)
+    cpu = torch.device("cpu")
+
+    def drop(*groups):
+        return {k: v for k, v in arrays.items() if k.split(".")[0] not in groups}
+
+    s = from_arrays(drop("pbvh8", "pbvh3"), js.meta, cpu)
+    assert s.pbvh8 is None and s.pbvh3 is None and s.pbvh is not None and s.ana is not None
+    s = from_arrays({**drop("pbvh8", "pbvh3", "pbvh"), "pbvh.nodes": None}, js.meta, cpu)
+    assert s.pbvh is None and s.ptris.n_tris == js.ptris.n_tris
+    with pytest.raises(KeyError, match="pbvh8"):
+        from_arrays({**arrays, "pbvh8.kid": None}, js.meta, cpu)
+    with pytest.raises(KeyError, match="ptris"):
+        from_arrays(drop("ptris"), js.meta, cpu)
+    with pytest.raises(ValueError, match="pbvh3"):
+        from_arrays(drop("pbvh8"), js.meta, cpu)
+
+
+def test_all_analytic_scene_flattens(tmp_path):
+    """With no triangles at all, one degenerate far-away triangle keeps the
+    tables and packs well formed (flatten.py:526-540); it is never hit."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    path = synth.write_scene(str(tmp_path), "small-analytic")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["primitives"] = [p for p in doc["primitives"] if p["type"] not in ("quad", "mesh", "cube")]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    scene = flatten_scene(load_scene(path), torch.device("cpu"))
+    assert scene.tris.v0.shape[0] == 1 and scene.ana.n == 3
+    assert scene.shade_pack.shape[0] == 4 and scene.meta.has_analytic
 
 
 def test_bvh_build_matches_jax(rng):
@@ -140,8 +236,8 @@ def test_device_helper():
 
 def _edit_small(doc, what):
     prims, bsdfs = doc["primitives"], doc["bsdfs"]
-    if what == "analytic sphere":
-        prims.append({"type": "sphere", "bsdf": "inner"})
+    if what == "analytic sphere":  # an emissive one: analytic area lights wait
+        prims.append({"type": "sphere", "bsdf": "inner", "emission": 5.0})
     elif what == "area light":
         prims[2]["emission"] = 5.0
     elif what == "media":

@@ -10,7 +10,6 @@ function itself amplifies a one-ulp difference: a bilinear lookup on the
 sky's steep sun texels, sqrt(1 - cos^2) near the pole of a microfacet
 sample, 1 / (wi . m) for grazing half vectors.
 """
-import functools
 
 import numpy as np
 import pytest
@@ -29,7 +28,8 @@ def scenes(tmp_path_factory):
     from tungsten_tpu.scene.flatten import flatten_scene as jflatten
     from tungsten_tpu.scene.load import load_scene as jload
     from tungsten_tpu_torch import synth
-    from tungsten_tpu_torch.scene.flatten import ARRAY_KEYS, from_arrays
+    from tungsten_tpu_torch.scene.flatten import from_arrays
+    from test_torch_host import jax_arrays
 
     mp = pytest.MonkeyPatch()
     # the numpy BVH build on both sides, and no stale JAX disk cache
@@ -38,9 +38,7 @@ def scenes(tmp_path_factory):
     mp.setattr(jbvh, "_CACHE_DIR", str(tmp_path_factory.mktemp("bvh_cache")))
     path = synth.write_scene(str(tmp_path_factory.mktemp("small")), "small")
     js = jflatten(jload(path))
-    arrays = {k: None if (v := functools.reduce(getattr, k.split("."), js)) is None
-              else np.asarray(v) for k in ARRAY_KEYS}
-    ts = from_arrays(arrays, js.meta, torch.device("cpu"))
+    ts = from_arrays(jax_arrays(js), js.meta, torch.device("cpu"))
     yield js, ts
     mp.undo()
 

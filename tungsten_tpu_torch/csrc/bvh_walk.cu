@@ -1,13 +1,18 @@
 // Skip-BVH walk with Moller-Trumbore leaves for Hopper (sm_90a): one thread
-// per ray, stackless, per-ray closest-hit pruning.
+// per ray, stackless, in two modes.
 //
-// Replaces the TPU kernel K5-v2: `_walk_kernel2` in tungsten_tpu/ops/pallas_bvh.py
-// (launched by `_launch2`; API intersect_bvh_pallas with V2 = True). It
-// computes what K5-v2 computes, not block by block:
+// Replaces both versions of the TPU kernel K5 in tungsten_tpu/ops/pallas_bvh.py
+// (API intersect_bvh_pallas, which picks by its module constant V2):
+//   * prune = 1: K5-v2, `_walk_kernel2` (launched by `_launch2`), whose box
+//     tests use the ray's best hit so far: lim = min(tfar, best);
+//   * prune = 0: K5-v1, `_walk_kernel` (launched by `_launch`), whose box
+//     tests use the ray's own tfar (`_walk_kernel`:103-105) while its leaf
+//     test still uses min(tfar, best) (:148).
+// It computes what K5 computes, not block by block:
 //   * walk: a hit inner node goes to ptr + 1, a leaf or a miss to skip[ptr],
-//     until ptr >= M; boxes are tested against lim = min(tfar, best) with
-//     `_box_test`'s rule, inv = 1 / (d == 0 ? 1e-30 : d) (fminf / fmaxf, as
-//     the twin's torch.fmin / fmax);
+//     until ptr >= M; boxes are tested with `_box_test`'s rule against the
+//     mode's lim, inv = 1 / (d == 0 ? 1e-30 : d) (fminf / fmaxf, as the
+//     twin's torch.fmin / fmax);
 //   * leaf: the 128 slots in Moller-Trumbore form with `ray_tri`'s accept
 //     rule: |det| > 1e-12, u >= 0, v >= 0, u + v <= 1, t > tnear,
 //     t < min(tfar, best); the lowest slot wins a tie inside a leaf, and
@@ -29,7 +34,8 @@
 // Dead lanes (tnear >= tfar) do no work and report a miss.
 //
 // What bounds it on the H100: divergent dependent loads, as in the other
-// walks, and here the leaf above all. A leaf visit reads 128 x 9 floats
+// walks, and here the leaf above all; without pruning (v1) a ray opens every
+// leaf its segment crosses, so v1 reads more leaves than v2. A leaf visit reads 128 x 9 floats
 // (4.5 KB) per thread, and Moller-Trumbore, unfused here, costs about twice
 // the plane form's arithmetic (bvh2_walk.cu). The pack of an 80k-triangle
 // scene (~4 MB of triangles) sits in L2. Each ray stops descending behind its
@@ -61,7 +67,7 @@ __global__ void bvh_walk_kernel(
     const float4* __restrict__ box,  // (m, 2) float4: [min3 maxx | maxy maxz 0 0]
     const int4* __restrict__ ni,     // (m,) [leaf_blk, count, skip, 0]
     const float* __restrict__ tris,  // (n_leaves, kLeaf, 9): v0, e1, e2
-    int m_nodes, int n,
+    int m_nodes, int n, int prune,
     float* __restrict__ out_t, int* __restrict__ out_local,
     float* __restrict__ out_u, float* __restrict__ out_v) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,7 +85,8 @@ __global__ void bvh_walk_kernel(
     int ptr = 0;
     while (ptr < m_nodes) {
       const int4 nd = __ldg(ni + ptr);
-      const float lim = fminf(tfar, best);
+      const float lim = fminf(tfar, best);  // the leaf's bound in both modes
+      const float box_lim = prune ? lim : tfar;
       const float4 lo = __ldg(box + 2 * ptr);
       const float4 hi = __ldg(box + 2 * ptr + 1);
       const float t0x = (lo.x - ox) * ix, t1x = (lo.w - ox) * ix;
@@ -87,7 +94,7 @@ __global__ void bvh_walk_kernel(
       const float t0z = (lo.z - oz) * iz, t1z = (hi.y - oz) * iz;
       const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
       const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-      const bool h = (tmin <= tmax) && (tmax > tnear) && (tmin < lim);
+      const bool h = (tmin <= tmax) && (tmax > tnear) && (tmin < box_lim);
       if (h && nd.y > 0) {
         const float* tr = tris + (size_t)nd.x * kLeaf * 9;
         float tb = kInf, ub = 0.0f, vb = 0.0f;
@@ -137,13 +144,13 @@ __global__ void bvh_walk_kernel(
 
 extern "C" int bvh_walk(
     const float* o, const float* d, const float* tnear, const float* tfar,
-    const float* box, const int* ni, const float* tris, int m_nodes, int n,
+    const float* box, const int* ni, const float* tris, int m_nodes, int n, int prune,
     float* out_t, int* out_local, float* out_u, float* out_v, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   bvh_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       o, d, tnear, tfar, reinterpret_cast<const float4*>(box),
-      reinterpret_cast<const int4*>(ni), tris, m_nodes, n, out_t, out_local, out_u, out_v);
+      reinterpret_cast<const int4*>(ni), tris, m_nodes, n, prune, out_t, out_local, out_u, out_v);
   return static_cast<int>(cudaGetLastError());
 }

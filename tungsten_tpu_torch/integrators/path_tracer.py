@@ -2,15 +2,23 @@
 
 Port of `trace_regen_batch` and the helpers it calls from
 tungsten_tpu/integrators/path_tracer.py (lines 67-150, 1100-1232, 1236-1778)
-for the slice's configuration: triangles only, no media, no forward lobes,
-no AOVs, one samplable env light. A fixed-width wavefront of W lanes runs
-the bounce loop; a lane whose path ends respawns a camera path from the
-budget of n_passes * W paths. Per iteration:
+for the slice's configuration: triangles and non-emissive analytic prims,
+no media, no forward lobes, no AOVs, one samplable env light. A
+fixed-width wavefront of W lanes runs the bounce loop; a lane whose path
+ends respawns a camera path from the budget of n_passes * W paths. Per
+iteration:
 
   sampler window prefetch -> shading data -> one material gather + masked
   BSDF dispatch -> env light sample -> continuation + Russian roulette ->
-  regen -> ONE 2N-lane BVH8 walk carrying the shadow rays (latched, any-hit)
-  and the next rays (closest hit) -> one scatter-add into rad_pix.
+  regen -> ONE 2N-lane walk carrying the shadow rays and the next rays ->
+  one scatter-add into rad_pix.
+
+The intersector dispatch is the JAX package's TPU route (`_intersect`,
+`_intersect_tris`, `_intersect_mixed`): analytic prims first, their t
+clipping the triangle walk; then the first pack the scene carries, pbvh8
+(K3), pbvh (K5) or ptris (K2, which every scene has); brute force at 64
+triangles or fewer. The 2N walk latches the shadow lanes (any-hit) on K3
+and is a plain closest-hit walk on the other routes (same booleans).
 
 RNG streams key on the global path id, so the image is a pure function of
 (seed, path id) as in the JAX package. The loop condition is one `.item()`
@@ -25,8 +33,10 @@ from ..models.bsdfs.common import Lobes
 from ..models.bsdfs.dispatch import bsdf_eval, bsdf_pdf, bsdf_sample, gather
 from ..models.cameras.pinhole import camera_rays_w
 from ..models.primitives import lights as L
-from ..ops import bvh8
-from ..ops.intersect import INF, Hit
+from ..models.primitives.analytic import intersect_analytic, normal_at
+from ..ops import bvh, bvh8
+from ..ops.intersect import INF, Hit, intersect_brute
+from ..ops.intersect_stream import intersect_stream
 from ..sampling import warps
 from ..sampling.sampler import MASK32, Sampler, _mul32, stratified_cam_2d
 from ..scene.flatten import DEFAULT_EPSILON, FlatScene
@@ -35,21 +45,59 @@ DIMS_PER_BOUNCE = 24
 SHADOW_FUDGE = 1.0 - 1e-3  # cf. attenuatedEmission's 1+1e-3 (TraceBase.cpp:155)
 
 
+BRUTE_MAX_TRIS = 64  # at or below: brute force, no pack (path_tracer.py:90, :106)
+
+
+def _with_analytic(scene: FlatScene, o, d, tnear, tfar, walk) -> Hit:
+    """Analytic prims first; their t clips the triangle walk `walk(tfar)`,
+    and the nearer hit wins, an analytic one carrying the virtual id
+    n_tris + k and its uv in (u, v) (path_tracer.py:71-83)."""
+    if scene.ana is None:
+        return walk(tfar)
+    ah = intersect_analytic(scene.ana, o, d, tnear, tfar)
+    h = walk(torch.minimum(tfar, ah.t))
+    pick_a = (ah.k >= 0) & (ah.t < h.t)
+    return Hit(t=torch.where(pick_a, ah.t, h.t),
+               prim=torch.where(pick_a, scene.tris.v0.shape[0] + ah.k, h.prim),
+               u=torch.where(pick_a, ah.uv[:, 0], h.u),
+               v=torch.where(pick_a, ah.uv[:, 1], h.v))
+
+
+def _intersect_tris(scene: FlatScene, o, d, tnear, tfar) -> Hit:
+    """Closest hit over the triangles through the first pack the scene
+    carries: pbvh8 (K3), pbvh (K5), else ptris (K2) (path_tracer.py:87-108)."""
+    if scene.tris.v0.shape[0] <= BRUTE_MAX_TRIS:
+        return intersect_brute(scene.tris, o, d, tnear, tfar)
+    if scene.pbvh8 is not None:
+        return bvh8.intersect(scene.pbvh8, scene.tris, o, d, tnear, tfar)
+    if scene.pbvh is not None:
+        return bvh.intersect_bvh(scene.pbvh, o, d, tnear, tfar)
+    return intersect_stream(scene.ptris, o, d, tnear, tfar)
+
+
 def _intersect(scene: FlatScene, o, d, tnear, tfar) -> Hit:
-    """Closest hit over the scene's triangles (the BVH8 walk)."""
-    return bvh8.intersect(scene.pbvh8, scene.tris, o, d, tnear, tfar)
+    """Closest hit over triangles and analytic prims."""
+    return _with_analytic(scene, o, d, tnear, tfar,
+                          lambda far: _intersect_tris(scene, o, d, tnear, far))
 
 
 def _intersect_mixed(scene: FlatScene, o, d, tnear, tfar, latch) -> Hit:
-    """ONE walk for a mixed [any-hit | closest-hit] wavefront: latched lanes
-    stop at their first hit (only prim >= 0 is meaningful)."""
-    return bvh8.intersect_mixed(scene.pbvh8, scene.tris, o, d, tnear, tfar, latch)
+    """ONE walk for a mixed [any-hit | closest-hit] wavefront: on K3 latched
+    lanes stop at their first hit (only prim >= 0 is meaningful); the other
+    routes run closest hit on every lane, which gives the same booleans
+    (path_tracer.py:1171-1198)."""
+    if scene.pbvh8 is None or scene.tris.v0.shape[0] <= BRUTE_MAX_TRIS:
+        return _intersect(scene, o, d, tnear, tfar)
+    return _with_analytic(scene, o, d, tnear, tfar, lambda far: bvh8.intersect_mixed(
+        scene.pbvh8, scene.tris, o, d, tnear, far, latch))
 
 
 def _shading_data(scene: FlatScene, hit: Hit, o, d):
     """Gather surface info for hit lanes (garbage where prim < 0, masked out
-    by the caller): ONE packed row gather per lane. The geometric normal and
-    the light id of the row serve media and area lights, not ported."""
+    by the caller): ONE packed row gather per lane. An analytic hit (virtual
+    id >= T) takes Ns = Ng = normal_at(p) and uv = (hit.u, hit.v)
+    (path_tracer.py:129-137). The geometric normal and the light id of the
+    row serve media and area lights, not ported."""
     tri = torch.clamp(hit.prim, min=0)
     p = o + d * hit.t[..., None]
     u = hit.u[..., None]
@@ -59,6 +107,11 @@ def _shading_data(scene: FlatScene, hit: Hit, o, d):
     ns = vo.normalize(row[..., 3:6] * w0 + row[..., 6:9] * u + row[..., 9:12] * v)
     uv = row[..., 12:14] * w0 + row[..., 14:16] * u + row[..., 16:18] * v
     mat = row[..., 18].to(torch.int64)
+    if scene.ana is not None:
+        n_tris = scene.tris.v0.shape[0]
+        is_a = (hit.prim >= n_tris)[..., None]
+        ns = torch.where(is_a, normal_at(scene.ana, hit.prim - n_tris, p), ns)
+        uv = torch.where(is_a, torch.cat([u, v], -1), uv)
     return p, ns, uv, mat
 
 

@@ -1,5 +1,5 @@
 """Packet-pack skip-BVH with Moller-Trumbore leaves: host pack, the CUDA walk
-(K5) and its twin.
+(K5, both versions) and its twin.
 
 Host half: a numpy copy of `build_bvh_pack` (tungsten_tpu/ops/pallas_bvh.py):
 `nodes` (nblk*16, 128) with node j's fields [min3 | max3 | leaf_blk | count |
@@ -8,15 +8,18 @@ skip] in lane j % 128 of block j // 128, `tris` (n_leaves*16, 128) with
 to 0), bit for bit. The tree is the scene's one binary tree (bvh8.tri_tree,
 128-triangle leaves).
 
-Kernel half: the port of K5-v2, `_walk_kernel2` (launched by `_launch2`,
-API intersect_bvh_pallas with V2 = True), as the CUDA kernel
-csrc/bvh_walk.cu (one thread per ray, stackless skip walk, per-ray best-t
-pruning, 128-slot Moller-Trumbore leaves with `ray_tri`'s accept rule) and
-`walk_packet_twin`, its plain PyTorch version. The kernel reads node-major
-copies made once here: the box row (M, 8) f32 and the integer fields
-(M, 4) i32, converted from their exact f32 values, and the triangles leaf
-major (n_leaves, 128, 9). `walk_packet` picks by device: CUDA launches the
-kernel (or raises), CPU runs the twin; each keeps a plain launch count.
+Kernel half: the port of K5 as the CUDA kernel csrc/bvh_walk.cu (one
+thread per ray, stackless skip walk, 128-slot Moller-Trumbore leaves with
+`ray_tri`'s accept rule) and `walk_packet_twin`, its plain PyTorch version,
+in two modes: prune=True is K5-v2, `_walk_kernel2` (launched by
+`_launch2`), whose box tests use the ray's best hit so far; prune=False is
+K5-v1, `_walk_kernel` (launched by `_launch`), whose box tests use the
+ray's own tfar. `intersect_bvh` picks the mode by the module constant V2,
+as intersect_bvh_pallas does. The kernel reads node-major copies made once
+here: the box row (M, 8) f32 and the integer fields (M, 4) i32, converted
+from their exact f32 values, and the triangles leaf major (n_leaves, 128,
+9). `walk_packet` picks by device: CUDA launches the kernel (or raises),
+CPU runs the twin; each keeps a plain launch count per version.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from .bvh8 import box_hit, check_rays, safe_inv
 from .intersect import INF, Hit
 
 LEAF = 128  # one lane width of triangles per leaf (pallas_bvh.py LEAF)
+V2 = True  # intersect_bvh walks with per-ray best-t pruning (pallas_bvh.py:264)
 _TWIN_LEAF_CHUNK = 8192  # leaf lanes evaluated per twin step (bounds memory)
 
 
@@ -151,10 +155,16 @@ def mt_leaf(T, o, d, tnear, lim):
     return t, u, v, hit
 
 
-def walk_packet_twin(pack: BvhPack, o, d, tnear, tfar):
-    """Plain PyTorch K5 walk with the kernel's per-ray semantics. Returns
-    (t (n,) f32, local slot (n,) i64 (-1 = miss), u (n,), v (n,))."""
-    walk_packet_twin.launches += 1
+def _version(prune: bool) -> str:
+    return "v2" if prune else "v1"
+
+
+def walk_packet_twin(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):
+    """Plain PyTorch K5 walk with the kernel's per-ray semantics (prune: box
+    tests against min(tfar, best), else against tfar). Returns (t (n,) f32,
+    local slot (n,) i64 (-1 = miss), u (n,), v (n,)). `walk_packet_twin.work`
+    records the call's box tests ("box") and leaf slot tests ("tri")."""
+    walk_packet_twin.launches[_version(prune)] += 1
     n = o.shape[0]
     dev = o.device
     m = pack.n_nodes
@@ -165,6 +175,7 @@ def walk_packet_twin(pack: BvhPack, o, d, tnear, tfar):
     bv = torch.zeros((n,), dtype=torch.float32, device=dev)
     ni_t = pack.ni_t.long()
     ptr = torch.where(tnear < tfar, 0, m)  # dead lanes do no work
+    boxes = slots = 0
     while True:
         act = torch.nonzero(ptr < m).squeeze(1)
         if act.numel() == 0:
@@ -173,10 +184,12 @@ def walk_packet_twin(pack: BvhPack, o, d, tnear, tfar):
         nd = ni_t[p]
         is_leaf = nd[:, 1] > 0
         lim = torch.minimum(tfar[act], best[act])
-        hit = box_hit(pack.box_t[p], o[act], inv[act], tnear[act], lim)
+        hit = box_hit(pack.box_t[p], o[act], inv[act], tnear[act], lim if prune else tfar[act])
         ptr[act] = torch.where(hit & ~is_leaf, p + 1, nd[:, 2])
         ev = hit & is_leaf
         lanes_all, blk_all, lim_all = act[ev], nd[ev, 0], lim[ev]
+        boxes += act.numel()
+        slots += lanes_all.numel() * LEAF
         for c0 in range(0, lanes_all.numel(), _TWIN_LEAF_CHUNK):
             lanes = lanes_all[c0:c0 + _TWIN_LEAF_CHUNK]
             blk = blk_all[c0:c0 + _TWIN_LEAF_CHUNK]
@@ -188,20 +201,22 @@ def walk_packet_twin(pack: BvhPack, o, d, tnear, tfar):
             local[lanes] = torch.where(any_h, blk * LEAF + slot, local[lanes])
             bu[lanes] = torch.where(any_h, u.gather(1, slot[:, None])[:, 0], bu[lanes])
             bv[lanes] = torch.where(any_h, v.gather(1, slot[:, None])[:, 0], bv[lanes])
+    walk_packet_twin.work = {"box": boxes, "tri": slots}
     return best, local, bu, bv
 
 
-walk_packet_twin.launches = 0
+walk_packet_twin.launches = {"v1": 0, "v2": 0}
+walk_packet_twin.work = {"box": 0, "tri": 0}
 
 
 def _kernel_fn():
     fn = _build.load_library("bvh_walk").bvh_walk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
     return fn
 
 
-def walk_packet_cuda(pack: BvhPack, o, d, tnear, tfar):
+def walk_packet_cuda(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):
     """Launch the CUDA K5 walk (csrc/bvh_walk.cu) on the current stream.
     Returns (t, local slot (i64, -1 = miss), u, v), as walk_packet_twin."""
     n = o.shape[0]
@@ -213,31 +228,35 @@ def walk_packet_cuda(pack: BvhPack, o, d, tnear, tfar):
     out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
     p = _build.ptr
     err = _kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(pack.box_t), p(pack.ni_t),
-                       p(pack.tri_t), pack.n_nodes, n, p(out[0]), p(out_local), p(out[1]),
-                       p(out[2]), _build.stream_of(o))
+                       p(pack.tri_t), pack.n_nodes, n, int(prune), p(out[0]), p(out_local),
+                       p(out[1]), p(out[2]), _build.stream_of(o))
     if err != 0:
         raise RuntimeError(f"bvh_walk launch failed: CUDA error {err}")
-    walk_packet_cuda.launches += 1
+    walk_packet_cuda.launches[_version(prune)] += 1
     return out[0], out_local.long(), out[1], out[2]
 
 
-walk_packet_cuda.launches = 0
+walk_packet_cuda.launches = {"v1": 0, "v2": 0}
 
 
-def walk_packet(pack: BvhPack, o, d, tnear, tfar):
+def walk_packet(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):
     """K5 walk on the rays' device: CUDA -> the kernel, CPU -> the twin."""
     if o.is_cuda:
-        return walk_packet_cuda(pack, o, d, tnear, tfar)
+        return walk_packet_cuda(pack, o, d, tnear, tfar, prune)
     if o.device.type == "cpu":
-        return walk_packet_twin(pack, o, d, tnear, tfar)
+        return walk_packet_twin(pack, o, d, tnear, tfar, prune)
     raise ValueError(f"no K5 walk for device {o.device}")
 
 
-def intersect_bvh(pack: BvhPack, o, d, tnear, tfar) -> Hit:
-    """Closest hit (intersect_bvh_pallas): prim = scene tri id; t, u and v are
-    the walk's own (not recomputed), t = INF on a miss."""
-    t, local, u, v = walk_packet(pack, o, d, tnear, tfar)
+def hit_from_local(pack: BvhPack, t, local, u, v) -> Hit:
+    """The Hit of a K5 walk's (t, local slot, u, v): slot -> scene tri id
+    through prim_map; t, u and v are the walk's own, t = INF on a miss."""
     prim_map = pack.prim_map
     prim = torch.where(
         local >= 0, prim_map[torch.clamp(local, 0, prim_map.shape[0] - 1)].long(), -1)
     return Hit(t=torch.where(prim >= 0, t, INF), prim=prim, u=u, v=v)
+
+
+def intersect_bvh(pack: BvhPack, o, d, tnear, tfar) -> Hit:
+    """Closest hit (intersect_bvh_pallas): K5-v2 when V2, else K5-v1."""
+    return hit_from_local(pack, *walk_packet(pack, o, d, tnear, tfar, V2))

@@ -160,7 +160,8 @@ def _leaf_update(pack, lanes, blk, o, d, tnear, lim, best, local, first):
 def walk3_twin(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
     """Plain PyTorch K4 walk with the kernel's per-ray semantics.
     Returns (t (n,) f32, local slot (n,) i64; -1 = miss). In "any" mode t is
-    the distance of the first hit found (not the nearest)."""
+    the distance of the first hit found (not the nearest). `walk3_twin.work`
+    records the call's box tests ("box") and leaf slot tests ("tri")."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     walk3_twin.launches[mode] += 1
@@ -173,6 +174,7 @@ def walk3_twin(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
     local = torch.full((n,), -1, dtype=torch.int64, device=dev)
     alive = tnear < tfar  # dead lanes do no work
     box_t, ni_t = pack.box_t, pack.ni_t.long()
+    work = walk3_twin.work = {"box": 0, "tri": 0}
 
     if mode == "ordered":
         pos = d >= 0.0  # the ray's own direction signs pick the near child
@@ -204,6 +206,8 @@ def walk3_twin(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
             nxt = torch.where(both, near, torch.where(hl, left, torch.where(hr, right, -1)))
             # a leaf is evaluated when its own box is hit (hitS, :286)
             ev = is_leaf & box_hit(box_t[p], oa, ia, tn, lim)
+            work["box"] += act.numel() + int((~is_leaf).sum())  # two children, or the leaf
+            work["tri"] += int(ev.sum()) * pack.leaf
             _leaf_update(pack, act[ev], nd[ev, 0], o, d, tnear, lim[ev], best, local, False)
             pop = (nxt < 0) & (sp_a > 0)
             top = torch.clamp(sp_a - 1, min=0)
@@ -225,6 +229,8 @@ def walk3_twin(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
         hit = box_hit(box_t[p], o[act], inv[act], tnear[act], lim)
         ptr[act] = torch.where(hit & ~is_leaf, p + 1, nd[:, 2])
         ev = hit & is_leaf
+        work["box"] += act.numel()
+        work["tri"] += int(ev.sum()) * pack.leaf
         found = _leaf_update(pack, act[ev], nd[ev, 0], o, d, tnear, lim[ev], best, local,
                              any_hit)
         if any_hit:
@@ -233,6 +239,7 @@ def walk3_twin(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
 
 
 walk3_twin.launches = dict.fromkeys(MODES, 0)
+walk3_twin.work = {"box": 0, "tri": 0}
 
 
 def _kernel_fn():

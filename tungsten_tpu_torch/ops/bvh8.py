@@ -273,7 +273,8 @@ def _latch_mode(latch):
 
 def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     """Plain PyTorch BVH8 walk with the kernel's exact per-ray semantics.
-    Returns (t (n,) f32, local slot (n,) i64; -1 = miss)."""
+    Returns (t (n,) f32, local slot (n,) i64; -1 = miss). `walk_twin.work`
+    records the call's child-box tests ("box") and leaf slot tests ("tri")."""
     walk_twin.launches += 1
     n = o.shape[0]
     dev = o.device
@@ -294,6 +295,7 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     sp = (tnear < tfar).long()  # dead lanes start with an empty stack
     push_k = torch.arange(7, -1, -1, device=dev) * 3  # slot k = 7 pushed first
     L = pack.leaf
+    boxes = slots = 0
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
         if act.numel() == 0:
@@ -321,6 +323,8 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
 
         la = act[~is_inner]
         blk_all = -(v[~is_inner] + 2)
+        boxes += ia.numel() * 8
+        slots += la.numel() * L
         for c0 in range(0, la.numel(), _TWIN_LEAF_CHUNK):
             lanes = la[c0:c0 + _TWIN_LEAF_CHUNK]
             blk = blk_all[c0:c0 + _TWIN_LEAF_CHUNK]
@@ -338,10 +342,12 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
                 take_latch, blk * L + first,
                 torch.where(take_best, blk * L + slot, local[lanes]))
             sp[lanes] = torch.where(take_latch, 0, sp[lanes])
+    walk_twin.work = {"box": boxes, "tri": slots}
     return best, local
 
 
 walk_twin.launches = 0
+walk_twin.work = {"box": 0, "tri": 0}
 
 
 def check_rays(o, d, tnear, tfar):

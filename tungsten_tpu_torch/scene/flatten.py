@@ -3,24 +3,34 @@
 Port of the slice subset of tungsten_tpu/scene/flatten.py. The host build
 (`flatten_arrays`) is the same numpy code as the JAX package's, so it yields
 the same tables: the triangle SoA in BVH leaf order, the packed shading rows
-(`shade_pack`), the packed material rows (`gpack2`), the texture table, the
-env light with its alias-table Distribution2D, the pinhole camera, the
-static SceneMeta and three BVH packs built from one binary tree with
-128-triangle leaves: the BVH8 pack (`pbvh8`, K3, which the render walks),
-the binary pack (`pbvh3`, K4; it shares pbvh8's plane slabs) and the packet
-pack (`pbvh`, K5), which the intersector benchmark walks (python -m
-tungsten_tpu_torch.tools.bench_isect). The JAX package builds them only
-under its TPU VMEM gates (13 MB and 10 MB); the port always builds them.
+(`shade_pack`, with one virtual row per analytic prim after the T
+triangles), the packed material rows (`gpack2`), the texture table, the env
+light with its alias-table Distribution2D, the pinhole camera, the static
+SceneMeta, the analytic prim table (`ana`, None without analytic prims)
+and the intersector packs the render's dispatch falls through
+(integrators/path_tracer.py `_intersect_tris`):
+  pbvh8  the BVH8 pack (K3);
+  pbvh3  the binary pack (K4; it shares pbvh8's plane slabs);
+  pbvh   the packet pack (K5);
+  ptris  the streaming brute-force pack (K2), always present.
+The three BVH packs come from one binary tree with 128-triangle leaves. The
+JAX package builds them only under its TPU VMEM gates (13 MB for pbvh8 and
+pbvh3, 10 MB for pbvh, none at 64 triangles or fewer) and leaves them None
+otherwise; the port's own flatten always builds them, and a FlatScene
+without them (the JAX package's, or `dataclasses.replace(scene, pbvh8=None,
+...)`) renders through the next pack of the fall-through.
 
 `from_arrays(arrays, meta, device)` is the one constructor of FlatScene. It
 takes the arrays under the JAX FlatScene's own attribute paths (ARRAY_KEYS),
 so the JAX package's flattened scene can be carried across as numpy arrays
-and both packages render the very same tables.
+and both packages render the very same tables. Each BVH pack and the
+analytic table is taken all-or-none (OPTIONAL).
 
-The slice supports mesh / quad / cube geometry, lambert and rough_conductor
-materials, constant / checker / bitmap textures, one samplable
-infinite_sphere as the only light and a pinhole camera. Everything else
-raises NotImplementedError naming the missing piece.
+The slice supports mesh / quad / cube geometry, non-emissive analytic
+sphere / disk / cylinder prims, lambert and rough_conductor materials,
+constant / checker / bitmap textures, one samplable infinite_sphere as the
+only light and a pinhole camera. Everything else raises
+NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
@@ -34,30 +44,37 @@ from ..accel.bvh import build_bvh_best
 from ..io.meshio import compute_smooth_normals, load_mesh
 from ..math import transform as tf
 from ..models.bsdfs.dispatch import MaterialTable, pack_materials
-from ..models.primitives import tessellate
+from ..models.primitives import analytic, tessellate
 from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
 from ..ops.bvh import BvhPack, build_bvh_pack
 from ..ops.bvh2 import Bvh3Pack, build_bvh_pack3
 from ..ops.bvh8 import Bvh8Pack, build_bvh_pack8, tri_tree
 from ..ops.intersect import TriangleSoA
+from ..ops.intersect_stream import TriPack, build_tri_pack
 from ..sampling.distributions import Distribution2D
 from .load import SceneDocument
 
 DEFAULT_EPSILON = 5e-4  # TraceableScene.hpp:39
 
 # numpy arrays a FlatScene is made from, under the JAX FlatScene's attribute
-# paths (functools.reduce(getattr, key.split("."), jax_scene) reads one)
+# paths (getattr along key.split("."); a pack the JAX flatten left out is None)
 ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
     "materials.gpack2", "textures.tpack", "textures.data", "textures.data4",
     "env.rot", "env.inv_rot", "env.tex",
     "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
     "camera.rot", "camera.pos", "camera.plane_dist",
+    "ptris.tris_t", "ptris.clusters", "ptris.n_tris",
     "pbvh8.boxes", "pbvh8.kid", "pbvh8.order", "pbvh8.planes", "pbvh8.prim_map",
-    "pbvh3.nf", "pbvh3.ni", "pbvh.nodes", "pbvh.tris", "pbvh.prim_map",
+    "pbvh3.nf", "pbvh3.ni", "pbvh.nodes", "pbvh.tris", "pbvh.prim_map", "pbvh.n_nodes",
+    *(f"ana.{k}" for k, _ in analytic.FIELDS),
 )
+# groups of ARRAY_KEYS taken all-or-none: None (or absent) where the JAX
+# flatten left the pack out, or the scene has no analytic prims
+OPTIONAL = ("pbvh8", "pbvh3", "pbvh", "ana")
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
+ANALYTIC = ("sphere", "disk", "cylinder")  # flatten.py's analytic branch
 
 
 @dataclass
@@ -132,9 +149,11 @@ class FlatScene:
     textures: TextureTable
     env: EnvLight
     camera: CameraParams
-    pbvh8: Bvh8Pack
-    pbvh3: Bvh3Pack
-    pbvh: BvhPack
+    ptris: TriPack
+    pbvh8: Bvh8Pack | None
+    pbvh3: Bvh3Pack | None
+    pbvh: BvhPack | None
+    ana: analytic.AnalyticTable | None
     meta: SceneMeta
 
 
@@ -157,10 +176,11 @@ def _check_slice(doc: SceneDocument):
                     raise NotImplementedError("an unsampled infinite_sphere is not ported")
                 n_env += 1
             continue
-        if ptype not in ("mesh", "quad", "cube"):
+        if ptype not in ("mesh", "quad", "cube") + ANALYTIC:
             raise NotImplementedError(f"primitive type '{ptype}' is not ported")
         if "emission" in prim or "power" in prim:
-            raise NotImplementedError("area lights (emissive primitives) are not ported")
+            raise NotImplementedError(
+                "area lights (emissive primitives, analytic ones included) are not ported")
     if n_env != 1:
         raise NotImplementedError(
             f"the port needs exactly one infinite_sphere light, the scene has {n_env}")
@@ -183,9 +203,10 @@ def flatten_arrays(doc: SceneDocument):
     _check_slice(doc)
     tex_builder = TextureBuilder()
 
-    # ---- geometry (flatten.py primitive loop, tessellated types only) ----
+    # ---- geometry (flatten.py primitive loop: tessellated and analytic) ----
     pos_l, n_l, uv_l, idx_l, mat_l = [], [], [], [], []
     env_specs = []
+    ana_entries = []  # analytic prims in primitive order (virtual ids T + k)
     vert_base = 0
     for pi, prim in enumerate(doc.primitives):
         ptype = prim.get("type", "mesh")
@@ -193,6 +214,11 @@ def flatten_arrays(doc: SceneDocument):
         if ptype == "infinite_sphere":
             if "emission" in prim or "power" in prim:
                 env_specs.append((prim, m))
+            continue
+        if ptype in ANALYTIC:
+            entry = analytic.extract_params(ptype, m, prim)
+            entry["_mat"] = prim["_bsdf_index"]
+            ana_entries.append(entry)
             continue
         if ptype == "mesh":
             mesh = load_mesh(doc.resolve_path(prim["file"]))
@@ -217,7 +243,15 @@ def flatten_arrays(doc: SceneDocument):
         mat_l.append(np.full(len(soup.indices), prim["_bsdf_index"], np.int32))
         vert_base += len(wpos)
     if not idx_l:
-        raise ValueError("scene has no finite geometry")
+        if not ana_entries:
+            raise ValueError("scene has no finite geometry")
+        # all-analytic scene: one degenerate far-away triangle keeps the
+        # triangle tables and packs well-formed (never hit)
+        pos_l.append(np.full((3, 3), 2.0e37, np.float32))
+        n_l.append(None)
+        uv_l.append(np.zeros((3, 2), np.float32))
+        idx_l.append(np.arange(3, dtype=np.int32)[None, :])
+        mat_l.append(np.zeros(1, np.int32))
 
     all_pos = np.concatenate(pos_l)
     all_uv = np.concatenate(uv_l)
@@ -287,16 +321,30 @@ def flatten_arrays(doc: SceneDocument):
     fov = float(cam.get("fov", 60.0))
     plane_dist = 1.0 / np.tan(np.deg2rad(fov) * 0.5)
 
-    shade_pack = np.concatenate(
-        [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
-         np.full((len(tri_mat), 1), -1.0, np.float32)], axis=1).astype(np.float32)
     e1, e2 = p1 - p0, p2 - p0
     tree = tri_tree(p0, e1, e2, leaf_size=128)
     packs = {
+        **{f"ptris.{k}": v for k, v in build_tri_pack(p0, e1, e2).items()},
         **{f"pbvh8.{k}": v for k, v in build_bvh_pack8(p0, e1, e2, tree, 128).items()},
         **{f"pbvh3.{k}": v for k, v in build_bvh_pack3(tree).items()},
         **{f"pbvh.{k}": v for k, v in build_bvh_pack(p0, e1, e2, tree).items()},
+        "pbvh.n_nodes": len(tree.count),
     }
+
+    # ---- analytic prim table + virtual-id rows (flatten.py:922-946): the
+    # shading rows grow by one row per analytic prim (its material, no
+    # light, zero geometry that the integrator overrides at the hit) ----
+    ana = analytic.build_table(ana_entries)
+    if ana is not None:
+        tri_mat = np.concatenate([tri_mat, np.array([e["_mat"] for e in ana_entries], np.int32)])
+        z3 = np.zeros((len(ana_entries), 3), np.float32)
+        z2 = np.zeros((len(ana_entries), 2), np.float32)
+        tri_ng, n0, n1, n2 = (np.concatenate([x, z3]) for x in (tri_ng, n0, n1, n2))
+        uv0, uv1, uv2 = (np.concatenate([x, z2]) for x in (uv0, uv1, uv2))
+        packs.update({f"ana.{k}": v for k, v in ana.items()})
+    shade_pack = np.concatenate(
+        [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
+         np.full((len(tri_mat), 1), -1.0, np.float32)], axis=1).astype(np.float32)
     arrays = {
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
         "materials.gpack2": gpack2,
@@ -335,16 +383,29 @@ def flatten_arrays(doc: SceneDocument):
         spp_step=int(doc.renderer.get("spp_step", 16)),
         use_bvh=bool(doc.renderer.get("scene_bvh", True)),
         bdpt_max_vertices=int(integ.get("bdpt_max_vertices", min(max_b + 1, 16))),
+        has_analytic=ana is not None,
     )
     return arrays, meta
 
 
+def _group(key: str) -> str:
+    return key.split(".", 1)[0]
+
+
 def from_arrays(arrays: dict, meta, device) -> FlatScene:
     """FlatScene on `device` from numpy arrays under ARRAY_KEYS and a meta
-    object with SceneMeta's fields (the port's or the JAX package's)."""
-    missing = [k for k in ARRAY_KEYS if k not in arrays]
-    if missing:
-        raise KeyError(f"from_arrays: missing arrays {missing}")
+    object with SceneMeta's fields (the port's or the JAX package's). An
+    OPTIONAL group whose arrays are all absent or None gives None; one that
+    is partly given raises KeyError, as does a missing required array."""
+    given = {k for k in ARRAY_KEYS if arrays.get(k) is not None}
+    missing = [k for k in ARRAY_KEYS if k not in given and _group(k) not in OPTIONAL]
+    partial = sorted({_group(k) for k in ARRAY_KEYS if _group(k) in OPTIONAL and k not in given}
+                     & {_group(k) for k in given})
+    if missing or partial:
+        raise KeyError(f"from_arrays: missing arrays {missing}, partial groups {partial}")
+    has = {g: any(_group(k) == g for k in given) for g in OPTIONAL}
+    if has["pbvh3"] and not has["pbvh8"]:
+        raise ValueError("from_arrays: pbvh3 shares pbvh8's leaves and cannot come without it")
     meta = SceneMeta(**{f.name: getattr(meta, f.name) for f in dataclasses.fields(SceneMeta)})
 
     def t(key):
@@ -364,8 +425,12 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
     def sub(prefix):
         return {k.split(".", 1)[1]: arrays[k] for k in ARRAY_KEYS if k.startswith(prefix + ".")}
 
-    pbvh8 = Bvh8Pack.from_arrays(sub("pbvh8"), device)
-    pbvh3 = Bvh3Pack.from_arrays(sub("pbvh3"), pbvh8)
+    pbvh8 = Bvh8Pack.from_arrays(sub("pbvh8"), device) if has["pbvh8"] else None
+    pbvh3 = Bvh3Pack.from_arrays(sub("pbvh3"), pbvh8) if has["pbvh3"] else None
+    pbvh = None
+    if has["pbvh"]:  # the padded `pbvh.nodes` does not record the node count:
+        # the JAX pack keeps it as a static field
+        pbvh = BvhPack.from_arrays(sub("pbvh"), int(np.asarray(arrays["pbvh.n_nodes"])), device)
     return FlatScene(
         tris=TriangleSoA(v0=t("tris.v0"), e1=t("tris.e1"), e2=t("tris.e2")),
         shade_pack=t("shade_pack"),
@@ -374,11 +439,11 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         env=env,
         camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),
                             plane_dist=t("camera.plane_dist")),
+        ptris=TriPack.from_arrays(sub("ptris"), device),
         pbvh8=pbvh8,
         pbvh3=pbvh3,
-        # the padded `pbvh.nodes` does not record the node count; it is the
-        # same tree as pbvh3's
-        pbvh=BvhPack.from_arrays(sub("pbvh"), pbvh3.n_nodes, device),
+        pbvh=pbvh,
+        ana=analytic.AnalyticTable.from_arrays(sub("ana"), device) if has["ana"] else None,
         meta=meta,
     )
 

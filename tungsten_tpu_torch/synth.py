@@ -2,15 +2,18 @@
 
 `write_scene(out_dir, size)` writes scene.json, ball.obj and sky.pfm into
 out_dir and returns the scene.json path. The scene has materialtest's
-features and uses only primitive types that tessellate (the default sphere
-is analytic in the JAX package):
+features:
 
   * a lambert floor quad with a checker albedo;
   * a rough_conductor ball (Cu, GGX, roughness 0.1): a UV-sphere OBJ with
     smooth normals (its pole triangles are degenerate, as real meshes' are);
   * a lambert cube;
   * an infinite_sphere lit by a procedural lat-long sky with a bright sun
-    blob, so the env's alias table is far from uniform.
+    blob, so the env's alias table is far from uniform;
+  * in the -analytic sizes only, three analytic prims (Tungsten's default
+    `sphere` is analytic, as are `disk` and `cylinder`): a lambert sphere,
+    a lambert disk just above the floor and a capped rough_conductor
+    cylinder standing on it, none emissive.
 
 Sizes:
   materialtest-synth  80,000-triangle ball, 512x256 sky, 1000x563, 32 spp,
@@ -18,11 +21,14 @@ Sizes:
                       triangle count is materialtest's, pallas_bvh8.py:40)
   small               2,000-triangle ball, 128x64 sky, 64x48, 4 spp,
                       max_bounces 6 (the CPU tests' size)
+  materialtest-analytic   materialtest-synth plus the analytic prims
+  small-analytic          small plus the analytic prims
 
-Usage: python -m tungsten_tpu_torch.synth OUT_DIR [materialtest-synth|small]
+Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size]
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import sys
@@ -36,6 +42,23 @@ SIZES = {
     "materialtest-synth": (400, 100, 512, 256, (1000, 563), 32, 64),
     "small": (50, 20, 128, 64, (64, 48), 4, 6),
 }
+SIZES["materialtest-analytic"] = SIZES["materialtest-synth"]
+SIZES["small-analytic"] = SIZES["small"]
+
+# the -analytic sizes' extra materials and prims
+ANALYTIC_BSDFS = [
+    {"name": "accent", "type": "lambert", "albedo": [0.25, 0.5, 0.3]},
+    {"name": "chrome", "type": "rough_conductor", "material": "Cr",
+     "distribution": "ggx", "roughness": 0.25},
+]
+ANALYTIC_PRIMS = [
+    {"type": "sphere", "bsdf": "accent",
+     "transform": {"position": [-1.5, 0.5, 0.9], "scale": 0.5}},
+    {"type": "disk", "bsdf": "inner",
+     "transform": {"position": [1.0, 0.01, 2.2], "scale": 0.6}},
+    {"type": "cylinder", "bsdf": "chrome", "capped": True,
+     "transform": {"position": [-0.5, 0.4, 2.4], "scale": [0.6, 0.8, 0.6]}},
+]
 
 
 def _write_sphere_obj(path: str, nu: int, nv: int):
@@ -82,7 +105,7 @@ def _sky(w: int, h: int) -> np.ndarray:
 
 def scene_dict(size: str) -> dict:
     nu, nv, sw, sh, res, spp, max_b = SIZES[size]
-    return {
+    doc = {
         "bsdfs": [
             {"name": "floor", "type": "lambert",
              "albedo": {"type": "checker", "on_color": [0.8, 0.8, 0.8],
@@ -109,6 +132,10 @@ def scene_dict(size: str) -> dict:
         "integrator": {"type": "path_tracer", "max_bounces": max_b},
         "renderer": {"spp": spp, "spp_step": spp},
     }
+    if size.endswith("-analytic"):
+        doc["bsdfs"] += copy.deepcopy(ANALYTIC_BSDFS)
+        doc["primitives"][3:3] = copy.deepcopy(ANALYTIC_PRIMS)  # before the env light
+    return doc
 
 
 def write_scene(out_dir: str, size: str = "small") -> str:

@@ -1,7 +1,7 @@
 """Intersector benchmark of the port: every BVH walk on the same rays.
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
-        [--kernels bvh8,bvh8any,bvh3,bvh3skip,bvh3any,bvh] [--trials 5]
+        [--kernels bvh8,bvh8any,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri] [--trials 5]
         [--device cuda|cpu]
 
 The port's counterpart of the JAX package's tools/bench_isect.py and
@@ -16,7 +16,9 @@ times each walk on three ray kinds, n rays each:
 Kernels (each a walk of one pack of the flattened scene):
   bvh8      K3 closest hit (csrc/bvh8_walk.cu)    bvh8any   K3 latched any-hit
   bvh3      K4 ordered closest hit (bvh2_walk.cu) bvh3skip  K4 skip closest hit
-  bvh3any   K4 any-hit                            bvh       K5 closest hit (bvh_walk.cu)
+  bvh3any   K4 any-hit                            bvh       K5-v2 closest hit (bvh_walk.cu)
+  bvh1      K5-v1 closest hit (bvh_walk.cu, no    tri       K2 streaming brute force
+            best-t pruning in the box tests)                (intersect_stream.cu)
 On a CUDA device each walk's kernel and its plain twin are timed with CUDA
 events after a warm-up, as the median of --trials runs; on the CPU only the
 twins run (the port's CPU path), timed by the host clock. Nothing falls back
@@ -27,8 +29,12 @@ Agreement, as both JAX tools check it: each kernel against intersect_brute
 on 4,096 incoherent rays (seed 1): hit mask, and t within rtol 1e-3 where
 both hit (occlusion only for the any-hit walks); K4 (bvh3) against K5 (bvh)
 on the coherent rays: hit mask and t within rtol 1e-4; each any-hit walk
-against its closest-hit walk's hit mask. The run fails when an agreement is
-below 99.9%.
+against its closest-hit walk's hit mask. Besides, K2 is the brute-force
+reference of every other walk on all n coherent rays (hit mask). The run
+fails when an agreement is below 99.9%.
+
+Each time row also keeps the twin's count of box and triangle tests on
+those rays ("work"), from which chip_smoke.py computes the kernel's bound.
 
 The default scene is materialtest-synth (tungsten_tpu_torch/synth.py),
 written into build/bench_isect/ of the checkout.
@@ -48,13 +54,13 @@ import torch
 from .. import device as get_device
 from .. import synth
 from ..models.cameras.pinhole import camera_rays_w
-from ..ops import bvh, bvh2, bvh8
+from ..ops import bvh, bvh2, bvh8, intersect_stream as k2
 from ..ops.intersect import INF, intersect_brute
 from ..sampling.sampler import Sampler
 from ..scene.flatten import flatten_scene
 from ..scene.load import load_scene
 
-KERNELS = ("bvh8", "bvh8any", "bvh3", "bvh3skip", "bvh3any", "bvh")
+KERNELS = ("bvh8", "bvh8any", "bvh3", "bvh3skip", "bvh3any", "bvh", "bvh1", "tri")
 ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3"}  # any-hit walk -> its closest-hit walk
 UNSUPPORTED = {
     "bvhx": "the JAX tool imports tungsten_tpu/ops/pallas_bvhx.py, which the JAX "
@@ -82,7 +88,7 @@ def parse_kernels(names):
 
 def walks(scene, name):
     """(kernel walk, twin walk) of one kernel name; each takes (o, d, tnear, tfar)."""
-    p8, p3, pv = scene.pbvh8, scene.pbvh3, scene.pbvh
+    p8, p3, pv, pt = scene.pbvh8, scene.pbvh3, scene.pbvh, scene.ptris
     P = functools.partial
     return {
         "bvh8": (P(bvh8.walk_cuda, p8), P(bvh8.walk_twin, p8)),
@@ -91,6 +97,9 @@ def walks(scene, name):
         "bvh3skip": (P(bvh2.walk3_cuda, p3, mode="skip"), P(bvh2.walk3_twin, p3, mode="skip")),
         "bvh3any": (P(bvh2.walk3_cuda, p3, mode="any"), P(bvh2.walk3_twin, p3, mode="any")),
         "bvh": (P(bvh.walk_packet_cuda, pv), P(bvh.walk_packet_twin, pv)),
+        "bvh1": (P(bvh.walk_packet_cuda, pv, prune=False),
+                 P(bvh.walk_packet_twin, pv, prune=False)),
+        "tri": (P(k2.stream_cuda, pt), P(k2.stream_twin, pt)),
     }[name]
 
 
@@ -101,8 +110,11 @@ def query(scene, name, rays):
         h = bvh8.intersect(scene.pbvh8, scene.tris, *rays)
     elif name in ("bvh3", "bvh3skip"):
         h = bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *rays, ordered=name == "bvh3")
-    elif name == "bvh":
-        h = bvh.intersect_bvh(scene.pbvh, *rays)
+    elif name in ("bvh", "bvh1"):
+        h = bvh.hit_from_local(scene.pbvh, *bvh.walk_packet(scene.pbvh, *rays,
+                                                           prune=name == "bvh"))
+    elif name == "tri":
+        h = k2.intersect_stream(scene.ptris, *rays)
     elif name == "bvh8any":
         return bvh8.occluded(scene.pbvh8, *rays), None
     else:
@@ -178,8 +190,9 @@ def load(scene_path, dev):
 
 def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
     """Time and check the walks; returns {"scene", "device", "n", "times":
-    {(kind, kernel): {"ms", "twin_ms"}}, "agree": {label: fraction}}.
-    "ms" is None on the CPU, where only the twins run."""
+    {(kind, kernel): {"ms", "twin_ms", "work"}}, "agree": {label: fraction}}.
+    "ms" is None on the CPU, where only the twins run; "work" is the twin's
+    count of box and triangle tests on the row's rays."""
     kernels = parse_kernels(kernels)
     dev = dev or get_device("cuda")
     on_card = dev.type == "cuda"
@@ -196,7 +209,7 @@ def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
             kernel, twin = walks(scene, name)
             out["times"][(kind, name)] = {
                 "ms": time_ms(kernel, rays, trials) if on_card else None,
-                "twin_ms": time_ms(twin, rays, trials)}
+                "twin_ms": time_ms(twin, rays, trials), "work": dict(twin.func.work)}
 
     sub = make_rays(scene, 4096, "incoherent", seed=1)
     hb = intersect_brute(scene.tris, *sub, chunk=2048)
@@ -215,6 +228,11 @@ def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
         if any_name in res and closest in res:
             out["agree"][f"{any_name} vs {closest}: hit mask"] = _mask_agree(
                 res[any_name][0], res[closest][0])
+    hit_k2 = res["tri"][0] if "tri" in res else query(scene, "tri", coherent)[0]
+    for name in kernels:
+        if name != "tri":
+            out["agree"][f"{name} vs tri ({n} coherent): hit mask"] = _mask_agree(
+                res[name][0], hit_k2)
     return out
 
 
