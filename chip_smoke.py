@@ -6,37 +6,72 @@
 Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
-  2. build    - nvcc builds the four kernel sources (csrc/bvh8_walk.cu,
-                bvh2_walk.cu, bvh_walk.cu, intersect_stream.cu) into build/,
-                one nvcc per source, all at once;
+  2. build    - nvcc builds the five kernel sources (csrc/bvh8_walk.cu,
+                bvh8_walk_fast.cu, bvh2_walk.cu, bvh_walk.cu,
+                intersect_stream.cu) into build/, one nvcc per source, all at
+                once;
   3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
-                rays and the 2N = 1,126,000-lane mixed shadow + camera batch)
-                and against brute force on 8,192 rays; times both at 2N;
+                rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
+                the camera rays, closest hit, plus latched shadow lanes from
+                their hit points, half with a finite tfar, half with INF, and
+                tfar = 0 (dead) where the camera ray missed) and against
+                brute force on 8,192 rays; times both at 2N;
   3b. kernels - K4 (bvh2_walk: ordered, skip, any) and K5 (bvh_walk) on the
                 same scene's packs, each against its twin on the 65,536
                 random rays and the 563,000 camera rays, and through its
                 public query against brute force on the 8,192 rays; each
                 kernel's launch count must move there and its twin's not.
                 K5 also on the 2N closest-hit batch that the render's K5 and
-                K2 routes give the walk: the camera rays plus shadow lanes
-                from their hit points, half with a finite tfar, half with
-                INF, and tfar = 0 (dead) where the camera ray missed;
+                K2 routes give the walk: phase 3's rays and tfar with no lane
+                latched;
   3c. kernels - K2 (intersect_stream) and K5-v1 (bvh_walk, prune=0) the same
                 way: against their twins on the 65,536 random rays, the
                 563,000 camera rays and the 2N batch, and through the walk
                 plus its prim lookup against brute force on the 8,192 rays,
                 with the launch counts checked;
+  3d. K3-fast - the fast BVH8 walk (bvh8_walk_fast.cu) on the same pack: the
+                raw kernel against its twin (walk_fast_twin), bit for bit, on
+                the 65,536 random rays, the 563,000 camera rays and the 2N
+                closest-hit batch of phase 3b; the whole query (fast walk,
+                exact validation, exact repair launch) against brute force
+                on the 8,192 rays and against the exact K3 query on all three
+                sets (>= 99.99% the same prim, or a tie of two coincident
+                triangles at one t: the cube stands on the floor quad); the
+                phantoms (= repair lanes) of each set counted, and what the
+                repair found for them; the 2N set's repair launch (closest
+                hit, tfar = 0 on every lane but the phantoms) through the
+                exact K3 kernel against its twin; launch counts; the kernel,
+                its twin, the exact K3 kernel, the repair launch and both
+                whole queries timed on the 2N rays;
   4. small    - the `small` scene through render_scene, its per-channel
                 means against the JAX package's (tests/data/...json);
   4b. analytic - `small-analytic` (three analytic prims) the same way,
                 against tests/data/torch_port_analytic_ref.json;
+  4c. lights  - `small-area` (area lights beside the sky) and `small-box` (a
+                closed box, one emissive quad, no env) through render_scene
+                in both wavefronts (regen, lockstep) against
+                tests/data/torch_port_{area,box}_ref.json. The small scenes
+                are flattened on the numpy BVH build, as the references
+                were: the tree fixes the triangle order and with it which
+                light point a random number picks;
   5. slice    - materialtest-synth at 1000x563 and 32 spp through
                 load_scene / flatten_scene / render_flat, with the walk's
                 launch counts reset just before and read just after;
+  5b. lockstep - the slice of the lockstep path tracer at full width:
+                materialtest-area (materialtest-synth plus an emissive quad
+                and an emissive mesh) at 1000x563, 32 spp, 64 bounces through
+                render_flat(wavefront="lockstep"), the launch counts reset
+                just before and read just after: the fast kernel launches
+                once per camera walk and once per bounce run, the exact K3
+                kernel once per shadow walk and once per repair, no twin
+                launches; then the same scene through wavefront="regen", the
+                two images' channel means within 5e-3. Wall time and
+                Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
-                eight walks (24 timed rows), with every agreement >= 99.9%
+                ten walks (30 timed rows; bvh8fast is the raw fast kernel,
+                bvh8fastq the whole fast query), with every agreement >= 99.9%
                 (K2 the brute-force reference of every walk on the coherent
                 rays) and the launch counts reset just before and read just
                 after;
@@ -48,21 +83,25 @@ printing a result):
                 non-negative; the K5 and K2 images' channel means lie within
                 5e-3 of the K3 image's, >= 90% of their pixels within
                 1e-3 + 1e-3 |K3|. Wall time and Mpaths/s per route.
+No earlier phase was cut in depth to make room for the lockstep render.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
-render for K3, phase 7's route renders for K5-v2 and K2, the benchmark for
-K4 and K5-v1), the largest |t| difference against its twin (the 2N batch
-for K3, K5 and K2, camera rays for K4), the kernel's and twin's ms (2N
-batch for K3, the benchmark's coherent rays for the others), and the
+render for K3, phase 5b's lockstep render for K3-fast, phase 7's route
+renders for K5-v2 and K2, the benchmark for K4 and K5-v1), the largest |t|
+difference against its twin (the 2N batch for K3, K3-fast, K5 and K2,
+camera rays for K4), the kernel's and twin's ms (2N batch for K3 and
+K3-fast, the benchmark's coherent rays for the others), and the
 kernel's bound: the larger of the bytes it must move (inputs read once,
-outputs written once) over 3.35 TB/s and the f32 operations its rays need
-over 67 TFLOP/s (H100 SXM data sheet), the operations counted by the twin
-on the same rays (box and triangle tests; for K2 the triangles of each
-chunk whose box the ray itself hits, not its whole tile's) at the OPS costs
-below. No single PyTorch call
+outputs written once) over 3.35 TB/s and the operations its rays need over
+the peak rate of their type (f32 at 67 TFLOP/s; K3-fast's products of bf16
+pairs with their f32 sums at the bf16 matrix rate, 989 TFLOP/s; H100 SXM
+data sheet), the operations counted by the twin on the same rays (box and
+triangle tests; for K2 the triangles of each chunk whose box the ray itself
+hits, not its whole tile's) at the OPS costs below. No single PyTorch call
 computes a BVH walk or a brute-force closest hit, so library_ms is null.
 It needs nvcc and one CUDA card, no network and no JAX. The last line is the
 JSON result; the line before it the card's name and power limit.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -83,6 +122,12 @@ BAR = 0.999  # prim / occlusion agreement, kernel vs twin and vs brute force
 # is absolute (~eps * |o|) and grows as 1 / |cos| on grazing hits; the kernel
 # fuses multiply-adds where the twin does not.
 T_RTOL, T_ATOL_PER_EXTENT, T_RTOL_ALL = 1e-5, 1e-6, 1e-3
+# the repair launch's live lanes are the grazing ones (a phantom lies just
+# outside a silhouette edge), many of them shadow lanes that hit at t of a few
+# tnear: there a relative bar has no meaning, and the absolute error
+# (~eps * |o| / |cos|, |cos| down to ~1e-2) gets its own floor on the
+# all-lanes bar, per unit of scene extent
+T_ATOL_ALL_GRAZING_PER_EXTENT = 1e-4
 MEAN_RTOL = 5e-3  # render per-channel means vs the JAX package's, and route vs route
 # routes: a hit that flips between two walks reshades the rest of its path
 PIX_ATOL, PIX_RTOL, PIX_BAR = 1e-3, 1e-3, 0.90
@@ -111,8 +156,20 @@ K2_K5V1 = (
 # the bound: f32 operations per test (adds, multiplies, min / max, compares,
 # divides, each one): a slab test against one box, a plane-form slot
 # (bvh8_walk.cu's leaf), a Moller-Trumbore slot (bvh_walk.cu, intersect_stream.cu)
-OPS = {"box": 25, "plane": 45, "mt": 54}
-F32_PEAK, HBM_RATE = 67e12, 3.35e12  # H100 SXM: f32 FLOP/s outside the tensor cores, B/s
+# a bf16x3 plane slot (bvh8_walk_fast.cu's leaf) is 123, of two types. 108
+# are the products of bf16 pairs and their f32 sums, the work the TPU kernel
+# gives its matrix unit: six three-pass products of (3 x 5 for the dot
+# products) + 2 to join the passes, + 2 for the affine w on three of them;
+# they are held to the card's bf16 matrix rate. 15 are plain f32: t (negate,
+# divide) 2; u and v (multiply, add) 4; u + v 1; five compares 5; the
+# winner's compare and select 3
+OPS = {"box": 25, "plane": 45, "mt": 54, "plane_bf16x3_mma": 108, "plane_bf16x3": 15}
+FAST_BAR = 0.9999  # fast query vs exact query, prim
+# lockstep vs regen, full width: two estimators of one integral, 18M paths each
+WAVEFRONT_RTOL = 5e-3
+# H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
+# FLOP/s on them, HBM3 B/s
+F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
 
 
 def log(msg):
@@ -132,17 +189,18 @@ def check(cond, msg):
     log(f"  ok: {msg}")
 
 
-def t_close(a, b, atol):
+def t_close(a, b, atol, atol_all=0.0):
     """The t bar above, as one boolean."""
     near = torch.isclose(a, b, rtol=T_RTOL, atol=atol).float().mean().item() >= BAR
-    return near and bool(torch.isclose(a, b, rtol=T_RTOL_ALL, atol=0.0).all())
+    return near and bool(torch.isclose(a, b, rtol=T_RTOL_ALL, atol=atol_all).all())
 
 
 def counted():
     """Every kernel wrapper and twin that keeps a launch count."""
     from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
 
-    return (bvh8.walk_cuda, bvh8.walk_twin, bvh2.walk3_cuda, bvh2.walk3_twin,
+    return (bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
+            bvh2.walk3_cuda, bvh2.walk3_twin,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, intersect_stream.stream_cuda,
             intersect_stream.stream_twin)
 
@@ -165,10 +223,12 @@ def counts():
     return out
 
 
-def bound(n_bytes, ops):
+def bound(n_bytes, ops, bf16_ops=0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 peak."""
-    t_bytes, t_ops = n_bytes / HBM_RATE * 1e3, ops / F32_PEAK * 1e3
+    operations over the peak rate of their type (f32, plus bf16 products
+    with f32 sums at the matrix rate)."""
+    t_bytes = n_bytes / HBM_RATE * 1e3
+    t_ops = (ops / F32_PEAK + bf16_ops / BF16_PEAK) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -216,26 +276,42 @@ def kernel_vs_twin(name, kernel, twin, cases, t_atol):
     return t_err
 
 
-def render_vs_ref(label, path, ref_file, dev):
+@contextlib.contextmanager
+def numpy_bvh_build():
+    """The small reference renders use the numpy BVH build, as the JAX
+    package's references did (the native BVH build, where a checkout has made
+    it, gives another valid tree and so another triangle order)."""
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+
+    saved, accel_bvh._NATIVE = accel_bvh._NATIVE, False
+    try:
+        yield
+    finally:
+        accel_bvh._NATIVE = saved
+
+
+def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
     """render_scene of a small scene against the JAX package's channel
-    means; K3 must launch and no twin."""
+    means; K3 and K3-fast must launch and no twin."""
     from tungsten_tpu_torch.renderer.render import render_scene
 
     with open(os.path.join(REPO, "tests", "data", ref_file)) as f:
         ref = json.load(f)
-    log(f"[{label}] render_scene of the {ref['scene']} scene")
+    want = ref["channel_means"] if wavefront == "auto" else ref["channel_means"][wavefront]
+    name = f"{ref['scene']} ({wavefront})"
+    log(f"[{label}] render_scene of the {name} scene")
     reset_counts()
-    hdr, _ = render_scene(path, dev, seed=ref["seed"])
+    hdr, _ = render_scene(path, dev, seed=ref["seed"], wavefront=wavefront)
     c = counts()
     twins = sum(v for k, v in c.items() if "twin" in k)
-    check(c["bvh8.walk_cuda"] > 0 and twins == 0,
-          f"{ref['scene']}: kernel launches {c['bvh8.walk_cuda']}, twins {twins}")
-    check(np.isfinite(hdr).all() and (hdr >= 0).all(), f"{ref['scene']}: image finite and "
-          f"non-negative")
+    check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and twins == 0,
+          f"{name}: K3 launches {c['bvh8.walk_cuda']}, K3-fast "
+          f"{c['bvh8.walk_fast_cuda']}, twins {twins}")
+    check(np.isfinite(hdr).all() and (hdr >= 0).all(), f"{name}: image finite and non-negative")
     means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
-    rel = np.abs(means - ref["channel_means"]) / np.abs(ref["channel_means"])
-    check((rel <= MEAN_RTOL).all(), f"{ref['scene']}: channel means {means.round(6).tolist()} vs "
-          f"JAX {np.round(ref['channel_means'], 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL})")
+    rel = np.abs(means - want) / np.abs(want)
+    check((rel <= MEAN_RTOL).all(), f"{name}: channel means {means.round(6).tolist()} vs "
+          f"JAX {np.round(want, 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL})")
 
 
 def main():
@@ -256,7 +332,7 @@ def main():
     log(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.time()
-    sources = ("bvh8_walk", "bvh2_walk", "bvh_walk", "intersect_stream")
+    sources = ("bvh8_walk", "bvh8_walk_fast", "bvh2_walk", "bvh_walk", "intersect_stream")
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
@@ -300,7 +376,7 @@ def main():
     # brute force on 8,192 rays
     sub = [x[:8192] for x in rays]
     hb = intersect_brute(scene.tris, *sub, chunk=2048)
-    hk = bvh8.intersect(pack, scene.tris, *sub)
+    hk = bvh8.intersect(pack, scene.tris, *sub, fast=False)
     check(agree(hk.prim, hb.prim) >= BAR, f"8192 rays: kernel vs brute force prim agree "
           f"{agree(hk.prim, hb.prim):.6f}")
 
@@ -316,7 +392,8 @@ def main():
     oc, dc, _ = camera_rays_w(scene.camera, meta, pix % meta.res_x, pix // meta.res_x, u, u)
     oc = oc.contiguous()
     near = torch.full((n_pix,), 1e-4, device=dev)
-    hc = bvh8.intersect(pack, scene.tris, oc, dc, near, torch.full((n_pix,), INF, device=dev))
+    hc = bvh8.intersect(pack, scene.tris, oc, dc, near, torch.full((n_pix,), INF, device=dev),
+                        fast=False)
     ps = oc + dc * torch.where(hc.prim >= 0, hc.t, 0.0)[:, None]
     ds = torch.tensor(gen.normal(size=(n_pix, 3)), dtype=torch.float32, device=dev)
     ds[:, 1] = ds[:, 1].abs()
@@ -324,7 +401,12 @@ def main():
     o2 = torch.cat([ps, oc]).contiguous()
     d2 = torch.cat([ds, dc]).contiguous()
     n2 = torch.cat([torch.full((n_pix,), 5e-4, device=dev), near])
-    f2 = torch.cat([torch.where(hc.prim >= 0, INF, 0.0), torch.full((n_pix,), INF, device=dev)])
+    # the shadow lanes' tfar: the distance to a light point on half of them
+    # (finite), INF (the sky) on the rest, 0 (dead) where the camera ray missed
+    finite = torch.tensor(gen.random(n_pix) < 0.5, device=dev)
+    dist = torch.tensor(gen.uniform(0.05, 1.0, n_pix) * extent, dtype=torch.float32, device=dev)
+    f2 = torch.cat([torch.where(hc.prim >= 0, torch.where(finite, dist, INF), 0.0),
+                    torch.full((n_pix,), INF, device=dev)])
     latch = torch.cat([torch.ones(n_pix, dtype=torch.bool, device=dev),
                        torch.zeros(n_pix, dtype=torch.bool, device=dev)])
     tk, lk = bvh8.walk_cuda(pack, o2, d2, n2, f2, latch)
@@ -353,13 +435,9 @@ def main():
         f"{scene.pbvh.tri_t.shape[0]} leaves")
     cam = (oc, dc, near, torch.full((n_pix,), INF, device=dev))
     cases = (("random 65536", rays), (f"camera {n_pix}", cam))
-    # the K5 / K2 routes' 2N batch, all closest hit: shadow lanes with a
-    # finite or INF tfar (dead where the camera ray missed), then the camera rays
-    finite = torch.tensor(gen.random(n_pix) < 0.5, device=dev)
-    dist = torch.tensor(gen.uniform(0.05, 1.0, n_pix) * extent, dtype=torch.float32, device=dev)
-    f_mix = torch.cat([torch.where(hc.prim >= 0, torch.where(finite, dist, INF), 0.0),
-                       torch.full((n_pix,), INF, device=dev)])
-    with_mixed = cases + ((f"mixed 2N={2 * n_pix}", (o2, d2, n2, f_mix)),)
+    # the K5 / K2 routes' 2N batch: phase 3's rays and tfar, all closest hit
+    r2 = (o2, d2, n2, f2)
+    with_mixed = cases + ((f"mixed 2N={2 * n_pix}", r2),)
     new_err = {}
     for name, bname, _, _ in NEW_KERNELS:
         new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname),
@@ -396,11 +474,100 @@ def main():
           and not any(v for k, v in c.items() if "twin" in k),
           f"8192 rays: the queries launched K2 and K5-v1 once each and no twin: {c}")
 
+    # K3-fast on the same pack: raw kernel vs twin, the whole query, the repair
+    log("[3d K3-fast] the bf16x3 walk (bvh8_walk_fast.cu) and its exact repair")
+    fast_sets = cases + ((f"closest 2N={2 * n_pix}", r2),)
+    repair_far = []  # the tfar each query hands its repair launch
+
+    def repair_walk(pack, o, d, tnear, tfar):
+        repair_far.append(tfar)
+        return bvh8.walk_cuda(pack, o, d, tnear, tfar)
+
+    reset_counts()
+    for label, rr in fast_sets:
+        tk, lk = bvh8.walk_fast_cuda(pack, *rr)
+        torch.cuda.synchronize()
+        tt, lt = bvh8.walk_fast_twin(pack, *rr)
+        hit = lk >= 0
+        fast_err = (tk[hit] - tt[hit]).abs().max().item() if bool((lk == lt).all()) else float("nan")
+        check(torch.equal(lk, lt) and torch.equal(tk, tt),
+              f"K3-fast {label}: raw kernel equals its twin bit for bit (slot agree "
+              f"{agree(lk, lt):.6f}, max |t| difference {fast_err:.3e})")
+        hf = bvh8.intersect(pack, scene.tris, *rr, walks=(bvh8.walk_fast_cuda, repair_walk))
+        ph = repair_far[-1] > 0.0  # the phantoms: winners that failed the exact validation
+        he = bvh8.intersect(pack, scene.tris, *rr, fast=False)
+        n_ph = int(ph.sum())
+        log(f"  K3-fast {label}: {n_ph} phantoms = repair lanes ({n_ph / lk.shape[0]:.4%} of "
+            f"{lk.shape[0]} lanes); the repair found a hit for {int((hf.prim[ph] >= 0).sum())}, "
+            f"a miss for {int((hf.prim[ph] < 0).sum())}")
+        # the cube stands on the floor quad: where two coincident triangles tie
+        # (both hit, the same t), either prim is the closest hit
+        tie = ((hf.prim >= 0) & (he.prim >= 0)
+               & torch.isclose(hf.t, he.t, rtol=T_RTOL, atol=T_ATOL))
+        same_hit = ((hf.prim == he.prim) | tie).float().mean().item()
+        check(same_hit >= FAST_BAR, f"K3-fast {label}: fast query vs exact query agree "
+              f"{same_hit:.6f} (>= {FAST_BAR}; the same prim on {agree(hf.prim, he.prim):.6f}, "
+              f"the rest ties of coincident triangles at one t)")
+        same = (hf.prim == he.prim) & (he.prim >= 0)
+        # two f32 formulas for one hit: Moller-Trumbore (the fast query's
+        # validation) and the plane form (the exact walk's own t); on grazing
+        # hits they part, so only the share inside the bar is held
+        near = torch.isclose(hf.t[same], he.t[same], rtol=T_RTOL, atol=T_ATOL).float().mean().item()
+        check(near >= BAR, f"K3-fast {label}: query t (Moller-Trumbore) vs exact query t "
+              f"(plane form) within rtol {T_RTOL} atol {T_ATOL:.2g} on {near:.6f} (>= {BAR}); "
+              f"max abs difference {(hf.t[same] - he.t[same]).abs().max().item():.3e}")
+        if label.startswith("camera"):
+            check(n_ph > 0, "K3-fast camera: the slack accepts some phantoms (0 would mean "
+                  "the slack is not applied)")
+    fast_work = dict(bvh8.walk_fast_twin.work)  # of the 2N set, the last
+    c = counts()
+    check(c["bvh8.walk_fast_cuda"] == 2 * len(fast_sets) and c["bvh8.walk_fast_twin"] ==
+          len(fast_sets), f"K3-fast: the kernel launched {c['bvh8.walk_fast_cuda']} times "
+          f"(raw + query per set), its twin {c['bvh8.walk_fast_twin']} (the comparisons)")
+    hf = bvh8.intersect(pack, scene.tris, *sub)
+    check(agree(hf.prim, hb.prim) >= BAR, f"8192 rays: K3-fast query vs brute force prim agree "
+          f"{agree(hf.prim, hb.prim):.6f}")
+    # the 2N set's repair launch, exact K3 against its twin: closest hit with
+    # tfar = 0 on every lane but the phantoms
+    far_rep, need2 = repair_far[-1], ph
+    tk, lk = bvh8.walk_cuda(pack, o2, d2, n2, far_rep)
+    torch.cuda.synchronize()
+    tt, lt = bvh8.walk_twin(pack, o2, d2, n2, far_rep)
+    check(bool((lk[~need2] < 0).all()) and agree(lk[need2], lt[need2]) >= BAR,
+          f"2N repair launch ({int(need2.sum())} live lanes): K3 kernel vs twin slot agree "
+          f"{agree(lk[need2], lt[need2]):.6f} on the live lanes, a miss on every other")
+    same = (lk == lt) & (lk >= 0)
+    atol_all = T_ATOL_ALL_GRAZING_PER_EXTENT * extent
+    check(t_close(tk[same], tt[same], T_ATOL, atol_all), f"2N repair launch: t within rtol "
+          f"{T_RTOL} atol {T_ATOL:.2g} (>= {BAR}), rtol {T_RTOL_ALL} atol {atol_all:.2g} (all); "
+          f"max abs err "
+          f"{(tk[same] - tt[same]).abs().max().item():.3e}")
+    fast_ms = cuda_ms(lambda: bvh8.walk_fast_cuda(pack, *r2), reps=10)
+    exact_ms = cuda_ms(lambda: bvh8.walk_cuda(pack, *r2), reps=10)
+    repair_ms = cuda_ms(lambda: bvh8.walk_cuda(pack, o2, d2, n2, far_rep), reps=10)
+    query_ms = cuda_ms(lambda: bvh8.intersect(pack, scene.tris, *r2), reps=5)
+    exact_query_ms = cuda_ms(lambda: bvh8.intersect(pack, scene.tris, *r2, fast=False), reps=5)
+    fast_plain_ms = cuda_ms(lambda: bvh8.walk_fast_twin(pack, *r2), reps=1)
+    log(f"[3d K3-fast] closest-hit 2N={2 * n_pix} on {card}: fast kernel {fast_ms:.3f} ms, "
+        f"exact K3 kernel {exact_ms:.3f} ms, twin {fast_plain_ms:.3f} ms; repair launch "
+        f"({int(need2.sum())} live "
+        f"lanes) {repair_ms:.3f} ms; whole fast query {query_ms:.3f} ms, whole exact query "
+        f"{exact_query_ms:.3f} ms; twin counts {fast_work}")
+    fast_bytes = (nbytes(o2, d2, n2, f2, pack.boxes, pack.kid_t, pack.order_t,
+                         pack.tri_planes_hi, pack.tri_planes_lo) + 8 * o2.shape[0])
+
     # small renders against the JAX package's means
-    render_vs_ref("4 small", synth.write_scene(os.path.join(work, "small"), "small"),
-                  "torch_port_small_ref.json", dev)
-    render_vs_ref("4b analytic", synth.write_scene(os.path.join(work, "sa"), "small-analytic"),
-                  "torch_port_analytic_ref.json", dev)
+    with numpy_bvh_build():
+        render_vs_ref("4 small", synth.write_scene(os.path.join(work, "small"), "small"),
+                      "torch_port_small_ref.json", dev)
+        render_vs_ref("4b analytic",
+                      synth.write_scene(os.path.join(work, "sa"), "small-analytic"),
+                      "torch_port_analytic_ref.json", dev)
+        for size, ref_file in (("small-area", "torch_port_area_ref.json"),
+                               ("small-box", "torch_port_box_ref.json")):
+            small_path = synth.write_scene(os.path.join(work, size), size)
+            for wavefront in ("regen", "lockstep"):
+                render_vs_ref("4c lights", small_path, ref_file, dev, wavefront)
 
     # the full slice: materialtest-synth, 1000x563, 32 spp
     log("[5 slice] load_scene + flatten_scene + render_flat of materialtest-synth")
@@ -420,6 +587,47 @@ def main():
     log(f"[5 slice] materialtest-synth {meta.res_x}x{meta.res_y} {spp} spp in {dt:.2f} s: "
         f"{rate:.4f} Mpaths/s on {card}")
 
+    # the lockstep slice at full width: materialtest-area
+    area_path = synth.write_scene(os.path.join(work, "mtarea"), "materialtest-area")
+    t0 = time.time()
+    area = flatten_scene(load_scene(area_path), dev)
+    am = area.meta
+    log(f"[5b lockstep] materialtest-area flattened in {time.time() - t0:.1f} s: "
+        f"{area.tris.v0.shape[0]} triangles, {am.n_lights} lights {area.lights.apx_kind}; "
+        f"{am.res_x}x{am.res_y}, {am.spp} spp, max_bounces {am.max_bounces}")
+    area_imgs = {}
+    for wavefront in ("lockstep", "regen"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        img = render_flat(area, spp=am.spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        dt = time.time() - t0
+        c = counts()
+        others = {k: v for k, v in c.items()
+                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
+        check(c["bvh8.walk_fast_cuda"] > 0 and c["bvh8.walk_cuda"] > 0 and not others,
+              f"{wavefront}: K3-fast launched {c['bvh8.walk_fast_cuda']} times, exact K3 "
+              f"{c['bvh8.walk_cuda']}, every other walk and twin none {others}")
+        if wavefront == "lockstep":
+            # per pass 1 camera walk + one 2N walk per bounce run, each with
+            # its repair launch; one shadow walk per bounce run
+            lock_fast, lock_exact = c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"]
+            bounces_run = lock_fast - am.spp
+            check(am.spp <= bounces_run <= am.spp * am.max_bounces
+                  and lock_exact == lock_fast + bounces_run,
+                  f"lockstep: {am.spp} passes ran {bounces_run} bounces "
+                  f"({bounces_run / am.spp:.1f} a pass): {lock_fast} = passes + bounces fast "
+                  f"launches, {lock_exact} = repairs + shadow walks exact launches")
+        check(img.shape == (am.res_y, am.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"{wavefront}: {img.shape} image finite and non-negative")
+        log(f"[5b lockstep] materialtest-area {wavefront}: {am.res_x}x{am.res_y} {am.spp} spp in "
+            f"{dt:.2f} s: {am.res_x * am.res_y * am.spp / dt / 1e6:.4f} Mpaths/s on {card}")
+        area_imgs[wavefront] = img.reshape(-1, 3).astype(np.float64).mean(0)
+    rel = np.abs(area_imgs["lockstep"] - area_imgs["regen"]) / np.abs(area_imgs["regen"])
+    check((rel <= WAVEFRONT_RTOL).all(), f"materialtest-area: lockstep channel means "
+          f"{area_imgs['lockstep'].round(6).tolist()} vs regen's "
+          f"{area_imgs['regen'].round(6).tolist()} (rel {rel.max():.2e} <= {WAVEFRONT_RTOL})")
+
     # the intersector benchmark: every walk on the same rays
     log("[6 isect] tungsten_tpu_torch.tools.bench_isect on materialtest-synth, n = 131072")
     reset_counts()
@@ -438,9 +646,10 @@ def main():
     check(min(res["agree"].values()) >= BAR, f"isect: all {len(res['agree'])} agreements >= "
           f"{BAR} (lowest {min(res['agree'].values()):.6f})")
     new_keys = [f"bvh2.walk3_cuda.{m}" for m in bvh2.MODES] + [
-        "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda"]
+        "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda",
+        "bvh8.walk_fast_cuda"]
     check(all(bench_launches[k] > 0 for k in new_keys),
-          f"isect: K4 / K5 / K2 launches {[bench_launches[k] for k in new_keys]}")
+          f"isect: K4 / K5 / K2 / K3-fast launches {[bench_launches[k] for k in new_keys]}")
 
     # the render's three intersector routes on one flattened scene
     ana_path = synth.write_scene(os.path.join(work, "mta"), "materialtest-analytic")
@@ -450,7 +659,7 @@ def main():
     log(f"[7 routes] materialtest-analytic flattened in {time.time() - t0:.1f} s: "
         f"{full.tris.v0.shape[0]} triangles, {full.ana.n} analytic prims; "
         f"{m.res_x}x{m.res_y}, {m.spp} spp")
-    routes = (
+    routes = (  # K3's closest-hit walks go through K3-fast and its repair
         ("K3", "bvh8.walk_cuda", full),
         ("K5-v2", "bvh.walk_packet_cuda.v2", dataclasses.replace(full, pbvh8=None, pbvh3=None)),
         ("K2", "intersect_stream.stream_cuda",
@@ -464,7 +673,8 @@ def main():
         img = render_flat(sc, spp=m.spp, seed=DEFAULT_SEED)
         dt = time.time() - t0
         c = counts()
-        others = {k: v for k, v in c.items() if k != key and v}
+        allowed = (key, "bvh8.walk_fast_cuda") if label == "K3" else (key,)
+        others = {k: v for k, v in c.items() if k not in allowed and v}
         check(c[key] > 0 and not others, f"route {label}: {key} launched {c[key]} times, "
               f"every other walk and twin none {others}")
         check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all() and (img >= 0).all(),
@@ -485,8 +695,8 @@ def main():
         check(close.mean() >= PIX_BAR, f"route {label}: {close.mean():.6f} of pixels within "
               f"{PIX_ATOL} + {PIX_RTOL} |K3| (>= {PIX_BAR})")
 
-    def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops):
-        b_ms, b_by = bound(n_bytes, ops)
+    def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
+        b_ms, b_by = bound(n_bytes, ops, bf16_ops)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "ms": t_ms, "plain_ms": t_plain,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -494,6 +704,13 @@ def main():
     entries = [entry("bvh8_walk", "tungsten_tpu_torch/csrc/bvh8_walk.cu",
                      "tungsten_tpu/ops/pallas_bvh8.py:130", launches, max_abs_err, ms, plain_ms,
                      k3_bytes, k3_work["box"] * OPS["box"] + k3_work["tri"] * OPS["plane"])]
+    fast_entry = entry("bvh8_walk_fast", "tungsten_tpu_torch/csrc/bvh8_walk_fast.cu",
+                       "tungsten_tpu/ops/pallas_bvh8.py:67", lock_fast, fast_err, fast_ms,
+                       fast_plain_ms, fast_bytes,
+                       fast_work["box"] * OPS["box"] + fast_work["tri"] * OPS["plane_bf16x3"],
+                       fast_work["tri"] * OPS["plane_bf16x3_mma"])
+    fast_entry["exact_k3_ms"] = exact_ms
+    entries.append(fast_entry)
     n_bench = res["n"]
     # what each benchmark walk reads besides the rays, its output bytes per
     # ray, its slot cost, and the run whose launches are its main path's

@@ -130,3 +130,43 @@ def test_normal_at_matches_jax(case):
         A.normal_at(case["tab"], neg, pts).numpy(),
         np.asarray(JA.normal_at(case["jtab"], jnp.asarray(neg.numpy()), jnp.asarray(rays[0][:8]))),
         rtol=1e-5, atol=1e-5)
+
+
+def test_occluded_analytic_matches_jax(case):
+    """The shadow rays' any-hit test: a disk occludes from its front side
+    only, spheres and cylinders from both."""
+    from tungsten_tpu.models.primitives import analytic as JA
+
+    rays = case["rays"]
+    occ_j = np.asarray(JA.occluded_analytic(case["jtab"], *(jnp.asarray(a) for a in rays)))
+    occ_t = A.occluded_analytic(case["tab"], *(torch.as_tensor(a) for a in rays)).numpy()
+    np.testing.assert_array_equal(occ_t, occ_j)
+    hit = A.intersect_analytic(case["tab"], *(torch.as_tensor(a) for a in rays)).k.numpy() >= 0
+    assert 0.2 < occ_t.mean() < hit.mean()  # some disk hits come from behind
+    assert not occ_t[~hit].any()
+
+
+def test_hit_geom_matches_jax(tmp_path):
+    """(ng, uv) at hits on triangles and on analytic prims (virtual ids
+    >= T) of the small-analytic scene, in both packages."""
+    from tungsten_tpu.models.primitives import analytic as JA
+    from tungsten_tpu.scene.flatten import flatten_scene as jflatten
+    from tungsten_tpu.scene.load import load_scene as jload
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.scene.flatten import from_arrays
+    from test_torch_host import jax_arrays
+
+    path = synth.write_scene(str(tmp_path), "small-analytic")
+    js = jflatten(jload(path))
+    scene = from_arrays(jax_arrays(js), js.meta, torch.device("cpu"))
+    rng = np.random.default_rng(3)
+    n, n_tris = 2048, scene.tris.v0.shape[0]
+    prim = np.where(np.arange(n) % 3 == 0, n_tris + rng.integers(0, scene.ana.n, n),
+                    rng.integers(0, n_tris, n)).astype(np.int32)
+    p = rng.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+    u, v = (rng.uniform(0.0, 0.5, n).astype(np.float32) for _ in range(2))
+    ng_j, uv_j = JA.hit_geom(js, *(jnp.asarray(a) for a in (prim, p, u, v)))
+    ng_t, uv_t = A.hit_geom(scene, torch.as_tensor(prim.astype(np.int64)),
+                            *(torch.as_tensor(a) for a in (p, u, v)))
+    np.testing.assert_allclose(ng_t.numpy(), np.asarray(ng_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(uv_t.numpy(), np.asarray(uv_j), rtol=1e-5, atol=1e-5)

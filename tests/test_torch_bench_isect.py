@@ -11,7 +11,8 @@ from tungsten_tpu_torch import synth
 from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
 from tungsten_tpu_torch.tools import bench_isect
 
-COUNTERS = ((bvh8.walk_cuda, bvh8.walk_twin), (bvh2.walk3_cuda, bvh2.walk3_twin),
+COUNTERS = ((bvh8.walk_cuda, bvh8.walk_twin), (bvh8.walk_fast_cuda, bvh8.walk_fast_twin),
+            (bvh2.walk3_cuda, bvh2.walk3_twin),
             (bvh.walk_packet_cuda, bvh.walk_packet_twin),
             (intersect_stream.stream_cuda, intersect_stream.stream_twin))
 
@@ -33,13 +34,17 @@ def test_entry_point_on_small(tmp_path, capsys):
             assert all(twin.launches[m] > t0[m] for m in t0)
         else:
             assert twin.launches > t0
-    # brute force for each of the 8 walks (+ t for the 6 closest-hit ones),
+    # brute force for each of the 10 walks (+ t for the 8 closest-hit ones),
     # K4 vs K5 (mask and t), each any-hit walk vs its closest-hit walk, and
-    # each of the 7 other walks vs K2 on the coherent rays
-    assert len(res["agree"]) == 8 + 6 + 2 + 2 + 7
+    # each of the 9 other walks vs K2 on the coherent rays
+    assert len(res["agree"]) == 10 + 8 + 2 + 2 + 9
     assert all(v >= bench_isect.BAR for v in res["agree"].values()), res["agree"]
     assert out.count("agreement ") == len(res["agree"])
-    assert out.count("not run (CPU)") == 24
+    assert out.count("not run (CPU)") == 30
+    # the whole fast query does the raw fast walk's work plus the repair walk's
+    for kind in ("coherent", "incoherent"):
+        raw, whole = (res["times"][(kind, n)]["work"] for n in ("bvh8fast", "bvh8fastq"))
+        assert whole["box"] >= raw["box"] and whole["tri"] >= raw["tri"]
 
 
 @pytest.mark.parametrize("name,reason", [("bvhx", "pallas_bvhx"), ("gather", "K1"),

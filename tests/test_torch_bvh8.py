@@ -2,7 +2,8 @@
 
 On the CPU the port's walk is its plain twin (`walk_twin`); it is held
 against the JAX package's K3 kernel `_walk_kernel8` run unchanged in Pallas
-interpret mode (intersect_bvh_pallas8(fast=False) / occluded_bvh_pallas8),
+interpret mode (intersect_bvh_pallas8(fast=False) / occluded_bvh_pallas8;
+the fast walk has its own file, test_torch_bvh8_fast.py),
 on a pack built by the JAX package's build_bvh_pack8, and against
 intersect_brute. Bars: prim agrees on >= 99.9% of rays (expected 100%), t
 within rtol 1e-5 where prim agrees, occlusion agrees on >= 99.9%. The t bar
@@ -87,7 +88,7 @@ def test_twin_matches_pallas_k3(case):
     with pltpu.force_tpu_interpret_mode():
         hk = intersect_bvh_pallas8(jpack, jtris, *jr, rt=128, walks=1, fast=False)
         occ_k = np.asarray(occluded_bvh_pallas8(jpack, *jr, rt=128, walks=1))
-    ht = bvh8.intersect(pack, tris, *_t(rays))
+    ht = bvh8.intersect(pack, tris, *_t(rays), fast=False)
     _agree_closest(ht.prim.numpy(), ht.t.numpy(), np.asarray(hk.prim), np.asarray(hk.t), "vs K3")
     np.testing.assert_allclose(ht.u.numpy(), np.asarray(hk.u), rtol=T_RTOL, atol=1e-6)
     np.testing.assert_allclose(ht.v.numpy(), np.asarray(hk.v), rtol=T_RTOL, atol=1e-6)
@@ -100,7 +101,7 @@ def test_twin_matches_brute_force(case):
     from tungsten_tpu_torch.ops.intersect import intersect_brute
 
     _, _, pack, tris, rays = case
-    ht = bvh8.intersect(pack, tris, *_t(rays))
+    ht = bvh8.intersect(pack, tris, *_t(rays), fast=False)
     hb = intersect_brute(tris, *_t(rays))
     _agree_closest(ht.prim.numpy(), ht.t.numpy(), hb.prim.numpy(), hb.t.numpy(), "vs brute")
     occ = bvh8.occluded(pack, *_t(rays)).numpy()
@@ -132,7 +133,7 @@ def test_mixed_latch_gives_closest_hit_booleans(case):
     n = o.shape[0]
     latch = torch.arange(n) % 2 == 0
     hm = bvh8.intersect_mixed(pack, tris, o, d, tn, tf, latch)
-    hc = bvh8.intersect(pack, tris, o, d, tn, tf)
+    hc = bvh8.intersect(pack, tris, o, d, tn, tf, fast=False)
     np.testing.assert_array_equal((hm.prim >= 0).numpy(), (hc.prim >= 0).numpy())
     free = ~latch
     np.testing.assert_array_equal(hm.prim[free].numpy(), hc.prim[free].numpy())

@@ -6,8 +6,9 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K4 (bvh2_walk.cu: ordered,
-skip, any), K5 (bvh_walk.cu: v2 and v1) and K2 (intersect_stream.cu).
+Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
+K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1) and K2
+(intersect_stream.cu).
 Bars: local slot (prim) agrees on >= 99.9%
 of rays. Where it agrees, t is within rtol 1e-5 plus 1e-6 absolute on
 >= 99.9% of hits and within rtol 1e-3 on all: the plane form's numerator
@@ -17,12 +18,15 @@ multiply-adds where the twin does not. K5's and K2's u and v are within
 1e-5 on >= 99.9% and within 1e-3 on all (Moller-Trumbore's u cancels in
 tv . p). K5 and K2 round each operation as their twins do, so they are
 expected to agree bit for bit; the bars leave the room the other walks need.
+K3-fast fixes the order of its additions and rounds each operation as its
+twin does (every bf16 x bf16 product is exact in f32), so it is held to bit
+equality of slot and t.
 """
 import numpy as np
 import pytest
 import torch
 
-from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect, intersect_stream
 
 BAR = 0.999
 
@@ -47,7 +51,8 @@ def _case(dev, n_tris=3000, n_rays=20000, seed=7):
              "bvh": bvh.BvhPack.from_arrays(bvh.build_bvh_pack(v0, e1, e2, tree),
                                             len(tree.count), dev),
              "tri": intersect_stream.TriPack.from_arrays(
-                 intersect_stream.build_tri_pack(v0, e1, e2), dev)}
+                 intersect_stream.build_tri_pack(v0, e1, e2), dev),
+             "tri_soa": [torch.as_tensor(a, device=dev) for a in (v0, e1, e2)]}
     o = rng.uniform(-3.0, 3.0, (n_rays, 3))
     d = rng.normal(size=(n_rays, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -80,6 +85,38 @@ def test_kernel_matches_twin(cuda, mode):
     np.testing.assert_allclose(tk, tt, rtol=1e-3)
     dead = (tf <= tn).cpu().numpy()
     assert (lk.cpu().numpy()[dead] == -1).all()
+
+
+@pytest.mark.cuda
+def test_fast_kernel_matches_twin(cuda):
+    packs, (o, d, tn, tf) = _case(cuda)
+    pack = packs["bvh8"]
+    k0, t0 = bvh8.walk_fast_cuda.launches, bvh8.walk_fast_twin.launches
+    tk, lk = bvh8.walk_fast(pack, o, d, tn, tf)
+    torch.cuda.synchronize()
+    assert bvh8.walk_fast_cuda.launches == k0 + 1 and bvh8.walk_fast_twin.launches == t0
+    tt, lt = bvh8.walk_fast_twin(pack, o, d, tn, tf)
+    assert 0.1 < (lk >= 0).float().mean().item() < 0.9
+    assert torch.equal(lk, lt), f"slot agrees on {(lk == lt).float().mean().item():.6f}"
+    assert torch.equal(tk, tt), f"t differs by up to {(tk - tt).abs().max().item():.3e}"
+    assert (lk[tf <= tn] == -1).all()
+
+
+@pytest.mark.cuda
+def test_fast_query_matches_exact_query(cuda):
+    """Validate and repair on the card: the fast query's prim is the exact
+    query's on >= 99.99% of rays, its t the exact recomputation's."""
+    packs, (o, d, tn, tf) = _case(cuda)
+    tris = intersect.TriangleSoA(*(packs["tri_soa"]))
+    k_fast, k_exact = bvh8.walk_fast_cuda.launches, bvh8.walk_cuda.launches
+    hf = bvh8.intersect(packs["bvh8"], tris, o, d, tn, tf)
+    assert bvh8.walk_fast_cuda.launches == k_fast + 1 and bvh8.walk_cuda.launches == k_exact + 1
+    he = bvh8.intersect(packs["bvh8"], tris, o, d, tn, tf, fast=False)
+    same = hf.prim == he.prim
+    assert same.float().mean().item() >= 0.9999
+    hit = (same & (he.prim >= 0)).cpu().numpy()
+    np.testing.assert_allclose(hf.t.cpu().numpy()[hit], he.t.cpu().numpy()[hit],
+                               rtol=1e-3, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -252,14 +252,28 @@ def _edit_small(doc, what):
         del prims[3]
     elif what == "point light":
         prims.append({"type": "point", "power": 10.0})
+    elif what == "emissive disk":
+        prims.append({"type": "disk", "bsdf": "inner", "emission": 5.0})
+    elif what == "cap light":
+        prims.append({"type": "infinite_sphere_cap", "emission": 5.0, "cap_angle": 10.0})
+    elif what == "two envs":
+        prims.append({"type": "infinite_sphere", "emission": 0.5})
+    elif what == "unsampled env":
+        prims[3]["sample"] = False
     return doc
 
 
+NOW_PORTED = {"area light": 2, "no env": 0}  # edit -> the light rows it leaves
+
+
 @pytest.mark.parametrize("what", ["analytic sphere", "area light", "media", "thinlens",
-                                  "other bsdf", "aov", "no env", "point light"])
+                                  "other bsdf", "aov", "no env", "point light",
+                                  "emissive disk", "cap light", "two envs", "unsampled env"])
 def test_missing_features_raise(tmp_path, what):
-    """Every feature outside the slice raises NotImplementedError; none is
-    skipped silently."""
+    """Every feature outside the port raises NotImplementedError naming it;
+    none is skipped silently. The two that have joined the port since (an
+    emissive cube beside the sky; a scene without an env light) flatten, with
+    the light rows they should have."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
@@ -269,5 +283,10 @@ def test_missing_features_raise(tmp_path, what):
         doc = _edit_small(json.load(f), what)
     with open(path, "w") as f:
         json.dump(doc, f)
+    if what in NOW_PORTED:
+        scene = flatten_scene(load_scene(path), torch.device("cpu"))
+        assert scene.meta.n_lights == NOW_PORTED[what]
+        assert scene.lights.has_surface == (what == "area light")
+        return
     with pytest.raises(NotImplementedError):
         flatten_scene(load_scene(path), torch.device("cpu"))

@@ -1,0 +1,214 @@
+"""The lockstep path tracer and the area lights, end to end, in both packages.
+
+`small-area` (area lights beside the sky) and `small-box` (a closed box lit
+by one emissive quad, no env) are flattened by both packages on the numpy BVH
+build. The JAX side runs as its own tests run it on the CPU (the binary BVH
+walk `intersect_bvh`, exact f32); the port runs its twins: closest hit
+through the fast BVH8 walk with its exact repair, shadow rays through the
+exact walk's latch.
+
+  * one lockstep pass (`trace_batch` with one pass, which is `trace_pass` ->
+    `_trace_pass_fast` under the pass seed) lane by lane: >= 98% of lanes
+    within 1e-3 + 1e-3 |ref|, per-channel means within 2e-3 relative. A
+    single 4 spp render's mean is dominated by a handful of bright lanes,
+    so a path whose hit flips between the two walks may move it; the bar is
+    the render tests' own;
+  * render_flat(wavefront="lockstep") and render_flat(wavefront="regen")
+    against the JAX render_flat with the same argument, same bars per pixel;
+  * the lockstep render on the other intersector routes (no pbvh8: K4's
+    any-hit walk for the shadow rays, K5 for the closest hits; no BVH pack:
+    K2 for both) against the same JAX render;
+  * the port's lockstep and regen renders are two streams of one estimator:
+    at 16 spp (49,152 paths a render; the twins' cost on the CPU grows with
+    the number of passes, so not 64) their per-channel means agree within 5%;
+  * tests/data/torch_port_area_ref.json and torch_port_box_ref.json hold the
+    JAX package's per-channel means, for the check on a machine without JAX.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tungsten_tpu_torch.ops import bvh8
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+REFS = {"small-area": "torch_port_area_ref.json", "small-box": "torch_port_box_ref.json"}
+SIZES = list(REFS)
+
+
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """{size: the scene in both packages and the JAX package's results}."""
+    import tungsten_tpu.accel.bvh as jbvh
+    import tungsten_tpu_torch.accel.bvh as tbvh
+    from tungsten_tpu.integrators.path_tracer import trace_batch as jtrace_batch
+    from tungsten_tpu.renderer.render import DEFAULT_SEED, _lane_arrays as jlanes
+    from tungsten_tpu.renderer.render import render_flat as jrender
+    from tungsten_tpu.scene.flatten import flatten_scene as jflatten
+    from tungsten_tpu.scene.load import load_scene as jload
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbvh, "_NATIVE", False)
+    mp.setattr(tbvh, "_NATIVE", False)
+    mp.setattr(jbvh, "_CACHE_DIR", str(tmp_path_factory.mktemp("bvh_cache")))
+    out = {}
+    for size in SIZES:
+        path = synth.write_scene(str(tmp_path_factory.mktemp(size)), size)
+        js = jflatten(jload(path))
+        px, py, lane, _ = jlanes(js.meta, 1)
+        seed = jnp.array([DEFAULT_SEED & 0xFFFFFFFF, 0], jnp.uint32)
+        one_pass = np.asarray(jtrace_batch(js, seed, jnp.asarray(lane), jnp.asarray(px),
+                                           jnp.asarray(py), jnp.uint32(2), n_passes=1))
+        out[size] = dict(
+            scene=flatten_scene(load_scene(path), torch.device("cpu")), seed=DEFAULT_SEED,
+            one_pass=one_pass,
+            # passes_per_batch=1: the lockstep render reuses the one-pass compile
+            lockstep=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="lockstep",
+                                        passes_per_batch=1)),
+            regen=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="regen")))
+    mp.undo()
+    return out
+
+
+def _check(img, ref, label):
+    assert img.shape == ref.shape
+    assert np.isfinite(img).all() and (img >= 0).all()
+    close = np.all(np.abs(img - ref) <= 1e-3 + 1e-3 * np.abs(ref), axis=-1)
+    assert close.mean() >= 0.98, f"{label}: {close.mean():.4f} of lanes within the bar"
+    np.testing.assert_allclose(img.reshape(-1, 3).mean(0), ref.reshape(-1, 3).mean(0),
+                               rtol=2e-3, err_msg=label)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_lockstep_pass_matches_jax_lane_by_lane(cases, size):
+    from tungsten_tpu_torch.integrators.path_tracer import _trace_pass_fast, trace_batch
+    from tungsten_tpu_torch.renderer.render import _lane_arrays
+
+    c = cases[size]
+    px, py, _ = (torch.as_tensor(a) for a in _lane_arrays(c["scene"].meta))
+    lane = torch.arange(px.shape[0])
+    seed = (c["seed"] & 0xFFFFFFFF, 0)
+    fast0, exact0 = bvh8.walk_fast_twin.launches, bvh8.walk_twin.launches
+    rad = trace_batch(c["scene"], seed, lane, px, py, 2, n_passes=1).numpy()
+    n_fast = bvh8.walk_fast_twin.launches - fast0
+    n_exact = bvh8.walk_twin.launches - exact0
+    # the camera walk plus one 2N walk per bounce run go through the fast
+    # walk; each is followed by its repair launch, each bounce by a shadow walk
+    bounces = n_fast - 1
+    assert 1 <= bounces <= c["scene"].meta.max_bounces
+    assert n_exact == n_fast + bounces
+    _check(rad, c["one_pass"], f"{size} one pass")
+    assert (rad.sum(-1) > 0).mean() > 0.5
+    # trace_batch's pass seed is (s0, s1 + pass_start + i)
+    direct = _trace_pass_fast(c["scene"], (seed[0], 2), lane, px, py).numpy()
+    np.testing.assert_array_equal(direct, rad)
+
+
+@pytest.mark.parametrize("wavefront", ["lockstep", "regen"])
+@pytest.mark.parametrize("size", SIZES)
+def test_render_matches_jax(cases, size, wavefront):
+    from tungsten_tpu_torch.renderer.render import render_flat
+
+    c = cases[size]
+    img = render_flat(c["scene"], seed=c["seed"], wavefront=wavefront)
+    assert img.shape == (48, 64, 3)
+    _check(img, c[wavefront], f"{size} {wavefront}")
+
+
+@pytest.mark.parametrize("route", ["K5", "K2"])
+def test_lockstep_on_the_other_routes(cases, route):
+    """Without pbvh8 the shadow rays take K4's any-hit walk and the closest
+    hits K5; without any BVH pack both take K2 (closest hit's prim >= 0).
+    Each still matches the JAX lockstep render."""
+    import dataclasses
+
+    from tungsten_tpu_torch.ops import bvh, bvh2, intersect_stream
+    from tungsten_tpu_torch.renderer.render import render_flat
+
+    c = cases["small-area"]
+    dropped = {"K5": ("pbvh8",), "K2": ("pbvh8", "pbvh3", "pbvh")}[route]
+    scene = dataclasses.replace(c["scene"], **dict.fromkeys(dropped))
+
+    def counts():
+        return (bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches,
+                bvh2.walk3_twin.launches["any"], bvh.walk_packet_twin.launches["v2"],
+                intersect_stream.stream_twin.launches)
+
+    before = counts()
+    img = render_flat(scene, seed=c["seed"], wavefront="lockstep")
+    k3, k4_any, k5, k2 = (a - b for a, b in zip(counts(), before))
+    assert k3 == 0
+    if route == "K5":
+        assert k4_any > 0 and k5 > 0 and k2 == 0
+    else:
+        assert k4_any == 0 and k5 == 0 and k2 > 0
+    _check(img, c["lockstep"], f"small-area lockstep on {route}")
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_lockstep_and_regen_agree(cases, size):
+    """Two streams of one estimator: the means agree within Monte-Carlo
+    noise (a loose 5%)."""
+    from tungsten_tpu_torch.renderer.render import render_flat
+
+    c = cases[size]
+    means = [render_flat(c["scene"], spp=16, seed=7, wavefront=w).reshape(-1, 3).mean(0)
+             for w in ("lockstep", "regen")]
+    np.testing.assert_allclose(means[0], means[1], rtol=5e-2)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_reference_means_files_match(cases, size):
+    """The JSON files carry the JAX renders' means for the check on the
+    card; rtol 1e-4 leaves room for another CPU's float rounding in XLA, far
+    below the 5e-3 that check applies."""
+    c = cases[size]
+    with open(os.path.join(DATA, REFS[size])) as f:
+        data = json.load(f)
+    assert data["scene"] == size and data["seed"] == c["seed"]
+    assert data["spp"] == 4 and data["resolution"] == [64, 48]
+    for w in ("lockstep", "regen"):
+        np.testing.assert_allclose(data["channel_means"][w], c[w].reshape(-1, 3).mean(0),
+                                   rtol=1e-4, err_msg=w)
+
+
+def test_wavefront_argument():
+    """auto is regen (the port has no device mesh and no forward lobes); an
+    unknown name raises; trace_pass refuses what the lockstep port lacks."""
+    from tungsten_tpu_torch.integrators import path_tracer as pt
+    from tungsten_tpu_torch.renderer import render
+
+    class Meta:
+        res_x, res_y, spp = 4, 4, 1
+        has_forward = has_media = False
+        aovs = ()
+
+    class Scene:
+        meta = Meta()
+        shade_pack = torch.zeros(1)
+
+    calls = []
+    mp = pytest.MonkeyPatch()
+    mp.setattr(render, "trace_regen_batch",
+               lambda scene, seed, px, py, pix, done, n_passes: calls.append("regen")
+               or torch.zeros((16, 3)))
+    mp.setattr(render, "trace_batch",
+               lambda scene, seed, lane, px, py, done, n_passes: calls.append("lockstep")
+               or torch.zeros((16, 3)))
+    for w in ("auto", "regen", "lockstep"):
+        render.render_flat(Scene(), wavefront=w)
+    mp.undo()
+    assert calls == ["regen", "regen", "lockstep"]
+    with pytest.raises(ValueError):
+        render.render_flat(Scene(), wavefront="tiles")
+    fwd = Scene()
+    fwd.meta = type("M", (Meta,), {"has_forward": True})()
+    with pytest.raises(NotImplementedError, match="forward"):
+        pt.trace_pass(fwd, (0, 0), None, None, None)

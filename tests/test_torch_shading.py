@@ -160,17 +160,17 @@ def test_env_light_functions(scenes, rng):
     assert TL.any_infinite_sampled(ts.meta) == JL.any_infinite_sampled(js.meta)
     li = jnp.zeros((n,), jnp.int32)
     lsj = JL.sample_env_direct(js, li, jnp.asarray(u2))
-    lst = TL.sample_env_direct(ts, torch.as_tensor(u2))
+    lst = TL.sample_env_direct(ts, torch.zeros(n, dtype=torch.int64), torch.as_tensor(u2))
     np.testing.assert_array_equal(lst.valid.numpy(), np.asarray(lsj.valid))
     for f in ("d", "dist", "pdf", "radiance"):
         _close(getattr(lst, f), getattr(lsj, f))
 
 
 def test_choose_and_sample_light_env_only(scenes, rng):
-    """In an env-only scene the JAX function draws an area sample and merges
-    it away: `is_env` is set on every lane, so the merged sample IS the env
-    sample, and the port (which skips the area sample) gives the same
-    sample, choice pdf and sampler position."""
+    """In an env-only scene the choice is static (light 0, pdf 1) and the
+    area sample is merged away: `is_env` is set on every lane, so the merged
+    sample IS the env sample; the port gives the same light, sample, choice
+    pdf and sampler position."""
     from tungsten_tpu.integrators.path_tracer import _choose_and_sample_light as jchoose
     from tungsten_tpu.models.primitives import lights as JL
     from tungsten_tpu.sampling.sampler import Sampler as JSampler
@@ -184,7 +184,8 @@ def test_choose_and_sample_light_env_only(scenes, rng):
     jsmp = JSampler.create(jnp.asarray(np.array([5, 0], np.uint32)), jnp.asarray(lane))
     tsmp = TSampler.create((5, 0), torch.as_tensor(lane.astype(np.int64)))
     li, is_env, is_cap, is_point, lsj, cpj, jsmp = jchoose(js, jsmp, jnp.asarray(p))
-    lst, cpt, tsmp = tchoose(ts, tsmp, torch.as_tensor(p))
+    lit, lst, cpt, tsmp = tchoose(ts, tsmp, torch.as_tensor(p))
+    np.testing.assert_array_equal(lit.numpy(), np.asarray(li))
     assert np.asarray(is_env).all() and not np.asarray(is_cap).any()
     assert not np.asarray(is_point).any() and (np.asarray(li) == 0).all()
     u_point = JSampler.create(jnp.asarray(np.array([5, 0], np.uint32)),

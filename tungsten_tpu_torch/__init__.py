@@ -2,12 +2,14 @@
 
 Counterpart of tungsten_tpu/__init__.py. The JAX package stays the
 reference; this package runs its main path (scene load -> flatten ->
-regenerating wavefront path tracer -> framebuffer) with plain torch tensor
-code and one hand-written CUDA kernel for the BVH8 walk
-(ops/bvh8.py + csrc/bvh8_walk.cu). The intersector benchmark
-(tools/bench_isect.py) adds the binary walk (ops/bvh2.py +
-csrc/bvh2_walk.cu) and the packet walk (ops/bvh.py + csrc/bvh_walk.cu).
-It imports torch and numpy, never jax.
+regenerating or lockstep wavefront path tracer -> framebuffer) with plain
+torch tensor code and hand-written CUDA kernels for the walks: the BVH8
+walk, exact and fast (ops/bvh8.py + csrc/bvh8_walk.cu, bvh8_walk_fast.cu),
+the binary walk (ops/bvh2.py + csrc/bvh2_walk.cu), the packet walk
+(ops/bvh.py + csrc/bvh_walk.cu) and the streaming brute force
+(ops/intersect_stream.py + csrc/intersect_stream.cu). The intersector
+benchmark (tools/bench_isect.py) times them all. It imports torch and numpy,
+never jax.
 
 Package layout mirrors tungsten_tpu/ module for module; only the slice the
 main path needs is ported, and every feature it lacks raises

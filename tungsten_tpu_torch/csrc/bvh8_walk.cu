@@ -19,8 +19,9 @@
 //     are all-zero planes: t = -0/0 = NaN and every comparison is false, so the
 //     file must not be built with --use_fast_math (IEEE division is kept);
 //   * latch: a latched ray records its first hit (best = 0) and leaves.
-// K3's `fast` variant (bf16x3 leaf matmuls plus an exact repair pass) exists
-// to feed the TPU's matrix unit and is not ported; this is the exact f32 leaf.
+// This is the exact f32 leaf. K3's `fast` variant (bf16x3 leaf products, slack,
+// the caller's exact repair pass) is bvh8_walk_fast.cu; its repair pass and
+// every any-hit walk run this kernel.
 //
 // What bounds it on the H100: the walk is latency-bound on divergent loads.
 // Each node visit reads 8 child boxes (256 B) and each leaf visit 128 plane

@@ -1,28 +1,44 @@
-"""Regenerating wavefront path tracer with NEE and single-sample MIS (torch).
+"""Wavefront path tracers with NEE and MIS (torch): regenerating and lockstep.
 
-Port of `trace_regen_batch` and the helpers it calls from
-tungsten_tpu/integrators/path_tracer.py (lines 67-150, 1100-1232, 1236-1778)
-for the slice's configuration: triangles and non-emissive analytic prims,
-no media, no forward lobes, no AOVs, one samplable env light. A
-fixed-width wavefront of W lanes runs the bounce loop; a lane whose path
-ends respawns a camera path from the budget of n_passes * W paths. Per
-iteration:
+Port of `trace_regen_batch`, `_trace_pass_fast` / `trace_pass` /
+`trace_batch` and the helpers they call from
+tungsten_tpu/integrators/path_tracer.py (lines 67-150, 558-1232, 1236-1811)
+for the port's configuration: triangles and non-emissive analytic prims,
+area lights (emissive meshes, quads, cubes) beside at most one samplable env
+light, no media, no forward lobes, no AOVs, no sample table.
 
-  sampler window prefetch -> shading data -> one material gather + masked
-  BSDF dispatch -> env light sample -> continuation + Russian roulette ->
-  regen -> ONE 2N-lane walk carrying the shadow rays and the next rays ->
-  one scatter-add into rad_pix.
+Regenerating (`trace_regen_batch`): a fixed-width wavefront of W lanes runs
+the bounce loop; a lane whose path ends respawns a camera path from the
+budget of n_passes * W paths. Single-sample MIS: the light strategy pairs
+with the continuation sample, whose hit on an emitter (or escape to the env)
+is weighted at the next vertex. Per iteration:
+
+  sampler window prefetch -> shading data -> hit-emitter MIS -> one material
+  gather + masked BSDF dispatch -> light choice and sample -> continuation +
+  Russian roulette -> regen -> ONE 2N-lane walk carrying the shadow rays
+  and the next rays -> one scatter-add into rad_pix.
+
+Lockstep (`trace_pass` -> `_trace_pass_fast`, summed over passes by
+`trace_batch`): every lane traces one path, all lanes bounce together. The
+estimator is the reference's (TraceBase::estimateDirect): at each vertex one
+chosen light, a light-strategy shadow ray and a separate bsdf-strategy ray.
+Per bounce the shadow rays take the any-hit walk (`_occluded_raw`) and the
+[bsdf-strategy | continuation] rays share ONE 2N-lane closest-hit walk
+(`_intersect`).
 
 The intersector dispatch is the JAX package's TPU route (`_intersect`,
-`_intersect_tris`, `_intersect_mixed`): analytic prims first, their t
-clipping the triangle walk; then the first pack the scene carries, pbvh8
-(K3), pbvh (K5) or ptris (K2, which every scene has); brute force at 64
-triangles or fewer. The 2N walk latches the shadow lanes (any-hit) on K3
-and is a plain closest-hit walk on the other routes (same booleans).
+`_intersect_tris`, `_intersect_mixed`, `_occluded_raw`): analytic prims
+first, their t clipping the triangle walk; then the first pack the scene
+carries, pbvh8 (K3: closest hit through the fast walk with its exact repair,
+any-hit through the exact walk's latch), pbvh (K5) or ptris (K2, which every
+scene has); brute force at 64 triangles or fewer. The regen 2N walk latches
+the shadow lanes (any-hit) on K3 and is a plain closest-hit walk on the
+other routes (same booleans).
 
-RNG streams key on the global path id, so the image is a pure function of
-(seed, path id) as in the JAX package. The loop condition is one `.item()`
-per iteration (the JAX package's lax.while_loop runs on the device).
+RNG streams key on the global path id (regen) or on (pass, lane) (lockstep),
+so the image is a pure function of the seed as in the JAX package. Each loop
+condition is one `.item()` per iteration (the JAX package's lax.while_loop
+runs on the device).
 """
 from __future__ import annotations
 
@@ -33,8 +49,10 @@ from ..models.bsdfs.common import Lobes
 from ..models.bsdfs.dispatch import bsdf_eval, bsdf_pdf, bsdf_sample, gather
 from ..models.cameras.pinhole import camera_rays_w
 from ..models.primitives import lights as L
-from ..models.primitives.analytic import intersect_analytic, normal_at
-from ..ops import bvh, bvh8
+from ..models.primitives.analytic import (hit_geom, intersect_analytic, normal_at,
+                                          occluded_analytic)
+from ..models.textures.textures import eval_texture
+from ..ops import bvh, bvh2, bvh8
 from ..ops.intersect import INF, Hit, intersect_brute
 from ..ops.intersect_stream import intersect_stream
 from ..sampling import warps
@@ -94,25 +112,50 @@ def _intersect_mixed(scene: FlatScene, o, d, tnear, tfar, latch) -> Hit:
 
 def _shading_data(scene: FlatScene, hit: Hit, o, d):
     """Gather surface info for hit lanes (garbage where prim < 0, masked out
-    by the caller): ONE packed row gather per lane. An analytic hit (virtual
-    id >= T) takes Ns = Ng = normal_at(p) and uv = (hit.u, hit.v)
-    (path_tracer.py:129-137). The geometric normal and the light id of the
-    row serve media and area lights, not ported."""
+    by the caller): ONE packed row gather per lane -> (p, ng, ns, uv, mat,
+    light id). An analytic hit (virtual id >= T) takes Ns = Ng =
+    normal_at(p) and uv = (hit.u, hit.v) (path_tracer.py:111-138)."""
     tri = torch.clamp(hit.prim, min=0)
     p = o + d * hit.t[..., None]
     u = hit.u[..., None]
     v = hit.v[..., None]
     w0 = 1.0 - u - v
     row = scene.shade_pack[tri]
+    ng = row[..., 0:3]
     ns = vo.normalize(row[..., 3:6] * w0 + row[..., 6:9] * u + row[..., 9:12] * v)
     uv = row[..., 12:14] * w0 + row[..., 14:16] * u + row[..., 16:18] * v
     mat = row[..., 18].to(torch.int64)
+    light = row[..., 19].to(torch.int64)
     if scene.ana is not None:
         n_tris = scene.tris.v0.shape[0]
         is_a = (hit.prim >= n_tris)[..., None]
-        ns = torch.where(is_a, normal_at(scene.ana, hit.prim - n_tris, p), ns)
+        ng_a = normal_at(scene.ana, hit.prim - n_tris, p)
+        ng = torch.where(is_a, ng_a, ng)
+        ns = torch.where(is_a, ng_a, ns)
         uv = torch.where(is_a, torch.cat([u, v], -1), uv)
-    return p, ns, uv, mat
+    return p, ng, ns, uv, mat, light
+
+
+def _occluded_raw_tris(scene: FlatScene, p, d, near, far):
+    """Any-hit over the triangles: pbvh8 -> K3's latch (exact f32: a phantom
+    of the fast walk would occlude falsely), pbvh3 -> K4's any-hit walk, else
+    the closest hit's prim >= 0 (path_tracer.py:1213-1232)."""
+    if scene.tris.v0.shape[0] > BRUTE_MAX_TRIS:
+        if scene.pbvh8 is not None:
+            return bvh8.occluded(scene.pbvh8, p, d, near, far)
+        if scene.pbvh3 is not None:
+            return bvh2.occluded_bvh3(scene.pbvh3, p, d, near, far)
+    return _intersect_tris(scene, p, d, near, far).prim >= 0
+
+
+def _occluded_raw(scene: FlatScene, p, d, near, far):
+    """Any-hit boolean for explicit [near, far] segments (the shadow
+    strategy): analytic prims first; the lanes they block skip the triangle
+    walk (far = 0) (path_tracer.py:1201-1210)."""
+    if scene.ana is None:
+        return _occluded_raw_tris(scene, p, d, near, far)
+    blocked_a = occluded_analytic(scene.ana, p, d, near, far)
+    return blocked_a | _occluded_raw_tris(scene, p, d, near, torch.where(blocked_a, 0.0, far))
 
 
 def _shading_frame(ns, flip):
@@ -124,19 +167,39 @@ def _shading_frame(ns, flip):
     return t_ax, b_ax, n_ax
 
 
-def _choose_and_sample_light(scene: FlatScene, smp: Sampler, p):
-    """Light choice + sampleDirect over the slice's one env light. Consumes
-    4 sampler dims like the JAX function. With one light the choice and its
-    pdf are static (li = 0, choice pdf 1), and `_merge_ls(is_env, env, area)`
-    selects the env sample on every lane, so the area sample the JAX
-    function draws and discards is not drawn here."""
-    n = p.shape[0]
-    _, smp = smp.next_1d()  # u_choose: unused with a single light
+def _sample_chosen_light(scene: FlatScene, smp: Sampler, li, is_env_choice, p):
+    """sampleDirect of the chosen light li as seen from p: the area sample,
+    replaced by the env's where the env was chosen. Draws a point pair, then
+    the triangle pick (the pending half of the choice's draw, where there is
+    one)."""
     u_point, smp = smp.next_2d()
-    _, smp = smp.next_1d()  # u_tri: feeds the discarded area sample
-    ls = L.sample_env_direct(scene, u_point)
-    choice_pdf = torch.ones((n,), device=p.device)
-    return ls, choice_pdf, smp
+    u_tri, smp = smp.next_1d()
+    ls = L.sample_area_direct(scene, li, p, u_tri, u_point)
+    if L.any_infinite_sampled(scene.meta):
+        ls = L._merge_ls(is_env_choice, L.sample_env_direct(scene, li, u_point), ls)
+    return ls, smp
+
+
+def _choose_and_sample_light(scene: FlatScene, smp: Sampler, p):
+    """Radiance-weighted light choice (TraceBase::chooseLight) + sampleDirect
+    over the light kinds (area / env). Consumes 4 sampler dims. Returns (li,
+    LightSample, choice_pdf, sampler); LightSample.pdf excludes the choice
+    pdf. With one light the choice, its pdf and the light's kind are static
+    (path_tracer.py:1123-1168)."""
+    meta = scene.meta
+    n = p.shape[0]
+    u_choose, smp = smp.next_1d()
+    if meta.n_lights == 1:
+        li = torch.zeros((n,), dtype=torch.int64, device=p.device)
+        choice_pdf = torch.ones((n,), device=p.device)
+        is_env_choice = torch.full((n,), 0 in meta.env_light_idx, device=p.device)
+    else:
+        li, choice_weight = L.choose_light(scene, u_choose, p)
+        choice_pdf = torch.where(choice_weight > 0.0,
+                                 1.0 / torch.clamp(choice_weight, min=1e-30), 0.0)
+        is_env_choice = scene.lights.is_env[li]
+    ls, smp = _sample_chosen_light(scene, smp, li, is_env_choice, p)
+    return li, ls, choice_pdf, smp
 
 
 def _regen(scene, s, seed, px_cycle, py_cycle, pix_cycle, pass_base, W, total, strat):
@@ -248,17 +311,21 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         # ---- misses: environment, MIS against the previous light sample ----
         miss = s["alive"] & (hit.prim < 0)
         mis_applies = (~s["was_specular"] & s["nee_active"]) if do_nee else torch.zeros_like(miss)
-        if do_nee:
-            lp_inf = L.infinite_winner_pdf(scene, d) * L.infinite_winner_choice_pdf(scene, d, o)
-            w_env = torch.where(mis_applies, warps.power_heuristic(s["pdf_cont"], lp_inf), 1.0)
-        else:
-            w_env = full(1.0)
-        add_env = miss & (bounce >= meta.min_bounces)
-        emission = emission + torch.where(
-            add_env[..., None], throughput * L.infinite_radiance(scene, d) * w_env[..., None], 0.0)
+        if meta.has_env:
+            if do_nee:
+                lp_inf = (L.infinite_winner_pdf(scene, d)
+                          * L.infinite_winner_choice_pdf(scene, d, o))
+                w_env = torch.where(mis_applies,
+                                    warps.power_heuristic(s["pdf_cont"], lp_inf), 1.0)
+            else:
+                w_env = full(1.0)
+            add_env = miss & (bounce >= meta.min_bounces)
+            emission = emission + torch.where(
+                add_env[..., None],
+                throughput * L.infinite_radiance(scene, d) * w_env[..., None], 0.0)
 
         # ---- surface shading data + ONE material gather ----
-        p, ns, uv, mat_id = _shading_data(scene, hit, o, d)
+        p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
         mat_pre = gather(mats, texs, mat_id, uv)
         lobes = mat_pre[3]
         hit_backside = vo.dot(ns, d) > 0.0
@@ -268,18 +335,38 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
             flip = torch.zeros_like(hit_backside)
         frame = _shading_frame(ns, flip)
         wi = vo.to_local(*frame, -d)
+
+        # ---- hit an emitter: MIS against the previous vertex's light strategy ----
+        if scene.lights.has_surface:
+            li_hit = torch.clamp(light_id, min=0)
+            geo_front = -vo.dot(d, ng) > torch.clamp(scene.lights.cone_cos[li_hit], min=0.0)
+            if do_nee:
+                lp_hit = (L.area_direct_pdf(scene, torch.clamp(hit.prim, min=0), o, p, d)
+                          * L.light_choice_pdf(scene, li_hit, o))
+                w_emit = torch.where(mis_applies,
+                                     warps.power_heuristic(s["pdf_cont"], lp_hit), 1.0)
+            else:
+                w_emit = full(1.0)
+            add_emit = (hit_surface_lane & (light_id >= 0) & geo_front
+                        & (bounce >= meta.min_bounces))
+            e_hit = eval_texture(texs, scene.lights.tex[li_hit], uv,
+                                 may=scene.lights.emit_kinds)
+            emission = emission + torch.where(
+                add_emit[..., None], throughput * e_hit * w_emit[..., None], 0.0)
+
         vp = p
         throughput_vertex = throughput
 
         # ---- NEE: light strategy only (the continuation is the bsdf half) ----
         if do_nee:
-            ls, cp_pick, smp = _choose_and_sample_light(scene, smp, vp)
+            _, ls, cp_pick, smp = _choose_and_sample_light(scene, smp, vp)
             wo_l = vo.to_local(*frame, ls.d)
             f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l)
             pdf_b = bsdf_pdf(mats, mat_pre, uv, wi, wo_l)
             w_light = warps.power_heuristic(ls.pdf * cp_pick, pdf_b)
-            # with one light, the escape winner along ls.d is the chosen light,
-            # so the JAX package's masked-infinite-choice override never fires
+            # with one env light, the escape winner along ls.d is the chosen
+            # light whenever an infinite light was chosen, so the JAX package's
+            # masked-infinite-choice override (escape_winner) never fires
             skip_l = (Lobes.is_pure_specular(lobes) | (lobes == Lobes.FORWARD) | (lobes == 0))
             nee_gate = hit_surface_lane & (bounce < meta.max_bounces - 1)
             cand = (ls.valid & (ls.pdf > 0.0) & torch.any(f_l > 0.0, dim=-1)
@@ -345,3 +432,249 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
             hit = _intersect(scene, s2["o"], s2["d"], s2["near"], far_next)
         state = s2
     return rad_pix
+
+
+# ---------------------------------------------------------------------------
+# lockstep wavefront: every lane one path, all lanes bounce together
+# ---------------------------------------------------------------------------
+
+def _unified_nee_prepare(scene: FlatScene, smp: Sampler, vp, frame, wi, mat_pre, uv, lobes):
+    """NEE setup at a surface vertex: one chosen light, the light-sampling
+    and the bsdf-sampling strategy (path_tracer.py:558-647, no media).
+    Consumes 7 sampler dims. Returns the sampler and the deferred-ray data;
+    the visibility rays are traced by the caller. (The JAX package asks its
+    BSDFs for their non-specular lobes only here; lambert and rough_conductor
+    have no other.)"""
+    mats = scene.materials
+    u_choose, smp = smp.next_1d()
+    li, choice_weight = L.choose_light(scene, u_choose, vp)
+    is_env_choice = scene.lights.is_env[li]
+    ls, smp = _sample_chosen_light(scene, smp, li, is_env_choice, vp)
+
+    # strategy 1: f and pdf at the sampled light direction
+    wo_l = vo.to_local(*frame, ls.d)
+    f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l)
+    mis_l = warps.power_heuristic(ls.pdf, bsdf_pdf(mats, mat_pre, uv, wi, wo_l))
+    cand = ls.valid & (ls.pdf > 0.0) & torch.any(f_l > 0.0, dim=-1)
+
+    # strategy 2: bsdf sampling
+    u_bs2, smp = smp.next_2d()
+    u_bs1, smp = smp.next_1d()
+    bs = bsdf_sample(mats, mat_pre, uv, wi, u_bs2, u_bs1)
+    mis_cand = bs.valid & torch.any(bs.weight > 0.0, dim=-1)
+
+    skip = Lobes.is_pure_specular(lobes) | (lobes == Lobes.FORWARD) | (lobes == 0)
+    shadow_far = torch.where(
+        cand & ~skip, torch.where(ls.dist >= INF, INF, ls.dist * SHADOW_FUDGE), 0.0)
+    mis_far = torch.where(mis_cand & ~skip, INF, 0.0)
+    return smp, dict(
+        li=li, is_env=is_env_choice, ls=ls, f_l=f_l, mis_l=mis_l, cand=cand,
+        wo_mis=vo.to_global(*frame, bs.wo), w_mis=bs.weight, pdf_mis=bs.pdf,
+        mis_cand=mis_cand, skip=skip, shadow_far=shadow_far, mis_far=mis_far, vp=vp,
+        choice_weight=choice_weight)
+
+
+def _unified_nee_finish(scene: FlatScene, data, blocked, h_mis: Hit):
+    """The visibility results -> the vertex's NEE contribution (N, 3)
+    (path_tracer.py:650-722, no media). `blocked` is the shadow strategy's
+    occlusion boolean, `h_mis` the bsdf strategy's closest hit: it counts
+    where it lands on the front of the chosen area light, or escapes while
+    the chosen light is the env."""
+    ls, li, is_env_choice = data["ls"], data["li"], data["is_env"]
+    contrib_l = data["f_l"] * ls.radiance * (
+        data["mis_l"] / torch.clamp(ls.pdf, min=1e-30))[..., None]
+    contrib_l = torch.where((data["cand"] & ~blocked)[..., None], contrib_l, 0.0)
+
+    h = h_mis
+    tri_hit = torch.clamp(h.prim, min=0)
+    hit_light = torch.where(h.prim >= 0, scene.tri_light[tri_hit], -1)
+    vp, wo_mis = data["vp"], data["wo_mis"]
+    hp = vp + wo_mis * h.t[..., None]
+    ng_mis, uvh = hit_geom(scene, tri_hit, hp, h.u, h.v)
+    front = -vo.dot(wo_mis, ng_mis) > torch.clamp(
+        scene.lights.cone_cos[torch.clamp(hit_light, min=0)], min=0.0)
+    # e_area is read where li is an area light only, so its kinds suffice
+    e_area = eval_texture(scene.textures, scene.lights.tex[li], uvh,
+                          may=scene.lights.emit_kinds)
+    match_area = ~is_env_choice & (hit_light == li) & front & (h.prim >= 0)
+    pdf_area = L.area_direct_pdf(scene, tri_hit, vp, hp, wo_mis)
+    if L.any_infinite_sampled(scene.meta):
+        m_inf, e_inf, pdf_inf = L.chosen_infinite_eval(scene, li, wo_mis)
+        match_inf = (h.prim < 0) & m_inf
+        e = torch.where(match_inf[..., None], e_inf,
+                        torch.where(match_area[..., None], e_area, 0.0))
+        light_pdf = torch.where(match_inf, pdf_inf, pdf_area)
+        match = match_inf | match_area
+    else:
+        e = torch.where(match_area[..., None], e_area, 0.0)
+        light_pdf = pdf_area
+        match = match_area
+
+    mis_b = warps.power_heuristic(data["pdf_mis"], light_pdf)
+    contrib_b = e * data["w_mis"] * mis_b[..., None]
+    contrib_b = torch.where((data["mis_cand"] & match)[..., None], contrib_b, 0.0)
+    total = (contrib_l + contrib_b) * data["choice_weight"][..., None]
+    return torch.where(data["skip"][..., None], 0.0, total)
+
+
+def _strat_fields(meta, seed, lane_ids, px, py):
+    """Per-lane Sobol' sample index and pixel key (renderer
+    "stratified_sampler"), (None, None) otherwise. Lanes are m repetitions of
+    the pixel grid, so rep = lane // n_pix; the pass index rides in seed[1]
+    (path_tracer.py:725-738)."""
+    if not meta.stratified:
+        return None, None
+    n_pix = meta.res_x * meta.res_y
+    m = max(px.shape[0] // n_pix, 1)
+    rep = (lane_ids.to(torch.int64) & MASK32) // n_pix
+    samp = ((int(seed[1]) & MASK32) * m + rep) & MASK32
+    pix = (py.to(torch.int64) * meta.res_x + px.to(torch.int64)) & MASK32
+    return samp, pix
+
+
+def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
+    """One sample per lane, all lanes in lockstep (path_tracer.py:741-1097
+    for no sample table, no media, no AOVs, no compaction). seed: (s0, s1)
+    uint32 pair, the pass index folded into s1. Returns radiance (N, 3).
+
+    Per bounce: the shadow rays take the any-hit walk, the [bsdf-strategy |
+    continuation] rays one 2N-lane closest-hit walk."""
+    meta = scene.meta
+    dev = px.device
+    n = px.shape[0]
+    mats, texs = scene.materials, scene.textures
+    seed = (int(seed[0]) & MASK32, int(seed[1]) & MASK32)
+    samp_idx, pix_key = _strat_fields(meta, seed, lane_ids, px, py)
+    strat = samp_idx is not None
+    sampler = Sampler.create(seed, lane_ids, samp_idx, pix_key, strat)
+    u_cam, sampler = sampler.next_2d()
+    u_lens, sampler = sampler.next_2d()
+    if not strat:
+        # stratified (0,2)-sequence AA over passes
+        u_cam = stratified_cam_2d(sampler.lane_id, seed[1])
+    o, d, cam_w = camera_rays_w(scene.camera, meta, px, py, u_cam, u_lens)
+    o, d = o.contiguous(), d.contiguous()
+    base_dim = sampler.dim
+
+    def full(v, dtype=torch.float32):
+        return torch.full((n,), v, dtype=dtype, device=dev)
+
+    hit = _intersect(scene, o, d, full(1e-4), torch.where(cam_w > 0.0, INF, 0.0))
+    throughput = cam_w[..., None].expand(n, 3)
+    emission = torch.zeros((n, 3), device=dev)
+    alive = cam_w > 0.0
+    was_specular = full(True, torch.bool)
+    do_nee = meta.enable_light_sampling and meta.n_lights > 0
+    near_eps = full(DEFAULT_EPSILON)
+
+    bounce = 0
+    while bounce < meta.max_bounces and bool(alive.any().item()):
+        smp = Sampler(seed, sampler.lane_id, base_dim + bounce * DIMS_PER_BOUNCE,
+                      samp_idx, pix_key, strat).prefetch(8)
+        alive_in = alive
+        did_hit = (hit.prim >= 0) & alive
+        smp = smp.skip(3)  # the medium-interaction dims (no media)
+        hit_surface_lane = did_hit
+        alive = alive & did_hit
+
+        # ---- misses: environment ----
+        if meta.has_env:
+            miss = alive_in & (hit.prim < 0)
+            gate = L.infinite_needs_escape_add(scene, d, was_specular)
+            add_env = miss & gate & (bounce >= meta.min_bounces)
+            emission = emission + torch.where(
+                add_env[..., None], throughput * L.infinite_radiance(scene, d), 0.0)
+
+        # ---- surface shading data ----
+        p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
+        mat_pre = gather(mats, texs, mat_id, uv)
+        lobes = mat_pre[3]
+        hit_backside = vo.dot(ns, d) > 0.0
+        if meta.enable_two_sided:
+            flip = hit_backside & ~Lobes.is_transmissive(lobes)
+        else:
+            flip = torch.zeros_like(hit_backside)
+        frame = _shading_frame(ns, flip)
+        wi = vo.to_local(*frame, -d)
+
+        # ---- hit an emitter: counted where NEE did not sample it ----
+        if scene.lights.has_surface:  # else no row carries a light id
+            li_hit = torch.clamp(light_id, min=0)
+            geo_front = -vo.dot(d, ng) > torch.clamp(scene.lights.cone_cos[li_hit], min=0.0)
+            gate_emit = was_specular if meta.enable_light_sampling else full(True, torch.bool)
+            add_emit = (hit_surface_lane & (light_id >= 0) & geo_front & gate_emit
+                        & (bounce >= meta.min_bounces))
+            e_hit = eval_texture(texs, scene.lights.tex[li_hit], uv,
+                                 may=scene.lights.emit_kinds)
+            emission = emission + torch.where(add_emit[..., None], throughput * e_hit, 0.0)
+
+        vp = p
+        throughput_vertex = throughput
+
+        # ---- NEE prepare ----
+        if do_nee:
+            smp, nee = _unified_nee_prepare(scene, smp, vp, frame, wi, mat_pre, uv, lobes)
+            nee_gate = hit_surface_lane & (bounce < meta.max_bounces - 1)
+            shadow_far = torch.where(nee_gate, nee["shadow_far"], 0.0)
+            mis_far = torch.where(nee_gate, nee["mis_far"], 0.0)
+        else:
+            smp = smp.skip(5)
+
+        # ---- continuation sample ----
+        u_c2, smp = smp.next_2d()
+        u_c1, smp = smp.next_1d()
+        bs = bsdf_sample(mats, mat_pre, uv, wi, u_c2, u_c1)
+        wo_w = vo.to_global(*frame, bs.wo)
+        throughput = throughput * torch.where(alive[..., None], bs.weight, 1.0)
+        was_specular = torch.where(hit_surface_lane, Lobes.has_specular(bs.lobe), was_specular)
+        alive = alive & torch.where(hit_surface_lane, bs.valid, True)
+        alive = alive & (vo.max3(torch.abs(throughput)) > 0.0)
+
+        # ---- russian roulette ----
+        rp = vo.max3(torch.abs(throughput))
+        u_rr, smp = smp.next_1d()
+        if bounce > 2:
+            do_rr = rp < 0.1
+            survive = u_rr < rp
+            throughput = torch.where((do_rr & survive & alive)[..., None],
+                                     throughput / torch.clamp(rp, min=1e-30)[..., None],
+                                     throughput)
+            alive = alive & (~do_rr | survive)
+        cont_far = torch.where(alive, INF, 0.0) if bounce + 1 < meta.max_bounces else full(0.0)
+
+        # ---- any-hit shadows + merged [mis | continuation] closest hit ----
+        if do_nee:
+            shadow_blocked = _occluded_raw(scene, vp, nee["ls"].d, near_eps, shadow_far)
+            h2 = _intersect(scene, torch.cat([vp, vp]), torch.cat([nee["wo_mis"], wo_w]),
+                            torch.cat([near_eps, near_eps]), torch.cat([mis_far, cont_far]))
+            h_mis = Hit(t=h2.t[:n], prim=h2.prim[:n], u=h2.u[:n], v=h2.v[:n])
+            hit = Hit(t=h2.t[n:], prim=h2.prim[n:], u=h2.u[n:], v=h2.v[n:])
+            contrib = _unified_nee_finish(scene, nee, shadow_blocked, h_mis)
+            emission = emission + torch.where(nee_gate[..., None],
+                                              throughput_vertex * contrib, 0.0)
+        else:
+            hit = _intersect(scene, vp, wo_w, near_eps, cont_far)
+        o, d = vp, wo_w
+        bounce += 1
+    return torch.where(torch.isfinite(emission), emission, 0.0)
+
+
+def trace_pass(scene: FlatScene, seed, lane_ids, px, py):
+    """Trace one sample for each lane; returns radiance (N, 3). Scenes with
+    forward-lobed materials need the JAX package's crossing-walk NEE, which
+    is not ported."""
+    if scene.meta.has_forward or scene.meta.has_media or scene.meta.aovs:
+        raise NotImplementedError(
+            "lockstep path: forward lobes (trace_pass's slow branch), media and AOVs "
+            "are not ported")
+    return _trace_pass_fast(scene, seed, lane_ids, px, py)
+
+
+def trace_batch(scene: FlatScene, seed, lane_base, px, py, pass_start: int, n_passes: int = 1):
+    """Sum of n_passes lockstep passes (N, 3); pass i runs under the seed
+    (seed[0], seed[1] + pass_start + i) (path_tracer.py:1781-1799)."""
+    acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=px.device)
+    for i in range(n_passes):
+        pass_seed = (int(seed[0]) & MASK32, (int(seed[1]) + int(pass_start) + i) & MASK32)
+        acc = acc + trace_pass(scene, pass_seed, lane_base, px, py)
+    return acc

@@ -10,9 +10,11 @@ Identifier space: analytic prims occupy virtual ids [T, T+A) after the T
 real triangles; the flatten appends A rows to the shading table, and the
 integrator overrides the normal and uv of those rows at the hit.
 
-Light sampling of analytic emitters (sample_direct, direct_pdf,
-sample_position) and the one-sided disk occlusion (occluded_analytic) are
-not ported: emissive analytic prims wait for area lights.
+`hit_geom` gives the geometric normal and uv at any hit (a triangle or an
+analytic prim), `occluded_analytic` the any-hit test the shadow rays run
+before the triangle walk. Light sampling of analytic emitters
+(sample_direct, direct_pdf, sample_position) is not ported: the flatten
+refuses emissive analytic prims.
 """
 from __future__ import annotations
 
@@ -268,6 +270,34 @@ def normal_at(ana: AnalyticTable, k, p):
     n = torch.where((ptype == SPHERE)[..., None], n_sph,
                     torch.where((ptype == DISK)[..., None], n_dsk, n_cyl))
     return n / torch.sqrt(torch.clamp(torch.sum(n * n, -1, keepdim=True), min=1e-30))
+
+
+def occluded_analytic(ana: AnalyticTable, o, d, tnear, tfar):
+    """Any-hit over analytic prims. The reference's Disk::occluded is
+    one-sided (front side only, Disk.cpp:88-105); sphere and cylinder
+    occlude from both sides."""
+    h = intersect_analytic(ana, o, d, tnear, tfar)
+    k = torch.clamp(h.k, min=0)
+    is_disk_hit = (h.k >= 0) & (ana.ptype[k] == DISK)
+    n_dot_w = torch.sum(ana.axis[k] * d, dim=-1)
+    return (h.k >= 0) & torch.where(is_disk_hit, n_dot_w < 0.0, True)
+
+
+def hit_geom(scene, prim, p, u, v):
+    """(ng, uv) at a hit on `prim`: a triangle id or an analytic virtual id
+    >= T. For analytic prims the Hit's (u, v) carry the intersectionInfo uv
+    directly (not barycentrics) and the normal is recomputed from p."""
+    tri = torch.clamp(prim, min=0)
+    w0 = (1.0 - u - v)[..., None]
+    uv = (scene.tri_uv0[tri] * w0 + scene.tri_uv1[tri] * u[..., None]
+          + scene.tri_uv2[tri] * v[..., None])
+    ng = scene.tri_ng[tri]
+    if scene.ana is not None:
+        n_tris = scene.tris.v0.shape[0]
+        is_a = (prim >= n_tris)[..., None]
+        ng = torch.where(is_a, normal_at(scene.ana, prim - n_tris, p), ng)
+        uv = torch.where(is_a, torch.stack([u, v], -1), uv)
+    return ng, uv
 
 
 # ---------------------------------------------------------------------------

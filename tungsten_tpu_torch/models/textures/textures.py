@@ -113,6 +113,20 @@ class TextureBuilder:
         flat = np.concatenate(self.blobs, axis=0)
         return flat[off: off + w * h].reshape(h, w, 3)
 
+    def kinds_of(self, ids) -> tuple:
+        """Static sorted tuple of the texture types of these ids: the
+        eval_texture `may` hint (invalid ids contribute none)."""
+        return tuple(sorted({self.types[i] for i in ids if 0 <= int(i) < len(self.types)}))
+
+    def average(self, tex_id: int) -> np.ndarray:
+        """Mean value of a texture (Texture::average), for light weights."""
+        t, p = self.types[tex_id], self.params[tex_id]
+        if t == TEX_CONSTANT:
+            return p[:3].copy()
+        if t == TEX_CHECKER:
+            return 0.5 * (p[:3] + p[3:6])
+        return self.image(tex_id).mean(axis=(0, 1))
+
     def build_arrays(self) -> dict:
         """{"tpack", "data", "data4"} as numpy, laid out as textures.py
         TextureBuilder.build lays them out."""

@@ -1,22 +1,38 @@
-"""8-wide BVH: host-side pack build, the CUDA walk (K3) and its plain twin.
+"""8-wide BVH: host-side pack build, the two CUDA walks (K3 exact and
+K3-fast) and their plain twins.
 
 Host half: numpy copies of `_woop_planes` (tungsten_tpu/ops/pallas_bvh2.py)
 and `_collapse8` / `build_bvh_pack8` (tungsten_tpu/ops/pallas_bvh8.py), so the
-pack (boxes, kid, order, planes, prim_map) is identical to the JAX package's.
+pack (boxes, kid, order, planes, prim_map) is identical to the JAX package's,
+and so is the bf16 split of the planes (hi = bf16(p), lo = bf16(p - f32(hi)),
+round to nearest even) that the fast walk reads.
 
-Kernel half: the port of K3, `_walk_kernel8` (pallas_bvh8.py), as the CUDA
-kernel csrc/bvh8_walk.cu (one thread per ray, private stack, per-ray latch)
-and `walk_twin`, its plain PyTorch version: the same walk vectorised over the
-lanes still walking, with the stack as an (n, DEPTH) tensor. `walk` picks by
-the tensors' device: CUDA launches the kernel (or raises), CPU runs the twin.
-Each keeps a plain integer launch count (`walk_cuda.launches`,
-`walk_twin.launches`) so a run can show which one served it.
+Kernel half: the port of K3, `_walk_kernel8` (pallas_bvh8.py), in its two
+forms. fast=False is csrc/bvh8_walk.cu (`walk_cuda`: one thread per ray,
+private stack, per-ray latch). fast=True is csrc/bvh8_walk_fast.cu
+(`walk_fast_cuda`): the same traversal with the bf16x3 leaf product
+c.r ~ c_hi.r_hi + c_hi.r_lo + c_lo.r_hi (the lo.lo term dropped), slack on
+the edge tests, on t and on the prune; closest hit only, never latched.
+`walk_twin` and `walk_fast_twin` are their plain PyTorch versions: the same
+walk vectorised over the lanes still walking, with the stack as an
+(n, DEPTH) tensor. `walk` and `walk_fast` pick by the tensors' device: CUDA
+launches the kernel (or raises), CPU runs the twin. Each keeps a plain
+integer launch count (`walk_cuda.launches`, ...) so a run can show which one
+served it. The fast kernel and its twin add in one fixed order and round
+every operation alike, so they are expected to agree bit for bit.
 
 The public queries keep the JAX package's semantics: `intersect` is
-intersect_bvh_pallas8(fast=False) (winner slot -> prim_map, u/v recomputed
-in exact f32 as `_recompute_uv` does), `occluded` is occluded_bvh_pallas8,
-and `intersect_mixed` latches the lanes flagged in `latch` (the rule of
-intersect_bvh_gather_mixed).
+intersect_bvh_pallas8, fast=True by default as there: the fast walk's winner
+is validated by an exact f32 Moller-Trumbore with ray_tri's accept rule, and
+the lanes whose winner was a phantom (a slot accepted only through the
+slack, which may have pruned a real hit behind it) are walked again by the
+exact kernel, in one launch over all lanes with tfar = 0 on every lane that
+needs no repair. (Gathering the repair lanes instead would need their count
+on the host, one sync per query, to save a launch whose dead lanes return at
+once; the all-lanes launch keeps the query free of syncs.) `occluded` is
+occluded_bvh_pallas8 and `intersect_mixed` latches the lanes flagged in
+`latch` (the rule of intersect_bvh_gather_mixed); both stay on the exact
+kernel, since a bf16 phantom would occlude falsely.
 """
 from __future__ import annotations
 
@@ -200,26 +216,51 @@ class Bvh8Pack:
     kid_t: torch.Tensor  # (M8, 8) i32, node-major
     order_t: torch.Tensor  # (M8, 8) i32, [node, octant]
     tri_planes: torch.Tensor  # (n_leaves, leaf, 12) f32: N4 | U4 | V4 per slot
+    tri_planes_hi: torch.Tensor  # (n_leaves, leaf, 12) bf16: bf16(tri_planes)
+    tri_planes_lo: torch.Tensor  # (n_leaves, leaf, 12) bf16: bf16(planes - f32(hi))
     leaf: int = LEAF
 
     @staticmethod
     def from_arrays(arrays: dict, device) -> "Bvh8Pack":
+        """From the JAX pack's arrays as numpy. `planes_hi` / `planes_lo`,
+        where given, are the JAX pack's bf16 tables in the layout of
+        `planes`, carried as their bit patterns: uint16 arrays, or any
+        two-byte type that is viewed as such (numpy itself has no bf16);
+        without them the split is made here, by the same rounding."""
         a = {k: np.asarray(arrays[k]) for k in ("boxes", "kid", "order", "planes", "prim_map")}
         L = a["planes"].shape[1] // 3
         n_leaves = a["planes"].shape[0] // 8
-        tri = (a["planes"].reshape(n_leaves, 8, 3, L)[:, :4]
-               .transpose(0, 3, 2, 1).reshape(n_leaves, L, 12))
+
+        def per_slot(planes):
+            return np.ascontiguousarray(planes.reshape(n_leaves, 8, 3, L)[:, :4]
+                                        .transpose(0, 3, 2, 1).reshape(n_leaves, L, 12))
 
         def t(x, dtype):
             return torch.as_tensor(np.array(x, dtype, order="C"), device=device)
+
+        tri = per_slot(a["planes"])
+        if arrays.get("planes_hi") is not None:
+            hi, lo = (torch.as_tensor(per_slot(np.asarray(arrays[k]).view(np.uint16)).view(np.int16),
+                                      device=device).view(torch.bfloat16)
+                      for k in ("planes_hi", "planes_lo"))
+        else:
+            hi, lo = (x.to(device) for x in split_bf16(torch.as_tensor(tri)))
 
         return Bvh8Pack(
             boxes=t(a["boxes"], np.float32), kid=t(a["kid"], np.int32),
             order=t(a["order"], np.int32), planes=t(a["planes"], np.float32),
             prim_map=t(a["prim_map"], np.int32),
             kid_t=t(a["kid"].T, np.int32), order_t=t(a["order"].T, np.int32),
-            tri_planes=t(tri, np.float32), leaf=L,
+            tri_planes=t(tri, np.float32), tri_planes_hi=hi, tri_planes_lo=lo, leaf=L,
         )
+
+
+def split_bf16(x):
+    """(hi, lo) bf16 halves of an f32 tensor: hi = bf16(x), lo = bf16(x -
+    f32(hi)), both round to nearest even (build_bvh_pack8's planes_hi /
+    planes_lo; `_leaf_tuv_bf16x3` splits the rays the same way)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +298,49 @@ def plane_leaf(P, o, d, tnear, lim):
     return t, h
 
 
+# slack of the fast walk (pallas_bvh8.py:211-214, 233-256), each the f32
+# value the kernel's literal has (0.02f, 1.02f, 0.999f, 1.001f)
+E_EDGE = float(np.float32(2e-2))
+ONE_PLUS_E_EDGE = float(np.float32(1.0 + 2e-2))
+ONE_MINUS_E_T = float(np.float32(1.0 - 1e-3))
+ONE_PLUS_E_T = float(np.float32(1.0 + 1e-3))
+
+
+def _dot3(ch, cl, rh, rl, affine):
+    """bf16x3 product of plane rows (k, L, 4), given as f32 values of their
+    bf16 halves (ch, cl), with the ray vectors r = [x y z w], w = 1 if
+    affine else 0, given as the halves (rh, rl) (k, 3) of x y z:
+    (ch.rh + ch.rl) + cl.rh, each pass summed x, y, z, w in that order, the
+    cl.rl pass left out (`_leaf_tuv_bf16x3`). Every product of two bf16
+    values is exact in f32, so only the order of the additions matters; the
+    kernel keeps this one."""
+    def dot(c, r):
+        return c[..., 0] * r[:, 0:1] + c[..., 1] * r[:, 1:2] + c[..., 2] * r[:, 2:3]
+
+    a, b, c = dot(ch, rh), dot(ch, rl), dot(cl, rh)
+    if affine:  # w: r_hi = 1, r_lo = 0
+        a = a + ch[..., 3]
+        c = c + cl[..., 3]
+    return (a + b) + c
+
+
+def plane_leaf_fast(Ph, Pl, oh, ol, dh, dl, tnear_s, lim_s):
+    """The fast leaf: k rays against their leaves' bf16 plane halves Ph, Pl
+    (k, L, 12), the rays' origins and directions as bf16 halves (oh, ol, dh,
+    dl) in f32, with the slack accept rule (pallas_bvh8.py:252-256) against
+    tnear_s = tnear (1 - e_t) and lim_s = min(tfar, best) (1 + e_t):
+    (t (k, L), hit (k, L)). All-zero slots give t = NaN and never hit."""
+    Ph, Pl = Ph.float(), Pl.float()
+    ao = [_dot3(Ph[..., j:j + 4], Pl[..., j:j + 4], oh, ol, True) for j in (0, 4, 8)]
+    ad = [_dot3(Ph[..., j:j + 4], Pl[..., j:j + 4], dh, dl, False) for j in (0, 4, 8)]
+    t = -ao[0] / ad[0]
+    u = ao[1] + t * ad[1]
+    w = ao[2] + t * ad[2]
+    h = ((u >= -E_EDGE) & (w >= -E_EDGE) & (u + w <= ONE_PLUS_E_EDGE)
+         & (t > tnear_s[:, None]) & (t < lim_s[:, None]))
+    return t, h
+
+
 def safe_inv(d):
     """1 / d with d == 0 read as 1e-30, as every walk does."""
     return 1.0 / torch.where(d == 0.0, 1e-30, d)
@@ -271,11 +355,10 @@ def _latch_mode(latch):
     return 2, latch
 
 
-def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
-    """Plain PyTorch BVH8 walk with the kernel's exact per-ray semantics.
-    Returns (t (n,) f32, local slot (n,) i64; -1 = miss). `walk_twin.work`
-    records the call's child-box tests ("box") and leaf slot tests ("tri")."""
-    walk_twin.launches += 1
+def _walk_plain(pack: Bvh8Pack, o, d, tnear, tfar, latch, fast):
+    """The BVH8 walk in plain PyTorch with the kernels' exact per-ray
+    semantics: fast=False is bvh8_walk.cu, fast=True bvh8_walk_fast.cu.
+    Returns (t, local slot, {"box": child-box tests, "tri": leaf slot tests})."""
     n = o.shape[0]
     dev = o.device
     mode, lane_latch = _latch_mode(latch)
@@ -295,6 +378,9 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     sp = (tnear < tfar).long()  # dead lanes start with an empty stack
     push_k = torch.arange(7, -1, -1, device=dev) * 3  # slot k = 7 pushed first
     L = pack.leaf
+    if fast:
+        (oh, ol), (dh, dl) = ([h.float() for h in split_bf16(x)] for x in (o, d))
+        tnear_s = tnear * ONE_MINUS_E_T
     boxes = slots = 0
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -309,7 +395,9 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
         if ia.numel():
             node = v[is_inner]
             b = pack.boxes.view(-1, 8, 8)[node]  # (k, 8, 8)
-            lim = torch.minimum(tfar[ia], best[ia])[:, None]
+            # the fast walk's best may be an underestimate: prune with slack
+            prune = best[ia] * ONE_PLUS_E_T if fast else best[ia]
+            lim = torch.minimum(tfar[ia], prune)[:, None]
             hit = box_hit(b, o[ia][:, None, :], inv[ia][:, None, :], tnear[ia][:, None],
                           lim)  # (k, 8) by slot
             perm = pack.order_t[node, octant[ia]].long()
@@ -329,25 +417,52 @@ def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
             lanes = la[c0:c0 + _TWIN_LEAF_CHUNK]
             blk = blk_all[c0:c0 + _TWIN_LEAF_CHUNK]
             cur = best[lanes]
-            t, h = plane_leaf(pack.tri_planes[blk], o[lanes], d[lanes], tnear[lanes],
-                              torch.minimum(tfar[lanes], cur))
+            lim = torch.minimum(tfar[lanes], cur)
+            if fast:
+                t, h = plane_leaf_fast(pack.tri_planes_hi[blk], pack.tri_planes_lo[blk],
+                                       oh[lanes], ol[lanes], dh[lanes], dl[lanes],
+                                       tnear_s[lanes], lim * ONE_PLUS_E_T)
+            else:
+                t, h = plane_leaf(pack.tri_planes[blk], o[lanes], d[lanes], tnear[lanes], lim)
             tb, slot = torch.min(torch.where(h, t, INF), dim=1)
             first = torch.argmax(h.to(torch.uint8), dim=1)
             any_h = h.any(dim=1)
             lat = latched[lanes]
             take_latch = lat & any_h
-            take_best = ~lat & any_h
+            # a leaf's winner replaces the best only when strictly nearer
+            # (always so in the exact walk; the fast accept rule has slack)
+            take_best = ~lat & any_h & (tb < cur)
             best[lanes] = torch.where(take_latch, 0.0, torch.where(take_best, tb, cur))
             local[lanes] = torch.where(
                 take_latch, blk * L + first,
                 torch.where(take_best, blk * L + slot, local[lanes]))
             sp[lanes] = torch.where(take_latch, 0, sp[lanes])
-    walk_twin.work = {"box": boxes, "tri": slots}
-    return best, local
+    return best, local, {"box": boxes, "tri": slots}
+
+
+def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
+    """Plain PyTorch version of the exact walk (csrc/bvh8_walk.cu). Returns
+    (t (n,) f32, local slot (n,) i64; -1 = miss). `walk_twin.work` records
+    the call's child-box tests ("box") and leaf slot tests ("tri")."""
+    walk_twin.launches += 1
+    t, local, walk_twin.work = _walk_plain(pack, o, d, tnear, tfar, latch, fast=False)
+    return t, local
 
 
 walk_twin.launches = 0
 walk_twin.work = {"box": 0, "tri": 0}
+
+
+def walk_fast_twin(pack: Bvh8Pack, o, d, tnear, tfar):
+    """Plain PyTorch version of the fast walk (csrc/bvh8_walk_fast.cu): the
+    raw winner, a phantom included, and its bf16x3 t. `.work` as walk_twin."""
+    walk_fast_twin.launches += 1
+    t, local, walk_fast_twin.work = _walk_plain(pack, o, d, tnear, tfar, None, fast=True)
+    return t, local
+
+
+walk_fast_twin.launches = 0
+walk_fast_twin.work = {"box": 0, "tri": 0}
 
 
 def check_rays(o, d, tnear, tfar):
@@ -403,9 +518,50 @@ def walk(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     raise ValueError(f"no BVH8 walk for device {o.device}")
 
 
-def _recompute_uv(tris, o, d, prim):
-    """Exact f32 Moller-Trumbore for the winning prim (pallas_bvh2.py
-    _recompute_uv): clipped barycentrics of the winner, 0 for misses."""
+def _fast_kernel_fn():
+    fn = _build.load_library("bvh8_walk_fast").bvh8_walk_fast
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    return fn
+
+
+def walk_fast_cuda(pack: Bvh8Pack, o, d, tnear, tfar):
+    """Launch the fast CUDA BVH8 walk (csrc/bvh8_walk_fast.cu) on the current
+    stream. Returns (t (n,) f32, local slot (n,) i64; -1 = miss): the raw
+    winner, to be validated by the caller."""
+    n = o.shape[0]
+    check_rays(o, d, tnear, tfar)
+    for name, dtype in (("boxes", torch.float32), ("kid_t", torch.int32),
+                        ("order_t", torch.int32), ("tri_planes_hi", torch.bfloat16),
+                        ("tri_planes_lo", torch.bfloat16)):
+        _build.check_cuda(f"pack.{name}", getattr(pack, name), dtype, like=o)
+    out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
+    p = _build.ptr
+    err = _fast_kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(pack.boxes), p(pack.kid_t),
+                            p(pack.order_t), p(pack.tri_planes_hi), p(pack.tri_planes_lo),
+                            n, pack.leaf, p(out_t), p(out_local), _build.stream_of(o))
+    if err != 0:
+        raise RuntimeError(f"bvh8_walk_fast launch failed: CUDA error {err}")
+    walk_fast_cuda.launches += 1
+    return out_t, out_local.long()
+
+
+walk_fast_cuda.launches = 0
+
+
+def walk_fast(pack: Bvh8Pack, o, d, tnear, tfar):
+    """Fast BVH8 walk on the rays' device: CUDA -> the kernel, CPU -> the twin."""
+    if o.is_cuda:
+        return walk_fast_cuda(pack, o, d, tnear, tfar)
+    if o.device.type == "cpu":
+        return walk_fast_twin(pack, o, d, tnear, tfar)
+    raise ValueError(f"no BVH8 walk for device {o.device}")
+
+
+def _moller_trumbore(tris, o, d, prim):
+    """Exact f32 Moller-Trumbore against triangle max(prim, 0) of each lane:
+    raw (u, v, t, det), 0 where |det| <= 1e-12."""
     tri = torch.clamp(prim, min=0)
     a, ee1, ee2 = tris.v0[tri], tris.e1[tri], tris.e2[tri]
     p = torch.linalg.cross(d, ee2, dim=-1)
@@ -415,24 +571,68 @@ def _recompute_uv(tris, o, d, prim):
     u = torch.sum(tv * p, dim=-1) * inv_det
     q = torch.linalg.cross(tv, ee1, dim=-1)
     v = torch.sum(d * q, dim=-1) * inv_det
+    t = torch.sum(ee2 * q, dim=-1) * inv_det
+    return u, v, t, det
+
+
+def _clip01(ok, x):
+    return torch.where(ok, torch.clamp(x, 0.0, 1.0), 0.0)
+
+
+def _recompute_uv(tris, o, d, prim):
+    """Exact f32 recomputation for the winning prim (pallas_bvh2.py
+    _recompute_uv): clipped barycentrics of the winner, 0 for misses, and
+    its t, INF for a miss or t <= 0."""
+    u, v, t, _ = _moller_trumbore(tris, o, d, prim)
     ok = prim >= 0
-    return (torch.where(ok, torch.clamp(u, 0.0, 1.0), 0.0),
-            torch.where(ok, torch.clamp(v, 0.0, 1.0), 0.0))
+    return _clip01(ok, u), _clip01(ok, v), torch.where(ok & (t > 0.0), t, INF)
+
+
+def _exact_validate(tris, o, d, prim, tnear, tfar):
+    """The winner held to ray_tri's accept rule in exact f32
+    (pallas_bvh8.py _exact_validate): (u clipped, v clipped, t, ok)."""
+    u, v, t, det = _moller_trumbore(tris, o, d, prim)
+    ok = ((prim >= 0) & (torch.abs(det) > 1e-12) & (u >= 0.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t > tnear) & (t < tfar))
+    return _clip01(ok, u), _clip01(ok, v), t, ok
+
+
+def _prim_of(prim_map, local):
+    return torch.where(
+        local >= 0, prim_map[torch.clamp(local, 0, prim_map.shape[0] - 1)].long(), -1)
 
 
 def hit_from_slots(prim_map, tris, o, d, t, local) -> Hit:
-    """The Hit of a walk's (t, local slot): slot -> scene tri id through
-    prim_map, u/v recomputed in exact f32, t = INF on a miss."""
-    prim = torch.where(
-        local >= 0, prim_map[torch.clamp(local, 0, prim_map.shape[0] - 1)].long(), -1)
-    u, v = _recompute_uv(tris, o, d, prim)
+    """The Hit of an exact walk's (t, local slot): slot -> scene tri id
+    through prim_map, u/v recomputed in exact f32, t = INF on a miss."""
+    prim = _prim_of(prim_map, local)
+    u, v, _ = _recompute_uv(tris, o, d, prim)
     return Hit(t=torch.where(prim >= 0, t, INF), prim=prim, u=u, v=v)
 
 
-def intersect(pack: Bvh8Pack, tris, o, d, tnear, tfar) -> Hit:
-    """Closest hit (intersect_bvh_pallas8 with fast=False); prim = scene tri id."""
-    t, local = walk(pack, o, d, tnear, tfar)
-    return hit_from_slots(pack.prim_map, tris, o, d, t, local)
+def intersect(pack: Bvh8Pack, tris, o, d, tnear, tfar, fast: bool = True,
+              walks=(walk_fast, walk)) -> Hit:
+    """Closest hit (intersect_bvh_pallas8); prim = scene tri id. fast=True:
+    the bf16x3 walk's winner validated in exact f32, the phantom lanes walked
+    again by the exact walk in one launch over all lanes (tfar = 0 where no
+    repair is needed), the two merged as pallas_bvh8.py:560-615 merges them
+    (module docstring). `walks` is the (fast walk, exact walk) pair: by
+    default the two that pick kernel or twin by device; the benchmark passes
+    the kernels or the twins themselves."""
+    walk_fast_fn, walk_fn = walks
+    if not fast:
+        t, local = walk_fn(pack, o, d, tnear, tfar)
+        return hit_from_slots(pack.prim_map, tris, o, d, t, local)
+    _, local = walk_fast_fn(pack, o, d, tnear, tfar)
+    prim = _prim_of(pack.prim_map, local)
+    u, v, t_exact, ok = _exact_validate(tris, o, d, prim, tnear, tfar)
+    need = (prim >= 0) & ~ok
+    _, local_r = walk_fn(pack, o, d, tnear, torch.where(need, tfar, 0.0))
+    prim_r = torch.where(need, _prim_of(pack.prim_map, local_r), -1)
+    u_r, v_r, t_r = _recompute_uv(tris, o, d, prim_r)
+    return Hit(t=torch.where(ok, t_exact, torch.where(prim_r >= 0, t_r, INF)),
+               prim=torch.where(ok, prim, prim_r),
+               u=torch.where(ok, u, u_r), v=torch.where(ok, v, v_r))
 
 
 def intersect_mixed(pack: Bvh8Pack, tris, o, d, tnear, tfar, latch) -> Hit:

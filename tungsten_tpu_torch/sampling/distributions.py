@@ -6,6 +6,7 @@ and the same O(1) Walker alias draw on the device.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -120,3 +121,20 @@ def _build_alias(p: np.ndarray):
         )
         scaled[large] -= consumed
     return prob.astype(np.float32), alias.astype(np.int32)
+
+
+def searchsorted_strided(flat, base, u, row_len, max_len: int):
+    """'right' searchsorted of u in flat[base : base + row_len], per lane
+    (distributions.py _searchsorted_strided): a branchless binary search of
+    ceil(log2(max_len + 1)) gathers. flat: concatenated sorted rows; base, u,
+    row_len: (N,)."""
+    steps = max(1, math.ceil(math.log2(max_len + 1)))
+    lo = torch.zeros_like(base)  # invariant: flat[base + lo] <= u (cdf[0] == 0)
+    width = row_len.clone()
+    for _ in range(steps):
+        half = width // 2
+        mid = lo + half
+        go_right = flat[torch.clamp(base + mid, 0, flat.shape[0] - 1)] <= u
+        lo = torch.where(go_right, mid, lo)
+        width = torch.where(go_right, width - half, half)
+    return lo + 1

@@ -33,6 +33,12 @@ def uniform_sphere(u):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
+def uniform_triangle_uv(u):
+    """Uniform barycentric (u, v) on a triangle (SampleWarp::uniformTriangleUv)."""
+    u1 = torch.sqrt(u[..., 0])
+    return torch.stack([1.0 - u1, u[..., 1] * u1], dim=-1)
+
+
 def power_heuristic(pdf0, pdf1):
     """Veach power heuristic with beta=2 (SampleWarp.hpp:189)."""
     p0 = pdf0 * pdf0

@@ -5,9 +5,12 @@ Port of the slice subset of tungsten_tpu/scene/flatten.py. The host build
 the same tables: the triangle SoA in BVH leaf order, the packed shading rows
 (`shade_pack`, with one virtual row per analytic prim after the T
 triangles), the packed material rows (`gpack2`), the texture table, the env
-light with its alias-table Distribution2D, the pinhole camera, the static
-SceneMeta, the analytic prim table (`ana`, None without analytic prims)
-and the intersector packs the render's dispatch falls through
+light with its alias-table Distribution2D, the light table (`lights`: one
+row per emissive mesh / quad / cube with its triangle set and area CDF, then
+the env light's row; `tri_light` and the last column of `shade_pack` map a
+triangle to its light), the pinhole camera, the static SceneMeta, the
+analytic prim table (`ana`, None without analytic prims) and the
+intersector packs the render's dispatch falls through
 (integrators/path_tracer.py `_intersect_tris`):
   pbvh8  the BVH8 pack (K3);
   pbvh3  the binary pack (K4; it shares pbvh8's plane slabs);
@@ -26,11 +29,13 @@ so the JAX package's flattened scene can be carried across as numpy arrays
 and both packages render the very same tables. Each BVH pack and the
 analytic table is taken all-or-none (OPTIONAL).
 
-The slice supports mesh / quad / cube geometry, non-emissive analytic
-sphere / disk / cylinder prims, lambert and rough_conductor materials,
-constant / checker / bitmap textures, one samplable infinite_sphere as the
-only light and a pinhole camera. Everything else raises
-NotImplementedError naming the missing piece.
+The slice supports mesh / quad / cube geometry, each emissive or not,
+non-emissive analytic sphere / disk / cylinder prims, lambert and
+rough_conductor materials, constant / checker / bitmap textures, at most one
+samplable infinite_sphere beside the area lights, and a pinhole camera.
+Everything else (emissive analytic prims, point lights, cap lights,
+skydomes, several env lights, ...) raises NotImplementedError naming the
+missing piece.
 """
 from __future__ import annotations
 
@@ -58,8 +63,18 @@ DEFAULT_EPSILON = 5e-4  # TraceableScene.hpp:39
 
 # numpy arrays a FlatScene is made from, under the JAX FlatScene's attribute
 # paths (getattr along key.split("."); a pack the JAX flatten left out is None)
+LIGHT_FIELDS = (  # LightTable's arrays in order, with their numpy types
+    ("offset", np.int32), ("count", np.int32), ("cdf_offset", np.int32),
+    ("area", np.float32), ("tex", np.int32), ("is_env", np.bool_),
+    ("cone_cos", np.float32), ("is_dirac", np.bool_), ("tri_idx", np.int32),
+    ("cdf", np.float32), ("apx_avg", np.float32), ("apx_base", np.float32),
+    ("apx_e0", np.float32), ("apx_e1", np.float32), ("apx_n", np.float32))
+LIGHT_STATICS = ("max_count", "apx_kind", "has_surface", "emit_kinds")
+
 ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
+    "tri_ng", "tri_uv0", "tri_uv1", "tri_uv2", "tri_light",
+    *(f"lights.{k}" for k, _ in LIGHT_FIELDS), *(f"lights.{k}" for k in LIGHT_STATICS),
     "materials.gpack2", "textures.tpack", "textures.data", "textures.data4",
     "env.rot", "env.inv_rot", "env.tex",
     "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
@@ -72,6 +87,7 @@ ARRAY_KEYS = (
 # groups of ARRAY_KEYS taken all-or-none: None (or absent) where the JAX
 # flatten left the pack out, or the scene has no analytic prims
 OPTIONAL = ("pbvh8", "pbvh3", "pbvh", "ana")
+NULLABLE = ("textures.data4",)  # None in a scene without bitmap textures
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
 ANALYTIC = ("sphere", "disk", "cylinder")  # flatten.py's analytic branch
@@ -82,6 +98,50 @@ class CameraParams:
     rot: torch.Tensor  # (3, 3) camera-to-world rotation (columns = x, y, z)
     pos: torch.Tensor  # (3,)
     plane_dist: torch.Tensor  # ()
+
+
+@dataclass
+class LightTable:
+    """Lights: per-light triangle sets with area CDFs (flatten.py
+    LightTable, without the analytic / point / env-slot / cap columns)."""
+
+    offset: torch.Tensor  # (L,) start into tri_idx
+    count: torch.Tensor  # (L,)
+    cdf_offset: torch.Tensor  # (L,) start into cdf (count + 1 entries per light)
+    area: torch.Tensor  # (L,) total area
+    tex: torch.Tensor  # (L,) emission texture id
+    is_env: torch.Tensor  # (L,) bool
+    cone_cos: torch.Tensor  # (L,) emission-cone cos (0 = none)
+    is_dirac: torch.Tensor  # (L,) bool
+    tri_idx: torch.Tensor  # (LT,) global triangle index (post BVH permutation)
+    cdf: torch.Tensor  # (LT + L,)
+    # approximateRadiance geometry (TraceBase::chooseLight weighting)
+    apx_avg: torch.Tensor  # (L,) emission average().max() / const value
+    apx_base: torch.Tensor  # (L, 3) quad base
+    apx_e0: torch.Tensor  # (L, 3) quad edge0
+    apx_e1: torch.Tensor  # (L, 3) quad edge1
+    apx_n: torch.Tensor  # (L, 3) quad plane normal
+    max_count: int  # static: the largest triangle set
+    apx_kind: tuple  # static, per light: "quad" | "const" | "none"
+    has_surface: bool  # static: some area light exists
+    emit_kinds: tuple  # static: texture kinds of the area lights' emission
+
+    @staticmethod
+    def from_arrays(arrays: dict, device) -> "LightTable":
+        """From numpy arrays under LIGHT_FIELDS' and LIGHT_STATICS' names."""
+        kinds = tuple(str(k) for k in np.asarray(arrays["apx_kind"]).tolist())
+        for k in kinds:
+            if k not in ("quad", "const", "none"):
+                raise NotImplementedError(f"approximateRadiance kind '{k}' is not ported")
+        def t(k, dt):  # indices as int64, torch's index type
+            return torch.as_tensor(np.array(arrays[k], np.int64 if dt == np.int32 else dt),
+                                   device=device)
+
+        return LightTable(
+            **{k: t(k, dt) for k, dt in LIGHT_FIELDS},
+            max_count=int(np.asarray(arrays["max_count"])), apx_kind=kinds,
+            has_surface=bool(np.asarray(arrays["has_surface"])),
+            emit_kinds=tuple(int(k) for k in np.asarray(arrays["emit_kinds"]).tolist()))
 
 
 @dataclass
@@ -145,6 +205,12 @@ class FlatScene:
     tris: TriangleSoA
     # (T, 20) packed shading row [ng | n0 n1 n2 | uv0 uv1 uv2 | mat | light]
     shade_pack: torch.Tensor
+    tri_ng: torch.Tensor  # (T, 3) geometric normal (winding)
+    tri_uv0: torch.Tensor  # (T, 2)
+    tri_uv1: torch.Tensor
+    tri_uv2: torch.Tensor
+    tri_light: torch.Tensor  # (T,) int64 (-1 = not emissive)
+    lights: LightTable
     materials: MaterialTable
     textures: TextureTable
     env: EnvLight
@@ -170,20 +236,22 @@ def _check_slice(doc: SceneDocument):
     n_env = 0
     for prim in doc.primitives:
         ptype = prim.get("type", "mesh")
+        emissive = "emission" in prim or "power" in prim
         if ptype == "infinite_sphere":
-            if "emission" in prim or "power" in prim:
+            if emissive:
                 if not prim.get("sample", True):
                     raise NotImplementedError("an unsampled infinite_sphere is not ported")
                 n_env += 1
             continue
+        if ptype in ("point", "infinite_sphere_cap", "skydome"):
+            raise NotImplementedError(f"'{ptype}' lights are not ported")
         if ptype not in ("mesh", "quad", "cube") + ANALYTIC:
             raise NotImplementedError(f"primitive type '{ptype}' is not ported")
-        if "emission" in prim or "power" in prim:
-            raise NotImplementedError(
-                "area lights (emissive primitives, analytic ones included) are not ported")
-    if n_env != 1:
+        if emissive and ptype in ANALYTIC:
+            raise NotImplementedError(f"an emissive analytic '{ptype}' is not ported")
+    if n_env > 1:
         raise NotImplementedError(
-            f"the port needs exactly one infinite_sphere light, the scene has {n_env}")
+            f"several infinite_sphere lights are not ported, the scene has {n_env}")
 
 
 def _env_weights(img: np.ndarray) -> np.ndarray:
@@ -204,7 +272,9 @@ def flatten_arrays(doc: SceneDocument):
     tex_builder = TextureBuilder()
 
     # ---- geometry (flatten.py primitive loop: tessellated and analytic) ----
-    pos_l, n_l, uv_l, idx_l, mat_l = [], [], [], [], []
+    pos_l, n_l, uv_l, idx_l, mat_l, prim_l = [], [], [], [], [], []
+    emissive_prims = []  # primitive indices of the area lights, in order
+    prim_apx = {}  # primitive index -> approximateRadiance geometry (quads)
     env_specs = []
     ana_entries = []  # analytic prims in primitive order (virtual ids T + k)
     vert_base = 0
@@ -229,6 +299,17 @@ def flatten_arrays(doc: SceneDocument):
                                       uv=mesh.uv, indices=mesh.indices)
         else:
             soup = _TESSELLATED[ptype]()
+        if "emission" in prim or "power" in prim:
+            emissive_prims.append(pi)
+            if ptype == "quad":
+                # Quad::approximateRadiance geometry (flatten.py:361-368);
+                # meshes and cubes return -1 there: the uniform share
+                r3 = m[:3, :3]
+                e0 = r3 @ np.array([1.0, 0.0, 0.0])
+                e1 = r3 @ np.array([0.0, 0.0, 1.0])
+                nq = np.cross(e1, e0)
+                prim_apx[pi] = dict(base=m[:3, 3] - 0.5 * e0 - 0.5 * e1, e0=e0, e1=e1,
+                                    n=nq / max(np.linalg.norm(nq), 1e-30))
         wpos = tf.transform_point(m, soup.pos).astype(np.float32)
         if soup.normal is not None:
             wn = tf.transform_normal(m, soup.normal)
@@ -241,6 +322,7 @@ def flatten_arrays(doc: SceneDocument):
         uv_l.append(soup.uv.astype(np.float32))
         idx_l.append(soup.indices + vert_base)
         mat_l.append(np.full(len(soup.indices), prim["_bsdf_index"], np.int32))
+        prim_l.append(np.full(len(soup.indices), pi, np.int32))
         vert_base += len(wpos)
     if not idx_l:
         if not ana_entries:
@@ -252,13 +334,16 @@ def flatten_arrays(doc: SceneDocument):
         uv_l.append(np.zeros((3, 2), np.float32))
         idx_l.append(np.arange(3, dtype=np.int32)[None, :])
         mat_l.append(np.zeros(1, np.int32))
+        prim_l.append(np.full(1, -1, np.int32))
 
     all_pos = np.concatenate(pos_l)
     all_uv = np.concatenate(uv_l)
     indices = np.concatenate(idx_l)
     tri_mat = np.concatenate(mat_l)
+    tri_prim = np.concatenate(prim_l)
     p0, p1, p2 = (all_pos[indices[:, k]] for k in range(3))
     face_n = np.cross(p1 - p0, p2 - p0)
+    face_area = 0.5 * np.linalg.norm(face_n, axis=-1)
     norm = np.linalg.norm(face_n, axis=-1, keepdims=True)
     tri_ng = (face_n / np.maximum(norm, 1e-30)).astype(np.float32)
 
@@ -287,25 +372,87 @@ def flatten_arrays(doc: SceneDocument):
     n0, n1, n2 = permute(n0), permute(n1), permute(n2)
     uv0, uv1, uv2 = (permute(all_uv[indices[:, k]]) for k in range(3))
     tri_mat = permute(tri_mat)
+    tri_prim = permute(tri_prim)
+    face_area = permute(face_area)
 
-    # ---- materials, textures, the env light ----
+    # ---- materials, textures, lights (flatten.py:606-920, in its order, so
+    # the texture ids come out the same) ----
     mats = pack_materials(doc.bsdfs, tex_builder)
-    tex_builder.add_constant([0.0, 0.0, 0.0])  # flatten.py _default_env's texture
-    prim, m = env_specs[0]
-    rot = m[:3, :3].astype(np.float64)
-    rot = rot / np.maximum(np.linalg.norm(rot, axis=0, keepdims=True), 1e-30)
-    if "power" in prim:
-        pw = np.asarray(prim["power"], np.float64)
-        if pw.ndim == 0:
-            pw = np.repeat(pw, 3)
-        etex = tex_builder.add_constant((pw / np.pi).astype(np.float32))
-    else:
-        etex = texture_from_spec(prim["emission"], tex_builder, doc.resolve_path)
-    is_const = not isinstance(prim.get("emission"), str)
+
+    def emission_tex(prim, area):
+        if "power" in prim:  # power * powerToRadianceFactor: 1 / (pi area)
+            pw = np.asarray(prim["power"], np.float64)
+            if pw.ndim == 0:
+                pw = np.repeat(pw, 3)
+            return tex_builder.add_constant((pw / (np.pi * area)).astype(np.float32))
+        return texture_from_spec(prim["emission"], tex_builder, doc.resolve_path)
+
+    # one light row per emissive primitive: its triangles (ids after the BVH
+    # permutation) and their area CDF
+    tri_light = np.full(len(tri_mat), -1, np.int32)
+    rows = []  # (offset, count, cdf_offset, area, tex, is_env, apx kind, avg, geometry)
+    tri_idx_list, cdf_list = [], []
+    zero3 = np.zeros(3)
+    for pi in emissive_prims:
+        sel = np.nonzero(tri_prim == pi)[0].astype(np.int32)
+        total = float(face_area[sel].sum())
+        if len(sel) == 0 or total <= 0:
+            continue
+        tri_light[sel] = len(rows)
+        cdf = np.concatenate([[0.0], np.cumsum(face_area[sel] / total)]).astype(np.float32)
+        cdf[-1] = 1.0
+        tex_id = emission_tex(doc.primitives[pi], total)
+        apx = prim_apx.get(pi)
+        rows.append(dict(
+            offset=sum(len(x) for x in tri_idx_list), count=len(sel),
+            cdf_offset=sum(len(x) for x in cdf_list), area=total, tex=tex_id, is_env=False,
+            kind="quad" if apx else "none",
+            avg=float(np.max(tex_builder.average(tex_id))) if apx else 0.0,
+            **(apx or dict(base=zero3, e0=zero3, e1=zero3, n=zero3))))
+        tri_idx_list.append(sel)
+        cdf_list.append(cdf)
+    n_area = len(rows)
+
+    etex = tex_builder.add_constant([0.0, 0.0, 0.0])  # flatten.py _default_env
+    rot = np.eye(3)
+    is_const = True
+    if env_specs:
+        prim, m = env_specs[0]
+        rot = m[:3, :3].astype(np.float64)
+        rot = rot / np.maximum(np.linalg.norm(rot, axis=0, keepdims=True), 1e-30)
+        etex = emission_tex(prim, 1.0)
+        is_const = not isinstance(prim.get("emission"), str)
+        # InfiniteSphere::approximateRadiance = 2 pi * avg max
+        rows.append(dict(
+            offset=sum(len(x) for x in tri_idx_list), count=0,
+            cdf_offset=sum(len(x) for x in cdf_list), area=1.0, tex=etex, is_env=True,
+            kind="const", avg=float(2.0 * np.pi * np.max(tex_builder.average(etex))),
+            base=zero3, e0=zero3, e1=zero3, n=zero3))
     if is_const:
         dist = Distribution2D.build_arrays(np.ones((1, 1), np.float32))
     else:
         dist = Distribution2D.build_arrays(_env_weights(tex_builder.image(etex)))
+    n_lights = len(rows)
+    env_index = n_lights - 1 if env_specs else -1
+
+    def col(key, default):
+        return [r[key] for r in rows] or [default]
+
+    lights = {
+        "offset": col("offset", 0), "count": col("count", 0),
+        "cdf_offset": col("cdf_offset", 0), "area": col("area", 1.0), "tex": col("tex", 0),
+        "is_env": col("is_env", False), "cone_cos": [0.0] * max(n_lights, 1),
+        "is_dirac": [False] * max(n_lights, 1),
+        "tri_idx": np.concatenate(tri_idx_list or [np.zeros(1, np.int32)]),
+        "cdf": np.concatenate(cdf_list or [np.array([0.0, 1.0], np.float32)]),
+        "apx_avg": col("avg", 0.0), "apx_base": col("base", zero3), "apx_e0": col("e0", zero3),
+        "apx_e1": col("e1", zero3), "apx_n": col("n", zero3),
+        "max_count": max([r["count"] for r in rows] + [1]),
+        "apx_kind": tuple(r["kind"] for r in rows),
+        "has_surface": n_area > 0,
+        "emit_kinds": tex_builder.kinds_of([r["tex"] for r in rows[:n_area]]),
+    }
+    lights.update({k: np.asarray(lights[k], dt) for k, dt in LIGHT_FIELDS})
 
     tex = tex_builder.build_arrays()
     gpack = mats["gpack"]
@@ -339,14 +486,17 @@ def flatten_arrays(doc: SceneDocument):
         tri_mat = np.concatenate([tri_mat, np.array([e["_mat"] for e in ana_entries], np.int32)])
         z3 = np.zeros((len(ana_entries), 3), np.float32)
         z2 = np.zeros((len(ana_entries), 2), np.float32)
+        tri_light = np.concatenate([tri_light, np.full(len(ana_entries), -1, np.int32)])
         tri_ng, n0, n1, n2 = (np.concatenate([x, z3]) for x in (tri_ng, n0, n1, n2))
         uv0, uv1, uv2 = (np.concatenate([x, z2]) for x in (uv0, uv1, uv2))
         packs.update({f"ana.{k}": v for k, v in ana.items()})
     shade_pack = np.concatenate(
         [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
-         np.full((len(tri_mat), 1), -1.0, np.float32)], axis=1).astype(np.float32)
+         np.asarray(tri_light, np.float32)[:, None]], axis=1).astype(np.float32)
     arrays = {
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
+        "tri_ng": tri_ng, "tri_uv0": uv0, "tri_uv1": uv1, "tri_uv2": uv2,
+        "tri_light": tri_light, **{f"lights.{k}": v for k, v in lights.items()},
         "materials.gpack2": gpack2,
         "textures.tpack": tex["tpack"], "textures.data": tex["data"],
         "textures.data4": tex["data4"],
@@ -369,9 +519,11 @@ def flatten_arrays(doc: SceneDocument):
         res_x=int(res[0]), res_y=int(res[1]),
         camera_type="pinhole", tonemap=cam.get("tonemap", "gamma"),
         filter=cam.get("reconstruction_filter", "tent"), fov_deg=fov,
-        n_lights=1, has_env=True, env_light_index=0, env_is_constant=is_const,
+        n_lights=n_lights, has_env=bool(env_specs), env_light_index=env_index,
+        env_is_constant=is_const,
         stratified=bool(doc.renderer.get("stratified_sampler", False)),
-        n_envs=1, env_const=(is_const,), env_light_idx=(0,),
+        n_envs=len(env_specs), env_const=(is_const,) * len(env_specs),
+        env_light_idx=(env_index,) * len(env_specs),
         min_bounces=int(integ.get("min_bounces", 0)), max_bounces=max_b,
         enable_light_sampling=bool(integ.get("enable_light_sampling", True)),
         enable_volume_light_sampling=bool(integ.get("enable_volume_light_sampling", True)),
@@ -398,7 +550,8 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
     OPTIONAL group whose arrays are all absent or None gives None; one that
     is partly given raises KeyError, as does a missing required array."""
     given = {k for k in ARRAY_KEYS if arrays.get(k) is not None}
-    missing = [k for k in ARRAY_KEYS if k not in given and _group(k) not in OPTIONAL]
+    missing = [k for k in ARRAY_KEYS
+               if k not in given and _group(k) not in OPTIONAL and k not in NULLABLE]
     partial = sorted({_group(k) for k in ARRAY_KEYS if _group(k) in OPTIONAL and k not in given}
                      & {_group(k) for k in given})
     if missing or partial:
@@ -425,7 +578,9 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
     def sub(prefix):
         return {k.split(".", 1)[1]: arrays[k] for k in ARRAY_KEYS if k.startswith(prefix + ".")}
 
-    pbvh8 = Bvh8Pack.from_arrays(sub("pbvh8"), device) if has["pbvh8"] else None
+    # the bf16 halves of pbvh8's planes may come along, as bit patterns
+    halves = {k: arrays.get(f"pbvh8.{k}") for k in ("planes_hi", "planes_lo")}
+    pbvh8 = Bvh8Pack.from_arrays({**sub("pbvh8"), **halves}, device) if has["pbvh8"] else None
     pbvh3 = Bvh3Pack.from_arrays(sub("pbvh3"), pbvh8) if has["pbvh3"] else None
     pbvh = None
     if has["pbvh"]:  # the padded `pbvh.nodes` does not record the node count:
@@ -434,6 +589,9 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
     return FlatScene(
         tris=TriangleSoA(v0=t("tris.v0"), e1=t("tris.e1"), e2=t("tris.e2")),
         shade_pack=t("shade_pack"),
+        tri_ng=t("tri_ng"), tri_uv0=t("tri_uv0"), tri_uv1=t("tri_uv1"), tri_uv2=t("tri_uv2"),
+        tri_light=torch.as_tensor(np.array(arrays["tri_light"], np.int64), device=device),
+        lights=LightTable.from_arrays(sub("lights"), device),
         materials=MaterialTable.from_arrays(arrays["materials.gpack2"], device),
         textures=textures,
         env=env,

@@ -1,7 +1,7 @@
-"""Scenes built in code: a materialtest-like scene in two sizes.
+"""Scenes built in code: a materialtest-like scene in two sizes, with variants.
 
-`write_scene(out_dir, size)` writes scene.json, ball.obj and sky.pfm into
-out_dir and returns the scene.json path. The scene has materialtest's
+`write_scene(out_dir, size)` writes scene.json, ball.obj and, where the
+size has them, sky.pfm and lamp.obj into out_dir and returns the scene.json path. The scene has materialtest's
 features:
 
   * a lambert floor quad with a checker albedo;
@@ -13,7 +13,14 @@ features:
   * in the -analytic sizes only, three analytic prims (Tungsten's default
     `sphere` is analytic, as are `disk` and `cylinder`): a lambert sphere,
     a lambert disk just above the floor and a capped rough_conductor
-    cylinder standing on it, none emissive.
+    cylinder standing on it, none emissive;
+  * in the -area sizes only, two area lights beside the sky: an emissive
+    quad facing down and an emissive triangle mesh (lamp.obj, a 64-triangle
+    sphere), so the light choice weighs a quad, a mesh and the env;
+  * in the -box size the floor quad and the sky give way to a closed box
+    around the ball, the cube and the camera, lit by one emissive quad under
+    its ceiling: no env light, every path ends inside (a Cornell-box kind of
+    scene).
 
 Sizes:
   materialtest-synth  80,000-triangle ball, 512x256 sky, 1000x563, 32 spp,
@@ -23,6 +30,9 @@ Sizes:
                       max_bounces 6 (the CPU tests' size)
   materialtest-analytic   materialtest-synth plus the analytic prims
   small-analytic          small plus the analytic prims
+  materialtest-area       materialtest-synth plus the two area lights
+  small-area              small plus the two area lights
+  small-box               small's ball and cube in the closed box
 
 Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size]
 """
@@ -44,6 +54,10 @@ SIZES = {
 }
 SIZES["materialtest-analytic"] = SIZES["materialtest-synth"]
 SIZES["small-analytic"] = SIZES["small"]
+SIZES["materialtest-area"] = SIZES["materialtest-synth"]
+SIZES["small-area"] = SIZES["small"]
+SIZES["small-box"] = SIZES["small"]
+LAMP_SEGMENTS = (8, 4)  # lamp.obj: 2 * 8 * 4 = 64 triangles
 
 # the -analytic sizes' extra materials and prims
 ANALYTIC_BSDFS = [
@@ -58,6 +72,24 @@ ANALYTIC_PRIMS = [
      "transform": {"position": [1.0, 0.01, 2.2], "scale": 0.6}},
     {"type": "cylinder", "bsdf": "chrome", "capped": True,
      "transform": {"position": [-0.5, 0.4, 2.4], "scale": [0.6, 0.8, 0.6]}},
+]
+
+
+# the -area sizes' lights: a quad's normal is +y, so it is turned to face down
+AREA_LIGHTS = [
+    {"type": "quad", "bsdf": "inner", "emission": [8.0, 7.0, 6.0],
+     "transform": {"position": [-2.0, 3.5, 1.0], "scale": 1.5, "rotation": [180, 0, 0]}},
+    {"type": "mesh", "file": "lamp.obj", "smooth": False, "bsdf": "inner",
+     "emission": [4.0, 6.0, 10.0],
+     "transform": {"position": [2.2, 1.6, 1.8], "scale": 0.3}},
+]
+# the -box size: walls seen from inside (two-sided shading), one ceiling light
+BOX_BSDF = {"name": "wall", "type": "lambert", "albedo": [0.7, 0.68, 0.62]}
+BOX_PRIMS = [
+    {"type": "cube", "bsdf": "wall",
+     "transform": {"position": [0.0, 2.0, 2.5], "scale": [8.0, 4.0, 10.0]}},
+    {"type": "quad", "bsdf": "inner", "emission": [12.0, 11.0, 9.0],
+     "transform": {"position": [0.0, 3.95, 1.5], "scale": 2.0, "rotation": [180, 0, 0]}},
 ]
 
 
@@ -135,6 +167,11 @@ def scene_dict(size: str) -> dict:
     if size.endswith("-analytic"):
         doc["bsdfs"] += copy.deepcopy(ANALYTIC_BSDFS)
         doc["primitives"][3:3] = copy.deepcopy(ANALYTIC_PRIMS)  # before the env light
+    if size.endswith("-area"):
+        doc["primitives"][3:3] = copy.deepcopy(AREA_LIGHTS)  # before the env light
+    if size.endswith("-box"):
+        doc["bsdfs"].append(copy.deepcopy(BOX_BSDF))
+        doc["primitives"] = doc["primitives"][1:3] + copy.deepcopy(BOX_PRIMS)
     return doc
 
 
@@ -145,7 +182,10 @@ def write_scene(out_dir: str, size: str = "small") -> str:
     nu, nv, sw, sh = SIZES[size][:4]
     os.makedirs(out_dir, exist_ok=True)
     _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
-    save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
+    if size.endswith("-area"):
+        _write_sphere_obj(os.path.join(out_dir, "lamp.obj"), *LAMP_SEGMENTS)
+    if not size.endswith("-box"):
+        save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
     path = os.path.join(out_dir, "scene.json")
     with open(path, "w") as f:
         json.dump(scene_dict(size), f, indent=1)

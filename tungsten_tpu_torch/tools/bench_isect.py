@@ -1,7 +1,8 @@
 """Intersector benchmark of the port: every BVH walk on the same rays.
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
-        [--kernels bvh8,bvh8any,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri] [--trials 5]
+        [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri]
+        [--trials 5]
         [--device cuda|cpu]
 
 The port's counterpart of the JAX package's tools/bench_isect.py and
@@ -15,6 +16,8 @@ times each walk on three ray kinds, n rays each:
               case): the cost of a launch whose rays all leave at once.
 Kernels (each a walk of one pack of the flattened scene):
   bvh8      K3 closest hit (csrc/bvh8_walk.cu)    bvh8any   K3 latched any-hit
+  bvh8fast  K3-fast, the raw bf16x3 walk          bvh8fastq the whole fast query: K3-fast,
+            (csrc/bvh8_walk_fast.cu)                        exact validation, K3 repair launch
   bvh3      K4 ordered closest hit (bvh2_walk.cu) bvh3skip  K4 skip closest hit
   bvh3any   K4 any-hit                            bvh       K5-v2 closest hit (bvh_walk.cu)
   bvh1      K5-v1 closest hit (bvh_walk.cu, no    tri       K2 streaming brute force
@@ -27,7 +30,9 @@ TPU runtime's dispatch cost; that protocol is not carried over.
 
 Agreement, as both JAX tools check it: each kernel against intersect_brute
 on 4,096 incoherent rays (seed 1): hit mask, and t within rtol 1e-3 where
-both hit (occlusion only for the any-hit walks); K4 (bvh3) against K5 (bvh)
+both hit (occlusion only for the any-hit walks; bvh8fast and bvh8fastq both
+through the whole fast query, since the raw winner may be a phantom and
+answers to nothing before its validation); K4 (bvh3) against K5 (bvh)
 on the coherent rays: hit mask and t within rtol 1e-4; each any-hit walk
 against its closest-hit walk's hit mask. Besides, K2 is the brute-force
 reference of every other walk on all n coherent rays (hit mask). The run
@@ -60,7 +65,8 @@ from ..sampling.sampler import Sampler
 from ..scene.flatten import flatten_scene
 from ..scene.load import load_scene
 
-KERNELS = ("bvh8", "bvh8any", "bvh3", "bvh3skip", "bvh3any", "bvh", "bvh1", "tri")
+KERNELS = ("bvh8", "bvh8any", "bvh8fast", "bvh8fastq", "bvh3", "bvh3skip", "bvh3any", "bvh",
+           "bvh1", "tri")
 ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3"}  # any-hit walk -> its closest-hit walk
 UNSUPPORTED = {
     "bvhx": "the JAX tool imports tungsten_tpu/ops/pallas_bvhx.py, which the JAX "
@@ -86,6 +92,28 @@ def parse_kernels(names):
     return names
 
 
+def _fast_query(walk_fast_fn, walk_fn, scene, o, d, tnear, tfar):
+    h = bvh8.intersect(scene.pbvh8, scene.tris, o, d, tnear, tfar,
+                       walks=(walk_fast_fn, walk_fn))
+    return h.t, h.prim
+
+
+def fast_query_cuda(scene, o, d, tnear, tfar):
+    """The whole fast query on the kernels: (t, prim)."""
+    return _fast_query(bvh8.walk_fast_cuda, bvh8.walk_cuda, scene, o, d, tnear, tfar)
+
+
+def fast_query_twin(scene, o, d, tnear, tfar):
+    """The whole fast query on the twins; `.work` sums the two walks' counts."""
+    out = _fast_query(bvh8.walk_fast_twin, bvh8.walk_twin, scene, o, d, tnear, tfar)
+    fast_query_twin.work = {k: bvh8.walk_fast_twin.work[k] + bvh8.walk_twin.work[k]
+                            for k in ("box", "tri")}
+    return out
+
+
+fast_query_twin.work = {"box": 0, "tri": 0}
+
+
 def walks(scene, name):
     """(kernel walk, twin walk) of one kernel name; each takes (o, d, tnear, tfar)."""
     p8, p3, pv, pt = scene.pbvh8, scene.pbvh3, scene.pbvh, scene.ptris
@@ -93,6 +121,8 @@ def walks(scene, name):
     return {
         "bvh8": (P(bvh8.walk_cuda, p8), P(bvh8.walk_twin, p8)),
         "bvh8any": (P(bvh8.walk_cuda, p8, latch=True), P(bvh8.walk_twin, p8, latch=True)),
+        "bvh8fast": (P(bvh8.walk_fast_cuda, p8), P(bvh8.walk_fast_twin, p8)),
+        "bvh8fastq": (P(fast_query_cuda, scene), P(fast_query_twin, scene)),
         "bvh3": (P(bvh2.walk3_cuda, p3, mode="ordered"), P(bvh2.walk3_twin, p3, mode="ordered")),
         "bvh3skip": (P(bvh2.walk3_cuda, p3, mode="skip"), P(bvh2.walk3_twin, p3, mode="skip")),
         "bvh3any": (P(bvh2.walk3_cuda, p3, mode="any"), P(bvh2.walk3_twin, p3, mode="any")),
@@ -107,7 +137,9 @@ def query(scene, name, rays):
     """The public query of one kernel name on the rays' device: (hit mask,
     t or None for the any-hit walks)."""
     if name == "bvh8":
-        h = bvh8.intersect(scene.pbvh8, scene.tris, *rays)
+        h = bvh8.intersect(scene.pbvh8, scene.tris, *rays, fast=False)
+    elif name in ("bvh8fast", "bvh8fastq"):
+        h = bvh8.intersect(scene.pbvh8, scene.tris, *rays, fast=True)
     elif name in ("bvh3", "bvh3skip"):
         h = bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *rays, ordered=name == "bvh3")
     elif name in ("bvh", "bvh1"):
@@ -243,7 +275,7 @@ def report(res):
     for (kind, name), r in res["times"].items():
         kern = (f"kernel {r['ms']:9.3f} ms {res['n'] / r['ms'] / 1e3:9.2f} Mrays/s"
                 if r["ms"] is not None else "kernel       not run (CPU)")
-        print(f"{kind:10s} {name:8s}: {kern} | twin {r['twin_ms']:10.3f} ms")
+        print(f"{kind:10s} {name:9s}: {kern} | twin {r['twin_ms']:10.3f} ms")
     for label, frac in res["agree"].items():
         print(f"agreement {label}: {frac:.6f}")
 
