@@ -6,17 +6,23 @@
 Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
-  2. build    - nvcc builds the five kernel sources (csrc/bvh8_walk.cu,
-                bvh8_walk_fast.cu, bvh2_walk.cu, bvh_walk.cu,
-                intersect_stream.cu) into build/, one nvcc per source, all at
-                once;
+  2. build    - nvcc builds the seven kernel sources (csrc/bvh8_walk.cu,
+                bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
+                bvh2_walk.cu, bvh_walk.cu, intersect_stream.cu) into build/,
+                one nvcc per source, all at once, and prints what ptxas said
+                of the two BVH8 kernels (registers, shared memory, spills) and
+                their resident blocks a multiprocessor;
   3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
                 the camera rays, closest hit, plus latched shadow lanes from
                 their hit points, half with a finite tfar, half with INF, and
                 tfar = 0 (dead) where the camera ray missed) and against
-                brute force on 8,192 rays; times both at 2N;
+                brute force on 8,192 rays; against its one-thread-per-ray
+                form (bvh8_walk_v1.cu) bit for bit in closest, latched and
+                mixed mode on the random rays, the 563,000 camera rays and the
+                2N batch; times v1 and K3 at 2N in turns (v1, new, new, v1,
+                each the median of 5 launches);
   3b. kernels - K4 (bvh2_walk: ordered, skip, any) and K5 (bvh_walk) on the
                 same scene's packs, each against its twin on the 65,536
                 random rays and the 563,000 camera rays, and through its
@@ -41,9 +47,16 @@ printing a result):
                 phantoms (= repair lanes) of each set counted, and what the
                 repair found for them; the 2N set's repair launch (closest
                 hit, tfar = 0 on every lane but the phantoms) through the
-                exact K3 kernel against its twin; launch counts; the kernel,
-                its twin, the exact K3 kernel, the repair launch and both
-                whole queries timed on the 2N rays;
+                exact K3 kernel against its twin and against v1 (bit for bit);
+                launch counts; the kernel, its twin, the exact K3 kernel, the
+                repair launch and both whole queries timed on the 2N rays. The
+                tensor core sums in its own order, so the raw kernel is held
+                to its twin and to its one-thread-per-ray form
+                (bvh8_walk_fast_v1.cu, itself bit-equal to the twin) by bars:
+                the slot equal on >= 99.9% of lanes, t where the slots agree
+                by the t bar below (with the grazing floor on all lanes). The
+                fast kernel and the repair launch against v1 are timed in
+                turns;
   4. small    - the `small` scene through render_scene, its per-channel
                 means against the JAX package's (tests/data/...json);
   4b. analytic - `small-analytic` (three analytic prims) the same way,
@@ -70,11 +83,13 @@ printing a result):
                 Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
-                ten walks (30 timed rows; bvh8fast is the raw fast kernel,
-                bvh8fastq the whole fast query), with every agreement >= 99.9%
-                (K2 the brute-force reference of every walk on the coherent
-                rays) and the launch counts reset just before and read just
-                after;
+                ten walks and the three v1 walks (39 timed rows; bvh8fast is
+                the raw fast kernel, bvh8fastq the whole fast query), with
+                every agreement >= 99.9% (K2 the brute-force reference of
+                every walk on the coherent rays) and the launch counts reset
+                just before and read just after; then K3 closest, K3 latched
+                and K3-fast against their v1 forms on the benchmark's coherent
+                and incoherent rays, in turns;
   7. routes   - materialtest-analytic at 1000x563 and 32 spp through
                 render_flat on three FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = pbvh3 = None (K5-v2) and
@@ -84,12 +99,14 @@ printing a result):
                 5e-3 of the K3 image's, >= 90% of their pixels within
                 1e-3 + 1e-3 |K3|. Wall time and Mpaths/s per route.
 No earlier phase was cut in depth to make room for the lockstep render.
+Every render phase checks that the v1 kernels did not launch.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, phase 7's route
 renders for K5-v2 and K2, the benchmark for K4 and K5-v1), the largest |t|
 difference against its twin (the 2N batch for K3, K3-fast, K5 and K2,
 camera rays for K4), the kernel's and twin's ms (2N batch for K3 and
-K3-fast, the benchmark's coherent rays for the others), and the
+K3-fast and their v1 forms, the benchmark's coherent rays for the
+others), and the
 kernel's bound: the larger of the bytes it must move (inputs read once,
 outputs written once) over 3.35 TB/s and the operations its rays need over
 the peak rate of their type (f32 at 67 TFLOP/s; K3-fast's products of bf16
@@ -98,10 +115,21 @@ data sheet), the operations counted by the twin on the same rays (box and
 triangle tests; for K2 the triangles of each chunk whose box the ray itself
 hits, not its whole tile's) at the OPS costs below. No single PyTorch call
 computes a BVH walk or a brute-force closest hit, so library_ms is null.
+K3's, K3-fast's and their v1 forms' ms are the mean of the two turns of
+phase 3 (K3, mixed) and 3d (K3-fast, closest), each turn the median of 5
+single-launch event windows; back_to_back_ms beside them is the mean of 10
+launches back to back in one event window, the measure K3's and K3-fast's ms
+took while they were the one-thread-per-ray kernels, kept so that their
+series stays continuous. The other rows' ms are the benchmark's median of 5
+single-launch windows.
+The v1 rows' launches are the benchmark's (phase 6), their max_abs_err their
+own output against the twin on the 2N batch, their bound the same work as
+the new kernels'.
 It needs nvcc and one CUDA card, no network and no JAX. The last line is the
 JSON result; the line before it the card's name and power limit.
 """
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -126,7 +154,9 @@ T_RTOL, T_ATOL_PER_EXTENT, T_RTOL_ALL = 1e-5, 1e-6, 1e-3
 # outside a silhouette edge), many of them shadow lanes that hit at t of a few
 # tnear: there a relative bar has no meaning, and the absolute error
 # (~eps * |o| / |cos|, |cos| down to ~1e-2) gets its own floor on the
-# all-lanes bar, per unit of scene extent
+# all-lanes bar, per unit of scene extent. The same floor holds K3-fast's
+# tensor-core sums against its twin's fixed order on the 2N batch's grazing
+# shadow lanes
 T_ATOL_ALL_GRAZING_PER_EXTENT = 1e-4
 MEAN_RTOL = 5e-3  # render per-channel means vs the JAX package's, and route vs route
 # routes: a hit that flips between two walks reshades the rest of its path
@@ -200,7 +230,7 @@ def counted():
     from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
 
     return (bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
-            bvh2.walk3_cuda, bvh2.walk3_twin,
+            bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda, bvh2.walk3_twin,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, intersect_stream.stream_cuda,
             intersect_stream.stream_twin)
 
@@ -250,6 +280,58 @@ def cuda_ms(fn, reps):
 
 def agree(a, b):
     return (a == b).float().mean().item()
+
+
+def median_ms(fn, reps=5):
+    """Median of `reps` single-launch CUDA-event windows, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+TURNS = {}  # label -> (v1 ms, new ms): every timing in turns of the run
+
+
+def turns(label, fn_old, fn_new, card):
+    """A v1 kernel and its new form timed in turns (v1, new, new, v1), each
+    turn the median of 5 launches; each kernel's time is the mean of its two
+    turns."""
+    t = [median_ms(f) for f in (fn_old, fn_new, fn_new, fn_old)]
+    old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    TURNS[label] = (old_ms, new_ms)
+    log(f"  turns {label} on {card}: v1 {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
+        f"{t[2]:.4f} ms -> v1 {old_ms:.4f}, new {new_ms:.4f} ({old_ms / new_ms:.2f}x)")
+    return old_ms, new_ms
+
+
+def same_bits(a, b):
+    """Two walks' (t, local) equal bit for bit."""
+    return (torch.equal(a[1], b[1])
+            and torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)))
+
+
+def fast_bars(label, tk, lk, tt, lt, t_atol, atol_all):
+    """The fast kernel against a bit-exact reference (its twin or v1): the
+    raw slot on >= BAR of the lanes; where the slots agree, t within rtol
+    T_RTOL plus t_atol on >= BAR and within rtol T_RTOL_ALL plus atol_all on
+    all (the grazing floor: the two sum N.o + nc in different orders, and
+    the difference grows as 1 / |cos|). Returns the largest |t| difference
+    there."""
+    check(agree(lk, lt) >= BAR, f"K3-fast {label}: raw slot agree {agree(lk, lt):.6f} (>= {BAR})")
+    same = (lk == lt) & (lk >= 0)
+    err = (tk[same] - tt[same]).abs().max().item() if bool(same.any()) else 0.0
+    near = torch.isclose(tk[same], tt[same], rtol=T_RTOL, atol=t_atol).float().mean().item()
+    check(t_close(tk[same], tt[same], t_atol, atol_all), f"K3-fast {label}: t within rtol "
+          f"{T_RTOL} atol {t_atol:.2g} on {near:.6f} (>= {BAR}), rtol {T_RTOL_ALL} atol "
+          f"{atol_all:.2g} (all); max abs err {err:.3e}")
+    return err
 
 
 def kernel_vs_twin(name, kernel, twin, cases, t_atol):
@@ -304,9 +386,10 @@ def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
     hdr, _ = render_scene(path, dev, seed=ref["seed"], wavefront=wavefront)
     c = counts()
     twins = sum(v for k, v in c.items() if "twin" in k)
-    check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and twins == 0,
+    v1 = c["bvh8.walk_cuda_v1"] + c["bvh8.walk_fast_cuda_v1"]
+    check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and twins == 0 and v1 == 0,
           f"{name}: K3 launches {c['bvh8.walk_cuda']}, K3-fast "
-          f"{c['bvh8.walk_fast_cuda']}, twins {twins}")
+          f"{c['bvh8.walk_fast_cuda']}, twins {twins}, v1 kernels {v1}")
     check(np.isfinite(hdr).all() and (hdr >= 0).all(), f"{name}: image finite and non-negative")
     means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
     rel = np.abs(means - want) / np.abs(want)
@@ -332,12 +415,18 @@ def main():
     log(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.time()
-    sources = ("bvh8_walk", "bvh8_walk_fast", "bvh2_walk", "bvh_walk", "intersect_stream")
+    sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
+               "bvh_walk", "intersect_stream")
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
     log(f"[2 build] {', '.join(sources)} built in {time.time() - t0:.2f} s (nvcc, sm_90a, "
         f"in parallel)")
+    for name in ("bvh8_walk", "bvh8_walk_fast"):
+        occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
+        occ.restype = ctypes.c_int
+        log(f"[2 build] {name}: {occ()} resident blocks of 128 threads a multiprocessor; "
+            f"ptxas -v:\n{_build.ptxas_report(name)}")
 
     work = os.path.join(REPO, "build", "chip_smoke")  # scenes are written here
     big_path = synth.write_scene(os.path.join(work, "mt"), "materialtest-synth")
@@ -423,20 +512,37 @@ def main():
           f"2N: camera t within rtol {T_RTOL} atol {T_ATOL:.2g} (>= {BAR}), rtol {T_RTOL_ALL} "
           f"(all); max abs err {t_err.max().item():.3e}")
     max_abs_err = t_err.max().item()
-    ms = cuda_ms(lambda: bvh8.walk_cuda(pack, o2, d2, n2, f2, latch), reps=10)
+    # the warp-cooperative kernel against its one-thread-per-ray form
+    cam = (oc, dc, near, torch.full((n_pix,), INF, device=dev))
+    r2 = (o2, d2, n2, f2)
+    v1_cases = (("random 65536", rays, torch.arange(65536, device=dev) % 2 == 0),
+                (f"camera {n_pix}", cam, torch.arange(n_pix, device=dev) % 2 == 0),
+                (f"2N={2 * n_pix}", r2, latch))
+    for label, rr, lanes in v1_cases:
+        for mode, lat in (("closest", None), ("latched", True), ("mixed", lanes)):
+            new, old = bvh8.walk_cuda(pack, *rr, lat), bvh8.walk_cuda_v1(pack, *rr, lat)
+            torch.cuda.synchronize()
+            check(same_bits(new, old), f"{label} {mode}: K3 equals its v1 form bit for bit "
+                  f"(slot agree {agree(new[1], old[1]):.6f}, hits {(new[1] >= 0).float().mean().item():.4f})")
+    # v1's own error against the twin on the 2N batch (the last case's mixed walk)
+    v1_same = (old[1][n_pix:] == lt[n_pix:]) & (lt[n_pix:] >= 0)
+    v1_err = (old[0][n_pix:][v1_same] - tt[n_pix:][v1_same]).abs().max().item()
+    v1_ms, ms = turns("K3 2N mixed", lambda: bvh8.walk_cuda_v1(pack, o2, d2, n2, f2, latch),
+                      lambda: bvh8.walk_cuda(pack, o2, d2, n2, f2, latch), card)
+    ms_b2b = cuda_ms(lambda: bvh8.walk_cuda(pack, o2, d2, n2, f2, latch), reps=10)
+    v1_ms_b2b = cuda_ms(lambda: bvh8.walk_cuda_v1(pack, o2, d2, n2, f2, latch), reps=10)
     plain_ms = cuda_ms(lambda: bvh8.walk_twin(pack, o2, d2, n2, f2, latch), reps=1)
-    log(f"[3 kernel] 2N={2 * n_pix} mixed walk on {card}: CUDA kernel {ms:.3f} ms, "
-        f"plain PyTorch twin {plain_ms:.3f} ms; twin counts {k3_work}")
+    log(f"[3 kernel] 2N={2 * n_pix} mixed walk on {card}: CUDA kernel {ms:.3f} ms (v1 "
+        f"{v1_ms:.3f}; 10 back to back {ms_b2b:.3f}, v1 {v1_ms_b2b:.3f}), plain PyTorch twin "
+        f"{plain_ms:.3f} ms; twin counts {k3_work}")
     k3_bytes = (nbytes(o2, d2, n2, f2, latch, pack.boxes, pack.kid_t, pack.order_t,
                        pack.tri_planes) + 8 * o2.shape[0])
 
     # K4 and K5 on the same scene: kernel vs twin, public query vs brute force
     log(f"[3b kernels] K4 and K5 on materialtest-synth: {scene.pbvh3.n_nodes} binary nodes, "
         f"{scene.pbvh.tri_t.shape[0]} leaves")
-    cam = (oc, dc, near, torch.full((n_pix,), INF, device=dev))
     cases = (("random 65536", rays), (f"camera {n_pix}", cam))
     # the K5 / K2 routes' 2N batch: phase 3's rays and tfar, all closest hit
-    r2 = (o2, d2, n2, f2)
     with_mixed = cases + ((f"mixed 2N={2 * n_pix}", r2),)
     new_err = {}
     for name, bname, _, _ in NEW_KERNELS:
@@ -483,16 +589,20 @@ def main():
         repair_far.append(tfar)
         return bvh8.walk_cuda(pack, o, d, tnear, tfar)
 
+    atol_all = T_ATOL_ALL_GRAZING_PER_EXTENT * extent
     reset_counts()
     for label, rr in fast_sets:
         tk, lk = bvh8.walk_fast_cuda(pack, *rr)
+        tv, lv = bvh8.walk_fast_cuda_v1(pack, *rr)
         torch.cuda.synchronize()
         tt, lt = bvh8.walk_fast_twin(pack, *rr)
-        hit = lk >= 0
-        fast_err = (tk[hit] - tt[hit]).abs().max().item() if bool((lk == lt).all()) else float("nan")
-        check(torch.equal(lk, lt) and torch.equal(tk, tt),
-              f"K3-fast {label}: raw kernel equals its twin bit for bit (slot agree "
-              f"{agree(lk, lt):.6f}, max |t| difference {fast_err:.3e})")
+        check(torch.equal(lv, lt) and torch.equal(tv, tt),
+              f"K3-fast v1 {label}: raw kernel equals its twin bit for bit (slot agree "
+              f"{agree(lv, lt):.6f})")
+        fast_err = fast_bars(f"{label} vs twin", tk, lk, tt, lt, T_ATOL, atol_all)
+        fast_bars(f"{label} vs v1", tk, lk, tv, lv, T_ATOL, atol_all)
+        v1_same = (lv == lt) & (lt >= 0)
+        fast_v1_err = (tv[v1_same] - tt[v1_same]).abs().max().item()  # the 2N set's, the last
         hf = bvh8.intersect(pack, scene.tris, *rr, walks=(bvh8.walk_fast_cuda, repair_walk))
         ph = repair_far[-1] > 0.0  # the phantoms: winners that failed the exact validation
         he = bvh8.intersect(pack, scene.tris, *rr, fast=False)
@@ -522,8 +632,10 @@ def main():
     fast_work = dict(bvh8.walk_fast_twin.work)  # of the 2N set, the last
     c = counts()
     check(c["bvh8.walk_fast_cuda"] == 2 * len(fast_sets) and c["bvh8.walk_fast_twin"] ==
-          len(fast_sets), f"K3-fast: the kernel launched {c['bvh8.walk_fast_cuda']} times "
-          f"(raw + query per set), its twin {c['bvh8.walk_fast_twin']} (the comparisons)")
+          len(fast_sets) and c["bvh8.walk_fast_cuda_v1"] == len(fast_sets),
+          f"K3-fast: the kernel launched {c['bvh8.walk_fast_cuda']} times (raw + query per "
+          f"set), its twin {c['bvh8.walk_fast_twin']} and v1 {c['bvh8.walk_fast_cuda_v1']} "
+          f"(the comparisons)")
     hf = bvh8.intersect(pack, scene.tris, *sub)
     check(agree(hf.prim, hb.prim) >= BAR, f"8192 rays: K3-fast query vs brute force prim agree "
           f"{agree(hf.prim, hb.prim):.6f}")
@@ -536,20 +648,30 @@ def main():
     check(bool((lk[~need2] < 0).all()) and agree(lk[need2], lt[need2]) >= BAR,
           f"2N repair launch ({int(need2.sum())} live lanes): K3 kernel vs twin slot agree "
           f"{agree(lk[need2], lt[need2]):.6f} on the live lanes, a miss on every other")
+    check(same_bits((tk, lk), bvh8.walk_cuda_v1(pack, o2, d2, n2, far_rep)),
+          "2N repair launch: K3 equals its v1 form bit for bit")
     same = (lk == lt) & (lk >= 0)
-    atol_all = T_ATOL_ALL_GRAZING_PER_EXTENT * extent
     check(t_close(tk[same], tt[same], T_ATOL, atol_all), f"2N repair launch: t within rtol "
           f"{T_RTOL} atol {T_ATOL:.2g} (>= {BAR}), rtol {T_RTOL_ALL} atol {atol_all:.2g} (all); "
           f"max abs err "
           f"{(tk[same] - tt[same]).abs().max().item():.3e}")
-    fast_ms = cuda_ms(lambda: bvh8.walk_fast_cuda(pack, *r2), reps=10)
-    exact_ms = cuda_ms(lambda: bvh8.walk_cuda(pack, *r2), reps=10)
-    repair_ms = cuda_ms(lambda: bvh8.walk_cuda(pack, o2, d2, n2, far_rep), reps=10)
+    fast_v1_ms, fast_ms = turns("K3-fast 2N closest", lambda: bvh8.walk_fast_cuda_v1(pack, *r2),
+                                lambda: bvh8.walk_fast_cuda(pack, *r2), card)
+    fast_ms_b2b = cuda_ms(lambda: bvh8.walk_fast_cuda(pack, *r2), reps=10)
+    fast_v1_ms_b2b = cuda_ms(lambda: bvh8.walk_fast_cuda_v1(pack, *r2), reps=10)
+    exact_v1_ms, exact_ms = turns("K3 2N closest", lambda: bvh8.walk_cuda_v1(pack, *r2),
+                                  lambda: bvh8.walk_cuda(pack, *r2), card)
+    repair_v1_ms, repair_ms = turns(
+        "K3 2N repair launch", lambda: bvh8.walk_cuda_v1(pack, o2, d2, n2, far_rep),
+        lambda: bvh8.walk_cuda(pack, o2, d2, n2, far_rep), card)
     query_ms = cuda_ms(lambda: bvh8.intersect(pack, scene.tris, *r2), reps=5)
     exact_query_ms = cuda_ms(lambda: bvh8.intersect(pack, scene.tris, *r2, fast=False), reps=5)
     fast_plain_ms = cuda_ms(lambda: bvh8.walk_fast_twin(pack, *r2), reps=1)
     log(f"[3d K3-fast] closest-hit 2N={2 * n_pix} on {card}: fast kernel {fast_ms:.3f} ms, "
-        f"exact K3 kernel {exact_ms:.3f} ms, twin {fast_plain_ms:.3f} ms; repair launch "
+        f"exact K3 kernel {exact_ms:.3f} ms (the fast walk {exact_ms / fast_ms:.2f}x as fast); "
+        f"v1 forms {fast_v1_ms:.3f} and {exact_v1_ms:.3f} ms; fast kernel 10 back to back "
+        f"{fast_ms_b2b:.3f} ms, v1 {fast_v1_ms_b2b:.3f}; twin {fast_plain_ms:.3f} ms; "
+        f"repair launch "
         f"({int(need2.sum())} live "
         f"lanes) {repair_ms:.3f} ms; whole fast query {query_ms:.3f} ms, whole exact query "
         f"{exact_query_ms:.3f} ms; twin counts {fast_work}")
@@ -579,7 +701,9 @@ def main():
     img = render_flat(scene, spp=spp, seed=DEFAULT_SEED)
     dt = time.time() - t0
     launches, twin = bvh8.walk_cuda.launches, bvh8.walk_twin.launches
-    check(launches > 0 and twin == 0, f"slice: kernel launches {launches}, twin {twin}")
+    v1 = bvh8.walk_cuda_v1.launches + bvh8.walk_fast_cuda_v1.launches
+    check(launches > 0 and twin == 0 and v1 == 0,
+          f"slice: kernel launches {launches}, twin {twin}, v1 kernels {v1}")
     check(img.shape == (meta.res_y, meta.res_x, 3) and np.isfinite(img).all()
           and (img >= 0).all(), f"slice: {img.shape} image finite and non-negative")
     check(0.0 < float(img.mean()) < 1e3, f"slice: image mean {img.mean():.6f}")
@@ -632,13 +756,14 @@ def main():
     log("[6 isect] tungsten_tpu_torch.tools.bench_isect on materialtest-synth, n = 131072")
     reset_counts()
     t0 = time.time()
-    res = bench_isect.run(big_path, dev, n=131072, kernels=bench_isect.KERNELS, trials=5)
+    bench_kernels = bench_isect.KERNELS + bench_isect.V1_KERNELS
+    res = bench_isect.run(big_path, dev, n=131072, kernels=bench_kernels, trials=5)
     bench_launches = counts()
     bench_isect.report(res)
     k2_work = res["times"][("coherent", "tri")]["work"]
     log(f"[6 isect] K2 twin counts on the coherent rays {k2_work}: the tiles run "
         f"{k2_work['tri_tile'] / k2_work['tri']:.4f}x the triangle tests the rays need")
-    n_walks = len(bench_isect.KERNELS)
+    n_walks = len(bench_kernels)
     check(len(res["times"]) == 3 * n_walks and all(
         r["ms"] > 0.0 and r["twin_ms"] > 0.0 for r in res["times"].values()),
         f"isect: kernel and twin times for 3 ray kinds x {n_walks} walks in "
@@ -647,9 +772,19 @@ def main():
           f"{BAR} (lowest {min(res['agree'].values()):.6f})")
     new_keys = [f"bvh2.walk3_cuda.{m}" for m in bvh2.MODES] + [
         "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda",
-        "bvh8.walk_fast_cuda"]
+        "bvh8.walk_fast_cuda", "bvh8.walk_cuda_v1", "bvh8.walk_fast_cuda_v1"]
     check(all(bench_launches[k] > 0 for k in new_keys),
-          f"isect: K4 / K5 / K2 / K3-fast launches {[bench_launches[k] for k in new_keys]}")
+          f"isect: K4 / K5 / K2 / K3-fast / v1 launches {[bench_launches[k] for k in new_keys]}")
+    bscene = bench_isect.load(big_path, dev)
+    p8 = bscene.pbvh8
+    for ray_kind in ("coherent", "incoherent"):
+        br = bench_isect.make_rays(bscene, 131072, ray_kind)
+        turns(f"K3 closest {ray_kind} 131072", lambda: bvh8.walk_cuda_v1(p8, *br),
+              lambda: bvh8.walk_cuda(p8, *br), card)
+        turns(f"K3 latched {ray_kind} 131072", lambda: bvh8.walk_cuda_v1(p8, *br, latch=True),
+              lambda: bvh8.walk_cuda(p8, *br, latch=True), card)
+        turns(f"K3-fast {ray_kind} 131072", lambda: bvh8.walk_fast_cuda_v1(p8, *br),
+              lambda: bvh8.walk_fast_cuda(p8, *br), card)
 
     # the render's three intersector routes on one flattened scene
     ana_path = synth.write_scene(os.path.join(work, "mta"), "materialtest-analytic")
@@ -711,6 +846,18 @@ def main():
                        fast_work["tri"] * OPS["plane_bf16x3_mma"])
     fast_entry["exact_k3_ms"] = exact_ms
     entries.append(fast_entry)
+    entries.append(entry("bvh8_walk_v1", "tungsten_tpu_torch/csrc/bvh8_walk_v1.cu",
+                         "tungsten_tpu/ops/pallas_bvh8.py:130",
+                         bench_launches["bvh8.walk_cuda_v1"], v1_err, v1_ms, plain_ms, k3_bytes,
+                         k3_work["box"] * OPS["box"] + k3_work["tri"] * OPS["plane"]))
+    entries.append(entry("bvh8_walk_fast_v1", "tungsten_tpu_torch/csrc/bvh8_walk_fast_v1.cu",
+                         "tungsten_tpu/ops/pallas_bvh8.py:67",
+                         bench_launches["bvh8.walk_fast_cuda_v1"], fast_v1_err, fast_v1_ms,
+                         fast_plain_ms, fast_bytes,
+                         fast_work["box"] * OPS["box"] + fast_work["tri"] * OPS["plane_bf16x3"],
+                         fast_work["tri"] * OPS["plane_bf16x3_mma"]))
+    for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b, v1_ms_b2b, fast_v1_ms_b2b)):
+        row["back_to_back_ms"] = b2b
     n_bench = res["n"]
     # what each benchmark walk reads besides the rays, its output bytes per
     # ray, its slot cost, and the run whose launches are its main path's
@@ -732,6 +879,8 @@ def main():
         entries.append(entry(name, source, replaces, main_launches[bname], new_err[name],
                              r["ms"], r["twin_ms"], nbytes(*tensors) + n_bench * (32 + out_b),
                              r["work"]["box"] * OPS["box"] + r["work"]["tri"] * OPS[slot]))
+    log("[turns] v1 against new, ms, " + card + ": " + json.dumps(
+        {k: [round(a, 4), round(b, 4)] for k, (a, b) in TURNS.items()}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

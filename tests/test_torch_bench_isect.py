@@ -52,3 +52,22 @@ def test_entry_point_on_small(tmp_path, capsys):
 def test_unsupported_kernels_raise(name, reason):
     with pytest.raises(ValueError, match=reason):
         bench_isect.main(["--device", "cpu", "--n", "16", "--kernels", f"bvh8,{name}"])
+
+
+def test_v1_walks_by_name(tmp_path):
+    """The one-thread-per-ray walks kept for comparison run by name: on the
+    CPU their twins (the same as the new walks'), and every agreement holds;
+    the v1 kernels' counts do not move."""
+    path = synth.write_scene(str(tmp_path / "small"), "small")
+    names = ["bvh8", "bvh8v1", "bvh8any", "bvh8anyv1", "bvh8fast", "bvh8fastv1", "tri"]
+    v1 = (bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1)
+    before = [k.launches for k in v1]
+    res = bench_isect.main(["--scene", path, "--device", "cpu", "--n", "1024", "--trials", "1",
+                            "--kernels", ",".join(names)])
+    assert [k.launches for k in v1] == before
+    assert set(res["times"]) == {(k, n) for k in bench_isect.RAY_KINDS for n in names}
+    for kind in ("coherent", "incoherent"):
+        for a, b in (("bvh8", "bvh8v1"), ("bvh8any", "bvh8anyv1"), ("bvh8fast", "bvh8fastv1")):
+            assert res["times"][(kind, a)]["work"] == res["times"][(kind, b)]["work"]
+    assert "bvh8anyv1 vs bvh8v1: hit mask" in res["agree"]
+    assert all(v >= bench_isect.BAR for v in res["agree"].values()), res["agree"]

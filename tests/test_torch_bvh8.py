@@ -11,8 +11,15 @@ has an absolute floor of 1e-6: the plane form's numerator N.o + nc cancels
 to the point-plane distance, so its rounding error is absolute, about eps
 times the scene extent (~5e-7 here), and dominates on short hits.
 
-The CUDA kernel itself is held against the twin in test_torch_cuda.py.
+The CUDA kernel itself is held against the twin in test_torch_cuda.py. Its
+leaf step (the 128 slots split across the 32 lanes, the warp's minimum over
+an unsigned key of t and the slot) is emulated in plain torch
+(`bvh8.coop_leaf_step`, `coop_merge`) and held here, bit for bit, to the
+twin's rule (`bvh8.leaf_merge`) on ties, NaN slots, latched rays and the
+"strictly nearer" rule across leaves.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -173,3 +180,93 @@ def test_pack_stack_bound_is_checked():
                     prim_order=np.zeros(1, np.int32))
     with pytest.raises(ValueError, match="DEPTH"):
         bvh8._collapse8(bvh, np.cumsum(count > 0) - 1)
+
+
+def test_order_key_orders_like_floats():
+    """The kernels' key: a < b on f32 (no NaN) iff key(a) < key(b); -0 and
+    +0 tie, as they compare."""
+    rng = np.random.default_rng(11)
+    x = np.concatenate([rng.normal(0, 1, 500) * 10.0 ** rng.integers(-30, 30, 500),
+                        [0.0, -0.0, 1e-45, -1e-45, 3e38, -3e38, np.inf, -np.inf]])
+    t = torch.as_tensor(x.astype(np.float32))
+    k = bvh8.order_key(t)
+    assert bool(((k >= 0) & (k < bvh8.NONE_KEY)).all())
+    a, b = np.meshgrid(np.arange(len(x)), np.arange(len(x)))
+    np.testing.assert_array_equal((t[a] < t[b]).numpy(), (k[a] < k[b]).numpy())
+    np.testing.assert_array_equal((t[a] == t[b]).numpy(), (k[a] == k[b]).numpy())
+
+
+def _leaf_results(rng, k, latch_share, with_nan=True):
+    """k rays' slot results on one leaf: t from a few values (ties), NaN on
+    a share of slots (all-zero planes), hits on a random share."""
+    t = rng.choice(np.float32([0.25, 0.5, 0.5000001, 1.0, -0.0, 0.0, 2.0]), size=(k, bvh8.LEAF))
+    if with_nan:
+        t[rng.random((k, bvh8.LEAF)) < 0.3] = np.nan
+    h = (rng.random((k, bvh8.LEAF)) < rng.uniform(0.0, 0.2, (k, 1))) & ~np.isnan(t)
+    h[0] = False  # a ray that hits nothing
+    latched = rng.random(k) < latch_share
+    return torch.as_tensor(t), torch.as_tensor(h), torch.as_tensor(latched)
+
+
+@pytest.mark.parametrize("latch_share", [0.0, 1.0, 0.5])
+def test_coop_leaf_step_matches_the_walk_rule(latch_share):
+    """One leaf: the lane-split step and its write-back give the twin's
+    best, slot and done, bit for bit, closest / latched / mixed."""
+    rng = np.random.default_rng(int(latch_share * 10) + 3)
+    t, h, latched = _leaf_results(rng, 400, latch_share)
+    best = torch.full((400,), bvh8.INF)
+    local = torch.full((400,), -1, dtype=torch.int64)
+    t_win, slot = bvh8.coop_leaf_step(t, h, latched)
+    got = bvh8.coop_merge(t_win, slot, latched, best, local, 7 * bvh8.LEAF, fast=False)
+    want = bvh8.leaf_merge(t, h, latched, best, local, 7 * bvh8.LEAF)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+    hit = slot >= 0
+    assert 0.3 < hit.float().mean().item() < 1.0 and not bool(hit[0])
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_coop_merge_across_leaves_matches_the_walk_rule(fast):
+    """A sequence of leaves: each accepts t only below the ray's limit (the
+    fast rule with 1e-3 slack above it, so a later leaf may offer a t that
+    is not strictly nearer); the emulated steps and the twin's rule keep the
+    same best and slot after every leaf."""
+    rng = np.random.default_rng(5 + fast)
+    k = 300
+    latched = torch.zeros(k, dtype=torch.bool) if fast else torch.as_tensor(rng.random(k) < 0.3)
+    tfar = torch.as_tensor(rng.uniform(1.0, 4.0, k).astype(np.float32))
+    state_c = (torch.full((k,), bvh8.INF), torch.full((k,), -1, dtype=torch.int64))
+    state_t = state_c
+    taken = refused = 0
+    for leaf in range(12):
+        best = state_t[0]
+        lim = torch.minimum(tfar, best) * (bvh8.ONE_PLUS_E_T if fast else 1.0)
+        t = torch.as_tensor(rng.uniform(0.0, 4.0, (k, bvh8.LEAF)).astype(np.float32))
+        t[:, :8] = best[:, None]  # slots that tie with the best so far
+        h = (t < lim[:, None]) & torch.as_tensor(rng.random((k, bvh8.LEAF)) < 0.05)
+        t_win, slot = bvh8.coop_leaf_step(t, h, latched)
+        done_c = state_c[0] == 0.0
+        new_c = bvh8.coop_merge(t_win, slot, latched, *state_c, leaf * bvh8.LEAF, fast)
+        new_t = bvh8.leaf_merge(t, h, latched, *state_t, leaf * bvh8.LEAF)
+        # a latched ray that is done walks no further leaves
+        state_c = tuple(torch.where(done_c & latched, a, b) for a, b in zip(state_c, new_c[:2]))
+        state_t = tuple(torch.where(done_c & latched, a, b) for a, b in zip(state_t, new_t[:2]))
+        assert torch.equal(state_c[0], state_t[0]) and torch.equal(state_c[1], state_t[1])
+        taken += int((slot >= 0).sum())
+        refused += int(((slot >= 0) & (t_win >= best) & ~latched).sum())
+    assert taken > k and bool((state_t[1] >= 0).any())
+    # the fast rule's slack lets a leaf offer a hit no nearer than the best:
+    # both refuse it; the exact rule never offers one
+    assert (refused > 0) == fast
+
+
+def test_cuda_walks_refuse_other_leaf_widths(case):
+    """The warp-cooperative kernels are built for 128-slot leaves; a pack of
+    another width is refused before anything launches."""
+    _, _, pack, _, rays = case
+    narrow = dataclasses.replace(pack, leaf=64)
+    for walk in (bvh8.walk_cuda, bvh8.walk_fast_cuda):
+        with pytest.raises(ValueError, match="128"):
+            walk(narrow, *_t(rays))

@@ -26,7 +26,14 @@ Moller-Trumbore numerator at this scene's extent). fast=True against
 fast=False: >= 99.99% of prim; the fast query may keep a validated hit up
 to 1e-3 relative farther than the nearest one (the prune's slack).
 
-The CUDA kernel itself is held against the twin in test_torch_cuda.py.
+The CUDA kernel itself is held against the twin in test_torch_cuda.py. Its
+tensor-core operands are emulated here from the kernel's own fragment
+indexing (`bvh8.ray_words`, `bvh8.mma_leaf_products`): the product of the A
+rows [c_hi | c_hi | c_lo | 0] and the B columns [r_hi | r_lo | r_hi | 0]
+must give `_dot3`'s six dot products of every slot, each read back at the
+slot and plane the kernel reads it as, to f32 rounding of the sum (rtol
+1e-6 of the sum of the terms' magnitudes: the tensor core sums in its own
+order, the twin in a fixed one).
 """
 import numpy as np
 import pytest
@@ -237,3 +244,42 @@ def test_walk_fast_dispatches_by_device(case):
     assert bvh8.walk_fast_twin.launches == t0 + 1 and bvh8.walk_fast_cuda.launches == k0
     with pytest.raises(ValueError):
         bvh8.walk_fast_cuda(case["pack"], *rays)
+
+
+def test_ray_words_are_the_split_rays():
+    """The fast kernel's B-column words of a ray: [o_hi, 1], [o_lo, 0],
+    [d_hi, 0], [d_lo, 0] as bf16 pairs, the split of split_bf16."""
+    rng = np.random.default_rng(21)
+    o = torch.as_tensor(rng.uniform(-50, 50, (64, 3)).astype(np.float32))
+    d = torch.as_tensor(rng.normal(size=(64, 3)).astype(np.float32))
+    vals = bvh8._unpack(bvh8.ray_words(o, d)).reshape(64, 4, 4)
+    (oh, ol), (dh, dl) = ([h.float() for h in bvh8.split_bf16(x)] for x in (o, d))
+    one, zero = torch.ones(64, 1), torch.zeros(64, 1)
+    want = torch.stack([torch.cat([oh, one], 1), torch.cat([ol, zero], 1),
+                        torch.cat([dh, zero], 1), torch.cat([dl, zero], 1)], 1)
+    assert torch.equal(vals, want)
+    assert bool((ol != 0).any())  # the split is not trivial
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_mma_operands_give_the_dot3_products(case, k):
+    """One leaf of the `small` pack (planes of every scale, padding slots)
+    and a group of k rays: the emulated tensor-core products equal _dot3's
+    to rtol 1e-6 of the sum of |terms|, at every slot and plane."""
+    pack = case["pack"]
+    rng = np.random.default_rng(k)
+    o = torch.as_tensor(rng.uniform(-4, 4, (k, 3)).astype(np.float32)) + torch.tensor([0.0, 2.0, 0.0])
+    d = torch.as_tensor(rng.normal(size=(k, 3)).astype(np.float32))
+    (oh, ol), (dh, dl) = ([h.float() for h in bvh8.split_bf16(x)] for x in (o, d))
+    for leaf in range(pack.tri_planes.shape[0]):
+        ph, pl = pack.tri_planes_hi[leaf], pack.tri_planes_lo[leaf]
+        ao, ad = bvh8.mma_leaf_products(ph, pl, bvh8.ray_words(o, d))
+        Ph, Pl = (x.float()[None].expand(k, -1, -1) for x in (ph, pl))
+        for c, j in enumerate((0, 4, 8)):
+            for got, (rh, rl, affine) in ((ao, (oh, ol, True)), (ad, (dh, dl, False))):
+                ch, cl = Ph[..., j:j + 4], Pl[..., j:j + 4]
+                want = bvh8._dot3(ch, cl, rh, rl, affine)
+                mag = bvh8._dot3(ch.abs(), cl.abs(), rh.abs(), rl.abs(), affine)
+                assert bool((torch.abs(got[:, c] - want) <= 1e-6 * mag).all()), (leaf, c)
+        empty = (pack.tri_planes[leaf] == 0).all(dim=1)
+        assert bool((ao[:, :, empty] == 0).all() and (ad[:, :, empty] == 0).all())

@@ -7,8 +7,9 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
-K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1) and K2
-(intersect_stream.cu).
+their one-thread-per-ray forms, kept for comparison (bvh8_walk_v1.cu,
+bvh8_walk_fast_v1.cu), K4 (bvh2_walk.cu: ordered, skip, any), K5
+(bvh_walk.cu: v2 and v1) and K2 (intersect_stream.cu).
 Bars: local slot (prim) agrees on >= 99.9%
 of rays. Where it agrees, t is within rtol 1e-5 plus 1e-6 absolute on
 >= 99.9% of hits and within rtol 1e-3 on all: the plane form's numerator
@@ -18,9 +19,13 @@ multiply-adds where the twin does not. K5's and K2's u and v are within
 1e-5 on >= 99.9% and within 1e-3 on all (Moller-Trumbore's u cancels in
 tv . p). K5 and K2 round each operation as their twins do, so they are
 expected to agree bit for bit; the bars leave the room the other walks need.
-K3-fast fixes the order of its additions and rounds each operation as its
-twin does (every bf16 x bf16 product is exact in f32), so it is held to bit
-equality of slot and t.
+K3 equals its v1 form bit for bit in every mode (one slot test, one
+visiting order). K3-fast's tensor core sums the 12 products of a plane row
+in its own order, so against its twin the slot agrees on >= 99.9% and t,
+where the slot agrees, within rtol 1e-5 plus 1e-6 on >= 99.9% and rtol 1e-3
+on all; the fast v1 form fixes the twin's order of additions and rounds
+each operation as the twin does (every bf16 x bf16 product is exact in
+f32), so it is held to bit equality of slot and t.
 """
 import numpy as np
 import pytest
@@ -88,6 +93,25 @@ def test_kernel_matches_twin(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
+def test_kernel_matches_v1(cuda, mode):
+    """The warp-cooperative K3 and its one-thread-per-ray form: the same
+    (t, local), bit for bit."""
+    packs, (o, d, tn, tf) = _case(cuda)
+    pack = packs["bvh8"]
+    latch = {"closest": None, "any": True,
+             "mixed": torch.arange(o.shape[0], device=cuda) % 3 == 0}[mode]
+    k0, v0 = bvh8.walk_cuda.launches, bvh8.walk_cuda_v1.launches
+    tk, lk = bvh8.walk_cuda(pack, o, d, tn, tf, latch)
+    tv, lv = bvh8.walk_cuda_v1(pack, o, d, tn, tf, latch)
+    torch.cuda.synchronize()
+    assert bvh8.walk_cuda.launches == k0 + 1 and bvh8.walk_cuda_v1.launches == v0 + 1
+    assert 0.1 < (lk >= 0).float().mean().item() < 0.9
+    assert torch.equal(lk, lv), f"{mode}: local agrees on {(lk == lv).float().mean().item():.6f}"
+    assert torch.equal(tk.view(torch.int32), tv.view(torch.int32)), f"{mode}: t differs"
+
+
+@pytest.mark.cuda
 def test_fast_kernel_matches_twin(cuda):
     packs, (o, d, tn, tf) = _case(cuda)
     pack = packs["bvh8"]
@@ -97,9 +121,26 @@ def test_fast_kernel_matches_twin(cuda):
     assert bvh8.walk_fast_cuda.launches == k0 + 1 and bvh8.walk_fast_twin.launches == t0
     tt, lt = bvh8.walk_fast_twin(pack, o, d, tn, tf)
     assert 0.1 < (lk >= 0).float().mean().item() < 0.9
+    same = (lk == lt).cpu().numpy()
+    assert same.mean() >= BAR, f"slot agrees on {same.mean():.6f}"
+    hit = same & (lk >= 0).cpu().numpy()
+    tk_h, tt_h = tk.cpu().numpy()[hit], tt.cpu().numpy()[hit]
+    assert np.isclose(tk_h, tt_h, rtol=1e-5, atol=1e-6).mean() >= BAR
+    np.testing.assert_allclose(tk_h, tt_h, rtol=1e-3)
+    assert (lk[tf <= tn] == -1).all()
+
+
+@pytest.mark.cuda
+def test_fast_kernel_v1_matches_twin(cuda):
+    """The one-thread-per-ray fast walk (kept for comparison) adds in the
+    twin's order: bit for bit."""
+    packs, (o, d, tn, tf) = _case(cuda)
+    pack = packs["bvh8"]
+    tk, lk = bvh8.walk_fast_cuda_v1(pack, o, d, tn, tf)
+    torch.cuda.synchronize()
+    tt, lt = bvh8.walk_fast_twin(pack, o, d, tn, tf)
     assert torch.equal(lk, lt), f"slot agrees on {(lk == lt).float().mean().item():.6f}"
     assert torch.equal(tk, tt), f"t differs by up to {(tk - tt).abs().max().item():.3e}"
-    assert (lk[tf <= tn] == -1).all()
 
 
 @pytest.mark.cuda
@@ -123,8 +164,12 @@ def test_fast_query_matches_exact_query(cuda):
 def test_walk_routes_cuda_tensors_to_the_kernel(cuda):
     packs, rays = _case(cuda, n_rays=512)
     k0, t0 = bvh8.walk_cuda.launches, bvh8.walk_twin.launches
+    kept = (bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1)
+    before = [k.launches for k in kept]
     bvh8.walk(packs["bvh8"], *rays)
     assert bvh8.walk_cuda.launches == k0 + 1 and bvh8.walk_twin.launches == t0
+    bvh8.intersect(packs["bvh8"], intersect.TriangleSoA(*packs["tri_soa"]), *rays)
+    assert [k.launches for k in kept] == before
 
 
 def _k4_k5(packs, walk):

@@ -1,0 +1,191 @@
+// The traversal skeleton of the BVH8 walks (bvh8_walk.cu, bvh8_walk_fast.cu)
+// and the pieces they share with the one-thread-per-ray kernels kept for
+// comparison (bvh8_walk_v1.cu).
+//
+// Inner nodes are walked per thread, exactly as the one-thread-per-ray
+// kernels walk them: the same slab test, the same prune limit, the same
+// per-octant push order and the same private stack, so every ray visits its
+// nodes and leaves in the same order. Leaves are tested per warp
+// ("while-while"): a thread walks inner nodes until it pops a leaf and parks
+// it; once every lane of the warp has parked a leaf or finished, the warp
+// runs cooperative leaf steps until no lane is parked:
+//   * the leader is the lowest lane with a parked leaf; its leaf id is
+//     broadcast, and the members are the lanes parked on that same leaf;
+//   * the whole warp copies the leaf into its slice of shared memory with
+//     16-byte cp.async copies, coalesced, once whatever number of its rays
+//     want the leaf; the slice is double-buffered, so the next leader's leaf
+//     is in flight while the current one is tested;
+//   * the kernel's leaf step tests the leaf for the members, writes their
+//     results back and clears their parked leaf; their lanes then resume.
+// Each kernel supplies its leaf step as a policy with prune(best),
+// stage(leaf, buf) and test(walker, members, leaf, buf).
+//
+// The leaves are kLeaf = 128 slots wide (the JAX pack's width, set by the
+// TPU's lanes); the wrappers refuse any other width, so the loops unroll.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace bvh8 {
+
+constexpr int kDepth = 160;  // == DEPTH in ops/bvh8.py
+constexpr int kLeaf = 128;   // == LEAF in ops/bvh8.py
+constexpr float kInf = 3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;  // "no slot" in a warp reduction
+
+// One ray's walk state, held by its lane.
+struct Walker {
+  float ox, oy, oz, dx, dy, dz;  // the ray
+  float idx, idy, idz;           // 1 / d, d == 0 read as 1e-30
+  float tnear, tfar, best;
+  int octant, local, sp, parked;  // parked: a leaf waiting for the warp, or -1
+};
+
+// The ray of lane i (or an empty walk for a lane past n or a dead ray).
+__device__ __forceinline__ Walker make_walker(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tnear_in, const float* __restrict__ tfar_in, int i, int n) {
+  Walker w{};
+  w.best = kInf;
+  w.local = -1;
+  w.parked = -1;
+  w.sp = 0;
+  if (i >= n) return w;
+  w.ox = o[3 * i], w.oy = o[3 * i + 1], w.oz = o[3 * i + 2];
+  w.dx = d[3 * i], w.dy = d[3 * i + 1], w.dz = d[3 * i + 2];
+  w.tnear = tnear_in[i];
+  w.tfar = fminf(tfar_in[i], kInf);
+  w.idx = 1.0f / (w.dx == 0.0f ? 1e-30f : w.dx);
+  w.idy = 1.0f / (w.dy == 0.0f ? 1e-30f : w.dy);
+  w.idz = 1.0f / (w.dz == 0.0f ? 1e-30f : w.dz);
+  w.octant = ((w.dx >= 0.0f) << 2) | ((w.dy >= 0.0f) << 1) | (w.dz >= 0.0f);
+  w.sp = w.tnear < w.tfar ? 1 : 0;  // dead lane: no work
+  return w;
+}
+
+// Slab-test node v's 8 child boxes with K3's rule
+// (tmin <= tmax) & (tmax > tnear) & (tmin < lim) and push the hit children
+// far-to-near by the node's order word for the ray's octant (slot k = 7
+// pushed first, so the nearest child pops first).
+__device__ __forceinline__ void visit_node(
+    const float* __restrict__ boxes, const int* __restrict__ kid,
+    const int* __restrict__ order, int v, const Walker& w, float lim, int* stack, int& sp) {
+  const float* b = boxes + v * 64;
+  unsigned hitmask = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(b + 8 * c));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(b + 8 * c + 4));
+    // lo = (minx, miny, minz, maxx), hi = (maxy, maxz, 0, 0)
+    const float t0x = (lo.x - w.ox) * w.idx, t1x = (lo.w - w.ox) * w.idx;
+    const float t0y = (lo.y - w.oy) * w.idy, t1y = (hi.x - w.oy) * w.idy;
+    const float t0z = (lo.z - w.oz) * w.idz, t1z = (hi.y - w.oz) * w.idz;
+    const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    if ((tmin <= tmax) && (tmax > w.tnear) && (tmin < lim)) hitmask |= 1u << c;
+  }
+  const int perm = __ldg(order + v * 8 + w.octant);
+#pragma unroll
+  for (int k = 7; k >= 0; --k) {
+    const int c = (perm >> (3 * k)) & 7;
+    const int kv = __ldg(kid + v * 8 + c);
+    if (((hitmask >> c) & 1u) && kv != -1) stack[sp++] = kv;
+  }
+}
+
+// The exact plane-form slot test, shared by bvh8_walk.cu and bvh8_walk_v1.cu
+// so that both round alike: t = -(N.o + nc) / (N.d), u = (U.o + uc) + t (U.d),
+// v likewise; accept u >= 0, v >= 0, u + v <= 1, t > tnear, t < lim. Every
+// operation is a non-contracting intrinsic in the twin's order of additions
+// (products fused into the running sum). All-zero slots give t = -0/0 = NaN,
+// which no comparison accepts, so no file including this may be built with
+// --use_fast_math.
+__device__ __forceinline__ float dot_exact(float4 c, float x, float y, float z) {
+  return __fmaf_rn(c.z, z, __fmaf_rn(c.y, y, __fmul_rn(c.x, x)));
+}
+
+__device__ __forceinline__ bool slot_exact(float4 N, float4 U, float4 V, float ox, float oy,
+                                           float oz, float dx, float dy, float dz, float tnear,
+                                           float lim, float& t) {
+  const float ao = __fadd_rn(dot_exact(N, ox, oy, oz), N.w);
+  const float ad = dot_exact(N, dx, dy, dz);
+  t = __fdiv_rn(-ao, ad);
+  const float u = __fadd_rn(__fadd_rn(dot_exact(U, ox, oy, oz), U.w),
+                            __fmul_rn(t, dot_exact(U, dx, dy, dz)));
+  const float v = __fadd_rn(__fadd_rn(dot_exact(V, ox, oy, oz), V.w),
+                            __fmul_rn(t, dot_exact(V, dx, dy, dz)));
+  return (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) && (t > tnear) && (t < lim);
+}
+
+// An unsigned key that orders f32 values as < does (all but NaN, which no
+// accept rule lets through; -0 is read as +0, so the two tie as they
+// compare): the warp's (t, slot) minimum reduces keys, and the winner's t
+// is taken from the lane that holds it.
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned b = __float_as_uint(__fadd_rn(t, 0.0f));
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// 16-byte asynchronous global -> shared copy, and its group fences.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The walk of one warp: per-thread inner nodes, cooperative leaf steps.
+// Every lane of the warp calls it, live or not (the leaf steps are warp
+// collectives); a lane with nothing to do starts with an empty stack.
+template <class Leaf>
+__device__ __forceinline__ void walk_warp(Leaf& leaf_step, Walker& w, int* stack,
+                                          const float* __restrict__ boxes,
+                                          const int* __restrict__ kid,
+                                          const int* __restrict__ order) {
+  if (w.sp > 0) stack[0] = 0;  // the root
+  while (true) {
+    while (w.parked < 0 && w.sp > 0) {
+      const int v = stack[--w.sp];
+      if (v >= 0) {
+        visit_node(boxes, kid, order, v, w, fminf(w.tfar, leaf_step.prune(w.best)), stack, w.sp);
+      } else {
+        w.parked = -(v + 2);
+      }
+    }
+    unsigned want = __ballot_sync(kFull, w.parked >= 0);
+    if (want == 0) return;  // every lane's stack is empty
+    int leaf = __shfl_sync(kFull, w.parked, __ffs(want) - 1);
+    int buf = 0;
+    leaf_step.stage(leaf, buf);
+    cp_async_commit();
+    while (want) {
+      const unsigned members = __ballot_sync(kFull, w.parked == leaf);
+      const unsigned rest = want & ~members;
+      int next = -1;
+      if (rest) {
+        next = __shfl_sync(kFull, w.parked, __ffs(rest) - 1);
+        leaf_step.stage(next, buf ^ 1);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // this leaf's copy has landed (the next may be in flight)
+      __syncwarp();
+      leaf_step.test(w, members, leaf, buf);
+      __syncwarp();  // buf is free for the leaf after next
+      want = rest;
+      leaf = next;
+      buf ^= 1;
+    }
+  }
+}
+
+}  // namespace bvh8

@@ -7,11 +7,14 @@ call builds each in seconds:
          -Xcompiler -fPIC -o build/tungsten_tpu_torch/lib<name>_<hash>.so csrc/<name>.cu
 
 The library lands in build/tungsten_tpu_torch/ of the checkout, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is built once per checkout. The sources in csrc/ are the only
-input. `build(*names)` starts one nvcc per missing library, all at once, and
-waits for them all. No default fast-math flags: the plane-form leaf tests
-rely on IEEE NaN semantics (bvh8_walk.cu header).
+hash of the source, the csrc/ headers it includes (`#include "x.cuh"`; the
+headers include none of their own) and the flags, so an edited source or
+header rebuilds the libraries that use it, and an unchanged one is built once
+per checkout. The sources in csrc/ are the only input. `build(*names)` starts one
+nvcc per missing library, all at once, and waits for them all. ptxas reports
+each kernel's registers, shared memory and spills (-Xptxas -v); the report
+is kept beside the library (`ptxas_report`). No default fast-math flags: the
+plane-form leaf tests rely on IEEE NaN semantics (bvh8_common.cuh).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -27,8 +31,9 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tungsten_tpu_torch")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -42,9 +47,14 @@ def _nvcc() -> str:
 def _paths(name: str):
     """(source, library) paths of csrc/<name>.cu."""
     src = os.path.join(CSRC_DIR, name + ".cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
+        text = f.read()
+    h.update(text)
+    for header in _LOCAL_INCLUDE.findall(text):
+        with open(os.path.join(CSRC_DIR, header.decode()), "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(*names: str):
@@ -66,9 +76,19 @@ def build(*names: str):
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {src}:\n{stdout}\n{stderr}")
         else:
+            with open(out + ".ptxas.txt", "w") as f:
+                f.write(stderr)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said of csrc/<name>.cu's kernels when it was built:
+    registers, shared memory, stack frame and spills of each."""
+    build(name)
+    with open(_paths(name)[1] + ".ptxas.txt") as f:
+        return "\n".join(line.strip() for line in f if line.strip())
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,18 +8,31 @@ and so is the bf16 split of the planes (hi = bf16(p), lo = bf16(p - f32(hi)),
 round to nearest even) that the fast walk reads.
 
 Kernel half: the port of K3, `_walk_kernel8` (pallas_bvh8.py), in its two
-forms. fast=False is csrc/bvh8_walk.cu (`walk_cuda`: one thread per ray,
-private stack, per-ray latch). fast=True is csrc/bvh8_walk_fast.cu
-(`walk_fast_cuda`): the same traversal with the bf16x3 leaf product
-c.r ~ c_hi.r_hi + c_hi.r_lo + c_lo.r_hi (the lo.lo term dropped), slack on
-the edge tests, on t and on the prune; closest hit only, never latched.
-`walk_twin` and `walk_fast_twin` are their plain PyTorch versions: the same
-walk vectorised over the lanes still walking, with the stack as an
-(n, DEPTH) tensor. `walk` and `walk_fast` pick by the tensors' device: CUDA
-launches the kernel (or raises), CPU runs the twin. Each keeps a plain
-integer launch count (`walk_cuda.launches`, ...) so a run can show which one
-served it. The fast kernel and its twin add in one fixed order and round
-every operation alike, so they are expected to agree bit for bit.
+forms, both walking inner nodes per thread and leaves per warp (the skeleton
+of csrc/bvh8_common.cuh: a warp stages each leaf its rays want into shared
+memory once and tests it for all of them). fast=False is csrc/bvh8_walk.cu
+(`walk_cuda`: the 128 slots split across the lanes, per-ray latch).
+fast=True is csrc/bvh8_walk_fast.cu (`walk_fast_cuda`): the same traversal
+with the bf16x3 leaf product c.r ~ c_hi.r_hi + c_hi.r_lo + c_lo.r_hi (the
+lo.lo term dropped) as one tensor-core product, slack on the edge tests, on
+t and on the prune; closest hit only, never latched. `walk_twin` and
+`walk_fast_twin` are their plain PyTorch versions: the same walk vectorised
+over the lanes still walking, with the stack as an (n, DEPTH) tensor. `walk`
+and `walk_fast` pick by the tensors' device: CUDA launches the kernel (or
+raises), CPU runs the twin. Each keeps a plain integer launch count
+(`walk_cuda.launches`, ...) so a run can show which one served it. The exact
+kernel and its twin agree to rounding; the fast kernel's tensor core sums in
+its own order, so it agrees with its twin statistically.
+
+`walk_cuda_v1` and `walk_fast_cuda_v1` launch the one-thread-per-ray forms
+(csrc/bvh8_walk_v1.cu, csrc/bvh8_walk_fast_v1.cu), kept only so that a run
+can measure old and new on one card: the intersector benchmark and
+chip_smoke.py launch them, no query does. The exact v1 shares the slot test
+and the node visits of the new kernel, so the two agree bit for bit; the fast
+v1 adds in the twin's order and equals `walk_fast_twin` bit for bit.
+`order_key`, `coop_leaf_step`, `coop_merge`, `ray_words` and
+`mma_leaf_products` emulate the new kernels' leaf-step bookkeeping and
+tensor-core operands in plain torch for the CPU tests; nothing else uses them.
 
 The public queries keep the JAX package's semantics: `intersect` is
 intersect_bvh_pallas8, fast=True by default as there: the fast walk's winner
@@ -37,6 +50,7 @@ kernel, since a bf16 phantom would occlude falsely.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -424,20 +438,28 @@ def _walk_plain(pack: Bvh8Pack, o, d, tnear, tfar, latch, fast):
                                        tnear_s[lanes], lim * ONE_PLUS_E_T)
             else:
                 t, h = plane_leaf(pack.tri_planes[blk], o[lanes], d[lanes], tnear[lanes], lim)
-            tb, slot = torch.min(torch.where(h, t, INF), dim=1)
-            first = torch.argmax(h.to(torch.uint8), dim=1)
-            any_h = h.any(dim=1)
-            lat = latched[lanes]
-            take_latch = lat & any_h
-            # a leaf's winner replaces the best only when strictly nearer
-            # (always so in the exact walk; the fast accept rule has slack)
-            take_best = ~lat & any_h & (tb < cur)
-            best[lanes] = torch.where(take_latch, 0.0, torch.where(take_best, tb, cur))
-            local[lanes] = torch.where(
-                take_latch, blk * L + first,
-                torch.where(take_best, blk * L + slot, local[lanes]))
-            sp[lanes] = torch.where(take_latch, 0, sp[lanes])
+            best[lanes], local[lanes], done = leaf_merge(t, h, latched[lanes], cur,
+                                                         local[lanes], blk * L)
+            sp[lanes] = torch.where(done, 0, sp[lanes])
     return best, local, {"box": boxes, "tri": slots}
+
+
+def leaf_merge(t, h, latched, best, local, base):
+    """The walks' rule for one leaf visit of k rays: their slot results t, h
+    (k, L), latch flags, current best and local slot, and the leaf's first
+    slot id `base` -> (best, local, done). Within the leaf the lowest slot
+    among the least t wins; a latched ray takes its lowest hitting slot,
+    best = 0, and is done; a leaf's winner replaces the best only when
+    strictly nearer (always so in the exact walk; the fast accept rule has
+    slack)."""
+    tb, slot = torch.min(torch.where(h, t, INF), dim=1)
+    first = torch.argmax(h.to(torch.uint8), dim=1)
+    any_h = h.any(dim=1)
+    take_latch = latched & any_h
+    take_best = ~latched & any_h & (tb < best)
+    return (torch.where(take_latch, 0.0, torch.where(take_best, tb, best)),
+            torch.where(take_latch, base + first, torch.where(take_best, base + slot, local)),
+            take_latch)
 
 
 def walk_twin(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
@@ -474,39 +496,81 @@ def check_rays(o, d, tnear, tfar):
     _build.check_cuda("tfar", tfar, torch.float32, (n,), like=o)
 
 
-def _kernel_fn():
-    fn = _build.load_library("bvh8_walk").bvh8_walk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+def check_leaf(pack: Bvh8Pack):
+    """Raise unless the pack's leaves are LEAF wide: the warp-cooperative
+    kernels unroll their leaf loops over exactly that many slots."""
+    if pack.leaf != LEAF:
+        raise ValueError(f"the BVH8 kernels take leaves of {LEAF} slots; the pack's are "
+                         f"{pack.leaf} wide")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str, fast: bool, v1: bool):
+    """The C entry point `name` of csrc/<name>.cu, typed: the rays (o, d,
+    tnear, tfar), the exact walk's latch and its mode, the pack (boxes, kid,
+    order, then planes, or planes_hi and planes_lo), n, a v1 kernel's leaf
+    width, out_t, out_local and the stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(_build.load_library(name), name)
+    fn.restype = i
+    fn.argtypes = ([p] * 4 + ([] if fast else [p, i]) + [p] * (5 if fast else 4) + [i]
+                   + ([i] if v1 else []) + [p] * 3)
     return fn
+
+
+def _launch(name, pack: Bvh8Pack, o, d, tnear, tfar, *, fast, v1, latch=None):
+    """Check the inputs and launch csrc/<name>.cu on the current stream (the
+    fast walk's or the exact walk's arguments; a v1 kernel takes the leaf
+    width, the new ones only 128): (t (n,) f32, local slot (n,) i64; -1 = miss)."""
+    n = o.shape[0]
+    if not v1:
+        check_leaf(pack)
+    check_rays(o, d, tnear, tfar)
+    if fast:
+        tables = (("tri_planes_hi", torch.bfloat16), ("tri_planes_lo", torch.bfloat16))
+        extra = []
+    else:
+        tables = (("tri_planes", torch.float32),)
+        mode, lane_latch = _latch_mode(latch)
+        if mode == 2:
+            lane_latch = lane_latch.to(torch.uint8).contiguous()
+            _build.check_cuda("latch", lane_latch, torch.uint8, (n,), like=o)
+        extra = [_build.ptr(lane_latch), mode]
+    for name_t, dtype in (("boxes", torch.float32), ("kid_t", torch.int32),
+                          ("order_t", torch.int32)) + tables:
+        _build.check_cuda(f"pack.{name_t}", getattr(pack, name_t), dtype, like=o)
+    out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
+    p = _build.ptr
+    args = ([p(o), p(d), p(tnear), p(tfar)] + extra + [p(pack.boxes), p(pack.kid_t),
+            p(pack.order_t)] + [p(getattr(pack, t)) for t, _ in tables] + [n]
+            + ([pack.leaf] if v1 else []) + [p(out_t), p(out_local), _build.stream_of(o)])
+    err = _kernel_fn(name, fast, v1)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out_t, out_local.long()
 
 
 def walk_cuda(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     """Launch the CUDA BVH8 walk (csrc/bvh8_walk.cu) on the current stream.
     Returns (t (n,) f32, local slot (n,) i64; -1 = miss)."""
-    n = o.shape[0]
-    check_rays(o, d, tnear, tfar)
-    mode, lane_latch = _latch_mode(latch)
-    if mode == 2:
-        lane_latch = lane_latch.to(torch.uint8).contiguous()
-        _build.check_cuda("latch", lane_latch, torch.uint8, (n,), like=o)
-    for name in ("boxes", "kid_t", "order_t", "tri_planes"):
-        _build.check_cuda(f"pack.{name}", getattr(pack, name),
-                          torch.int32 if name in ("kid_t", "order_t") else torch.float32, like=o)
-    out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
-    p = _build.ptr
-    err = _kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(lane_latch), mode,
-                       p(pack.boxes), p(pack.kid_t), p(pack.order_t), p(pack.tri_planes),
-                       n, pack.leaf, p(out_t), p(out_local), _build.stream_of(o))
-    if err != 0:
-        raise RuntimeError(f"bvh8_walk launch failed: CUDA error {err}")
+    out = _launch("bvh8_walk", pack, o, d, tnear, tfar, fast=False, v1=False, latch=latch)
     walk_cuda.launches += 1
-    return out_t, out_local.long()
+    return out
 
 
 walk_cuda.launches = 0
+
+
+def walk_cuda_v1(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
+    """Launch the one-thread-per-ray BVH8 walk (csrc/bvh8_walk_v1.cu), kept
+    for comparison: the result of walk_cuda, bit for bit."""
+    out = _launch("bvh8_walk_v1", pack, o, d, tnear, tfar, fast=False, v1=True, latch=latch)
+    walk_cuda_v1.launches += 1
+    return out
+
+
+walk_cuda_v1.launches = 0
 
 
 def walk(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
@@ -518,36 +582,27 @@ def walk(pack: Bvh8Pack, o, d, tnear, tfar, latch=None):
     raise ValueError(f"no BVH8 walk for device {o.device}")
 
 
-def _fast_kernel_fn():
-    fn = _build.load_library("bvh8_walk_fast").bvh8_walk_fast
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-    return fn
-
-
 def walk_fast_cuda(pack: Bvh8Pack, o, d, tnear, tfar):
     """Launch the fast CUDA BVH8 walk (csrc/bvh8_walk_fast.cu) on the current
     stream. Returns (t (n,) f32, local slot (n,) i64; -1 = miss): the raw
     winner, to be validated by the caller."""
-    n = o.shape[0]
-    check_rays(o, d, tnear, tfar)
-    for name, dtype in (("boxes", torch.float32), ("kid_t", torch.int32),
-                        ("order_t", torch.int32), ("tri_planes_hi", torch.bfloat16),
-                        ("tri_planes_lo", torch.bfloat16)):
-        _build.check_cuda(f"pack.{name}", getattr(pack, name), dtype, like=o)
-    out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
-    p = _build.ptr
-    err = _fast_kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(pack.boxes), p(pack.kid_t),
-                            p(pack.order_t), p(pack.tri_planes_hi), p(pack.tri_planes_lo),
-                            n, pack.leaf, p(out_t), p(out_local), _build.stream_of(o))
-    if err != 0:
-        raise RuntimeError(f"bvh8_walk_fast launch failed: CUDA error {err}")
+    out = _launch("bvh8_walk_fast", pack, o, d, tnear, tfar, fast=True, v1=False)
     walk_fast_cuda.launches += 1
-    return out_t, out_local.long()
+    return out
 
 
 walk_fast_cuda.launches = 0
+
+
+def walk_fast_cuda_v1(pack: Bvh8Pack, o, d, tnear, tfar):
+    """Launch the one-thread-per-ray fast walk (csrc/bvh8_walk_fast_v1.cu),
+    kept for comparison: the result of walk_fast_twin, bit for bit."""
+    out = _launch("bvh8_walk_fast_v1", pack, o, d, tnear, tfar, fast=True, v1=True)
+    walk_fast_cuda_v1.launches += 1
+    return out
+
+
+walk_fast_cuda_v1.launches = 0
 
 
 def walk_fast(pack: Bvh8Pack, o, d, tnear, tfar):
@@ -557,6 +612,130 @@ def walk_fast(pack: Bvh8Pack, o, d, tnear, tfar):
     if o.device.type == "cpu":
         return walk_fast_twin(pack, o, d, tnear, tfar)
     raise ValueError(f"no BVH8 walk for device {o.device}")
+
+
+# ---------------------------------------------------------------------------
+# the new kernels' leaf step, emulated for the CPU tests
+# ---------------------------------------------------------------------------
+
+NONE_KEY = 0xFFFFFFFF  # "no slot" in the warp's minimum reductions
+WARP = 32
+
+
+def order_key(t):
+    """The kernels' unsigned 32-bit key of f32 t, as int64: ordered as t is
+    by < (-0 read as +0), so a minimum over keys is a minimum over t."""
+    b = (t + 0.0).view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def coop_leaf_step(t, h, latched):
+    """The exact kernel's leaf step (bvh8_walk.cu `ExactLeaf::test`) on k
+    member rays' slot results t, h (k, LEAF): lane l holds slots l, l+32,
+    l+64, l+96 and keeps its lowest hit and the lowest slot among its least
+    t; two minima over the warp take the least key, then the least slot
+    with that key (the lowest hit under the latch); the winner's t comes
+    from the lane that holds it. Returns (t (k,), slot (k,), -1 = none)."""
+    k = t.shape[0]
+    tl = t.reshape(k, LEAF // WARP, WARP)  # [ray, j, lane] = slot lane + 32 j
+    hl = h.reshape(k, LEAF // WARP, WARP)
+    slot = (torch.arange(LEAF).reshape(LEAF // WARP, WARP)).expand(k, -1, -1)
+    tb = torch.full((k, WARP), INF)
+    sb = torch.full((k, WARP), NONE_KEY, dtype=torch.int64)
+    first = torch.full((k, WARP), NONE_KEY, dtype=torch.int64)
+    for j in range(LEAF // WARP):  # the lane's loop, in slot order
+        hit = hl[:, j]
+        first = torch.where(hit & (first == NONE_KEY), slot[:, j], first)
+        take = hit & (tl[:, j] < tb)
+        tb = torch.where(take, tl[:, j], tb)
+        sb = torch.where(take, slot[:, j], sb)
+    key = torch.where(sb != NONE_KEY, order_key(tb), NONE_KEY)
+    kmin = key.min(dim=1, keepdim=True).values
+    win_c = torch.where((sb != NONE_KEY) & (key == kmin), sb, NONE_KEY).min(dim=1).values
+    win_l = first.min(dim=1).values
+    win = torch.where(latched, win_l, win_c)
+    t_win = tb.gather(1, (win_c & (WARP - 1))[:, None]).squeeze(1)
+    return torch.where(win == NONE_KEY, INF, t_win), torch.where(win == NONE_KEY, -1, win)
+
+
+def coop_merge(t_win, slot, latched, best, local, base, fast):
+    """A member's write-back after the leaf step: a latched ray with a hit
+    takes the slot, best = 0, and is done; otherwise a hit replaces the best
+    (the exact kernel: every accepted t is below the ray's limit, so always;
+    the fast kernel only when strictly nearer). -> (best, local, done)."""
+    hit = slot >= 0
+    take_latch = latched & hit
+    take = ~latched & hit & ((t_win < best) if fast else torch.ones_like(hit))
+    return (torch.where(take_latch, 0.0, torch.where(take, t_win, best)),
+            torch.where(take_latch | take, base + slot, local), take_latch)
+
+
+def _bf16_bits(x):
+    return x.contiguous().view(torch.int16).long() & 0xFFFF
+
+
+def _words(x16):
+    """(..., 2m) bf16 -> (..., m) int64 words, element 2i in the low half."""
+    b = _bf16_bits(x16)
+    return b[..., 0::2] | (b[..., 1::2] << 16)
+
+
+def ray_words(o, d):
+    """Each ray's B-column words, as the fast kernel writes them to shared
+    memory: (k, 8) int64 = [o_hi.xy, o_hi.z 1, o_lo.xy, o_lo.z 0, d_hi.xy,
+    d_hi.z 0, d_lo.xy, d_lo.z 0] (bf16 pairs, the first in the low half)."""
+    k = o.shape[0]
+    one, zero = torch.ones(k, 1), torch.zeros(k, 1)
+    (oh, ol), (dh, dl) = split_bf16(o), split_bf16(d)
+    vecs = [torch.cat([oh.float(), one], 1), torch.cat([ol.float(), zero], 1),
+            torch.cat([dh.float(), zero], 1), torch.cat([dl.float(), zero], 1)]
+    return torch.cat([_words(v.to(torch.bfloat16)) for v in vecs], 1)
+
+
+def _unpack(w):
+    """int64 words -> (..., 2) f32 values of their two bf16 halves."""
+    b = torch.stack([w & 0xFFFF, w >> 16], -1) << 16
+    return torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32).view(torch.float32)
+
+
+def mma_leaf_products(ph, pl, words):
+    """The fast kernel's tensor-core leaf products for one leaf and a group
+    of up to 4 rays, emulated from its fragment indexing: ph, pl (LEAF, 12)
+    bf16 tables, words (k <= 4, 8) from ray_words. Lane (g, q) loads its A
+    words from the tables and its B words from the rays' words as
+    bvh8_walk_fast.cu does, the fragments are placed by the PTX m16n8k16
+    layout, the 16 x 16 by 16 x 8 product is taken in f64 and rounded once,
+    and the accumulators are read back as the kernel reads them.
+    Returns (ao, ad), each (k, 3, LEAF): rows N, U, V of every slot against
+    [o, 1] and [d, 0]."""
+    H, L = _words(ph).reshape(-1), _words(pl).reshape(-1)
+    k = words.shape[0]
+    lane = torch.arange(WARP)
+    g, q = lane // 4, lane % 4
+    src = torch.where(g // 2 < k, g // 2, 0)
+    b0 = torch.where(g // 2 < k, words[src, (g % 2) * 4 + q], 0)
+    b1 = torch.where(q < 2, b0, 0)
+    B = torch.zeros(16, 8, dtype=torch.float64)
+    B[2 * q[:, None] + torch.arange(2), g[:, None]] = _unpack(b0).double()
+    B[8 + 2 * q[:, None] + torch.arange(2), g[:, None]] = _unpack(b1).double()
+    ao = torch.zeros(k, 3, LEAF)
+    ad = torch.zeros(k, 3, LEAF)
+    pair = torch.arange(2)
+    for sg in range(LEAF // 16):
+        for c in range(3):
+            wi = (sg * 16 + g) * 6 + 2 * c + (q & 1)
+            a = [H[wi], H[wi + 48], torch.where(q < 2, L[wi], 0), torch.where(q < 2, L[wi + 48], 0)]
+            A = torch.zeros(16, 16, dtype=torch.float64)
+            for r, (row, col) in enumerate(((g, 2 * q), (g + 8, 2 * q), (g, 8 + 2 * q),
+                                            (g + 8, 8 + 2 * q))):
+                A[row[:, None], col[:, None] + pair] = _unpack(a[r]).double()
+            C = (A @ B).float()  # [row, col]
+            for hh in range(2):  # lane (g, q): slot 16 sg + 8 hh + g, ray q
+                s, ray = sg * 16 + 8 * hh + g, q
+                live = ray < k
+                ao[ray[live], c, s[live]] = C[8 * hh + g[live], 2 * q[live]]
+                ad[ray[live], c, s[live]] = C[8 * hh + g[live], 2 * q[live] + 1]
+    return ao, ad
 
 
 def _moller_trumbore(tris, o, d, prim):

@@ -1,7 +1,8 @@
 """Intersector benchmark of the port: every BVH walk on the same rays.
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
-        [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri]
+        [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri
+                   (and bvh8v1,bvh8anyv1,bvh8fastv1)]
         [--trials 5]
         [--device cuda|cpu]
 
@@ -22,6 +23,12 @@ Kernels (each a walk of one pack of the flattened scene):
   bvh3any   K4 any-hit                            bvh       K5-v2 closest hit (bvh_walk.cu)
   bvh1      K5-v1 closest hit (bvh_walk.cu, no    tri       K2 streaming brute force
             best-t pruning in the box tests)                (intersect_stream.cu)
+Besides, by name only (not in the default list): the one-thread-per-ray
+forms of K3 and K3-fast, kept to be measured beside the warp-cooperative
+kernels on one card:
+  bvh8v1    K3 closest hit (bvh8_walk_v1.cu)      bvh8anyv1 its latched any-hit
+  bvh8fastv1 K3-fast raw (bvh8_walk_fast_v1.cu)
+e.g. --kernels bvh8,bvh8v1,bvh8any,bvh8anyv1,bvh8fast,bvh8fastv1.
 On a CUDA device each walk's kernel and its plain twin are timed with CUDA
 events after a warm-up, as the median of --trials runs; on the CPU only the
 twins run (the port's CPU path), timed by the host clock. Nothing falls back
@@ -32,7 +39,8 @@ Agreement, as both JAX tools check it: each kernel against intersect_brute
 on 4,096 incoherent rays (seed 1): hit mask, and t within rtol 1e-3 where
 both hit (occlusion only for the any-hit walks; bvh8fast and bvh8fastq both
 through the whole fast query, since the raw winner may be a phantom and
-answers to nothing before its validation); K4 (bvh3) against K5 (bvh)
+answers to nothing before its validation; bvh8fastv1 through the fast
+query on the v1 walks); K4 (bvh3) against K5 (bvh)
 on the coherent rays: hit mask and t within rtol 1e-4; each any-hit walk
 against its closest-hit walk's hit mask. Besides, K2 is the brute-force
 reference of every other walk on all n coherent rays (hit mask). The run
@@ -67,7 +75,9 @@ from ..scene.load import load_scene
 
 KERNELS = ("bvh8", "bvh8any", "bvh8fast", "bvh8fastq", "bvh3", "bvh3skip", "bvh3any", "bvh",
            "bvh1", "tri")
-ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3"}  # any-hit walk -> its closest-hit walk
+V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1")  # by name only, for comparison
+# any-hit walk -> its closest-hit walk
+ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1"}
 UNSUPPORTED = {
     "bvhx": "the JAX tool imports tungsten_tpu/ops/pallas_bvhx.py, which the JAX "
             "package does not contain",
@@ -87,8 +97,8 @@ def parse_kernels(names):
     for k in names:
         if k in UNSUPPORTED:
             raise ValueError(f"kernel {k!r} is not supported: {UNSUPPORTED[k]}")
-        if k not in KERNELS:
-            raise ValueError(f"unknown kernel {k!r}; one of {', '.join(KERNELS)}")
+        if k not in KERNELS + V1_KERNELS:
+            raise ValueError(f"unknown kernel {k!r}; one of {', '.join(KERNELS + V1_KERNELS)}")
     return names
 
 
@@ -122,6 +132,9 @@ def walks(scene, name):
         "bvh8": (P(bvh8.walk_cuda, p8), P(bvh8.walk_twin, p8)),
         "bvh8any": (P(bvh8.walk_cuda, p8, latch=True), P(bvh8.walk_twin, p8, latch=True)),
         "bvh8fast": (P(bvh8.walk_fast_cuda, p8), P(bvh8.walk_fast_twin, p8)),
+        "bvh8v1": (P(bvh8.walk_cuda_v1, p8), P(bvh8.walk_twin, p8)),
+        "bvh8anyv1": (P(bvh8.walk_cuda_v1, p8, latch=True), P(bvh8.walk_twin, p8, latch=True)),
+        "bvh8fastv1": (P(bvh8.walk_fast_cuda_v1, p8), P(bvh8.walk_fast_twin, p8)),
         "bvh8fastq": (P(fast_query_cuda, scene), P(fast_query_twin, scene)),
         "bvh3": (P(bvh2.walk3_cuda, p3, mode="ordered"), P(bvh2.walk3_twin, p3, mode="ordered")),
         "bvh3skip": (P(bvh2.walk3_cuda, p3, mode="skip"), P(bvh2.walk3_twin, p3, mode="skip")),
@@ -136,7 +149,15 @@ def walks(scene, name):
 def query(scene, name, rays):
     """The public query of one kernel name on the rays' device: (hit mask,
     t or None for the any-hit walks)."""
-    if name == "bvh8":
+    if name in V1_KERNELS:
+        on_card = rays[0].is_cuda
+        exact = bvh8.walk_cuda_v1 if on_card else bvh8.walk_twin
+        if name == "bvh8anyv1":
+            return exact(scene.pbvh8, *rays, latch=True)[1] >= 0, None
+        fast = bvh8.walk_fast_cuda_v1 if on_card else bvh8.walk_fast_twin
+        h = bvh8.intersect(scene.pbvh8, scene.tris, *rays, fast=name == "bvh8fastv1",
+                           walks=(fast, exact))
+    elif name == "bvh8":
         h = bvh8.intersect(scene.pbvh8, scene.tris, *rays, fast=False)
     elif name in ("bvh8fast", "bvh8fastq"):
         h = bvh8.intersect(scene.pbvh8, scene.tris, *rays, fast=True)
