@@ -6,12 +6,13 @@
 Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
-  2. build    - nvcc builds the seven kernel sources (csrc/bvh8_walk.cu,
+  2. build    - nvcc builds the nine kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
-                bvh2_walk.cu, bvh_walk.cu, intersect_stream.cu) into build/,
-                one nvcc per source, all at once, and prints what ptxas said
-                of the two BVH8 kernels (registers, shared memory, spills) and
-                their resident blocks a multiprocessor;
+                bvh2_walk.cu, bvh_walk.cu, bvh_walk_v1.cu, intersect_stream.cu,
+                intersect_stream_v1.cu) into build/, one nvcc per source, all
+                at once, and prints what ptxas said of the two BVH8 kernels,
+                K5 and K2 (registers, shared memory, spills) and their
+                resident blocks a multiprocessor;
   3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
@@ -23,19 +24,27 @@ printing a result):
                 mixed mode on the random rays, the 563,000 camera rays and the
                 2N batch; times v1 and K3 at 2N in turns (v1, new, new, v1,
                 each the median of 5 launches);
-  3b. kernels - K4 (bvh2_walk: ordered, skip, any) and K5 (bvh_walk) on the
-                same scene's packs, each against its twin on the 65,536
-                random rays and the 563,000 camera rays, and through its
-                public query against brute force on the 8,192 rays; each
-                kernel's launch count must move there and its twin's not.
-                K5 also on the 2N closest-hit batch that the render's K5 and
-                K2 routes give the walk: phase 3's rays and tfar with no lane
-                latched;
-  3c. kernels - K2 (intersect_stream) and K5-v1 (bvh_walk, prune=0) the same
-                way: against their twins on the 65,536 random rays, the
-                563,000 camera rays and the 2N batch, and through the walk
-                plus its prim lookup against brute force on the 8,192 rays,
-                with the launch counts checked;
+  3b. kernels - K4 (bvh2_walk: ordered, skip, any) on the same scene's
+                packs against its twin on the 65,536 random rays and the
+                563,000 camera rays; K5 (bvh_walk) in both modes (prune=1:
+                K5-v2, prune=0: K5-v1) against its twin and its first CUDA
+                form (bvh_walk_v1.cu) bit for bit in t, slot, u and v on those
+                two sets and on the 2N closest-hit batch that the render's K5
+                and K2 routes give the walk (phase 3's rays and tfar with no
+                lane latched); each through its public query against brute
+                force on the 8,192 rays; each kernel's launch count must move
+                there and its twin's and first form's not;
+  3c. kernels - K2 (intersect_stream) on the three sets: its prim against its
+                twin's on >= 99.99% of the lanes (the kernel culls per ray and
+                per sub-box, the twin per 256-ray tile), t, u and v bit for
+                bit where the prims agree, the lanes that differ counted and
+                printed; its first CUDA form (intersect_stream_v1.cu) against
+                the twin bit for bit; the tests its sub-box cull leaves on the
+                2N batch counted (sub_box_work), for its bound; through its
+                query against brute force on the 8,192 rays, with the launch
+                counts checked; then K5-v2, K5-v1 and K2 against their first
+                forms on the 2N batch, in turns (first form, new, new, first
+                form);
   3d. K3-fast - the fast BVH8 walk (bvh8_walk_fast.cu) on the same pack: the
                 raw kernel against its twin (walk_fast_twin), bit for bit, on
                 the 65,536 random rays, the 563,000 camera rays and the 2N
@@ -83,13 +92,15 @@ printing a result):
                 Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
-                ten walks and the three v1 walks (39 timed rows; bvh8fast is
-                the raw fast kernel, bvh8fastq the whole fast query), with
+                ten walks and the six first forms (v1 walks; 48 timed rows;
+                bvh8fast is the raw fast kernel, bvh8fastq the whole fast
+                query), with
                 every agreement >= 99.9% (K2 the brute-force reference of
                 every walk on the coherent rays) and the launch counts reset
                 just before and read just after; then K3 closest, K3 latched
                 and K3-fast against their v1 forms on the benchmark's coherent
-                and incoherent rays, in turns;
+                and incoherent rays, in turns, and so K5 (both modes) and K2
+                against their first forms;
   7. routes   - materialtest-analytic at 1000x563 and 32 spp through
                 render_flat on three FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = pbvh3 = None (K5-v2) and
@@ -99,32 +110,41 @@ printing a result):
                 5e-3 of the K3 image's, >= 90% of their pixels within
                 1e-3 + 1e-3 |K3|. Wall time and Mpaths/s per route.
 No earlier phase was cut in depth to make room for the lockstep render.
-Every render phase checks that the v1 kernels did not launch.
+Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, phase 7's route
-renders for K5-v2 and K2, the benchmark for K4 and K5-v1), the largest |t|
-difference against its twin (the 2N batch for K3, K3-fast, K5 and K2,
-camera rays for K4), the kernel's and twin's ms (2N batch for K3 and
-K3-fast and their v1 forms, the benchmark's coherent rays for the
-others), and the
-kernel's bound: the larger of the bytes it must move (inputs read once,
-outputs written once) over 3.35 TB/s and the operations its rays need over
-the peak rate of their type (f32 at 67 TFLOP/s; K3-fast's products of bf16
-pairs with their f32 sums at the bf16 matrix rate, 989 TFLOP/s; H100 SXM
-data sheet), the operations counted by the twin on the same rays (box and
-triangle tests; for K2 the triangles of each chunk whose box the ray itself
-hits, not its whole tile's) at the OPS costs below. No single PyTorch call
-computes a BVH walk or a brute-force closest hit, so library_ms is null.
+renders for K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
+the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
+K5, K2 and the first forms, camera rays for K4), and the kernel's and twin's
+ms and the kernel's bound on the rays of those launches: the 2N batch for
+K3, K3-fast, K5-v2 and K2 (K5-v2's and K2's ms the mean of their turns
+against their first forms; the benchmark's coherent time beside as
+bench_ms, the first form's 2N time as v1_ms), the benchmark's coherent rays
+for K4, K5-v1 and the first forms (their 2N time and bound beside as ms_2n
+and bound_2n_ms; K5-v1's first form's times as v1_ms and v1_ms_2n). The bound is the larger of the bytes the kernel must move (inputs
+read once, outputs written once) over 3.35 TB/s and the operations its rays
+need over the peak rate of their type (f32 at 67 TFLOP/s; K3-fast's products
+of bf16 pairs with their f32 sums at the bf16 matrix rate, 989 TFLOP/s;
+H100 SXM data sheet), counted on the same rays at the OPS costs below: box
+and triangle tests by the twin; for K2 the chunk boxes, the sub-boxes of the
+chunks each ray's box hits and its Moller-Trumbore tests of the real
+triangles of the sub-boxes it hits, each charged to the stage where the
+test ends (`intersect_stream.sub_box_work`), with the chunk-level bound of
+earlier PRs beside as bound_chunk_ms. A first form's bound is its new
+kernel's. No single PyTorch call computes a BVH walk or a brute-force
+closest hit, so library_ms is null.
 K3's, K3-fast's and their v1 forms' ms are the mean of the two turns of
 phase 3 (K3, mixed) and 3d (K3-fast, closest), each turn the median of 5
 single-launch event windows; back_to_back_ms beside them is the mean of 10
 launches back to back in one event window, the measure K3's and K3-fast's ms
 took while they were the one-thread-per-ray kernels, kept so that their
-series stays continuous. The other rows' ms are the benchmark's median of 5
+series stays continuous. The benchmark's ms are its median of 5
 single-launch windows.
-The v1 rows' launches are the benchmark's (phase 6), their max_abs_err their
-own output against the twin on the 2N batch, their bound the same work as
-the new kernels'.
+The first forms' rows (bvh8_walk_v1, bvh8_walk_fast_v1, bvh_walk_v1_form,
+intersect_stream_v1; "v1" means the first CUDA form, and bvh_walk_v1 is the
+TPU's K5-v1, prune=0, on the new kernel) take their launches, ms and bound
+from the benchmark (phase 6), with their 2N turn times beside (ms_2n; K3's
+and K3-fast's also back_to_back_ms_2n).
 It needs nvcc and one CUDA card, no network and no JAX. The last line is the
 JSON result; the line before it the card's name and power limit.
 """
@@ -165,7 +185,7 @@ PIX_ATOL, PIX_RTOL, PIX_BAR = 1e-3, 1e-3, 0.90
 # Moller-Trumbore's u = (tv . p) / det cancels, so any other rounding shows;
 # the kernel rounds each operation as the twin does (bvh_walk.cu header).
 UV_ATOL, UV_ATOL_ALL = 1e-5, 1e-3
-# the K4 / K5 walks: (json name, benchmark name, source, the TPU kernel it replaces)
+# the K4 walks: (json name, benchmark name, source, the TPU kernel it replaces)
 NEW_KERNELS = (
     ("bvh2_walk_ordered", "bvh3", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:204"),
@@ -173,16 +193,20 @@ NEW_KERNELS = (
      "tungsten_tpu/ops/pallas_bvh2.py:126"),
     ("bvh2_walk_any", "bvh3any", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:168"),
+)
+# K5 in both modes and K2, each with its first CUDA form: (json name,
+# benchmark name, source, the TPU kernel it replaces, the first form's json
+# name and benchmark name, or None where the first form's row is another
+# mode's)
+K5_K2 = (
     ("bvh_walk", "bvh", "tungsten_tpu_torch/csrc/bvh_walk.cu",
-     "tungsten_tpu/ops/pallas_bvh.py:298"),
-)
-# phase 3c's kernels, in the same form
-K2_K5V1 = (
-    ("intersect_stream", "tri", "tungsten_tpu_torch/csrc/intersect_stream.cu",
-     "tungsten_tpu/ops/pallas_intersect.py:41"),
+     "tungsten_tpu/ops/pallas_bvh.py:298", "bvh_walk_v1_form", "bvhv1"),
     ("bvh_walk_v1", "bvh1", "tungsten_tpu_torch/csrc/bvh_walk.cu",
-     "tungsten_tpu/ops/pallas_bvh.py:51"),
+     "tungsten_tpu/ops/pallas_bvh.py:51", None, "bvh1v1"),
+    ("intersect_stream", "tri", "tungsten_tpu_torch/csrc/intersect_stream.cu",
+     "tungsten_tpu/ops/pallas_intersect.py:41", "intersect_stream_v1", "triv1"),
 )
+K2_BAR = 0.9999  # K2's prim vs its twin: the per-ray sub-box cull against the tile vote
 # the bound: f32 operations per test (adds, multiplies, min / max, compares,
 # divides, each one): a slab test against one box, a plane-form slot
 # (bvh8_walk.cu's leaf), a Moller-Trumbore slot (bvh_walk.cu, intersect_stream.cu)
@@ -192,8 +216,16 @@ K2_K5V1 = (
 # products) + 2 to join the passes, + 2 for the affine w on three of them;
 # they are held to the card's bf16 matrix rate. 15 are plain f32: t (negate,
 # divide) 2; u and v (multiply, add) 4; u + v 1; five compares 5; the
-# winner's compare and select 3
-OPS = {"box": 25, "plane": 45, "mt": 54, "plane_bf16x3_mma": 108, "plane_bf16x3": 15}
+# winner's compare and select 3.
+# A Moller-Trumbore slot by the stage at which walk_common.cuh's `mt_exact`
+# leaves it (intersect_stream.MT_STAGES, counted for K2 by sub_box_work):
+# p = d x e2 and det 14, |det| > eps 2 -> 16; tv 3, u's numerator 5, its
+# sign 1 -> 25; q = tv x e1 9, v's numerator 5, its sign 1 -> 40; t's
+# numerator 5, its sign 1 -> 46; the reciprocal 1, three products 3, u + v
+# 1, u + v <= 1, t > tnear, t < lim 3 -> 54, the whole test ("mt", which K5's
+# bound charges every slot: an upper count, since its leaves reject early too)
+OPS = {"box": 25, "plane": 45, "mt": 54, "plane_bf16x3_mma": 108, "plane_bf16x3": 15,
+       "mt_det": 16, "mt_u": 25, "mt_v": 40, "mt_t": 46, "mt_full": 54}
 FAST_BAR = 0.9999  # fast query vs exact query, prim
 # lockstep vs regen, full width: two estimators of one integral, 18M paths each
 WAVEFRONT_RTOL = 5e-3
@@ -231,8 +263,9 @@ def counted():
 
     return (bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
             bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda, bvh2.walk3_twin,
-            bvh.walk_packet_cuda, bvh.walk_packet_twin, intersect_stream.stream_cuda,
-            intersect_stream.stream_twin)
+            bvh.walk_packet_cuda, bvh.walk_packet_twin, bvh.walk_packet_cuda_v1,
+            intersect_stream.stream_cuda, intersect_stream.stream_twin,
+            intersect_stream.stream_cuda_v1)
 
 
 def reset_counts():
@@ -251,6 +284,11 @@ def counts():
         else:
             out[name] = f.launches
     return out
+
+
+def v1_launches(c):
+    """The launches of every first CUDA form (the *_cuda_v1 wrappers) in counts() c."""
+    return sum(v for k, v in c.items() if "_cuda_v1" in k)
 
 
 def bound(n_bytes, ops, bf16_ops=0):
@@ -312,9 +350,11 @@ def turns(label, fn_old, fn_new, card):
 
 
 def same_bits(a, b):
-    """Two walks' (t, local) equal bit for bit."""
-    return (torch.equal(a[1], b[1])
-            and torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)))
+    """Two walks' outputs, (t, local) or (t, slot or prim, u, v), equal bit
+    for bit."""
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32)) if x.is_floating_point()
+        else torch.equal(x, y) for x, y in zip(a, b))
 
 
 def fast_bars(label, tk, lk, tt, lt, t_atol, atol_all):
@@ -386,7 +426,7 @@ def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
     hdr, _ = render_scene(path, dev, seed=ref["seed"], wavefront=wavefront)
     c = counts()
     twins = sum(v for k, v in c.items() if "twin" in k)
-    v1 = c["bvh8.walk_cuda_v1"] + c["bvh8.walk_fast_cuda_v1"]
+    v1 = v1_launches(c)
     check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and twins == 0 and v1 == 0,
           f"{name}: K3 launches {c['bvh8.walk_cuda']}, K3-fast "
           f"{c['bvh8.walk_fast_cuda']}, twins {twins}, v1 kernels {v1}")
@@ -416,13 +456,13 @@ def main():
 
     t0 = time.time()
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
-               "bvh_walk", "intersect_stream")
+               "bvh_walk", "bvh_walk_v1", "intersect_stream", "intersect_stream_v1")
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
     log(f"[2 build] {', '.join(sources)} built in {time.time() - t0:.2f} s (nvcc, sm_90a, "
         f"in parallel)")
-    for name in ("bvh8_walk", "bvh8_walk_fast"):
+    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream"):
         occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
         occ.restype = ctypes.c_int
         log(f"[2 build] {name}: {occ()} resident blocks of 128 threads a multiprocessor; "
@@ -546,39 +586,109 @@ def main():
     with_mixed = cases + ((f"mixed 2N={2 * n_pix}", r2),)
     new_err = {}
     for name, bname, _, _ in NEW_KERNELS:
-        new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname),
-                                       with_mixed if bname == "bvh" else cases, T_ATOL)
+        new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname), cases, T_ATOL)
+    # K5 in both modes: the kernel equals its twin and its first CUDA form
+    # (bvh_walk_v1.cu) bit for bit in t, slot, u and v on the three sets
+    pv = scene.pbvh
+    twin_2n_ms, work_2n = {}, {}  # json name -> the twin's ms / counts on the 2N batch
+    first_err = {}  # json name -> the first form's largest |t| difference there
+    for name, prune, mode in (("bvh_walk", True, "K5-v2"), ("bvh_walk_v1", False, "K5-v1")):
+        for label, rr in with_mixed:
+            new = bvh.walk_packet_cuda(pv, *rr, prune=prune)
+            old = bvh.walk_packet_cuda_v1(pv, *rr, prune=prune)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            twin = bvh.walk_packet_twin(pv, *rr, prune=prune)
+            torch.cuda.synchronize()
+            twin_ms = (time.time() - t0) * 1e3
+            check(same_bits(new, twin) and same_bits(new, old),
+                  f"{mode} {label}: the kernel equals its twin and its first CUDA form bit for "
+                  f"bit in t, slot, u, v (slot agree {agree(new[1], twin[1]):.6f} / "
+                  f"{agree(new[1], old[1]):.6f}; hits {(new[1] >= 0).float().mean().item():.4f})")
+        hit = twin[1] >= 0  # the 2N set's, the last
+        new_err[name] = (new[0][hit] - twin[0][hit]).abs().max().item()
+        first_err[name] = (old[0][hit] - twin[0][hit]).abs().max().item()
+        twin_2n_ms[name], work_2n[name] = twin_ms, dict(bvh.walk_packet_twin.work)
+        log(f"  {mode} 2N twin {twin_ms:.1f} ms (host clock); twin counts {work_2n[name]}")
     reset_counts()
     for label, prim in (("K4 ordered", bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *sub).prim),
                         ("K4 skip", bvh2.intersect_bvh3(scene.pbvh3, scene.tris, *sub,
                                                         ordered=False).prim),
-                        ("K5", bvh.intersect_bvh(scene.pbvh, *sub).prim)):
+                        ("K5", bvh.intersect_bvh(pv, *sub).prim),
+                        ("K5-v1", bvh.hit_from_local(pv, *bvh.walk_packet(
+                            pv, *sub, prune=False)).prim)):
         check(agree(prim, hb.prim) >= BAR, f"8192 rays: {label} vs brute force prim agree "
               f"{agree(prim, hb.prim):.6f}")
     occ = bvh2.occluded_bvh3(scene.pbvh3, *sub)
     check(agree(occ, hb.prim >= 0) >= BAR, f"8192 rays: K4 any vs brute force occlusion agree "
           f"{agree(occ, hb.prim >= 0):.6f}")
     c = counts()
-    check(all(c[f"bvh2.walk3_cuda.{m}"] == 1 for m in bvh2.MODES) and c["bvh.walk_packet_cuda.v2"] == 1
-          and not any(v for k, v in c.items() if "twin" in k),
-          f"8192 rays: the queries launched the kernels once each and no twin: {c}")
+    check(all(c[f"bvh2.walk3_cuda.{m}"] == 1 for m in bvh2.MODES)
+          and c["bvh.walk_packet_cuda.v2"] == 1 and c["bvh.walk_packet_cuda.v1"] == 1
+          and not v1_launches(c) and not any(v for k, v in c.items() if "twin" in k),
+          f"8192 rays: the queries launched the kernels once each, no first form and no "
+          f"twin: {c}")
 
-    # K2 and K5-v1 on the same scene, the same way
-    log(f"[3c kernels] K2 and K5-v1 on materialtest-synth: {scene.ptris.n_chunks} chunks of "
-        f"{intersect_stream.CHUNK} triangles")
-    for name, bname, _, _ in K2_K5V1:
-        new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname), with_mixed,
-                                       T_ATOL)
+    # K2 on the same scene: against its twin by bars (its cull is per ray and
+    # per sub-box, the twin's per tile), its first form bit for bit
+    pt = scene.ptris
+    log(f"[3c kernels] K2 on materialtest-synth: {pt.n_chunks} chunks of "
+        f"{intersect_stream.CHUNK} triangles, sub-boxes of {intersect_stream.SUB}")
+
+    def k2_vs_twin(label, out, twin):
+        """K2's prim against its twin's on >= K2_BAR of the lanes; t, u, v
+        bit for bit where the prims agree; the lanes that differ, counted."""
+        same = out[1] == twin[1]
+        kh, th = out[1] >= 0, twin[1] >= 0
+        n_diff = int((~same).sum())
+        check(same.float().mean().item() >= K2_BAR,
+              f"K2 {label}: prim agrees with the twin on {same.float().mean().item():.6f} "
+              f"(>= {K2_BAR}); {n_diff} lanes differ: {int((~same & ~kh).sum())} the kernel "
+              f"missed, {int((~same & ~th).sum())} the twin missed, "
+              f"{int((~same & kh & th).sum())} another triangle")
+        check(all(torch.equal(x[same].view(torch.int32), y[same].view(torch.int32))
+                  for x, y in ((out[0], twin[0]), (out[2], twin[2]), (out[3], twin[3]))),
+              f"K2 {label}: t, u, v bit for bit the twin's where the prims agree")
+        return n_diff
+
+    k2_diff = {}
+    for label, rr in with_mixed:
+        new = intersect_stream.stream_cuda(pt, *rr)
+        old = intersect_stream.stream_cuda_v1(pt, *rr)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        twin = intersect_stream.stream_twin(pt, *rr)
+        torch.cuda.synchronize()
+        twin_ms = (time.time() - t0) * 1e3
+        check(same_bits(old, twin), f"K2 first form {label}: equals the twin bit for bit "
+              f"(prim agree {agree(old[1], twin[1]):.6f})")
+        k2_diff[label] = k2_vs_twin(label, new, twin)
+    hit = (new[1] == twin[1]) & (twin[1] >= 0)  # the 2N set's, the last
+    new_err["intersect_stream"] = (new[0][hit] - twin[0][hit]).abs().max().item()
+    first_err["intersect_stream"] = (old[0][twin[1] >= 0] - twin[0][twin[1] >= 0]).abs().max().item()
+    twin_2n_ms["intersect_stream"], work_2n["intersect_stream"] = twin_ms, dict(
+        intersect_stream.stream_twin.work)
+    w2 = work_2n["intersect_stream"]
+    w2.update(intersect_stream.sub_box_work(pt, *r2))
+    log(f"  K2 2N twin {twin_ms:.1f} ms (host clock); twin counts and what the sub-box "
+        f"cull leaves {w2}: the tiles run {w2['tri_tile'] / w2['tri']:.4f}x the triangle tests "
+        f"of the chunks the rays hit, those {w2['tri'] / max(w2['tri_sub'], 1):.4f}x the "
+        f"triangles of the sub-boxes they hit")
     reset_counts()
-    for label, h in (("K2", intersect_stream.intersect_stream(scene.ptris, *sub)),
-                     ("K5-v1", bvh.hit_from_local(scene.pbvh, *bvh.walk_packet(
-                         scene.pbvh, *sub, prune=False)))):
-        check(agree(h.prim, hb.prim) >= BAR, f"8192 rays: {label} vs brute force prim agree "
-              f"{agree(h.prim, hb.prim):.6f}")
+    h = intersect_stream.intersect_stream(pt, *sub)
+    check(agree(h.prim, hb.prim) >= BAR, f"8192 rays: K2 vs brute force prim agree "
+          f"{agree(h.prim, hb.prim):.6f}")
     c = counts()
-    check(c["intersect_stream.stream_cuda"] == 1 and c["bvh.walk_packet_cuda.v1"] == 1
+    check(c["intersect_stream.stream_cuda"] == 1 and not v1_launches(c)
           and not any(v for k, v in c.items() if "twin" in k),
-          f"8192 rays: the queries launched K2 and K5-v1 once each and no twin: {c}")
+          f"8192 rays: the query launched K2 once, no first form and no twin: {c}")
+    # the new kernels against their first forms on the 2N batch, in turns
+    turns("K5-v2 2N", lambda: bvh.walk_packet_cuda_v1(pv, *r2),
+          lambda: bvh.walk_packet_cuda(pv, *r2), card)
+    turns("K5-v1 2N", lambda: bvh.walk_packet_cuda_v1(pv, *r2, prune=False),
+          lambda: bvh.walk_packet_cuda(pv, *r2, prune=False), card)
+    turns("K2 2N", lambda: intersect_stream.stream_cuda_v1(pt, *r2),
+          lambda: intersect_stream.stream_cuda(pt, *r2), card)
 
     # K3-fast on the same pack: raw kernel vs twin, the whole query, the repair
     log("[3d K3-fast] the bf16x3 walk (bvh8_walk_fast.cu) and its exact repair")
@@ -701,7 +811,7 @@ def main():
     img = render_flat(scene, spp=spp, seed=DEFAULT_SEED)
     dt = time.time() - t0
     launches, twin = bvh8.walk_cuda.launches, bvh8.walk_twin.launches
-    v1 = bvh8.walk_cuda_v1.launches + bvh8.walk_fast_cuda_v1.launches
+    v1 = v1_launches(counts())
     check(launches > 0 and twin == 0 and v1 == 0,
           f"slice: kernel launches {launches}, twin {twin}, v1 kernels {v1}")
     check(img.shape == (meta.res_y, meta.res_x, 3) and np.isfinite(img).all()
@@ -762,7 +872,9 @@ def main():
     bench_isect.report(res)
     k2_work = res["times"][("coherent", "tri")]["work"]
     log(f"[6 isect] K2 twin counts on the coherent rays {k2_work}: the tiles run "
-        f"{k2_work['tri_tile'] / k2_work['tri']:.4f}x the triangle tests the rays need")
+        f"{k2_work['tri_tile'] / k2_work['tri']:.4f}x the triangle tests of the chunks the rays "
+        f"hit, those {k2_work['tri'] / max(k2_work['tri_sub'], 1):.4f}x the triangles of the "
+        f"sub-boxes they hit")
     n_walks = len(bench_kernels)
     check(len(res["times"]) == 3 * n_walks and all(
         r["ms"] > 0.0 and r["twin_ms"] > 0.0 for r in res["times"].values()),
@@ -772,11 +884,13 @@ def main():
           f"{BAR} (lowest {min(res['agree'].values()):.6f})")
     new_keys = [f"bvh2.walk3_cuda.{m}" for m in bvh2.MODES] + [
         "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda",
-        "bvh8.walk_fast_cuda", "bvh8.walk_cuda_v1", "bvh8.walk_fast_cuda_v1"]
+        "bvh8.walk_fast_cuda", "bvh8.walk_cuda_v1", "bvh8.walk_fast_cuda_v1",
+        "bvh.walk_packet_cuda_v1.v2", "bvh.walk_packet_cuda_v1.v1",
+        "intersect_stream.stream_cuda_v1"]
     check(all(bench_launches[k] > 0 for k in new_keys),
           f"isect: K4 / K5 / K2 / K3-fast / v1 launches {[bench_launches[k] for k in new_keys]}")
     bscene = bench_isect.load(big_path, dev)
-    p8 = bscene.pbvh8
+    p8, bpv, bpt = bscene.pbvh8, bscene.pbvh, bscene.ptris
     for ray_kind in ("coherent", "incoherent"):
         br = bench_isect.make_rays(bscene, 131072, ray_kind)
         turns(f"K3 closest {ray_kind} 131072", lambda: bvh8.walk_cuda_v1(p8, *br),
@@ -785,6 +899,12 @@ def main():
               lambda: bvh8.walk_cuda(p8, *br, latch=True), card)
         turns(f"K3-fast {ray_kind} 131072", lambda: bvh8.walk_fast_cuda_v1(p8, *br),
               lambda: bvh8.walk_fast_cuda(p8, *br), card)
+        turns(f"K5-v2 {ray_kind} 131072", lambda: bvh.walk_packet_cuda_v1(bpv, *br),
+              lambda: bvh.walk_packet_cuda(bpv, *br), card)
+        turns(f"K5-v1 {ray_kind} 131072", lambda: bvh.walk_packet_cuda_v1(bpv, *br, prune=False),
+              lambda: bvh.walk_packet_cuda(bpv, *br, prune=False), card)
+        turns(f"K2 {ray_kind} 131072", lambda: intersect_stream.stream_cuda_v1(bpt, *br),
+              lambda: intersect_stream.stream_cuda(bpt, *br), card)
 
     # the render's three intersector routes on one flattened scene
     ana_path = synth.write_scene(os.path.join(work, "mta"), "materialtest-analytic")
@@ -846,39 +966,96 @@ def main():
                        fast_work["tri"] * OPS["plane_bf16x3_mma"])
     fast_entry["exact_k3_ms"] = exact_ms
     entries.append(fast_entry)
-    entries.append(entry("bvh8_walk_v1", "tungsten_tpu_torch/csrc/bvh8_walk_v1.cu",
-                         "tungsten_tpu/ops/pallas_bvh8.py:130",
-                         bench_launches["bvh8.walk_cuda_v1"], v1_err, v1_ms, plain_ms, k3_bytes,
-                         k3_work["box"] * OPS["box"] + k3_work["tri"] * OPS["plane"]))
-    entries.append(entry("bvh8_walk_fast_v1", "tungsten_tpu_torch/csrc/bvh8_walk_fast_v1.cu",
-                         "tungsten_tpu/ops/pallas_bvh8.py:67",
-                         bench_launches["bvh8.walk_fast_cuda_v1"], fast_v1_err, fast_v1_ms,
-                         fast_plain_ms, fast_bytes,
-                         fast_work["box"] * OPS["box"] + fast_work["tri"] * OPS["plane_bf16x3"],
-                         fast_work["tri"] * OPS["plane_bf16x3_mma"]))
-    for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b, v1_ms_b2b, fast_v1_ms_b2b)):
+    for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b
     n_bench = res["n"]
-    # what each benchmark walk reads besides the rays, its output bytes per
-    # ray, its slot cost, and the run whose launches are its main path's
-    k4 = ((scene.pbvh3.box_t, scene.pbvh3.ni_t, scene.pbvh3.tri_planes), 8, "plane")
-    k5 = ((scene.pbvh.box_t, scene.pbvh.ni_t, scene.pbvh.tri_t), 16, "mt")
-    k2 = ((scene.ptris.tri_c, scene.ptris.clusters), 16, "mt")
-    walk_io = {"bvh3": k4, "bvh3skip": k4, "bvh3any": k4, "bvh": k5, "bvh1": k5, "tri": k2}
-    main_launches = {
-        "bvh3": bench_launches["bvh2.walk3_cuda.ordered"],
-        "bvh3skip": bench_launches["bvh2.walk3_cuda.skip"],
-        "bvh3any": bench_launches["bvh2.walk3_cuda.any"],
-        "bvh": route_launches["K5-v2"],
-        "bvh1": bench_launches["bvh.walk_packet_cuda.v1"],
-        "tri": route_launches["K2"],
-    }
-    for name, bname, source, replaces in NEW_KERNELS + K2_K5V1:
+    # K3's and K3-fast's first forms: the benchmark's coherent rays, where
+    # their launches come from; their 2N times and bounds beside
+    p8_io = nbytes(p8.boxes, p8.kid_t, p8.order_t) + n_bench * (32 + 8)
+    for name, bname, key, replaces, err, t2n, b2b, io, b2n in (
+            ("bvh8_walk_v1", "bvh8v1", "bvh8.walk_cuda_v1", "tungsten_tpu/ops/pallas_bvh8.py:130",
+             v1_err, v1_ms, v1_ms_b2b, p8_io + nbytes(p8.tri_planes), entries[0]["bound_ms"]),
+            ("bvh8_walk_fast_v1", "bvh8fastv1", "bvh8.walk_fast_cuda_v1",
+             "tungsten_tpu/ops/pallas_bvh8.py:67", fast_v1_err, fast_v1_ms, fast_v1_ms_b2b,
+             p8_io + nbytes(p8.tri_planes_hi, p8.tri_planes_lo), entries[1]["bound_ms"])):
         r = res["times"][("coherent", bname)]
-        tensors, out_b, slot = walk_io[bname]
-        entries.append(entry(name, source, replaces, main_launches[bname], new_err[name],
-                             r["ms"], r["twin_ms"], nbytes(*tensors) + n_bench * (32 + out_b),
-                             r["work"]["box"] * OPS["box"] + r["work"]["tri"] * OPS[slot]))
+        w = r["work"]
+        if bname == "bvh8v1":
+            ops, bf16_ops = w["box"] * OPS["box"] + w["tri"] * OPS["plane"], 0
+        else:
+            ops = w["box"] * OPS["box"] + w["tri"] * OPS["plane_bf16x3"]
+            bf16_ops = w["tri"] * OPS["plane_bf16x3_mma"]
+        row = entry(name, f"tungsten_tpu_torch/csrc/{name}.cu", replaces, bench_launches[key], err,
+                    r["ms"], r["twin_ms"], io, ops, bf16_ops)
+        row["ms_2n"], row["back_to_back_ms_2n"], row["bound_2n_ms"] = t2n, b2b, b2n
+        entries.append(row)
+    # K4: the benchmark's coherent rays, where its launches come from
+    k4_io = nbytes(scene.pbvh3.box_t, scene.pbvh3.ni_t, scene.pbvh3.tri_planes)
+    k4_mode = {"bvh3": "ordered", "bvh3skip": "skip", "bvh3any": "any"}
+    for name, bname, source, replaces in NEW_KERNELS:
+        r = res["times"][("coherent", bname)]
+        entries.append(entry(name, source, replaces,
+                             bench_launches[f"bvh2.walk3_cuda.{k4_mode[bname]}"],
+                             new_err[name], r["ms"], r["twin_ms"],
+                             k4_io + n_bench * (32 + 8),
+                             r["work"]["box"] * OPS["box"] + r["work"]["tri"] * OPS["plane"]))
+    # K5-v2 and K2: ms (the turns' mean), plain ms and bound on the 2N batch,
+    # the batch of the route renders that give their launches; the
+    # benchmark's coherent ms beside as bench_ms. K5-v1 and the first forms
+    # of K5-v2 and K2: ms, plain ms and bound on the benchmark's coherent rays
+    # (n_bench), where their launches come from; their 2N time and bound
+    # beside as ms_2n and bound_2n_ms. A first form's bound is its new
+    # kernel's: the same function on the same rays.
+    def k5_k2_ops(w, k2):
+        if not k2:
+            return w["box"] * OPS["box"] + w["tri"] * OPS["mt"]
+        return (w["box"] + w["box_sub"]) * OPS["box"] + sum(
+            w[f"mt_{st}"] * OPS[f"mt_{st}"] for st in intersect_stream.MT_STAGES)
+
+    n2 = o2.shape[0]
+    pack_io = {"bvh": nbytes(pv.box_t, pv.ni_t, pv.tri_t),
+               "tri": nbytes(pt.tri_p, pt.clusters, pt.sub_boxes),
+               "bvhv1": nbytes(pv.box_t, pv.ni_t, pv.tri_t), "triv1": nbytes(pt.tri_c, pt.clusters)}
+    bench_io = {"bvh": nbytes(bpv.box_t, bpv.ni_t, bpv.tri_t),
+                "tri": nbytes(bpt.tri_p, bpt.clusters, bpt.sub_boxes),
+                "triv1": nbytes(bpt.tri_c, bpt.clusters)}
+    bench_io["bvhv1"] = bench_io["bvh"]
+    route_launches_of = {"bvh": route_launches["K5-v2"], "tri": route_launches["K2"]}
+    bench_launches_of = {"bvh1": bench_launches["bvh.walk_packet_cuda.v1"],
+                         "bvhv1": bench_launches["bvh.walk_packet_cuda_v1.v2"],
+                         "triv1": bench_launches["intersect_stream.stream_cuda_v1"]}
+    turn_of = {"bvh": "K5-v2 2N", "bvh1": "K5-v1 2N", "tri": "K2 2N"}
+    for name, bname, source, replaces, v1_name, v1_bname in K5_K2:
+        k2 = bname == "tri"
+        w2n = work_2n[name]
+        wb = res["times"][("coherent", bname)]["work"]
+        first_ms, new_ms = TURNS[turn_of[bname]]
+        io_key = "tri" if k2 else "bvh"
+        bound_2n = bound(pack_io[io_key] + n2 * (32 + 16), k5_k2_ops(w2n, k2))[0]
+        bench = res["times"][("coherent", bname)]
+        if bname in route_launches_of:  # the 2N batch
+            row = entry(name, source, replaces, route_launches_of[bname], new_err[name], new_ms,
+                        twin_2n_ms[name], pack_io[io_key] + n2 * (32 + 16), k5_k2_ops(w2n, k2))
+            row["bench_ms"] = bench["ms"]
+            row["v1_ms"] = first_ms
+            if k2:  # the chunk-level bound of earlier PRs, to continue the series
+                row["bound_chunk_ms"] = bound(pack_io["triv1"] + n2 * (32 + 16),
+                                              w2n["box"] * OPS["box"] + w2n["tri"] * OPS["mt"])[0]
+        else:  # the benchmark's coherent rays
+            row = entry(name, source, replaces, bench_launches_of[bname], new_err[name],
+                        bench["ms"], bench["twin_ms"], bench_io[io_key] + n_bench * (32 + 16),
+                        k5_k2_ops(wb, k2))
+            row["v1_ms"] = res["times"][("coherent", v1_bname)]["ms"]
+            row["ms_2n"], row["v1_ms_2n"], row["bound_2n_ms"] = new_ms, first_ms, bound_2n
+        entries.append(row)
+        if v1_name:
+            v1_bench = res["times"][("coherent", v1_bname)]
+            row = entry(v1_name, source.replace(".cu", "_v1.cu"), replaces,
+                        bench_launches_of[v1_bname], first_err[name], v1_bench["ms"],
+                        v1_bench["twin_ms"], bench_io[v1_bname] + n_bench * (32 + 16),
+                        k5_k2_ops(wb, k2))
+            row["ms_2n"], row["bound_2n_ms"] = first_ms, bound_2n
+            entries.append(row)
     log("[turns] v1 against new, ms, " + card + ": " + json.dumps(
         {k: [round(a, 4), round(b, 4)] for k, (a, b) in TURNS.items()}))
     print(json.dumps({"kernels": entries}))

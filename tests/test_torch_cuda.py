@@ -7,9 +7,10 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
-their one-thread-per-ray forms, kept for comparison (bvh8_walk_v1.cu,
-bvh8_walk_fast_v1.cu), K4 (bvh2_walk.cu: ordered, skip, any), K5
-(bvh_walk.cu: v2 and v1) and K2 (intersect_stream.cu).
+K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1) and K2
+(intersect_stream.cu), and the first CUDA forms of K3, K3-fast, K5 and K2,
+kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu, bvh_walk_v1.cu,
+intersect_stream_v1.cu).
 Bars: local slot (prim) agrees on >= 99.9%
 of rays. Where it agrees, t is within rtol 1e-5 plus 1e-6 absolute on
 >= 99.9% of hits and within rtol 1e-3 on all: the plane form's numerator
@@ -26,6 +27,13 @@ where the slot agrees, within rtol 1e-5 plus 1e-6 on >= 99.9% and rtol 1e-3
 on all; the fast v1 form fixes the twin's order of additions and rounds
 each operation as the twin does (every bf16 x bf16 product is exact in
 f32), so it is held to bit equality of slot and t.
+K5 tests its leaves per warp in the order and rounding of its first form:
+in both modes it equals its twin and bvh_walk_v1.cu bit for bit. K2 culls
+per ray and per sub-box where its twin votes per 256-ray tile, so a pair
+accepted just outside its box through the slab test's rounding may be
+culled: prim agrees with the twin on >= 99.99% of rays, and where it
+agrees t, u and v are bit-equal; the first form of K2 keeps the tile vote
+and equals the twin bit for bit.
 """
 import numpy as np
 import pytest
@@ -215,6 +223,57 @@ def test_k4_k5_kernels_match_twins(cuda, walk):
     assert (lk.cpu().numpy()[dead] == -1).all()
 
 
+def _same_bits(a, b):
+    """Two (t, slot or prim, u, v) results equal bit for bit."""
+    return all(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                           y.view(torch.int32) if y.is_floating_point() else y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prune", [True, False], ids=["v2", "v1"])
+def test_k5_kernel_bit_equal_to_twin_and_first_form(cuda, prune):
+    """The warp-cooperative K5 in both modes: (t, local, u, v) bit for bit
+    its twin's and its first CUDA form's (bvh_walk_v1.cu)."""
+    packs, rays = _case(cuda)
+    pack = packs["bvh"]
+    version = "v2" if prune else "v1"
+    k0, v0 = bvh.walk_packet_cuda.launches[version], bvh.walk_packet_cuda_v1.launches[version]
+    new = bvh.walk_packet_cuda(pack, *rays, prune=prune)
+    old = bvh.walk_packet_cuda_v1(pack, *rays, prune=prune)
+    torch.cuda.synchronize()
+    assert bvh.walk_packet_cuda.launches[version] == k0 + 1
+    assert bvh.walk_packet_cuda_v1.launches[version] == v0 + 1
+    twin = bvh.walk_packet_twin(pack, *rays, prune=prune)
+    assert 0.1 < (new[1] >= 0).float().mean().item() < 0.9
+    assert _same_bits(new, twin), f"slot agrees on {(new[1] == twin[1]).float().mean().item():.6f}"
+    assert _same_bits(new, old)
+
+
+@pytest.mark.cuda
+def test_k2_kernel_against_twin_and_first_form(cuda):
+    """The per-warp, per-sub-box K2 against its twin: prim on >= 99.99% of
+    rays, and where it agrees t, u, v bit for bit; its first CUDA form
+    (intersect_stream_v1.cu) equals the twin bit for bit."""
+    packs, rays = _case(cuda)
+    pack = packs["tri"]
+    k0, v0 = intersect_stream.stream_cuda.launches, intersect_stream.stream_cuda_v1.launches
+    new = intersect_stream.stream_cuda(pack, *rays)
+    old = intersect_stream.stream_cuda_v1(pack, *rays)
+    torch.cuda.synchronize()
+    assert intersect_stream.stream_cuda.launches == k0 + 1
+    assert intersect_stream.stream_cuda_v1.launches == v0 + 1
+    twin = intersect_stream.stream_twin(pack, *rays)
+    assert _same_bits(old, twin), f"v1 prim agrees on {(old[1] == twin[1]).float().mean().item():.6f}"
+    same = new[1] == twin[1]
+    assert same.float().mean().item() >= 0.9999, f"prim agrees on {same.float().mean().item():.6f}"
+    assert 0.1 < (new[1] >= 0).float().mean().item() < 0.9
+    for x, y in zip(new[0:1] + new[2:], twin[0:1] + twin[2:]):
+        assert torch.equal(x[same].view(torch.int32), y[same].view(torch.int32))
+    dead = rays[3] <= rays[2]
+    assert (new[1][dead] == -1).all()
+
+
 @pytest.mark.cuda
 def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
     packs, rays = _case(cuda, n_rays=512)
@@ -222,7 +281,9 @@ def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
         return (*bvh2.walk3_cuda.launches.values(), sum(bvh2.walk3_twin.launches.values()),
                 *bvh.walk_packet_cuda.launches.values(),
                 sum(bvh.walk_packet_twin.launches.values()),
-                intersect_stream.stream_cuda.launches, intersect_stream.stream_twin.launches)
+                intersect_stream.stream_cuda.launches, intersect_stream.stream_twin.launches,
+                sum(bvh.walk_packet_cuda_v1.launches.values()),
+                intersect_stream.stream_cuda_v1.launches)
 
     before = counts()
     for mode in bvh2.MODES:
@@ -230,4 +291,6 @@ def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
     bvh.walk_packet(packs["bvh"], *rays)
     bvh.walk_packet(packs["bvh"], *rays, prune=False)
     intersect_stream.stream(packs["tri"], *rays)
-    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 1, 0, 1, 0]
+    bvh.intersect_bvh(packs["bvh"], *rays)
+    intersect_stream.intersect_stream(packs["tri"], *rays)
+    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 2, 0, 2, 0, 0, 0]

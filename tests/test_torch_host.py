@@ -290,3 +290,21 @@ def test_missing_features_raise(tmp_path, what):
         return
     with pytest.raises(NotImplementedError):
         flatten_scene(load_scene(path), torch.device("cpu"))
+
+
+def test_build_hash_covers_nested_headers(monkeypatch, tmp_path):
+    """A kernel library's name hashes its source and every csrc header it
+    reaches, headers included by headers too: editing any of them rebuilds
+    the library (ops/_build.py). The port's own sources resolve."""
+    from tungsten_tpu_torch.ops import _build
+
+    for name in ("bvh8_walk", "bvh_walk", "intersect_stream"):
+        assert os.path.exists(_build._paths(name)[0])
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    first = _build._paths("k")[1]
+    assert _build._paths("k")[1] == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build._paths("k")[1] != first

@@ -1,4 +1,9 @@
-"""The lockstep path tracer and the area lights, end to end, in both packages.
+"""The lockstep path tracer and the area lights, end to end, in both packages:
+the `small-area` renders, and the helpers of the other three files.
+
+The cases are split over two files, one per scene, so that pytest-xdist's
+--dist loadfile runs them on two workers: this file and
+test_torch_lockstep_box.py, which takes its checks from here.
 
 `small-area` (area lights beside the sky) and `small-box` (a closed box lit
 by one emissive quad, no env) are flattened by both packages on the numpy BVH
@@ -37,12 +42,28 @@ from tungsten_tpu_torch.ops import bvh8
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 REFS = {"small-area": "torch_port_area_ref.json", "small-box": "torch_port_box_ref.json"}
-SIZES = list(REFS)
+SIZES = ["small-area"]  # this file's scene
 
 
-@pytest.fixture(scope="module")
-def cases(tmp_path_factory):
-    """{size: the scene in both packages and the JAX package's results}."""
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while the module runs. The port's CPU twins issue
+    many small torch operations; when pytest-xdist runs several such files
+    at once, each worker's intra-op threads share the cores with the other
+    workers' and wait on one another far longer than they compute (these
+    lockstep tests, split over four files, took over 20 minutes on 4 workers
+    with torch's default threads and 2.5 minutes with one thread each, on an
+    8-core machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def jax_case(size, tmp_path_factory):
+    """`size` in both packages on the numpy BVH build: {"scene" (the port's,
+    on the CPU), "seed", and the JAX package's results: "one_pass" (one
+    lockstep pass, trace_batch), "lockstep" and "regen" (render_flat)}."""
     import tungsten_tpu.accel.bvh as jbvh
     import tungsten_tpu_torch.accel.bvh as tbvh
     from tungsten_tpu.integrators.path_tracer import trace_batch as jtrace_batch
@@ -58,26 +79,29 @@ def cases(tmp_path_factory):
     mp.setattr(jbvh, "_NATIVE", False)
     mp.setattr(tbvh, "_NATIVE", False)
     mp.setattr(jbvh, "_CACHE_DIR", str(tmp_path_factory.mktemp("bvh_cache")))
-    out = {}
-    for size in SIZES:
-        path = synth.write_scene(str(tmp_path_factory.mktemp(size)), size)
-        js = jflatten(jload(path))
-        px, py, lane, _ = jlanes(js.meta, 1)
-        seed = jnp.array([DEFAULT_SEED & 0xFFFFFFFF, 0], jnp.uint32)
-        one_pass = np.asarray(jtrace_batch(js, seed, jnp.asarray(lane), jnp.asarray(px),
-                                           jnp.asarray(py), jnp.uint32(2), n_passes=1))
-        out[size] = dict(
-            scene=flatten_scene(load_scene(path), torch.device("cpu")), seed=DEFAULT_SEED,
-            one_pass=one_pass,
-            # passes_per_batch=1: the lockstep render reuses the one-pass compile
-            lockstep=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="lockstep",
-                                        passes_per_batch=1)),
-            regen=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="regen")))
+    path = synth.write_scene(str(tmp_path_factory.mktemp(size)), size)
+    js = jflatten(jload(path))
+    px, py, lane, _ = jlanes(js.meta, 1)
+    seed = jnp.array([DEFAULT_SEED & 0xFFFFFFFF, 0], jnp.uint32)
+    out = dict(
+        scene=flatten_scene(load_scene(path), torch.device("cpu")), seed=DEFAULT_SEED,
+        one_pass=np.asarray(jtrace_batch(js, seed, jnp.asarray(lane), jnp.asarray(px),
+                                         jnp.asarray(py), jnp.uint32(2), n_passes=1)),
+        # passes_per_batch=1: the lockstep render reuses the one-pass compile
+        lockstep=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="lockstep",
+                                    passes_per_batch=1)),
+        regen=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="regen")))
     mp.undo()
     return out
 
 
-def _check(img, ref, label):
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """{size: the scene in both packages and the JAX package's results}."""
+    return {size: jax_case(size, tmp_path_factory) for size in SIZES}
+
+
+def check_image(img, ref, label):
     assert img.shape == ref.shape
     assert np.isfinite(img).all() and (img >= 0).all()
     close = np.all(np.abs(img - ref) <= 1e-3 + 1e-3 * np.abs(ref), axis=-1)
@@ -86,12 +110,13 @@ def _check(img, ref, label):
                                rtol=2e-3, err_msg=label)
 
 
-@pytest.mark.parametrize("size", SIZES)
-def test_lockstep_pass_matches_jax_lane_by_lane(cases, size):
+def check_lane_by_lane(c, size):
+    """One lockstep pass of the port (trace_batch with one pass) against the
+    JAX package's, lane by lane; the launch counts of the walks; and
+    trace_batch's pass is _trace_pass_fast under the pass seed."""
     from tungsten_tpu_torch.integrators.path_tracer import _trace_pass_fast, trace_batch
     from tungsten_tpu_torch.renderer.render import _lane_arrays
 
-    c = cases[size]
     px, py, _ = (torch.as_tensor(a) for a in _lane_arrays(c["scene"].meta))
     lane = torch.arange(px.shape[0])
     seed = (c["seed"] & 0xFFFFFFFF, 0)
@@ -104,22 +129,41 @@ def test_lockstep_pass_matches_jax_lane_by_lane(cases, size):
     bounces = n_fast - 1
     assert 1 <= bounces <= c["scene"].meta.max_bounces
     assert n_exact == n_fast + bounces
-    _check(rad, c["one_pass"], f"{size} one pass")
+    check_image(rad, c["one_pass"], f"{size} one pass")
     assert (rad.sum(-1) > 0).mean() > 0.5
     # trace_batch's pass seed is (s0, s1 + pass_start + i)
     direct = _trace_pass_fast(c["scene"], (seed[0], 2), lane, px, py).numpy()
     np.testing.assert_array_equal(direct, rad)
 
 
+@pytest.mark.parametrize("size", SIZES)
+def test_lockstep_pass_matches_jax_lane_by_lane(cases, size):
+    check_lane_by_lane(cases[size], size)
+
+
+def check_render(c, size, wavefront):
+    """render_flat with `wavefront` against the JAX package's render."""
+    from tungsten_tpu_torch.renderer.render import render_flat
+
+    img = render_flat(c["scene"], seed=c["seed"], wavefront=wavefront)
+    assert img.shape == (48, 64, 3)
+    check_image(img, c[wavefront], f"{size} {wavefront}")
+
+
+def check_wavefronts_agree(c):
+    """Two streams of one estimator: the means agree within Monte-Carlo
+    noise (a loose 5%)."""
+    from tungsten_tpu_torch.renderer.render import render_flat
+
+    means = [render_flat(c["scene"], spp=16, seed=7, wavefront=w).reshape(-1, 3).mean(0)
+             for w in ("lockstep", "regen")]
+    np.testing.assert_allclose(means[0], means[1], rtol=5e-2)
+
+
 @pytest.mark.parametrize("wavefront", ["lockstep", "regen"])
 @pytest.mark.parametrize("size", SIZES)
 def test_render_matches_jax(cases, size, wavefront):
-    from tungsten_tpu_torch.renderer.render import render_flat
-
-    c = cases[size]
-    img = render_flat(c["scene"], seed=c["seed"], wavefront=wavefront)
-    assert img.shape == (48, 64, 3)
-    _check(img, c[wavefront], f"{size} {wavefront}")
+    check_render(cases[size], size, wavefront)
 
 
 @pytest.mark.parametrize("route", ["K5", "K2"])
@@ -149,27 +193,18 @@ def test_lockstep_on_the_other_routes(cases, route):
         assert k4_any > 0 and k5 > 0 and k2 == 0
     else:
         assert k4_any == 0 and k5 == 0 and k2 > 0
-    _check(img, c["lockstep"], f"small-area lockstep on {route}")
+    check_image(img, c["lockstep"], f"small-area lockstep on {route}")
 
 
 @pytest.mark.parametrize("size", SIZES)
 def test_lockstep_and_regen_agree(cases, size):
-    """Two streams of one estimator: the means agree within Monte-Carlo
-    noise (a loose 5%)."""
-    from tungsten_tpu_torch.renderer.render import render_flat
-
-    c = cases[size]
-    means = [render_flat(c["scene"], spp=16, seed=7, wavefront=w).reshape(-1, 3).mean(0)
-             for w in ("lockstep", "regen")]
-    np.testing.assert_allclose(means[0], means[1], rtol=5e-2)
+    check_wavefronts_agree(cases[size])
 
 
-@pytest.mark.parametrize("size", SIZES)
-def test_reference_means_files_match(cases, size):
-    """The JSON files carry the JAX renders' means for the check on the
+def check_means_file(c, size):
+    """The JSON file carries the JAX renders' means for the check on the
     card; rtol 1e-4 leaves room for another CPU's float rounding in XLA, far
     below the 5e-3 that check applies."""
-    c = cases[size]
     with open(os.path.join(DATA, REFS[size])) as f:
         data = json.load(f)
     assert data["scene"] == size and data["seed"] == c["seed"]
@@ -177,6 +212,11 @@ def test_reference_means_files_match(cases, size):
     for w in ("lockstep", "regen"):
         np.testing.assert_allclose(data["channel_means"][w], c[w].reshape(-1, 3).mean(0),
                                    rtol=1e-4, err_msg=w)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_reference_means_files_match(cases, size):
+    check_means_file(cases[size], size)
 
 
 def test_wavefront_argument():

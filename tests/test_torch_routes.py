@@ -11,7 +11,9 @@ relative, >= 98% of pixels within 1e-3 + 1e-3 * |ref| (a path whose hit
 flips between two walks shades differently).
 
 tests/data/torch_port_analytic_ref.json holds the JAX render's means for the
-GPU check; the test checks that the file still matches.
+GPU check; the test checks that the file still matches. The module runs
+with one torch thread (test_torch_lockstep_area.py `one_torch_thread` says
+why).
 """
 import dataclasses
 import json
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from tungsten_tpu_torch.ops import bvh, bvh8, intersect_stream
+from test_torch_lockstep_area import one_torch_thread  # noqa: F401
 
 REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                    "torch_port_analytic_ref.json")

@@ -1,40 +1,18 @@
-// The traversal skeleton of the BVH8 walks (bvh8_walk.cu, bvh8_walk_fast.cu)
-// and the pieces they share with the one-thread-per-ray kernels kept for
-// comparison (bvh8_walk_v1.cu).
-//
-// Inner nodes are walked per thread, exactly as the one-thread-per-ray
-// kernels walk them: the same slab test, the same prune limit, the same
-// per-octant push order and the same private stack, so every ray visits its
-// nodes and leaves in the same order. Leaves are tested per warp
-// ("while-while"): a thread walks inner nodes until it pops a leaf and parks
-// it; once every lane of the warp has parked a leaf or finished, the warp
-// runs cooperative leaf steps until no lane is parked:
-//   * the leader is the lowest lane with a parked leaf; its leaf id is
-//     broadcast, and the members are the lanes parked on that same leaf;
-//   * the whole warp copies the leaf into its slice of shared memory with
-//     16-byte cp.async copies, coalesced, once whatever number of its rays
-//     want the leaf; the slice is double-buffered, so the next leader's leaf
-//     is in flight while the current one is tested;
-//   * the kernel's leaf step tests the leaf for the members, writes their
-//     results back and clears their parked leaf; their lanes then resume.
-// Each kernel supplies its leaf step as a policy with prune(best),
-// stage(leaf, buf) and test(walker, members, leaf, buf).
-//
-// The leaves are kLeaf = 128 slots wide (the JAX pack's width, set by the
-// TPU's lanes); the wrappers refuse any other width, so the loops unroll.
+// The BVH8 walks' own pieces (bvh8_walk.cu, bvh8_walk_fast.cu, and the
+// one-thread-per-ray kernel kept for comparison, bvh8_walk_v1.cu): the walk
+// state, the node visit, the exact plane-form slot test, and `walk_warp`,
+// the BVH8 walk on the traversal skeleton of walk_common.cuh (whose names
+// this namespace takes in).
 
 #pragma once
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "walk_common.cuh"
 
 namespace bvh8 {
 
+using namespace walk;
+
 constexpr int kDepth = 160;  // == DEPTH in ops/bvh8.py
-constexpr int kLeaf = 128;   // == LEAF in ops/bvh8.py
-constexpr float kInf = 3.0e38f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kNone = 0xffffffffu;  // "no slot" in a warp reduction
 
 // One ray's walk state, held by its lane.
 struct Walker {
@@ -120,40 +98,16 @@ __device__ __forceinline__ bool slot_exact(float4 N, float4 U, float4 V, float o
   return (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) && (t > tnear) && (t < lim);
 }
 
-// An unsigned key that orders f32 values as < does (all but NaN, which no
-// accept rule lets through; -0 is read as +0, so the two tie as they
-// compare): the warp's (t, slot) minimum reduces keys, and the winner's t
-// is taken from the lane that holds it.
-__device__ __forceinline__ unsigned order_key(float t) {
-  const unsigned b = __float_as_uint(__fadd_rn(t, 0.0f));
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-// 16-byte asynchronous global -> shared copy, and its group fences.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// The walk of one warp: per-thread inner nodes, cooperative leaf steps.
-// Every lane of the warp calls it, live or not (the leaf steps are warp
-// collectives); a lane with nothing to do starts with an empty stack.
+// The BVH8 walk of one warp: per-thread inner nodes from the private stack
+// (a leaf is pushed as -(leaf + 2)), cooperative leaf steps; the leaf step
+// also supplies the prune limit, prune(best).
 template <class Leaf>
 __device__ __forceinline__ void walk_warp(Leaf& leaf_step, Walker& w, int* stack,
                                           const float* __restrict__ boxes,
                                           const int* __restrict__ kid,
                                           const int* __restrict__ order) {
   if (w.sp > 0) stack[0] = 0;  // the root
-  while (true) {
+  warp_leaf_rounds(w, [&](Walker& w) {
     while (w.parked < 0 && w.sp > 0) {
       const int v = stack[--w.sp];
       if (v >= 0) {
@@ -162,30 +116,7 @@ __device__ __forceinline__ void walk_warp(Leaf& leaf_step, Walker& w, int* stack
         w.parked = -(v + 2);
       }
     }
-    unsigned want = __ballot_sync(kFull, w.parked >= 0);
-    if (want == 0) return;  // every lane's stack is empty
-    int leaf = __shfl_sync(kFull, w.parked, __ffs(want) - 1);
-    int buf = 0;
-    leaf_step.stage(leaf, buf);
-    cp_async_commit();
-    while (want) {
-      const unsigned members = __ballot_sync(kFull, w.parked == leaf);
-      const unsigned rest = want & ~members;
-      int next = -1;
-      if (rest) {
-        next = __shfl_sync(kFull, w.parked, __ffs(rest) - 1);
-        leaf_step.stage(next, buf ^ 1);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();  // this leaf's copy has landed (the next may be in flight)
-      __syncwarp();
-      leaf_step.test(w, members, leaf, buf);
-      __syncwarp();  // buf is free for the leaf after next
-      want = rest;
-      leaf = next;
-      buf ^= 1;
-    }
-  }
+  }, leaf_step);
 }
 
 }  // namespace bvh8

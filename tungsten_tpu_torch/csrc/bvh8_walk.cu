@@ -26,7 +26,7 @@
 // 16-byte loads a leaf visit in a serial loop, at addresses that differ
 // between the lanes of a warp once rays diverge (up to 32 line requests a
 // load), each ray reading its 6 KB leaf alone. The design here:
-//   * the traversal skeleton of bvh8_common.cuh: once every lane has parked a
+//   * the traversal skeleton of walk_common.cuh: once every lane has parked a
 //     leaf or finished, the warp copies each wanted leaf once into shared
 //     memory (12 cp.async of 16 bytes a lane, coalesced, double-buffered so
 //     the next leaf's copy overlaps this leaf's tests);
@@ -104,10 +104,7 @@ struct ExactLeaf {
       if (latch) {
         win = __reduce_min_sync(kFull, first);
       } else {
-        const unsigned key = sb != kNone ? order_key(tb) : kNone;
-        const unsigned kmin = __reduce_min_sync(kFull, key);
-        win = __reduce_min_sync(kFull, (sb != kNone && key == kmin) ? sb : kNone);
-        t_win = __shfl_sync(kFull, tb, win & 31u);
+        win = warp_min_slot(tb, sb, t_win);
       }
       if (lane == src && win != kNone) {
         w.local = leaf * kLeaf + static_cast<int>(win);

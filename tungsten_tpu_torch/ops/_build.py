@@ -7,14 +7,14 @@ call builds each in seconds:
          -Xcompiler -fPIC -o build/tungsten_tpu_torch/lib<name>_<hash>.so csrc/<name>.cu
 
 The library lands in build/tungsten_tpu_torch/ of the checkout, named by a
-hash of the source, the csrc/ headers it includes (`#include "x.cuh"`; the
-headers include none of their own) and the flags, so an edited source or
+hash of the source, the csrc/ headers it includes (`#include "x.cuh"`, and
+the headers those include) and the flags, so an edited source or
 header rebuilds the libraries that use it, and an unchanged one is built once
 per checkout. The sources in csrc/ are the only input. `build(*names)` starts one
 nvcc per missing library, all at once, and waits for them all. ptxas reports
 each kernel's registers, shared memory and spills (-Xptxas -v); the report
 is kept beside the library (`ptxas_report`). No default fast-math flags: the
-plane-form leaf tests rely on IEEE NaN semantics (bvh8_common.cuh).
+plane-form leaf tests rely on IEEE NaN semantics (csrc/bvh8_common.cuh).
 """
 from __future__ import annotations
 
@@ -51,9 +51,16 @@ def _paths(name: str):
     with open(src, "rb") as f:
         text = f.read()
     h.update(text)
-    for header in _LOCAL_INCLUDE.findall(text):
+    todo, seen = _LOCAL_INCLUDE.findall(text), set()
+    while todo:
+        header = todo.pop(0)
+        if header in seen:
+            continue
+        seen.add(header)
         with open(os.path.join(CSRC_DIR, header.decode()), "rb") as f:
-            h.update(f.read())
+            body = f.read()
+        h.update(body)
+        todo += _LOCAL_INCLUDE.findall(body)
     return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

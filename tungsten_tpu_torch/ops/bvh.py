@@ -8,9 +8,10 @@ skip] in lane j % 128 of block j // 128, `tris` (n_leaves*16, 128) with
 to 0), bit for bit. The tree is the scene's one binary tree (bvh8.tri_tree,
 128-triangle leaves).
 
-Kernel half: the port of K5 as the CUDA kernel csrc/bvh_walk.cu (one
-thread per ray, stackless skip walk, 128-slot Moller-Trumbore leaves with
-`ray_tri`'s accept rule) and `walk_packet_twin`, its plain PyTorch version,
+Kernel half: the port of K5 as the CUDA kernel csrc/bvh_walk.cu (the
+stackless skip walk per thread, 128-slot Moller-Trumbore leaves with
+`ray_tri`'s accept rule tested per warp from shared memory) and
+`walk_packet_twin`, its plain PyTorch version,
 in two modes: prune=True is K5-v2, `_walk_kernel2` (launched by
 `_launch2`), whose box tests use the ray's best hit so far; prune=False is
 K5-v1, `_walk_kernel` (launched by `_launch`), whose box tests use the
@@ -20,10 +21,15 @@ here: the box row (M, 8) f32 and the integer fields (M, 4) i32, converted
 from their exact f32 values, and the triangles leaf major (n_leaves, 128,
 9). `walk_packet` picks by device: CUDA launches the kernel (or raises),
 CPU runs the twin; each keeps a plain launch count per version.
+`walk_packet_cuda_v1` launches the first CUDA form (csrc/bvh_walk_v1.cu, one
+thread per ray; "v1" there means the first CUDA form, not the TPU's K5-v1),
+kept for measurement; no query launches it. The kernel, its first form and
+the twin agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -209,34 +215,57 @@ walk_packet_twin.launches = {"v1": 0, "v2": 0}
 walk_packet_twin.work = {"box": 0, "tri": 0}
 
 
-def _kernel_fn():
-    fn = _build.load_library("bvh_walk").bvh_walk
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str):
+    fn = getattr(_build.load_library(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
     return fn
 
 
-def walk_packet_cuda(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):
-    """Launch the CUDA K5 walk (csrc/bvh_walk.cu) on the current stream.
-    Returns (t, local slot (i64, -1 = miss), u, v), as walk_packet_twin."""
+def _launch(name, pack: BvhPack, o, d, tnear, tfar, prune):
     n = o.shape[0]
     check_rays(o, d, tnear, tfar)
     _build.check_cuda("pack.box_t", pack.box_t, torch.float32, (pack.n_nodes, 8), like=o)
     _build.check_cuda("pack.ni_t", pack.ni_t, torch.int32, (pack.n_nodes, 4), like=o)
-    _build.check_cuda("pack.tri_t", pack.tri_t, torch.float32, like=o)
+    _build.check_cuda("pack.tri_t", pack.tri_t, torch.float32,
+                      (pack.tri_t.shape[0], LEAF, 9), like=o)
+    if pack.tri_t.data_ptr() % 16:
+        raise ValueError("pack.tri_t: the kernel copies leaves in 16-byte pieces; need a "
+                         "16-byte aligned tensor")
     out = torch.empty((3, n), dtype=torch.float32, device=o.device)  # t, u, v
     out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
     p = _build.ptr
-    err = _kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(pack.box_t), p(pack.ni_t),
-                       p(pack.tri_t), pack.n_nodes, n, int(prune), p(out[0]), p(out_local),
-                       p(out[1]), p(out[2]), _build.stream_of(o))
+    err = _kernel_fn(name)(p(o), p(d), p(tnear), p(tfar), p(pack.box_t), p(pack.ni_t),
+                           p(pack.tri_t), pack.n_nodes, n, int(prune), p(out[0]), p(out_local),
+                           p(out[1]), p(out[2]), _build.stream_of(o))
     if err != 0:
-        raise RuntimeError(f"bvh_walk launch failed: CUDA error {err}")
-    walk_packet_cuda.launches[_version(prune)] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out[0], out_local.long(), out[1], out[2]
 
 
+def walk_packet_cuda(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):
+    """Launch the CUDA K5 walk (csrc/bvh_walk.cu) on the current stream.
+    Returns (t, local slot (i64, -1 = miss), u, v), as walk_packet_twin."""
+    out = _launch("bvh_walk", pack, o, d, tnear, tfar, prune)
+    walk_packet_cuda.launches[_version(prune)] += 1
+    return out
+
+
 walk_packet_cuda.launches = {"v1": 0, "v2": 0}
+
+
+def walk_packet_cuda_v1(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):
+    """Launch the first CUDA form of the K5 walk (csrc/bvh_walk_v1.cu: one
+    thread per ray, a serial slot loop), kept to be measured beside the
+    kernel; no query launches it. Its launches are counted per TPU version
+    ("v1": prune=False, "v2": prune=True)."""
+    out = _launch("bvh_walk_v1", pack, o, d, tnear, tfar, prune)
+    walk_packet_cuda_v1.launches[_version(prune)] += 1
+    return out
+
+
+walk_packet_cuda_v1.launches = {"v1": 0, "v2": 0}
 
 
 def walk_packet(pack: BvhPack, o, d, tnear, tfar, prune: bool = True):

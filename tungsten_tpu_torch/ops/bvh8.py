@@ -9,7 +9,7 @@ round to nearest even) that the fast walk reads.
 
 Kernel half: the port of K3, `_walk_kernel8` (pallas_bvh8.py), in its two
 forms, both walking inner nodes per thread and leaves per warp (the skeleton
-of csrc/bvh8_common.cuh: a warp stages each leaf its rays want into shared
+of csrc/walk_common.cuh: a warp stages each leaf its rays want into shared
 memory once and tests it for all of them). fast=False is csrc/bvh8_walk.cu
 (`walk_cuda`: the 128 slots split across the lanes, per-ray latch).
 fast=True is csrc/bvh8_walk_fast.cu (`walk_fast_cuda`): the same traversal

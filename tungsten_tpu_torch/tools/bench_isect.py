@@ -2,7 +2,7 @@
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
         [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri
-                   (and bvh8v1,bvh8anyv1,bvh8fastv1)]
+                   (and bvh8v1,bvh8anyv1,bvh8fastv1,bvhv1,bvh1v1,triv1)]
         [--trials 5]
         [--device cuda|cpu]
 
@@ -23,12 +23,15 @@ Kernels (each a walk of one pack of the flattened scene):
   bvh3any   K4 any-hit                            bvh       K5-v2 closest hit (bvh_walk.cu)
   bvh1      K5-v1 closest hit (bvh_walk.cu, no    tri       K2 streaming brute force
             best-t pruning in the box tests)                (intersect_stream.cu)
-Besides, by name only (not in the default list): the one-thread-per-ray
-forms of K3 and K3-fast, kept to be measured beside the warp-cooperative
-kernels on one card:
+Besides, by name only (not in the default list): the first CUDA forms
+("v1": one thread per ray; K2's with the TPU kernel's tile vote) of K3,
+K3-fast, K5 and K2, kept to be measured beside the redesigned kernels on one
+card:
   bvh8v1    K3 closest hit (bvh8_walk_v1.cu)      bvh8anyv1 its latched any-hit
   bvh8fastv1 K3-fast raw (bvh8_walk_fast_v1.cu)
-e.g. --kernels bvh8,bvh8v1,bvh8any,bvh8anyv1,bvh8fast,bvh8fastv1.
+  bvhv1     K5-v2 (bvh_walk_v1.cu)                bvh1v1    K5-v1 (bvh_walk_v1.cu)
+  triv1     K2 (intersect_stream_v1.cu)
+e.g. --kernels bvh8,bvh8v1,bvh,bvhv1,bvh1,bvh1v1,tri,triv1.
 On a CUDA device each walk's kernel and its plain twin are timed with CUDA
 events after a warm-up, as the median of --trials runs; on the CPU only the
 twins run (the port's CPU path), timed by the host clock. Nothing falls back
@@ -47,7 +50,8 @@ reference of every other walk on all n coherent rays (hit mask). The run
 fails when an agreement is below 99.9%.
 
 Each time row also keeps the twin's count of box and triangle tests on
-those rays ("work"), from which chip_smoke.py computes the kernel's bound.
+those rays ("work"; for K2 also `sub_box_work`'s count of what its sub-box
+cull leaves), from which chip_smoke.py computes the kernel's bound.
 
 The default scene is materialtest-synth (tungsten_tpu_torch/synth.py),
 written into build/bench_isect/ of the checkout.
@@ -75,7 +79,8 @@ from ..scene.load import load_scene
 
 KERNELS = ("bvh8", "bvh8any", "bvh8fast", "bvh8fastq", "bvh3", "bvh3skip", "bvh3any", "bvh",
            "bvh1", "tri")
-V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1")  # by name only, for comparison
+V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1", "bvhv1", "bvh1v1",
+              "triv1")  # by name only, for comparison
 # any-hit walk -> its closest-hit walk
 ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1"}
 UNSUPPORTED = {
@@ -142,15 +147,25 @@ def walks(scene, name):
         "bvh": (P(bvh.walk_packet_cuda, pv), P(bvh.walk_packet_twin, pv)),
         "bvh1": (P(bvh.walk_packet_cuda, pv, prune=False),
                  P(bvh.walk_packet_twin, pv, prune=False)),
+        "bvhv1": (P(bvh.walk_packet_cuda_v1, pv), P(bvh.walk_packet_twin, pv)),
+        "bvh1v1": (P(bvh.walk_packet_cuda_v1, pv, prune=False),
+                   P(bvh.walk_packet_twin, pv, prune=False)),
         "tri": (P(k2.stream_cuda, pt), P(k2.stream_twin, pt)),
+        "triv1": (P(k2.stream_cuda_v1, pt), P(k2.stream_twin, pt)),
     }[name]
 
 
 def query(scene, name, rays):
     """The public query of one kernel name on the rays' device: (hit mask,
     t or None for the any-hit walks)."""
-    if name in V1_KERNELS:
-        on_card = rays[0].is_cuda
+    on_card = rays[0].is_cuda
+    if name in ("bvhv1", "bvh1v1"):
+        walk = bvh.walk_packet_cuda_v1 if on_card else bvh.walk_packet_twin
+        h = bvh.hit_from_local(scene.pbvh, *walk(scene.pbvh, *rays, prune=name == "bvhv1"))
+    elif name == "triv1":
+        walk = k2.stream_cuda_v1 if on_card else k2.stream_twin
+        h = k2.hit_from_stream(scene.ptris, *walk(scene.ptris, *rays))
+    elif name in V1_KERNELS:
         exact = bvh8.walk_cuda_v1 if on_card else bvh8.walk_twin
         if name == "bvh8anyv1":
             return exact(scene.pbvh8, *rays, latch=True)[1] >= 0, None
@@ -245,7 +260,8 @@ def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
     """Time and check the walks; returns {"scene", "device", "n", "times":
     {(kind, kernel): {"ms", "twin_ms", "work"}}, "agree": {label: fraction}}.
     "ms" is None on the CPU, where only the twins run; "work" is the twin's
-    count of box and triangle tests on the row's rays."""
+    count of box and triangle tests on the row's rays (for K2 and its first
+    form also `sub_box_work`'s)."""
     kernels = parse_kernels(kernels)
     dev = dev or get_device("cuda")
     on_card = dev.type == "cuda"
@@ -260,9 +276,11 @@ def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
             coherent = rays
         for name in kernels:
             kernel, twin = walks(scene, name)
-            out["times"][(kind, name)] = {
+            row = out["times"][(kind, name)] = {
                 "ms": time_ms(kernel, rays, trials) if on_card else None,
                 "twin_ms": time_ms(twin, rays, trials), "work": dict(twin.func.work)}
+            if name in ("tri", "triv1"):  # what the kernel's sub-box cull leaves
+                row["work"].update(k2.sub_box_work(scene.ptris, *rays))
 
     sub = make_rays(scene, 4096, "incoherent", seed=1)
     hb = intersect_brute(scene.tris, *sub, chunk=2048)
