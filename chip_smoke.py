@@ -6,13 +6,14 @@
 Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
-  2. build    - nvcc builds the nine kernel sources (csrc/bvh8_walk.cu,
+  2. build    - nvcc builds the ten kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
-                bvh2_walk.cu, bvh_walk.cu, bvh_walk_v1.cu, intersect_stream.cu,
-                intersect_stream_v1.cu) into build/, one nvcc per source, all
-                at once, and prints what ptxas said of the two BVH8 kernels,
-                K5 and K2 (registers, shared memory, spills) and their
-                resident blocks a multiprocessor;
+                bvh2_walk.cu, bvh2_walk_v1.cu, bvh_walk.cu, bvh_walk_v1.cu,
+                intersect_stream.cu, intersect_stream_v1.cu) into build/, one
+                nvcc per source, all at once, and prints what ptxas said of
+                the two BVH8 kernels, K4, K5 and K2 (registers, shared memory,
+                spills) and their resident blocks a multiprocessor (K4's
+                closest-hit kernel in both modes);
   3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
@@ -24,9 +25,19 @@ printing a result):
                 mixed mode on the random rays, the 563,000 camera rays and the
                 2N batch; times v1 and K3 at 2N in turns (v1, new, new, v1,
                 each the median of 5 launches);
-  3b. kernels - K4 (bvh2_walk: ordered, skip, any) on the same scene's
-                packs against its twin on the 65,536 random rays and the
-                563,000 camera rays; K5 (bvh_walk) in both modes (prune=1:
+  3b. kernels - K4 (bvh2_walk) on the same scene's packs: "any" against
+                its twin on the 65,536 random rays and the 563,000 camera
+                rays, and against its first form (bvh2_walk_v1.cu, whose body
+                it keeps) bit for bit; "ordered" and "skip" on those two sets
+                and the 2N closest-hit batch against their twin and their
+                first form by the bars (the new kernel's leaf rounds as K3's
+                does, the first form's as the compiler contracted it; on the
+                2N set the all-lanes t bar has phase 3d's grazing floor; the
+                lanes that differ counted and printed), and against exact K3
+                on the same rays (the packs share their plane leaves): the
+                slot on >= 99.99% of the lanes, t bit for bit where it
+                agrees; each K4 closest-hit walk against its first form at
+                2N in turns; K5 (bvh_walk) in both modes (prune=1:
                 K5-v2, prune=0: K5-v1) against its twin and its first CUDA
                 form (bvh_walk_v1.cu) bit for bit in t, slot, u and v on those
                 two sets and on the 2N closest-hit batch that the render's K5
@@ -92,15 +103,15 @@ printing a result):
                 Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
-                ten walks and the six first forms (v1 walks; 48 timed rows;
+                ten walks and the eight first forms (v1 walks; 54 timed rows;
                 bvh8fast is the raw fast kernel, bvh8fastq the whole fast
                 query), with
                 every agreement >= 99.9% (K2 the brute-force reference of
                 every walk on the coherent rays) and the launch counts reset
                 just before and read just after; then K3 closest, K3 latched
                 and K3-fast against their v1 forms on the benchmark's coherent
-                and incoherent rays, in turns, and so K5 (both modes) and K2
-                against their first forms;
+                and incoherent rays, in turns, and so K4 (ordered, skip), K5
+                (both modes) and K2 against their first forms;
   7. routes   - materialtest-analytic at 1000x563 and 32 spp through
                 render_flat on three FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = pbvh3 = None (K5-v2) and
@@ -115,24 +126,25 @@ The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, phase 7's route
 renders for K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
-K5, K2 and the first forms, camera rays for K4), and the kernel's and twin's
-ms and the kernel's bound on the rays of those launches: the 2N batch for
-K3, K3-fast, K5-v2 and K2 (K5-v2's and K2's ms the mean of their turns
-against their first forms; the benchmark's coherent time beside as
-bench_ms, the first form's 2N time as v1_ms), the benchmark's coherent rays
-for K4, K5-v1 and the first forms (their 2N time and bound beside as ms_2n
-and bound_2n_ms; K5-v1's first form's times as v1_ms and v1_ms_2n). The bound is the larger of the bytes the kernel must move (inputs
-read once, outputs written once) over 3.35 TB/s and the operations its rays
-need over the peak rate of their type (f32 at 67 TFLOP/s; K3-fast's products
-of bf16 pairs with their f32 sums at the bf16 matrix rate, 989 TFLOP/s;
-H100 SXM data sheet), counted on the same rays at the OPS costs below: box
-and triangle tests by the twin; for K2 the chunk boxes, the sub-boxes of the
-chunks each ray's box hits and its Moller-Trumbore tests of the real
-triangles of the sub-boxes it hits, each charged to the stage where the
-test ends (`intersect_stream.sub_box_work`), with the chunk-level bound of
-earlier PRs beside as bound_chunk_ms. A first form's bound is its new
-kernel's. No single PyTorch call computes a BVH walk or a brute-force
-closest hit, so library_ms is null.
+K4 ordered and skip, K5, K2 and the first forms, camera rays for K4 any),
+and the kernel's and twin's ms and the kernel's bound on the rays of those
+launches: the 2N batch for K3, K3-fast, K5-v2 and K2 (K5-v2's and K2's ms
+the mean of their turns against their first forms; the benchmark's coherent
+time beside as bench_ms, the first form's 2N time as v1_ms), the benchmark's
+coherent rays for K4, K5-v1 and the first forms (their 2N time and bound
+beside as ms_2n and bound_2n_ms; the first form's times of K5-v1 and of K4
+ordered and skip as v1_ms and v1_ms_2n). The bound is the larger of the
+bytes the kernel must move (inputs read once, outputs written once) over
+3.35 TB/s and the operations its rays need over the peak rate of their type
+(f32 at 67 TFLOP/s; K3-fast's products of bf16 pairs with their f32 sums at
+the bf16 matrix rate, 989 TFLOP/s; H100 SXM data sheet), counted on the same
+rays at the OPS costs below: box and triangle tests by the twin; for K2 the
+chunk boxes, the sub-boxes of the chunks each ray's box hits and its
+Moller-Trumbore tests of the real triangles of the sub-boxes it hits, each
+charged to the stage where the test ends (`intersect_stream.sub_box_work`),
+with the chunk-level bound of earlier PRs beside as bound_chunk_ms. A first
+form's bound is its new kernel's. No single PyTorch call computes a BVH walk
+or a brute-force closest hit, so library_ms is null.
 K3's, K3-fast's and their v1 forms' ms are the mean of the two turns of
 phase 3 (K3, mixed) and 3d (K3-fast, closest), each turn the median of 5
 single-launch event windows; back_to_back_ms beside them is the mean of 10
@@ -140,7 +152,8 @@ launches back to back in one event window, the measure K3's and K3-fast's ms
 took while they were the one-thread-per-ray kernels, kept so that their
 series stays continuous. The benchmark's ms are its median of 5
 single-launch windows.
-The first forms' rows (bvh8_walk_v1, bvh8_walk_fast_v1, bvh_walk_v1_form,
+The first forms' rows (bvh8_walk_v1, bvh8_walk_fast_v1,
+bvh2_walk_v1_ordered, bvh2_walk_v1_skip, bvh_walk_v1_form,
 intersect_stream_v1; "v1" means the first CUDA form, and bvh_walk_v1 is the
 TPU's K5-v1, prune=0, on the new kernel) take their launches, ms and bound
 from the benchmark (phase 6), with their 2N turn times beside (ms_2n; K3's
@@ -176,24 +189,23 @@ T_RTOL, T_ATOL_PER_EXTENT, T_RTOL_ALL = 1e-5, 1e-6, 1e-3
 # (~eps * |o| / |cos|, |cos| down to ~1e-2) gets its own floor on the
 # all-lanes bar, per unit of scene extent. The same floor holds K3-fast's
 # tensor-core sums against its twin's fixed order on the 2N batch's grazing
-# shadow lanes
+# shadow lanes, and K4's rounded leaf sums against its twin's and its first
+# form's on those lanes
 T_ATOL_ALL_GRAZING_PER_EXTENT = 1e-4
 MEAN_RTOL = 5e-3  # render per-channel means vs the JAX package's, and route vs route
 # routes: a hit that flips between two walks reshades the rest of its path
 PIX_ATOL, PIX_RTOL, PIX_BAR = 1e-3, 1e-3, 0.90
-# K5's u / v where the slot agrees: >= 99.9% within 1e-5, all within 1e-3.
-# Moller-Trumbore's u = (tv . p) / det cancels, so any other rounding shows;
-# the kernel rounds each operation as the twin does (bvh_walk.cu header).
-UV_ATOL, UV_ATOL_ALL = 1e-5, 1e-3
-# the K4 walks: (json name, benchmark name, source, the TPU kernel it replaces)
+# the K4 walks: (json name, benchmark name, mode, source, the TPU kernel it
+# replaces); the closest-hit two come first
 NEW_KERNELS = (
-    ("bvh2_walk_ordered", "bvh3", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
+    ("bvh2_walk_ordered", "bvh3", "ordered", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:204"),
-    ("bvh2_walk_skip", "bvh3skip", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
+    ("bvh2_walk_skip", "bvh3skip", "skip", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:126"),
-    ("bvh2_walk_any", "bvh3any", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
+    ("bvh2_walk_any", "bvh3any", "any", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:168"),
 )
+K4_K3_BAR = 0.9999  # K4's slot vs exact K3's: coincident triangles may tie across leaves
 # K5 in both modes and K2, each with its first CUDA form: (json name,
 # benchmark name, source, the TPU kernel it replaces, the first form's json
 # name and benchmark name, or None where the first form's row is another
@@ -263,6 +275,7 @@ def counted():
 
     return (bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
             bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda, bvh2.walk3_twin,
+            bvh2.walk3_cuda_v1,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, bvh.walk_packet_cuda_v1,
             intersect_stream.stream_cuda, intersect_stream.stream_twin,
             intersect_stream.stream_cuda_v1)
@@ -374,28 +387,23 @@ def fast_bars(label, tk, lk, tt, lt, t_atol, atol_all):
     return err
 
 
-def kernel_vs_twin(name, kernel, twin, cases, t_atol):
-    """A kernel against its twin on each (label, rays) case: slot agreement,
-    the t bar where the slot agrees, and the u / v bar for walks that return
-    u and v. Returns the largest |t| difference on the last case."""
-    for label, rr in cases:
-        out_k = kernel(*rr)
-        torch.cuda.synchronize()
-        out_t = twin(*rr)
-        (tk, lk), (tt, lt) = out_k[:2], out_t[:2]
-        check(agree(lk, lt) >= BAR, f"{name} {label}: kernel vs twin slot agree "
-              f"{agree(lk, lt):.6f}")
-        same = (lk == lt) & (lk >= 0)
-        t_err = (tk[same] - tt[same]).abs().max().item()
-        check(t_close(tk[same], tt[same], t_atol), f"{name} {label}: t within rtol {T_RTOL} "
-              f"atol {t_atol:.2g} (>= {BAR}), rtol {T_RTOL_ALL} (all); max abs err {t_err:.3e}")
-        for uv, a, b in zip("uv", out_k[2:], out_t[2:]):
-            err = (a[same] - b[same]).abs()
-            check((err <= UV_ATOL).float().mean().item() >= BAR
-                  and err.max().item() <= UV_ATOL_ALL,
-                  f"{name} {label}: {uv} within {UV_ATOL} (>= {BAR}), {UV_ATOL_ALL} (all); "
-                  f"max abs err {err.max().item():.3e}")
-    return t_err
+def k4_bars(label, out, ref, t_atol, atol_all):
+    """A K4 walk against a reference (its twin or its first form): the slot
+    on >= BAR of the lanes, the lanes that differ counted and printed, and
+    the t bar where the slots agree (atol_all: the all-lanes floor).
+    Returns the largest |t| difference there."""
+    (tk, lk), (tr, lr) = out, ref
+    same = lk == lr
+    check(agree(lk, lr) >= BAR, f"{label}: slot agree {agree(lk, lr):.6f} (>= {BAR}); "
+          f"{int((~same).sum())} lanes differ: {int((~same & (lk < 0)).sum())} the kernel "
+          f"missed, {int((~same & (lr < 0)).sum())} the reference missed, "
+          f"{int((~same & (lk >= 0) & (lr >= 0)).sum())} another slot")
+    hit = same & (lk >= 0)
+    err = (tk[hit] - tr[hit]).abs().max().item()
+    check(t_close(tk[hit], tr[hit], t_atol, atol_all), f"{label}: t within rtol {T_RTOL} atol "
+          f"{t_atol:.2g} (>= {BAR}), rtol {T_RTOL_ALL} atol {atol_all:.2g} (all); max abs err "
+          f"{err:.3e}")
+    return err
 
 
 @contextlib.contextmanager
@@ -456,7 +464,8 @@ def main():
 
     t0 = time.time()
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
-               "bvh_walk", "bvh_walk_v1", "intersect_stream", "intersect_stream_v1")
+               "bvh2_walk_v1", "bvh_walk", "bvh_walk_v1", "intersect_stream",
+               "intersect_stream_v1")
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
@@ -467,6 +476,10 @@ def main():
         occ.restype = ctypes.c_int
         log(f"[2 build] {name}: {occ()} resident blocks of 128 threads a multiprocessor; "
             f"ptxas -v:\n{_build.ptxas_report(name)}")
+    occ = _build.load_library("bvh2_walk").bvh2_walk_blocks_per_sm
+    occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
+    log(f"[2 build] bvh2_walk: {occ(0)} (ordered) / {occ(1)} (skip) resident blocks of 128 "
+        f"threads a multiprocessor; ptxas -v:\n{_build.ptxas_report('bvh2_walk')}")
 
     work = os.path.join(REPO, "build", "chip_smoke")  # scenes are written here
     big_path = synth.write_scene(os.path.join(work, "mt"), "materialtest-synth")
@@ -584,9 +597,44 @@ def main():
     cases = (("random 65536", rays), (f"camera {n_pix}", cam))
     # the K5 / K2 routes' 2N batch: phase 3's rays and tfar, all closest hit
     with_mixed = cases + ((f"mixed 2N={2 * n_pix}", r2),)
+    p3 = scene.pbvh3
+    # K4 any: against its twin by the bars, and its first form, whose
+    # per-thread body it keeps, bit for bit
     new_err = {}
-    for name, bname, _, _ in NEW_KERNELS:
-        new_err[name] = kernel_vs_twin(name, *bench_isect.walks(scene, bname), cases, T_ATOL)
+    for label, rr in cases:
+        new, old = bvh2.walk3_cuda(p3, *rr, "any"), bvh2.walk3_cuda_v1(p3, *rr, "any")
+        torch.cuda.synchronize()
+        twin = bvh2.walk3_twin(p3, *rr, "any")
+        new_err["bvh2_walk_any"] = k4_bars(f"K4 any {label} vs twin", new, twin, T_ATOL, 0.0)
+        check(same_bits(new, old), f"K4 any {label}: equals its first form bit for bit")
+    # K4 ordered and skip (warp-cooperative leaves): against their twin and
+    # their first form by the bars, against exact K3 (no latch) on the same
+    # rays by slot, and t bit for bit where the slots agree
+    k4_work_2n, k4_v1_err = {}, {}  # json name -> the twin's counts / v1's error at 2N
+    for label, rr in with_mixed:
+        # the 2N batch's shadow lanes hit at a few tnear: the grazing floor
+        grazing = T_ATOL_ALL_GRAZING_PER_EXTENT * extent if rr is r2 else 0.0
+        t3, l3 = bvh8.walk_cuda(pack, *rr)
+        for name, _, mode, _, _ in NEW_KERNELS[:2]:
+            new = bvh2.walk3_cuda(p3, *rr, mode)
+            old = bvh2.walk3_cuda_v1(p3, *rr, mode)
+            torch.cuda.synchronize()
+            twin = bvh2.walk3_twin(p3, *rr, mode)
+            new_err[name] = k4_bars(f"K4 {mode} {label} vs twin", new, twin, T_ATOL, grazing)
+            k4_bars(f"K4 {mode} {label} vs v1", new, old, T_ATOL, grazing)
+            hit = (old[1] == twin[1]) & (twin[1] >= 0)
+            k4_v1_err[name] = (old[0][hit] - twin[0][hit]).abs().max().item()
+            k4_work_2n[name] = dict(bvh2.walk3_twin.work)  # the 2N set's, the last
+            same = new[1] == l3
+            check(agree(new[1], l3) >= K4_K3_BAR
+                  and torch.equal(new[0][same].view(torch.int32), t3[same].view(torch.int32)),
+                  f"K4 {mode} {label} vs exact K3: slot agree {agree(new[1], l3):.6f} (>= "
+                  f"{K4_K3_BAR}; {int((~same).sum())} lanes differ), t bit for bit where it "
+                  f"agrees (hits {(l3 >= 0).float().mean().item():.4f})")
+    for name, _, mode, _, _ in NEW_KERNELS[:2]:
+        log(f"  K4 {mode} 2N twin counts {k4_work_2n[name]}")
+        turns(f"K4 {mode} 2N", lambda: bvh2.walk3_cuda_v1(p3, *r2, mode),
+              lambda: bvh2.walk3_cuda(p3, *r2, mode), card)
     # K5 in both modes: the kernel equals its twin and its first CUDA form
     # (bvh_walk_v1.cu) bit for bit in t, slot, u and v on the three sets
     pv = scene.pbvh
@@ -883,6 +931,7 @@ def main():
     check(min(res["agree"].values()) >= BAR, f"isect: all {len(res['agree'])} agreements >= "
           f"{BAR} (lowest {min(res['agree'].values()):.6f})")
     new_keys = [f"bvh2.walk3_cuda.{m}" for m in bvh2.MODES] + [
+        "bvh2.walk3_cuda_v1.ordered", "bvh2.walk3_cuda_v1.skip",
         "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda",
         "bvh8.walk_fast_cuda", "bvh8.walk_cuda_v1", "bvh8.walk_fast_cuda_v1",
         "bvh.walk_packet_cuda_v1.v2", "bvh.walk_packet_cuda_v1.v1",
@@ -890,9 +939,12 @@ def main():
     check(all(bench_launches[k] > 0 for k in new_keys),
           f"isect: K4 / K5 / K2 / K3-fast / v1 launches {[bench_launches[k] for k in new_keys]}")
     bscene = bench_isect.load(big_path, dev)
-    p8, bpv, bpt = bscene.pbvh8, bscene.pbvh, bscene.ptris
+    p8, bp3, bpv, bpt = bscene.pbvh8, bscene.pbvh3, bscene.pbvh, bscene.ptris
     for ray_kind in ("coherent", "incoherent"):
         br = bench_isect.make_rays(bscene, 131072, ray_kind)
+        for mode in ("ordered", "skip"):
+            turns(f"K4 {mode} {ray_kind} 131072", lambda: bvh2.walk3_cuda_v1(bp3, *br, mode),
+                  lambda: bvh2.walk3_cuda(bp3, *br, mode), card)
         turns(f"K3 closest {ray_kind} 131072", lambda: bvh8.walk_cuda_v1(p8, *br),
               lambda: bvh8.walk_cuda(p8, *br), card)
         turns(f"K3 latched {ray_kind} 131072", lambda: bvh8.walk_cuda_v1(p8, *br, latch=True),
@@ -989,16 +1041,30 @@ def main():
                     r["ms"], r["twin_ms"], io, ops, bf16_ops)
         row["ms_2n"], row["back_to_back_ms_2n"], row["bound_2n_ms"] = t2n, b2b, b2n
         entries.append(row)
-    # K4: the benchmark's coherent rays, where its launches come from
-    k4_io = nbytes(scene.pbvh3.box_t, scene.pbvh3.ni_t, scene.pbvh3.tri_planes)
-    k4_mode = {"bvh3": "ordered", "bvh3skip": "skip", "bvh3any": "any"}
-    for name, bname, source, replaces in NEW_KERNELS:
+    # K4: the benchmark's coherent rays, where its launches come from; for
+    # ordered and skip the first form's time (v1_ms), the 2N turns and bound
+    # beside, and the first form's own row, on the same rays
+    k4_io = nbytes(p3.box_t, p3.ni_t, p3.tri_planes)
+    for name, bname, mode, source, replaces in NEW_KERNELS:
         r = res["times"][("coherent", bname)]
-        entries.append(entry(name, source, replaces,
-                             bench_launches[f"bvh2.walk3_cuda.{k4_mode[bname]}"],
-                             new_err[name], r["ms"], r["twin_ms"],
-                             k4_io + n_bench * (32 + 8),
-                             r["work"]["box"] * OPS["box"] + r["work"]["tri"] * OPS["plane"]))
+        ops = r["work"]["box"] * OPS["box"] + r["work"]["tri"] * OPS["plane"]
+        row = entry(name, source, replaces, bench_launches[f"bvh2.walk3_cuda.{mode}"],
+                    new_err[name], r["ms"], r["twin_ms"], k4_io + n_bench * (32 + 8), ops)
+        entries.append(row)
+        if mode == "any":
+            continue
+        w2 = k4_work_2n[name]
+        bound_2n = bound(k4_io + o2.shape[0] * (32 + 8),
+                         w2["box"] * OPS["box"] + w2["tri"] * OPS["plane"])[0]
+        first_ms, new_ms = TURNS[f"K4 {mode} 2N"]
+        v1_bench = res["times"][("coherent", f"{bname}v1")]
+        row["v1_ms"] = v1_bench["ms"]
+        row["ms_2n"], row["v1_ms_2n"], row["bound_2n_ms"] = new_ms, first_ms, bound_2n
+        row = entry(f"bvh2_walk_v1_{mode}", "tungsten_tpu_torch/csrc/bvh2_walk_v1.cu", replaces,
+                    bench_launches[f"bvh2.walk3_cuda_v1.{mode}"], k4_v1_err[name],
+                    v1_bench["ms"], v1_bench["twin_ms"], k4_io + n_bench * (32 + 8), ops)
+        row["ms_2n"], row["bound_2n_ms"] = first_ms, bound_2n
+        entries.append(row)
     # K5-v2 and K2: ms (the turns' mean), plain ms and bound on the 2N batch,
     # the batch of the route renders that give their launches; the
     # benchmark's coherent ms beside as bench_ms. K5-v1 and the first forms

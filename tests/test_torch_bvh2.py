@@ -11,7 +11,17 @@ plus atol 1e-6 where it agrees (the plane form's numerator cancels to the
 point-plane distance, so its error is absolute), occlusion on >= 99.9%.
 
 The CUDA kernel itself is held against the twin in test_torch_cuda.py.
+Its closest-hit walks test the BVH8 pack's plane leaves with K3's leaf
+step, so here the twin's ordered and skip walks are held against K3's twin
+(bvh8.walk_twin, no latch) on the same rays: the slot on all lanes but at
+most one (a hit on an edge shared across leaves may tie), t bit for bit
+where it agrees. The new kernel's bookkeeping (lanes park leaves, 32-lane
+groups run leaf rounds, each member tested against its lim at that step)
+is emulated in plain torch (`bvh2.coop_walk3`) and held bit for bit to the
+twin in both modes.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -152,6 +162,50 @@ def test_walk3_dispatches_by_device(case):
         bvh2.walk3_cuda(pack, *rays)
     with pytest.raises(ValueError, match="mode"):
         bvh2.walk3(pack, *rays, "nearest")
+
+
+@pytest.mark.parametrize("mode", ["ordered", "skip"])
+def test_twin_matches_k3_twin(case, mode):
+    """K4's closest-hit twin and K3's on one tree's plane leaves: the same
+    slot on all lanes but at most one, t bit for bit where it agrees."""
+    rays = _t(case["rays"])
+    t4, l4 = bvh2.walk3_twin(case["pack"], *rays, mode)
+    t3, l3 = bvh8.walk_twin(case["pack8"], *rays)
+    same = l4 == l3
+    assert int((~same).sum()) <= 1, f"{mode}: {int((~same).sum())} lanes differ"
+    hit = same & (l4 >= 0)
+    assert 0.2 < hit.float().mean().item() < 0.9
+    assert torch.equal(t4[hit].view(torch.int32), t3[hit].view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["ordered", "skip"])
+def test_coop_walk_matches_twin(case, mode):
+    """The new kernel's schedule (park, then leaf rounds per 32-lane group
+    with each member's lim at its step) gives the twin's t and slot bit for
+    bit, with the twin's box and slot tests: no node is tested before the
+    leaf step it waits on, so every visit has the twin's limit."""
+    rays = _t(case["rays"])
+    tc, lc = bvh2.coop_walk3(case["pack"], *rays, mode)
+    tt, lt = bvh2.walk3_twin(case["pack"], *rays, mode)
+    assert bvh2.coop_walk3.work == bvh2.walk3_twin.work
+    assert torch.equal(lc, lt)
+    assert torch.equal(tc.view(torch.int32), tt.view(torch.int32))
+    assert 0.2 < (lc >= 0).float().mean().item() < 0.9
+    with pytest.raises(ValueError, match="ordered and skip"):
+        bvh2.coop_walk3(case["pack"], *rays, "any")
+
+
+def test_kernels_refuse_cpu_tensors_and_other_leaf_widths(case):
+    """The kernel and its first form refuse CPU tensors in every mode, and
+    the kernel a pack whose leaves are not 128 wide; no count moves."""
+    pack, rays = case["pack"], _t(case["rays"])
+    k0, v0 = dict(bvh2.walk3_cuda.launches), dict(bvh2.walk3_cuda_v1.launches)
+    for mode in bvh2.MODES:
+        with pytest.raises(ValueError, match="CUDA"):
+            bvh2.walk3_cuda_v1(pack, *rays, mode)
+        with pytest.raises(ValueError, match="128"):
+            bvh2.walk3_cuda(dataclasses.replace(pack, leaf=64), *rays, mode)
+    assert bvh2.walk3_cuda.launches == k0 and bvh2.walk3_cuda_v1.launches == v0
 
 
 def _chain(depth):

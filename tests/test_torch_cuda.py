@@ -8,9 +8,9 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
 
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
 K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1) and K2
-(intersect_stream.cu), and the first CUDA forms of K3, K3-fast, K5 and K2,
-kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu, bvh_walk_v1.cu,
-intersect_stream_v1.cu).
+(intersect_stream.cu), and the first CUDA forms of K3, K3-fast, K4, K5 and
+K2, kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
+bvh2_walk_v1.cu, bvh_walk_v1.cu, intersect_stream_v1.cu).
 Bars: local slot (prim) agrees on >= 99.9%
 of rays. Where it agrees, t is within rtol 1e-5 plus 1e-6 absolute on
 >= 99.9% of hits and within rtol 1e-3 on all: the plane form's numerator
@@ -34,6 +34,12 @@ accepted just outside its box through the slab test's rounding may be
 culled: prim agrees with the twin on >= 99.99% of rays, and where it
 agrees t, u and v are bit-equal; the first form of K2 keeps the tile vote
 and equals the twin bit for bit.
+K4's closest-hit walks test their leaves per warp with K3's leaf step
+(`slot_exact`), where its first form left its leaf arithmetic to the
+compiler: against its twin and against bvh2_walk_v1.cu it is held to the
+bars above; against exact K3 on the same rays (the two packs share their
+plane leaves) the slot agrees on >= 99.99% of rays (coincident triangles
+may tie across leaves) and t is bit-equal where it agrees.
 """
 import numpy as np
 import pytest
@@ -283,7 +289,8 @@ def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
                 sum(bvh.walk_packet_twin.launches.values()),
                 intersect_stream.stream_cuda.launches, intersect_stream.stream_twin.launches,
                 sum(bvh.walk_packet_cuda_v1.launches.values()),
-                intersect_stream.stream_cuda_v1.launches)
+                intersect_stream.stream_cuda_v1.launches,
+                sum(bvh2.walk3_cuda_v1.launches.values()))
 
     before = counts()
     for mode in bvh2.MODES:
@@ -293,4 +300,39 @@ def test_k4_k5_walks_route_cuda_tensors_to_the_kernels(cuda):
     intersect_stream.stream(packs["tri"], *rays)
     bvh.intersect_bvh(packs["bvh"], *rays)
     intersect_stream.intersect_stream(packs["tri"], *rays)
-    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 2, 0, 2, 0, 0, 0]
+    assert [b - a for a, b in zip(before, counts())] == [1, 1, 1, 0, 1, 2, 0, 2, 0, 0, 0, 0]
+
+
+def _k4_bars(label, out, ref):
+    """A K4 walk against a reference by the file's bars (slot, then t)."""
+    (tk, lk), (tr, lr) = out, ref
+    same = (lk == lr).cpu().numpy()
+    assert same.mean() >= BAR, f"{label}: local agrees on {same.mean():.5f}"
+    hit = same & (lk >= 0).cpu().numpy()
+    assert 0.1 < hit.mean() < 0.9
+    tk_h, tr_h = tk.cpu().numpy()[hit], tr.cpu().numpy()[hit]
+    assert np.isclose(tk_h, tr_h, rtol=1e-5, atol=1e-6).mean() >= BAR, label
+    np.testing.assert_allclose(tk_h, tr_h, rtol=1e-3, err_msg=label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ordered", "skip"])
+def test_k4_kernel_against_twin_first_form_and_k3(cuda, mode):
+    """The warp-cooperative K4 walk against its twin and its first CUDA form
+    (bvh2_walk_v1.cu) by the bars, and against exact K3 on the same rays:
+    the slot on >= 99.99%, t bit for bit where it agrees."""
+    packs, rays = _case(cuda)
+    pack = packs["bvh3"]
+    k0, v0 = bvh2.walk3_cuda.launches[mode], bvh2.walk3_cuda_v1.launches[mode]
+    new = bvh2.walk3_cuda(pack, *rays, mode)
+    old = bvh2.walk3_cuda_v1(pack, *rays, mode)
+    torch.cuda.synchronize()
+    assert bvh2.walk3_cuda.launches[mode] == k0 + 1
+    assert bvh2.walk3_cuda_v1.launches[mode] == v0 + 1
+    _k4_bars(f"{mode} vs twin", new, bvh2.walk3_twin(pack, *rays, mode))
+    _k4_bars(f"{mode} vs v1", new, old)
+    t3, l3 = bvh8.walk_cuda(packs["bvh8"], *rays)
+    same = new[1] == l3
+    assert same.float().mean().item() >= 0.9999, f"{mode} vs K3: {same.float().mean().item():.6f}"
+    assert torch.equal(new[0][same].view(torch.int32), t3[same].view(torch.int32))
+    assert (new[1][rays[3] <= rays[2]] == -1).all()

@@ -1,4 +1,6 @@
-// Binary skip-BVH walk for Hopper (sm_90a): one thread per ray, three modes.
+// Binary skip-BVH walk for Hopper (sm_90a), three modes. Closest hit
+// ("ordered", "skip"): inner nodes per thread, leaves per warp. Any hit:
+// one thread per ray.
 //
 // Replaces the TPU kernel K4, the three walks that `_launch3` selects in
 // tungsten_tpu/ops/pallas_bvh2.py:
@@ -36,33 +38,69 @@
 //     its t, and leaves.
 // Dead lanes (tnear >= tfar) do no work and report a miss.
 //
-// What bounds it on the H100: like K3 (bvh8_walk.cu), divergent dependent
-// loads. A binary node is 32 bytes of box plus 16 of integer fields, read
-// with vector loads through the read-only path; a leaf visit reads 128
-// plane triples (6 KB). The pack of an 80k-triangle scene is ~12 MB of
-// planes and <0.1 MB of nodes, so it lives in the 50 MB L2. The binary
-// tree costs more node visits than K3's 8-wide one (each visit tests one or
-// two boxes, not eight) and the ordered stack lives in local memory. The
-// design keeps the walk per ray, so no lane pays for a leaf its ray misses
-// (K4's tile does), and "any" leaves at its first hit.
+// What bounds it on the H100: latency. A binary node is 32 bytes of box
+// plus 16 of integer fields; a leaf visit reads 128 plane triples (6 KB).
+// The pack of an 80k-triangle scene is ~5.5 MB of planes and <0.1 MB of
+// nodes, so it lives in the 50 MB L2. The first form (bvh2_walk_v1.cu, one
+// thread per ray) waited on its leaf loads: 384 16-byte loads a leaf visit
+// in a serial loop, at addresses that differ between the lanes of a warp
+// once rays diverge, each ray reading its 6 KB leaf alone. The closest-hit
+// modes here take K3's and K5's design (walk_common.cuh `warp_leaf_rounds`):
+//   * per thread, the walk runs its inner nodes with the first form's rules
+//     until it reaches a leaf whose box it hits, and parks it. The skip walk
+//     then moves its pointer to skip[ptr]; the ordered walk pops the next
+//     pointer from its stack (kStack ints in local memory). Neither tests
+//     the next node's box before the leaf step has run, so each visit's
+//     limit min(tfar, best) is the first form's, and so is the visiting
+//     order;
+//   * once every lane has parked or finished, the warp stages each wanted
+//     leaf once in shared memory and tests it for its members with K3's
+//     leaf step (bvh8_common.cuh `ExactLeaf`: the 128 slots split across
+//     the lanes, `slot_exact`, the warp's (t, slot) minimum), double-
+//     buffered, with no lane latched;
+//   * 4 warps a block, 12 KB of dynamic shared memory a warp (two leaf
+//     buffers of 128 x 3 float4), 48 KB a block.
+// The leaf's arithmetic is `slot_exact`'s, which rounds as K3 does, not as
+// the first form's compiler-contracted expressions did: the two agree by
+// bars, not bits. "any" keeps the first form's per-thread body and its
+// arithmetic, as a kernel of its own.
+// What is left: the warp waits for its longest traversal before each round
+// of leaf steps, and a coherent warp (32 rays on one leaf) runs 32 member
+// steps of 4 slots a lane where the serial loop ran 128 slots a lane once.
 //
-// Plain C interface, loaded with ctypes; the function launches on the given
+// Plain C interface, loaded with ctypes; bvh2_walk launches on the given
 // stream and returns cudaGetLastError().
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "bvh8_common.cuh"
 
 namespace {
 
-constexpr int kStack = 96;  // == STACK_DEPTH in ops/bvh2.py
-constexpr float kInf = 3.0e38f;
+using namespace bvh8;
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
+constexpr int kStack = 96;  // == STACK_DEPTH in ops/bvh2.py
+constexpr int kWarps = 4;   // warps a block (closest-hit modes)
+constexpr int kSmemPerWarp = 2 * kLeafVec * 16;  // two leaf buffers
+constexpr int kSmem = kWarps * kSmemPerWarp;
+static_assert(kSmem <= 48 * 1024, "within the default dynamic shared memory limit");
+
+// One ray's binary walk, held by its lane (the fields ExactLeaf reads).
+struct BinWalker {
+  float ox, oy, oz, dx, dy, dz;  // the ray
+  float ix, iy, iz;              // 1 / d, d == 0 read as 1e-30
+  float tnear, tfar, best;
+  int ptr, sp, local, parked;  // ptr: the next node, -1 when the walk is over
+
+  __device__ __forceinline__ void leave() {
+    ptr = -1;
+    sp = 0;
+  }
 };
 
-__device__ __forceinline__ bool box_hit(const float4* __restrict__ box, int v,
-                                        const Ray& r, float lim) {
+// The slab test of node v's box against the ray r (a BinWalker, or the
+// any-hit kernel's AnyRay: fields ox..oz, ix..iz, tnear).
+template <class R>
+__device__ __forceinline__ bool box_hit(const float4* __restrict__ box, int v, const R& r,
+                                        float lim) {
   const float4 lo = __ldg(box + 2 * v);      // minx miny minz maxx
   const float4 hi = __ldg(box + 2 * v + 1);  // maxy maxz 0 0
   const float t0x = (lo.x - r.ox) * r.ix, t1x = (lo.w - r.ox) * r.ix;
@@ -73,14 +111,87 @@ __device__ __forceinline__ bool box_hit(const float4* __restrict__ box, int v,
   return (tmin <= tmax) && (tmax > r.tnear) && (tmin < lim);
 }
 
-// The leaf's hit slot (-1: none) and its t: the nearest, or with `first`
-// the lowest slot that hits.
-__device__ __forceinline__ int plane_leaf(const float4* __restrict__ planes, int blk,
-                                          int leaf, const Ray& r, float lim, bool first,
-                                          float& t_out) {
+// The closest-hit walks: kOrdered = mode 0, else mode 1.
+template <bool kOrdered>
+__global__ void __launch_bounds__(kWarps * 32) bvh2_walk_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tnear_in, const float* __restrict__ tfar_in,
+    const float4* __restrict__ box,     // (m, 2) float4: [min3 maxx | maxy maxz 0 0]
+    const int4* __restrict__ ni,        // (m,) [leaf_blk, count, skip, ordcode]
+    const float4* __restrict__ planes,  // (n_leaves, 128, 3): N, U, V (x y z c)
+    int m_nodes, int n, float* __restrict__ out_t, int* __restrict__ out_local) {
+  extern __shared__ float4 smem_all[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  BinWalker w{};
+  w.best = kInf;
+  w.local = -1;
+  w.parked = -1;
+  w.ptr = -1;  // a lane past n or a dead ray: no walk
+  if (i < n) {
+    w.ox = o[3 * i], w.oy = o[3 * i + 1], w.oz = o[3 * i + 2];
+    w.dx = d[3 * i], w.dy = d[3 * i + 1], w.dz = d[3 * i + 2];
+    w.tnear = tnear_in[i];
+    w.tfar = fminf(tfar_in[i], kInf);
+    w.ix = 1.0f / (w.dx == 0.0f ? 1e-30f : w.dx);
+    w.iy = 1.0f / (w.dy == 0.0f ? 1e-30f : w.dy);
+    w.iz = 1.0f / (w.dz == 0.0f ? 1e-30f : w.dz);
+    if (w.tnear < w.tfar) w.ptr = 0;
+  }
+  ExactLeaf leaf_step{planes, smem_all + (threadIdx.x >> 5) * 2 * kLeafVec, 0u, lane};
+  int stack[kOrdered ? kStack : 1];
+  warp_leaf_rounds(w, [&](BinWalker& w) {
+    while (w.parked < 0 && w.ptr >= 0) {
+      const int4 nd = __ldg(ni + w.ptr);
+      const float lim = fminf(w.tfar, w.best);
+      if constexpr (kOrdered) {
+        int next = -1;
+        if (nd.y > 0) {
+          if (box_hit(box, w.ptr, w, lim)) w.parked = nd.x;  // the leaf waits for the warp
+        } else {
+          const int left = w.ptr + 1;
+          const int right = __ldg(&ni[left].z);
+          const bool hl = box_hit(box, left, w, lim);
+          const bool hr = box_hit(box, right, w, lim);
+          const int axis = nd.w >> 1;
+          const bool pos = axis == 0 ? w.dx >= 0.0f : (axis == 1 ? w.dy >= 0.0f : w.dz >= 0.0f);
+          const bool left_near = ((nd.w & 1) == 1) == pos;
+          if (hl && hr) {
+            stack[w.sp++] = left_near ? right : left;
+            next = left_near ? left : right;
+          } else {
+            next = hl ? left : (hr ? right : -1);
+          }
+        }
+        // after a park the next pointer is popped, but its box waits for
+        // the leaf step's best
+        if (next < 0 && w.sp > 0) next = stack[--w.sp];
+        w.ptr = next;
+      } else {
+        const bool h = box_hit(box, w.ptr, w, lim);
+        if (h && nd.y > 0) w.parked = nd.x;  // the leaf waits for the warp
+        const int next = (h && nd.y == 0) ? w.ptr + 1 : nd.z;
+        w.ptr = next < m_nodes ? next : -1;
+      }
+    }
+  }, leaf_step);
+  if (i < n) {
+    out_t[i] = w.best;
+    out_local[i] = w.local;
+  }
+}
+
+// ---- mode 2, "any": the first form's per-thread body ----
+
+struct AnyRay {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
+};
+
+// The leaf's lowest hit slot (-1: none) and its t.
+__device__ __forceinline__ int plane_leaf_first(const float4* __restrict__ planes, int blk,
+                                                int leaf, const AnyRay& r, float lim,
+                                                float& t_out) {
   const float4* p = planes + (size_t)blk * leaf * 3;
-  float tb = kInf;
-  int sb = -1;
   for (int s = 0; s < leaf; ++s) {
     const float4 N = __ldg(p + 3 * s);
     const float4 U = __ldg(p + 3 * s + 1);
@@ -93,32 +204,23 @@ __device__ __forceinline__ int plane_leaf(const float4* __restrict__ planes, int
     const float w = (V.x * r.ox + V.y * r.oy + V.z * r.oz + V.w) +
                     t * (V.x * r.dx + V.y * r.dy + V.z * r.dz);
     if ((u >= 0.0f) && (w >= 0.0f) && (u + w <= 1.0f) && (t > r.tnear) && (t < lim)) {
-      if (first) {
-        tb = t;
-        sb = s;
-        break;
-      }
-      if (t < tb) {
-        tb = t;
-        sb = s;
-      }
+      t_out = t;
+      return s;
     }
   }
-  t_out = tb;
-  return sb;
+  t_out = kInf;
+  return -1;
 }
 
-__global__ void bvh2_walk_kernel(
+__global__ void bvh2_any_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tnear_in, const float* __restrict__ tfar_in,
-    const float4* __restrict__ box,     // (m, 2) float4: [min3 maxx | maxy maxz 0 0]
-    const int4* __restrict__ ni,        // (m,) [leaf_blk, count, skip, ordcode]
-    const float4* __restrict__ planes,  // (n_leaves, leaf, 3): N, U, V (x y z c)
-    int m_nodes, int mode, int n, int leaf,
+    const float4* __restrict__ box, const int4* __restrict__ ni,
+    const float4* __restrict__ planes, int m_nodes, int n, int leaf,
     float* __restrict__ out_t, int* __restrict__ out_local) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Ray r;
+  AnyRay r;
   r.ox = o[3 * i], r.oy = o[3 * i + 1], r.oz = o[3 * i + 2];
   r.dx = d[3 * i], r.dy = d[3 * i + 1], r.dz = d[3 * i + 2];
   r.tnear = tnear_in[i];
@@ -129,58 +231,20 @@ __global__ void bvh2_walk_kernel(
     r.ix = 1.0f / (r.dx == 0.0f ? 1e-30f : r.dx);
     r.iy = 1.0f / (r.dy == 0.0f ? 1e-30f : r.dy);
     r.iz = 1.0f / (r.dz == 0.0f ? 1e-30f : r.dz);
-    if (mode == 0) {
-      int stack[kStack];
-      int sp = 0;
-      int ptr = 0;
-      while (ptr >= 0) {
-        const int4 nd = __ldg(ni + ptr);
-        const float lim = fminf(tfar, best);
-        if (nd.y > 0) {
-          if (box_hit(box, ptr, r, lim)) {
-            float tb;
-            const int s = plane_leaf(planes, nd.x, leaf, r, lim, false, tb);
-            if (s >= 0) {
-              best = tb;
-              local = nd.x * leaf + s;
-            }
-          }
-          ptr = -1;
-        } else {
-          const int left = ptr + 1;
-          const int right = __ldg(&ni[left].z);
-          const bool hl = box_hit(box, left, r, lim);
-          const bool hr = box_hit(box, right, r, lim);
-          const int axis = nd.w >> 1;
-          const bool pos = axis == 0 ? r.dx >= 0.0f : (axis == 1 ? r.dy >= 0.0f : r.dz >= 0.0f);
-          const bool left_near = ((nd.w & 1) == 1) == pos;
-          if (hl && hr) {
-            stack[sp++] = left_near ? right : left;
-            ptr = left_near ? left : right;
-          } else {
-            ptr = hl ? left : (hr ? right : -1);
-          }
+    int ptr = 0;
+    while (ptr < m_nodes) {
+      const int4 nd = __ldg(ni + ptr);
+      const bool h = box_hit(box, ptr, r, tfar);
+      if (h && nd.y > 0) {
+        float tb;
+        const int s = plane_leaf_first(planes, nd.x, leaf, r, tfar, tb);
+        if (s >= 0) {
+          best = tb;
+          local = nd.x * leaf + s;
+          break;  // any-hit: leave the walk
         }
-        if (ptr < 0 && sp > 0) ptr = stack[--sp];
       }
-    } else {
-      const bool any = mode == 2;
-      int ptr = 0;
-      while (ptr < m_nodes) {
-        const int4 nd = __ldg(ni + ptr);
-        const float lim = any ? tfar : fminf(tfar, best);
-        const bool h = box_hit(box, ptr, r, lim);
-        if (h && nd.y > 0) {
-          float tb;
-          const int s = plane_leaf(planes, nd.x, leaf, r, lim, any, tb);
-          if (s >= 0) {
-            best = tb;
-            local = nd.x * leaf + s;
-            if (any) break;  // any-hit: leave the walk
-          }
-        }
-        ptr = (h && nd.y == 0) ? ptr + 1 : nd.z;
-      }
+      ptr = (h && nd.y == 0) ? ptr + 1 : nd.z;
     }
   }
   out_t[i] = best;
@@ -195,11 +259,39 @@ extern "C" int bvh2_walk(
     int m_nodes, int mode, int n, int leaf,
     float* out_t, int* out_local, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* b = reinterpret_cast<const float4*>(box);
+  const int4* nodes = reinterpret_cast<const int4*>(ni);
+  const float4* p = reinterpret_cast<const float4*>(planes);
+  if (mode == 2) {
+    const int threads = 128;
+    bvh2_any_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
+        o, d, tnear, tfar, b, nodes, p, m_nodes, n, leaf, out_t, out_local);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (leaf != kLeaf || (mode != 0 && mode != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = kWarps * 32;
   const int blocks = (n + threads - 1) / threads;
-  bvh2_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tnear, tfar, reinterpret_cast<const float4*>(box),
-      reinterpret_cast<const int4*>(ni), reinterpret_cast<const float4*>(planes),
-      m_nodes, mode, n, leaf, out_t, out_local);
+  if (mode == 0) {
+    bvh2_walk_kernel<true><<<blocks, threads, kSmem, s>>>(o, d, tnear, tfar, b, nodes, p,
+                                                          m_nodes, n, out_t, out_local);
+  } else {
+    bvh2_walk_kernel<false><<<blocks, threads, kSmem, s>>>(o, d, tnear, tfar, b, nodes, p,
+                                                           m_nodes, n, out_t, out_local);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks a multiprocessor of the closest-hit kernel of `mode`
+// (0 ordered, 1 skip), registers and shared memory permitting.
+extern "C" int bvh2_walk_blocks_per_sm(int mode) {
+  int blocks = 0;
+  if (mode == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh2_walk_kernel<true>, kWarps * 32,
+                                                  kSmem);
+  } else {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh2_walk_kernel<false>,
+                                                  kWarps * 32, kSmem);
+  }
+  return blocks;
 }

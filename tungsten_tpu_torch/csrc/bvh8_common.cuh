@@ -1,6 +1,7 @@
 // The BVH8 walks' own pieces (bvh8_walk.cu, bvh8_walk_fast.cu, and the
-// one-thread-per-ray kernel kept for comparison, bvh8_walk_v1.cu): the walk
-// state, the node visit, the exact plane-form slot test, and `walk_warp`,
+// one-thread-per-ray kernel kept for comparison, bvh8_walk_v1.cu) and K4's
+// (bvh2_walk.cu): the walk state, the node visit, the exact plane-form slot
+// test, its warp-cooperative leaf step `ExactLeaf`, and `walk_warp`,
 // the BVH8 walk on the traversal skeleton of walk_common.cuh (whose names
 // this namespace takes in).
 
@@ -20,6 +21,8 @@ struct Walker {
   float idx, idy, idz;           // 1 / d, d == 0 read as 1e-30
   float tnear, tfar, best;
   int octant, local, sp, parked;  // parked: a leaf waiting for the warp, or -1
+
+  __device__ __forceinline__ void leave() { sp = 0; }
 };
 
 // The ray of lane i (or an empty walk for a lane past n or a dead ray).
@@ -97,6 +100,85 @@ __device__ __forceinline__ bool slot_exact(float4 N, float4 U, float4 V, float o
                             __fmul_rn(t, dot_exact(V, dx, dy, dz)));
   return (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) && (t > tnear) && (t < lim);
 }
+
+constexpr int kLeafVec = kLeaf * 3;  // float4 rows of one plane leaf (N, U, V a slot)
+
+// The exact plane-form leaf step of the warp-cooperative walks over the BVH8
+// pack's planes (K3, bvh8_walk.cu; K4's closest-hit modes, bvh2_walk.cu): the
+// leaf policy of `warp_leaf_rounds`. stage() copies a leaf into the warp's
+// buffer (12 cp.async of 16 bytes a lane, coalesced). test() takes the
+// members of a leaf one after the other, each by the whole warp: the
+// member's ray is broadcast with __shfl_sync, lane l tests slots l, l+32,
+// l+64 and l+96 with `slot_exact` from shared memory (conflict-free 16-byte
+// reads) against the member's lim = min(tfar, best) at this step, keeping
+// its lowest hit and the lowest slot among its least t; two redux.sync
+// minima over (order_key(t), slot) give the serial loop's winner. A latched
+// member takes its lowest hit slot, best = 0, and leaves its walk.
+// The walker W supplies the ray (ox oy oz dx dy dz tnear), tfar, best, local,
+// parked and leave(), which ends its walk.
+struct ExactLeaf {
+  const float4* planes;  // (n_leaves, 128, 3): N, U, V (x y z c)
+  float4* smem;          // this warp's [2][kLeafVec]
+  unsigned latched;      // ballot of the latched lanes
+  int lane;
+
+  __device__ __forceinline__ float prune(float best) const { return best; }
+
+  __device__ __forceinline__ void stage(int leaf, int buf) {
+    const float4* src = planes + static_cast<size_t>(leaf) * kLeafVec;
+    float4* dst = smem + buf * kLeafVec;
+#pragma unroll
+    for (int k = 0; k < kLeafVec / 32; ++k) cp_async16(dst + lane + 32 * k, src + lane + 32 * k);
+  }
+
+  template <class W>
+  __device__ __forceinline__ void test(W& w, unsigned members, int leaf, int buf) {
+    const float4* p = smem + buf * kLeafVec;
+    const float lim_own = fminf(w.tfar, w.best);
+    while (members) {
+      const int src = __ffs(members) - 1;
+      members &= members - 1;
+      const float ox = __shfl_sync(kFull, w.ox, src), oy = __shfl_sync(kFull, w.oy, src);
+      const float oz = __shfl_sync(kFull, w.oz, src), dx = __shfl_sync(kFull, w.dx, src);
+      const float dy = __shfl_sync(kFull, w.dy, src), dz = __shfl_sync(kFull, w.dz, src);
+      const float tnear = __shfl_sync(kFull, w.tnear, src);
+      const float lim = __shfl_sync(kFull, lim_own, src);
+      const bool latch = (latched >> src) & 1u;
+      float tb = kInf;
+      unsigned sb = kNone, first = kNone;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = lane + 32 * j;
+        float t;
+        if (slot_exact(p[3 * s], p[3 * s + 1], p[3 * s + 2], ox, oy, oz, dx, dy, dz, tnear, lim,
+                       t)) {
+          if (first == kNone) first = s;
+          if (t < tb) {
+            tb = t;
+            sb = s;
+          }
+        }
+      }
+      unsigned win;
+      float t_win = 0.0f;
+      if (latch) {
+        win = __reduce_min_sync(kFull, first);
+      } else {
+        win = warp_min_slot(tb, sb, t_win);
+      }
+      if (lane == src && win != kNone) {
+        w.local = leaf * kLeaf + static_cast<int>(win);
+        if (latch) {
+          w.best = 0.0f;
+          w.leave();  // any-hit: leave the walk
+        } else {
+          w.best = t_win;
+        }
+      }
+    }
+    if (w.parked == leaf) w.parked = -1;
+  }
+};
 
 // The BVH8 walk of one warp: per-thread inner nodes from the private stack
 // (a leaf is pushed as -(leaf + 2)), cooperative leaf steps; the leaf step

@@ -31,7 +31,8 @@
 //     memory (12 cp.async of 16 bytes a lane, coalesced, double-buffered so
 //     the next leaf's copy overlaps this leaf's tests);
 //   * the members of a leaf are tested one after the other, each by the whole
-//     warp: the member's ray is broadcast with __shfl_sync, lane l tests
+//     warp (bvh8_common.cuh `ExactLeaf`, shared with K4's closest-hit
+//     walks): the member's ray is broadcast with __shfl_sync, lane l tests
 //     slots l, l+32, l+64 and l+96 from shared memory (conflict-free 16-byte
 //     reads), keeping the lowest slot among its least t (or its lowest hit
 //     under the latch), and two redux.sync minima over (order_key(t), slot)
@@ -53,72 +54,8 @@ namespace {
 using namespace bvh8;
 
 constexpr int kWarps = 4;                        // warps a block
-constexpr int kLeafVec = kLeaf * 3;              // float4 rows of one leaf
 constexpr int kSmemPerWarp = 2 * kLeafVec * 16;  // two leaf buffers
 constexpr int kSmem = kWarps * kSmemPerWarp;
-
-struct ExactLeaf {
-  const float4* planes;  // (n_leaves, 128, 3): N, U, V (x y z c)
-  float4* smem;                       // this warp's [2][kLeafVec]
-  unsigned latched;                   // ballot of the latched lanes
-  int lane;
-
-  __device__ __forceinline__ float prune(float best) const { return best; }
-
-  __device__ __forceinline__ void stage(int leaf, int buf) {
-    const float4* src = planes + static_cast<size_t>(leaf) * kLeafVec;
-    float4* dst = smem + buf * kLeafVec;
-#pragma unroll
-    for (int k = 0; k < kLeafVec / 32; ++k) cp_async16(dst + lane + 32 * k, src + lane + 32 * k);
-  }
-
-  __device__ __forceinline__ void test(Walker& w, unsigned members, int leaf, int buf) {
-    const float4* p = smem + buf * kLeafVec;
-    const float lim_own = fminf(w.tfar, w.best);
-    while (members) {
-      const int src = __ffs(members) - 1;
-      members &= members - 1;
-      const float ox = __shfl_sync(kFull, w.ox, src), oy = __shfl_sync(kFull, w.oy, src);
-      const float oz = __shfl_sync(kFull, w.oz, src), dx = __shfl_sync(kFull, w.dx, src);
-      const float dy = __shfl_sync(kFull, w.dy, src), dz = __shfl_sync(kFull, w.dz, src);
-      const float tnear = __shfl_sync(kFull, w.tnear, src);
-      const float lim = __shfl_sync(kFull, lim_own, src);
-      const bool latch = (latched >> src) & 1u;
-      float tb = kInf;
-      unsigned sb = kNone, first = kNone;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = lane + 32 * j;
-        float t;
-        if (slot_exact(p[3 * s], p[3 * s + 1], p[3 * s + 2], ox, oy, oz, dx, dy, dz, tnear, lim,
-                       t)) {
-          if (first == kNone) first = s;
-          if (t < tb) {
-            tb = t;
-            sb = s;
-          }
-        }
-      }
-      unsigned win;
-      float t_win = 0.0f;
-      if (latch) {
-        win = __reduce_min_sync(kFull, first);
-      } else {
-        win = warp_min_slot(tb, sb, t_win);
-      }
-      if (lane == src && win != kNone) {
-        w.local = leaf * kLeaf + static_cast<int>(win);
-        if (latch) {
-          w.best = 0.0f;
-          w.sp = 0;  // any-hit: leave the walk
-        } else {
-          w.best = t_win;
-        }
-      }
-    }
-    if (w.parked == leaf) w.parked = -1;
-  }
-};
 
 __global__ void __launch_bounds__(kWarps * 32) bvh8_walk_kernel(
     const float* __restrict__ o, const float* __restrict__ d,

@@ -8,16 +8,30 @@ from the scene's Bvh8Pack), as the JAX package shares them between pbvh8
 and pbvh3: both packs come from one tree (bvh8.tri_tree).
 
 Kernel half: the port of K4, the three walks `_launch3` selects, as one CUDA
-kernel with a mode (csrc/bvh2_walk.cu, one thread per ray) and `walk3_twin`,
-its plain PyTorch version vectorised over the lanes still walking:
+source with a mode (csrc/bvh2_walk.cu) and `walk3_twin`, its plain PyTorch
+version vectorised over the lanes still walking:
   "ordered"  `_walk_kernel4`: near child first, a private stack, per-ray
              best-t pruning (intersect_bvh_pallas3's default);
   "skip"     `_walk_kernel3`: stackless skip-pointer closest hit;
   "any"      `_walk_kernel3_any`: skip-pointer walk that stops at the first
              hit in (tnear, tfar) (occluded_bvh_pallas3).
-`walk3` picks by the tensors' device: CUDA launches the kernel (or raises),
-CPU runs the twin. Each keeps a plain launch count per mode
+The two closest-hit walks run inner nodes per thread and test leaves per
+warp: a lane parks each leaf whose box it hits, and the warp stages the
+leaf in shared memory once and tests it for every lane parked on it, with
+K3's leaf step (csrc/bvh8_common.cuh `ExactLeaf`); "any" runs one thread
+per ray. The kernel takes leaves of LEAF = 128 slots only. `walk3` picks by
+the tensors' device: CUDA launches the kernel (or raises), CPU runs the
+twin. Each keeps a plain launch count per mode
 (`walk3_cuda.launches["ordered"]`, `walk3_twin.launches["any"]`, ...).
+
+`walk3_cuda_v1` launches the first CUDA form (csrc/bvh2_walk_v1.cu: one
+thread per ray in every mode, a serial slot loop), kept only so that a run
+can measure old and new on one card: the intersector benchmark and
+chip_smoke.py launch it, no query does. Its closest-hit leaf arithmetic is
+contracted by the compiler where the new kernel rounds as K3 does, so the
+two agree by bars, not bits. `coop_walk3` emulates the new kernel's
+bookkeeping (parking, leaf rounds per 32-lane group, the warp's leaf step)
+in plain torch for the CPU tests; nothing else uses it.
 
 The ordered walk's stack holds STACK_DEPTH entries (pallas_bvh2.py
 `_STACK_DEPTH`). The JAX package never checks a tree against it; the port
@@ -26,13 +40,15 @@ refuses a deeper tree in Bvh3Pack.from_arrays.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import _build
-from .bvh8 import Bvh8Pack, box_hit, check_rays, hit_from_slots, plane_leaf, safe_inv
+from .bvh8 import (LEAF, WARP, Bvh8Pack, box_hit, check_rays, coop_leaf_step, coop_merge,
+                   hit_from_slots, plane_leaf, safe_inv)
 from .intersect import INF, Hit
 
 STACK_DEPTH = 96
@@ -242,16 +258,17 @@ walk3_twin.launches = dict.fromkeys(MODES, 0)
 walk3_twin.work = {"box": 0, "tri": 0}
 
 
-def _kernel_fn():
-    fn = _build.load_library("bvh2_walk").bvh2_walk
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str):
+    fn = getattr(_build.load_library(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     return fn
 
 
-def walk3_cuda(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
-    """Launch the CUDA K4 walk (csrc/bvh2_walk.cu) on the current stream.
-    Returns (t (n,) f32, local slot (n,) i64; -1 = miss), as walk3_twin."""
+def _launch(name, pack: Bvh3Pack, o, d, tnear, tfar, mode):
+    """Check the inputs and launch csrc/<name>.cu in `mode` on the current
+    stream: (t (n,) f32, local slot (n,) i64; -1 = miss)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     n = o.shape[0]
@@ -262,16 +279,40 @@ def walk3_cuda(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
     out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
     out_local = torch.empty((n,), dtype=torch.int32, device=o.device)
     p = _build.ptr
-    err = _kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(pack.box_t), p(pack.ni_t),
-                       p(pack.tri_planes), pack.n_nodes, MODES.index(mode), n, pack.leaf,
-                       p(out_t), p(out_local), _build.stream_of(o))
+    err = _kernel_fn(name)(p(o), p(d), p(tnear), p(tfar), p(pack.box_t), p(pack.ni_t),
+                           p(pack.tri_planes), pack.n_nodes, MODES.index(mode), n, pack.leaf,
+                           p(out_t), p(out_local), _build.stream_of(o))
     if err != 0:
-        raise RuntimeError(f"bvh2_walk launch failed: CUDA error {err}")
-    walk3_cuda.launches[mode] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out_t, out_local.long()
 
 
+def walk3_cuda(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
+    """Launch the CUDA K4 walk (csrc/bvh2_walk.cu) on the current stream.
+    Returns (t (n,) f32, local slot (n,) i64; -1 = miss), as walk3_twin.
+    Raises on a pack whose leaves are not LEAF wide: the closest-hit walks
+    split exactly that many slots across a warp."""
+    if pack.leaf != LEAF:
+        raise ValueError(f"the K4 kernel takes leaves of {LEAF} slots; the pack's are "
+                         f"{pack.leaf} wide")
+    out = _launch("bvh2_walk", pack, o, d, tnear, tfar, mode)
+    walk3_cuda.launches[mode] += 1
+    return out
+
+
 walk3_cuda.launches = dict.fromkeys(MODES, 0)
+
+
+def walk3_cuda_v1(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
+    """Launch the first CUDA form of the K4 walk (csrc/bvh2_walk_v1.cu: one
+    thread per ray, a serial slot loop), kept to be measured beside the
+    kernel; no query launches it. Its launches are counted per mode."""
+    out = _launch("bvh2_walk_v1", pack, o, d, tnear, tfar, mode)
+    walk3_cuda_v1.launches[mode] += 1
+    return out
+
+
+walk3_cuda_v1.launches = dict.fromkeys(MODES, 0)
 
 
 def walk3(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
@@ -294,3 +335,95 @@ def occluded_bvh3(pack: Bvh3Pack, o, d, tnear, tfar):
     """Any-hit query -> bool per ray (occluded_bvh_pallas3)."""
     _, local = walk3(pack, o, d, tnear, tfar, "any")
     return local >= 0
+
+
+# ---------------------------------------------------------------------------
+# the new kernel's bookkeeping, emulated for the CPU tests
+# ---------------------------------------------------------------------------
+
+def coop_walk3(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
+    """csrc/bvh2_walk.cu's closest-hit walks ("ordered", "skip") as the
+    kernel schedules them, in plain torch. Lanes form groups of WARP. Every
+    lane descends by the kernel's rules until it parks a leaf whose box it
+    hits or its walk ends: the skip walk moves on to skip[ptr], the ordered
+    walk pops its next pointer, and neither tests that node's box before
+    the leaf step. Then each group runs leaf steps while a lane is parked:
+    the lowest parked lane leads, the lanes parked on its leaf are the
+    members, and each member's leaf is tested against the lim it has at
+    that step, min(tfar, best), through the warp's leaf step
+    (bvh8.coop_leaf_step, coop_merge; no lane latched). Returns (t, local)
+    as walk3_twin; the slot test is the twin's (bvh8.plane_leaf).
+    `coop_walk3.work` counts box and slot tests as walk3_twin.work does."""
+    if mode not in ("ordered", "skip"):
+        raise ValueError(f"mode {mode!r}: the warp-cooperative walks are ordered and skip")
+    n, m, L = o.shape[0], pack.n_nodes, pack.leaf
+    tfar = torch.clamp(tfar, max=INF)
+    inv = safe_inv(d)
+    pos = d >= 0.0
+    box_t, ni_t = pack.box_t, pack.ni_t.long()
+    best = torch.full((n,), INF)
+    local = torch.full((n,), -1, dtype=torch.int64)
+    ptr = torch.where(tnear < tfar, 0, -1)  # -1: the walk is over
+    parked = torch.full((n,), -1, dtype=torch.int64)
+    sp = torch.zeros(n, dtype=torch.int64)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64)
+    group = torch.arange(n) // WARP
+    n_groups = (n + WARP - 1) // WARP
+    work = coop_walk3.work = {"box": 0, "tri": 0}
+    while True:
+        # descend: each lane until it parks a leaf or its walk ends
+        while True:
+            act = torch.nonzero((parked < 0) & (ptr >= 0)).squeeze(1)
+            if act.numel() == 0:
+                break
+            p = ptr[act]
+            nd = ni_t[p]
+            is_leaf = nd[:, 1] > 0
+            oa, ia, tn = o[act], inv[act], tnear[act]
+            lim = torch.minimum(tfar[act], best[act])
+            work["box"] += act.numel() + (int((~is_leaf).sum()) if mode == "ordered" else 0)
+            if mode == "skip":
+                h = box_hit(box_t[p], oa, ia, tn, lim)
+                parked[act] = torch.where(h & is_leaf, nd[:, 0], -1)
+                nxt = torch.where(h & ~is_leaf, p + 1, nd[:, 2])
+                ptr[act] = torch.where(nxt < m, nxt, -1)
+                continue
+            parked[act] = torch.where(is_leaf & box_hit(box_t[p], oa, ia, tn, lim), nd[:, 0], -1)
+            left = torch.clamp(p + 1, max=m - 1)
+            right = torch.clamp(ni_t[left, 2], max=m - 1)
+            hl = box_hit(box_t[left], oa, ia, tn, lim) & ~is_leaf
+            hr = box_hit(box_t[right], oa, ia, tn, lim) & ~is_leaf
+            code = nd[:, 3]
+            left_near = ((code & 1) == 1) == pos[act].gather(1, (code // 2)[:, None])[:, 0]
+            both = hl & hr
+            sp_a = sp[act]
+            stack[act[both], sp_a[both]] = torch.where(left_near, right, left)[both]
+            sp_a = sp_a + both.long()
+            nxt = torch.where(both, torch.where(left_near, left, right),
+                              torch.where(hl, left, torch.where(hr, right, -1)))
+            pop = (nxt < 0) & (sp_a > 0)  # popped after a park too; its box waits
+            top = torch.clamp(sp_a - 1, min=0)
+            ptr[act] = torch.where(pop, stack[act, top], nxt)
+            sp[act] = torch.where(pop, top, sp_a)
+        if not bool((parked >= 0).any()):
+            return best, local
+        # leaf rounds of every group until none of its lanes is parked
+        while True:
+            want = torch.nonzero(parked >= 0).squeeze(1)
+            if want.numel() == 0:
+                break
+            leader = torch.full((n_groups,), n).scatter_reduce(0, group[want], want, "amin")
+            lead_leaf = parked[torch.clamp(leader, max=n - 1)]
+            mem = want[parked[want] == lead_leaf[group[want]]]
+            blk = parked[mem]
+            work["tri"] += mem.numel() * L
+            t, h = plane_leaf(pack.tri_planes[blk], o[mem], d[mem], tnear[mem],
+                              torch.minimum(tfar[mem], best[mem]))
+            unlatched = torch.zeros(mem.numel(), dtype=torch.bool)
+            t_win, slot = coop_leaf_step(t, h, unlatched)
+            best[mem], local[mem], _ = coop_merge(t_win, slot, unlatched, best[mem], local[mem],
+                                                  blk * L, fast=False)
+            parked[mem] = -1
+
+
+coop_walk3.work = {"box": 0, "tri": 0}

@@ -2,7 +2,7 @@
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
         [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri
-                   (and bvh8v1,bvh8anyv1,bvh8fastv1,bvhv1,bvh1v1,triv1)]
+                   (and bvh8v1,bvh8anyv1,bvh8fastv1,bvh3v1,bvh3skipv1,bvhv1,bvh1v1,triv1)]
         [--trials 5]
         [--device cuda|cpu]
 
@@ -25,13 +25,14 @@ Kernels (each a walk of one pack of the flattened scene):
             best-t pruning in the box tests)                (intersect_stream.cu)
 Besides, by name only (not in the default list): the first CUDA forms
 ("v1": one thread per ray; K2's with the TPU kernel's tile vote) of K3,
-K3-fast, K5 and K2, kept to be measured beside the redesigned kernels on one
-card:
+K3-fast, K4, K5 and K2, kept to be measured beside the redesigned kernels
+on one card:
   bvh8v1    K3 closest hit (bvh8_walk_v1.cu)      bvh8anyv1 its latched any-hit
   bvh8fastv1 K3-fast raw (bvh8_walk_fast_v1.cu)
+  bvh3v1    K4 ordered (bvh2_walk_v1.cu)          bvh3skipv1 K4 skip (bvh2_walk_v1.cu)
   bvhv1     K5-v2 (bvh_walk_v1.cu)                bvh1v1    K5-v1 (bvh_walk_v1.cu)
   triv1     K2 (intersect_stream_v1.cu)
-e.g. --kernels bvh8,bvh8v1,bvh,bvhv1,bvh1,bvh1v1,tri,triv1.
+e.g. --kernels bvh8,bvh8v1,bvh3,bvh3v1,bvh3skip,bvh3skipv1,bvh,bvhv1,tri,triv1.
 On a CUDA device each walk's kernel and its plain twin are timed with CUDA
 events after a warm-up, as the median of --trials runs; on the CPU only the
 twins run (the port's CPU path), timed by the host clock. Nothing falls back
@@ -72,6 +73,7 @@ from .. import device as get_device
 from .. import synth
 from ..models.cameras.pinhole import camera_rays_w
 from ..ops import bvh, bvh2, bvh8, intersect_stream as k2
+from ..ops.bvh8 import hit_from_slots
 from ..ops.intersect import INF, intersect_brute
 from ..sampling.sampler import Sampler
 from ..scene.flatten import flatten_scene
@@ -79,7 +81,7 @@ from ..scene.load import load_scene
 
 KERNELS = ("bvh8", "bvh8any", "bvh8fast", "bvh8fastq", "bvh3", "bvh3skip", "bvh3any", "bvh",
            "bvh1", "tri")
-V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1", "bvhv1", "bvh1v1",
+V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1", "bvh3v1", "bvh3skipv1", "bvhv1", "bvh1v1",
               "triv1")  # by name only, for comparison
 # any-hit walk -> its closest-hit walk
 ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1"}
@@ -144,6 +146,10 @@ def walks(scene, name):
         "bvh3": (P(bvh2.walk3_cuda, p3, mode="ordered"), P(bvh2.walk3_twin, p3, mode="ordered")),
         "bvh3skip": (P(bvh2.walk3_cuda, p3, mode="skip"), P(bvh2.walk3_twin, p3, mode="skip")),
         "bvh3any": (P(bvh2.walk3_cuda, p3, mode="any"), P(bvh2.walk3_twin, p3, mode="any")),
+        "bvh3v1": (P(bvh2.walk3_cuda_v1, p3, mode="ordered"),
+                   P(bvh2.walk3_twin, p3, mode="ordered")),
+        "bvh3skipv1": (P(bvh2.walk3_cuda_v1, p3, mode="skip"),
+                       P(bvh2.walk3_twin, p3, mode="skip")),
         "bvh": (P(bvh.walk_packet_cuda, pv), P(bvh.walk_packet_twin, pv)),
         "bvh1": (P(bvh.walk_packet_cuda, pv, prune=False),
                  P(bvh.walk_packet_twin, pv, prune=False)),
@@ -162,6 +168,11 @@ def query(scene, name, rays):
     if name in ("bvhv1", "bvh1v1"):
         walk = bvh.walk_packet_cuda_v1 if on_card else bvh.walk_packet_twin
         h = bvh.hit_from_local(scene.pbvh, *walk(scene.pbvh, *rays, prune=name == "bvhv1"))
+    elif name in ("bvh3v1", "bvh3skipv1"):
+        walk = bvh2.walk3_cuda_v1 if on_card else bvh2.walk3_twin
+        mode = "ordered" if name == "bvh3v1" else "skip"
+        h = hit_from_slots(scene.pbvh3.prim_map, scene.tris, *rays[:2],
+                           *walk(scene.pbvh3, *rays, mode=mode))
     elif name == "triv1":
         walk = k2.stream_cuda_v1 if on_card else k2.stream_twin
         h = k2.hit_from_stream(scene.ptris, *walk(scene.ptris, *rays))
