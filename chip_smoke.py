@@ -13,7 +13,7 @@ printing a result):
                 nvcc per source, all at once, and prints what ptxas said of
                 the two BVH8 kernels, K4, K5 and K2 (registers, shared memory,
                 spills) and their resident blocks a multiprocessor (K4's
-                closest-hit kernel in both modes);
+                kernel in each of its three modes);
   3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
@@ -25,19 +25,22 @@ printing a result):
                 mixed mode on the random rays, the 563,000 camera rays and the
                 2N batch; times v1 and K3 at 2N in turns (v1, new, new, v1,
                 each the median of 5 launches);
-  3b. kernels - K4 (bvh2_walk) on the same scene's packs: "any" against
-                its twin on the 65,536 random rays and the 563,000 camera
-                rays, and against its first form (bvh2_walk_v1.cu, whose body
-                it keeps) bit for bit; "ordered" and "skip" on those two sets
-                and the 2N closest-hit batch against their twin and their
-                first form by the bars (the new kernel's leaf rounds as K3's
-                does, the first form's as the compiler contracted it; on the
-                2N set the all-lanes t bar has phase 3d's grazing floor; the
-                lanes that differ counted and printed), and against exact K3
-                on the same rays (the packs share their plane leaves): the
-                slot on >= 99.99% of the lanes, t bit for bit where it
-                agrees; each K4 closest-hit walk against its first form at
-                2N in turns; K5 (bvh_walk) in both modes (prune=1:
+  3b. kernels - K4 (bvh2_walk) on the same scene's packs, in its three
+                modes on the 65,536 random rays, the 563,000 camera rays and
+                the 2N batch (phase 3's rays and tfar, every lane closest hit
+                in "ordered" and "skip", every lane any-hit in "any"): against
+                its twin and its first form (bvh2_walk_v1.cu) by the bars (the
+                new kernel's leaf rounds as K3's does, the first form's as
+                the compiler contracted it; on the 2N set the all-lanes t bar
+                has phase 3d's grazing floor; the lanes that differ counted
+                and printed), and against exact K3 on the same rays (the
+                packs share their plane leaves): "ordered" and "skip" by slot
+                on >= 99.99% of the lanes, t bit for bit where it agrees;
+                "any" against K3's latch by occlusion on >= 99.99% of the
+                lanes (the two walks reach different first leaves, so their
+                slots differ), the lanes that differ printed; each K4 walk
+                against its first form at 2N in turns; K5 (bvh_walk) in both
+                modes (prune=1:
                 K5-v2, prune=0: K5-v1) against its twin and its first CUDA
                 form (bvh_walk_v1.cu) bit for bit in t, slot, u and v on those
                 two sets and on the 2N closest-hit batch that the render's K5
@@ -103,15 +106,15 @@ printing a result):
                 Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
-                ten walks and the eight first forms (v1 walks; 54 timed rows;
+                ten walks and the nine first forms (v1 walks; 57 timed rows;
                 bvh8fast is the raw fast kernel, bvh8fastq the whole fast
                 query), with
                 every agreement >= 99.9% (K2 the brute-force reference of
                 every walk on the coherent rays) and the launch counts reset
                 just before and read just after; then K3 closest, K3 latched
                 and K3-fast against their v1 forms on the benchmark's coherent
-                and incoherent rays, in turns, and so K4 (ordered, skip), K5
-                (both modes) and K2 against their first forms;
+                and incoherent rays, in turns, and so K4 (ordered, skip,
+                any), K5 (both modes) and K2 against their first forms;
   7. routes   - materialtest-analytic at 1000x563 and 32 spp through
                 render_flat on three FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = pbvh3 = None (K5-v2) and
@@ -126,14 +129,14 @@ The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, phase 7's route
 renders for K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
-K4 ordered and skip, K5, K2 and the first forms, camera rays for K4 any),
+K4 in its three modes, K5, K2 and the first forms),
 and the kernel's and twin's ms and the kernel's bound on the rays of those
 launches: the 2N batch for K3, K3-fast, K5-v2 and K2 (K5-v2's and K2's ms
 the mean of their turns against their first forms; the benchmark's coherent
 time beside as bench_ms, the first form's 2N time as v1_ms), the benchmark's
 coherent rays for K4, K5-v1 and the first forms (their 2N time and bound
 beside as ms_2n and bound_2n_ms; the first form's times of K5-v1 and of K4
-ordered and skip as v1_ms and v1_ms_2n). The bound is the larger of the
+in each mode as v1_ms and v1_ms_2n). The bound is the larger of the
 bytes the kernel must move (inputs read once, outputs written once) over
 3.35 TB/s and the operations its rays need over the peak rate of their type
 (f32 at 67 TFLOP/s; K3-fast's products of bf16 pairs with their f32 sums at
@@ -153,7 +156,7 @@ took while they were the one-thread-per-ray kernels, kept so that their
 series stays continuous. The benchmark's ms are its median of 5
 single-launch windows.
 The first forms' rows (bvh8_walk_v1, bvh8_walk_fast_v1,
-bvh2_walk_v1_ordered, bvh2_walk_v1_skip, bvh_walk_v1_form,
+bvh2_walk_v1_ordered, bvh2_walk_v1_skip, bvh2_walk_v1_any, bvh_walk_v1_form,
 intersect_stream_v1; "v1" means the first CUDA form, and bvh_walk_v1 is the
 TPU's K5-v1, prune=0, on the new kernel) take their launches, ms and bound
 from the benchmark (phase 6), with their 2N turn times beside (ms_2n; K3's
@@ -196,7 +199,7 @@ MEAN_RTOL = 5e-3  # render per-channel means vs the JAX package's, and route vs 
 # routes: a hit that flips between two walks reshades the rest of its path
 PIX_ATOL, PIX_RTOL, PIX_BAR = 1e-3, 1e-3, 0.90
 # the K4 walks: (json name, benchmark name, mode, source, the TPU kernel it
-# replaces); the closest-hit two come first
+# replaces)
 NEW_KERNELS = (
     ("bvh2_walk_ordered", "bvh3", "ordered", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:204"),
@@ -205,7 +208,9 @@ NEW_KERNELS = (
     ("bvh2_walk_any", "bvh3any", "any", "tungsten_tpu_torch/csrc/bvh2_walk.cu",
      "tungsten_tpu/ops/pallas_bvh2.py:168"),
 )
-K4_K3_BAR = 0.9999  # K4's slot vs exact K3's: coincident triangles may tie across leaves
+# K4's slot vs exact K3's (coincident triangles may tie across leaves), and
+# K4-any's occlusion vs K3's latch
+K4_K3_BAR = 0.9999
 # K5 in both modes and K2, each with its first CUDA form: (json name,
 # benchmark name, source, the TPU kernel it replaces, the first form's json
 # name and benchmark name, or None where the first form's row is another
@@ -478,8 +483,8 @@ def main():
             f"ptxas -v:\n{_build.ptxas_report(name)}")
     occ = _build.load_library("bvh2_walk").bvh2_walk_blocks_per_sm
     occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
-    log(f"[2 build] bvh2_walk: {occ(0)} (ordered) / {occ(1)} (skip) resident blocks of 128 "
-        f"threads a multiprocessor; ptxas -v:\n{_build.ptxas_report('bvh2_walk')}")
+    log(f"[2 build] bvh2_walk: {occ(0)} (ordered) / {occ(1)} (skip) / {occ(2)} (any) resident "
+        f"blocks of 128 threads a multiprocessor; ptxas -v:\n{_build.ptxas_report('bvh2_walk')}")
 
     work = os.path.join(REPO, "build", "chip_smoke")  # scenes are written here
     big_path = synth.write_scene(os.path.join(work, "mt"), "materialtest-synth")
@@ -598,24 +603,17 @@ def main():
     # the K5 / K2 routes' 2N batch: phase 3's rays and tfar, all closest hit
     with_mixed = cases + ((f"mixed 2N={2 * n_pix}", r2),)
     p3 = scene.pbvh3
-    # K4 any: against its twin by the bars, and its first form, whose
-    # per-thread body it keeps, bit for bit
-    new_err = {}
-    for label, rr in cases:
-        new, old = bvh2.walk3_cuda(p3, *rr, "any"), bvh2.walk3_cuda_v1(p3, *rr, "any")
-        torch.cuda.synchronize()
-        twin = bvh2.walk3_twin(p3, *rr, "any")
-        new_err["bvh2_walk_any"] = k4_bars(f"K4 any {label} vs twin", new, twin, T_ATOL, 0.0)
-        check(same_bits(new, old), f"K4 any {label}: equals its first form bit for bit")
-    # K4 ordered and skip (warp-cooperative leaves): against their twin and
-    # their first form by the bars, against exact K3 (no latch) on the same
-    # rays by slot, and t bit for bit where the slots agree
-    k4_work_2n, k4_v1_err = {}, {}  # json name -> the twin's counts / v1's error at 2N
+    # K4 in its three modes (warp-cooperative leaves): against its twin and
+    # its first form by the bars; "ordered" and "skip" against exact K3 (no
+    # latch) on the same rays by slot, and t bit for bit where the slots
+    # agree; "any" against K3's latch by occlusion
+    new_err, k4_work_2n, k4_v1_err = {}, {}, {}  # json name -> error / twin counts at 2N
     for label, rr in with_mixed:
         # the 2N batch's shadow lanes hit at a few tnear: the grazing floor
         grazing = T_ATOL_ALL_GRAZING_PER_EXTENT * extent if rr is r2 else 0.0
         t3, l3 = bvh8.walk_cuda(pack, *rr)
-        for name, _, mode, _, _ in NEW_KERNELS[:2]:
+        l3_latch = bvh8.walk_cuda(pack, *rr, latch=True)[1]
+        for name, _, mode, _, _ in NEW_KERNELS:
             new = bvh2.walk3_cuda(p3, *rr, mode)
             old = bvh2.walk3_cuda_v1(p3, *rr, mode)
             torch.cuda.synchronize()
@@ -625,13 +623,25 @@ def main():
             hit = (old[1] == twin[1]) & (twin[1] >= 0)
             k4_v1_err[name] = (old[0][hit] - twin[0][hit]).abs().max().item()
             k4_work_2n[name] = dict(bvh2.walk3_twin.work)  # the 2N set's, the last
+            got = new[1] >= 0
+            check(bool(((new[0][got] > rr[2][got]) & (new[0][got] < rr[3][got])).all())
+                  and bool((new[1][rr[3] <= rr[2]] == -1).all()),
+                  f"K4 {mode} {label}: every hit in (tnear, tfar), every dead lane a miss")
+            if mode == "any":
+                occ_same = got == (l3_latch >= 0)
+                check(agree(got, l3_latch >= 0) >= K4_K3_BAR,
+                      f"K4 any {label} vs K3's latch: occlusion agree "
+                      f"{agree(got, l3_latch >= 0):.6f} (>= {K4_K3_BAR}; "
+                      f"{int((~occ_same).sum())} lanes differ: {int((~occ_same & got).sum())} "
+                      f"only K4 blocked; occluded {got.float().mean().item():.4f})")
+                continue
             same = new[1] == l3
             check(agree(new[1], l3) >= K4_K3_BAR
                   and torch.equal(new[0][same].view(torch.int32), t3[same].view(torch.int32)),
                   f"K4 {mode} {label} vs exact K3: slot agree {agree(new[1], l3):.6f} (>= "
                   f"{K4_K3_BAR}; {int((~same).sum())} lanes differ), t bit for bit where it "
                   f"agrees (hits {(l3 >= 0).float().mean().item():.4f})")
-    for name, _, mode, _, _ in NEW_KERNELS[:2]:
+    for name, _, mode, _, _ in NEW_KERNELS:
         log(f"  K4 {mode} 2N twin counts {k4_work_2n[name]}")
         turns(f"K4 {mode} 2N", lambda: bvh2.walk3_cuda_v1(p3, *r2, mode),
               lambda: bvh2.walk3_cuda(p3, *r2, mode), card)
@@ -931,7 +941,7 @@ def main():
     check(min(res["agree"].values()) >= BAR, f"isect: all {len(res['agree'])} agreements >= "
           f"{BAR} (lowest {min(res['agree'].values()):.6f})")
     new_keys = [f"bvh2.walk3_cuda.{m}" for m in bvh2.MODES] + [
-        "bvh2.walk3_cuda_v1.ordered", "bvh2.walk3_cuda_v1.skip",
+        *(f"bvh2.walk3_cuda_v1.{m}" for m in bvh2.MODES),
         "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda",
         "bvh8.walk_fast_cuda", "bvh8.walk_cuda_v1", "bvh8.walk_fast_cuda_v1",
         "bvh.walk_packet_cuda_v1.v2", "bvh.walk_packet_cuda_v1.v1",
@@ -942,7 +952,7 @@ def main():
     p8, bp3, bpv, bpt = bscene.pbvh8, bscene.pbvh3, bscene.pbvh, bscene.ptris
     for ray_kind in ("coherent", "incoherent"):
         br = bench_isect.make_rays(bscene, 131072, ray_kind)
-        for mode in ("ordered", "skip"):
+        for mode in bvh2.MODES:
             turns(f"K4 {mode} {ray_kind} 131072", lambda: bvh2.walk3_cuda_v1(bp3, *br, mode),
                   lambda: bvh2.walk3_cuda(bp3, *br, mode), card)
         turns(f"K3 closest {ray_kind} 131072", lambda: bvh8.walk_cuda_v1(p8, *br),
@@ -1041,9 +1051,9 @@ def main():
                     r["ms"], r["twin_ms"], io, ops, bf16_ops)
         row["ms_2n"], row["back_to_back_ms_2n"], row["bound_2n_ms"] = t2n, b2b, b2n
         entries.append(row)
-    # K4: the benchmark's coherent rays, where its launches come from; for
-    # ordered and skip the first form's time (v1_ms), the 2N turns and bound
-    # beside, and the first form's own row, on the same rays
+    # K4: the benchmark's coherent rays, where its launches come from; in
+    # each mode the first form's time (v1_ms), the 2N turns and bound beside,
+    # and the first form's own row, on the same rays
     k4_io = nbytes(p3.box_t, p3.ni_t, p3.tri_planes)
     for name, bname, mode, source, replaces in NEW_KERNELS:
         r = res["times"][("coherent", bname)]
@@ -1051,8 +1061,6 @@ def main():
         row = entry(name, source, replaces, bench_launches[f"bvh2.walk3_cuda.{mode}"],
                     new_err[name], r["ms"], r["twin_ms"], k4_io + n_bench * (32 + 8), ops)
         entries.append(row)
-        if mode == "any":
-            continue
         w2 = k4_work_2n[name]
         bound_2n = bound(k4_io + o2.shape[0] * (32 + 8),
                          w2["box"] * OPS["box"] + w2["tri"] * OPS["plane"])[0]

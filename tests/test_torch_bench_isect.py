@@ -55,12 +55,13 @@ def test_unsupported_kernels_raise(name, reason):
 
 
 def test_v1_walks_by_name(tmp_path):
-    """The first CUDA forms kept for comparison (v1: K3, K3-fast, K4 ordered
-    and skip, K5 in both modes, K2) run by name: on the CPU their twins (the same as the new
+    """The first CUDA forms kept for comparison (v1: K3, K3-fast, K4 in its
+    three modes, K5 in both modes, K2) run by name: on the CPU their twins (the same as the new
     walks'), and every agreement holds; the v1 kernels' counts do not move."""
     path = synth.write_scene(str(tmp_path / "small"), "small")
     pairs = (("bvh8", "bvh8v1"), ("bvh8any", "bvh8anyv1"), ("bvh8fast", "bvh8fastv1"),
-             ("bvh3", "bvh3v1"), ("bvh3skip", "bvh3skipv1"), ("bvh", "bvhv1"), ("bvh1", "bvh1v1"), ("tri", "triv1"))
+             ("bvh3", "bvh3v1"), ("bvh3skip", "bvh3skipv1"), ("bvh3any", "bvh3anyv1"),
+             ("bvh", "bvhv1"), ("bvh1", "bvh1v1"), ("tri", "triv1"))
     names = [n for pair in pairs for n in pair]
     assert set(bench_isect.V1_KERNELS) == {v1 for _, v1 in pairs}
     v1 = (bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda_v1,
@@ -74,6 +75,7 @@ def test_v1_walks_by_name(tmp_path):
         for a, b in pairs:
             assert res["times"][(kind, a)]["work"] == res["times"][(kind, b)]["work"]
     assert "bvh8anyv1 vs bvh8v1: hit mask" in res["agree"]
-    for name in ("bvh3v1", "bvh3skipv1", "bvhv1", "bvh1v1", "triv1"):
+    assert "bvh3anyv1 vs bvh3v1: hit mask" in res["agree"]
+    for name in ("bvh3v1", "bvh3skipv1", "bvh3anyv1", "bvhv1", "bvh1v1", "triv1"):
         assert res["agree"][f"{name} vs brute: hit mask"] >= bench_isect.BAR
     assert all(v >= bench_isect.BAR for v in res["agree"].values()), res["agree"]

@@ -18,7 +18,7 @@ most one (a hit on an edge shared across leaves may tie), t bit for bit
 where it agrees. The new kernel's bookkeeping (lanes park leaves, 32-lane
 groups run leaf rounds, each member tested against its lim at that step)
 is emulated in plain torch (`bvh2.coop_walk3`) and held bit for bit to the
-twin in both modes.
+twin in all three modes ("any" with every lane latched).
 """
 import dataclasses
 
@@ -178,12 +178,15 @@ def test_twin_matches_k3_twin(case, mode):
     assert torch.equal(t4[hit].view(torch.int32), t3[hit].view(torch.int32))
 
 
-@pytest.mark.parametrize("mode", ["ordered", "skip"])
+@pytest.mark.parametrize("mode", bvh2.MODES)
 def test_coop_walk_matches_twin(case, mode):
     """The new kernel's schedule (park, then leaf rounds per 32-lane group
-    with each member's lim at its step) gives the twin's t and slot bit for
-    bit, with the twin's box and slot tests: no node is tested before the
-    leaf step it waits on, so every visit has the twin's limit."""
+    with each member's lim at its step; "any" with every lane latched, its
+    lim tfar, a member with a hit leaving its walk with its leaf's lowest
+    hit slot and that slot's t) gives the twin's t and slot bit for bit,
+    with the twin's box and slot tests: no node is tested before the leaf
+    step it waits on, so every visit has the twin's limit. An unknown mode
+    raises."""
     rays = _t(case["rays"])
     tc, lc = bvh2.coop_walk3(case["pack"], *rays, mode)
     tt, lt = bvh2.walk3_twin(case["pack"], *rays, mode)
@@ -191,8 +194,8 @@ def test_coop_walk_matches_twin(case, mode):
     assert torch.equal(lc, lt)
     assert torch.equal(tc.view(torch.int32), tt.view(torch.int32))
     assert 0.2 < (lc >= 0).float().mean().item() < 0.9
-    with pytest.raises(ValueError, match="ordered and skip"):
-        bvh2.coop_walk3(case["pack"], *rays, "any")
+    with pytest.raises(ValueError, match="mode"):
+        bvh2.coop_walk3(case["pack"], *rays, "nearest")
 
 
 def test_kernels_refuse_cpu_tensors_and_other_leaf_widths(case):

@@ -227,6 +227,29 @@ def test_coop_leaf_step_matches_the_walk_rule(latch_share):
     assert 0.3 < hit.float().mean().item() < 1.0 and not bool(hit[0])
 
 
+def test_coop_leaf_step_latched_t_is_the_lowest_hit_slots():
+    """A latched ray's leaf step reports its lowest hit slot with that
+    slot's own t (what K4-any's walker keeps), not the t of the lane that
+    holds the closest hit; an unlatched ray's t stays the least t."""
+    rng = np.random.default_rng(17)
+    t, h, _ = _leaf_results(rng, 400, 0.0, with_nan=False)
+    t = t + torch.as_tensor(rng.uniform(0.0, 1e-3, t.shape).astype(np.float32))  # no ties
+    for latched in (torch.ones(400, dtype=torch.bool), torch.zeros(400, dtype=torch.bool)):
+        t_win, slot = bvh8.coop_leaf_step(t, h, latched)
+        hit = h.any(dim=1)
+        assert torch.equal(slot >= 0, hit) and not bool(hit[0])
+        lowest = torch.argmax(h.to(torch.uint8), dim=1)
+        want_slot = lowest if bool(latched[0]) else torch.where(h, t, bvh8.INF).argmin(dim=1)
+        assert torch.equal(slot[hit], want_slot[hit])
+        want_t = t.gather(1, want_slot[:, None])[:, 0]
+        assert torch.equal(t_win[hit].view(torch.int32), want_t[hit].view(torch.int32))
+        assert bool((t_win[~hit] == bvh8.INF).all())
+    # the two rules part on most rays that hit twice or more
+    t_l, _ = bvh8.coop_leaf_step(t, h, torch.ones(400, dtype=torch.bool))
+    t_c, _ = bvh8.coop_leaf_step(t, h, torch.zeros(400, dtype=torch.bool))
+    assert int((t_l[hit] != t_c[hit]).sum()) > 100
+
+
 @pytest.mark.parametrize("fast", [False, True])
 def test_coop_merge_across_leaves_matches_the_walk_rule(fast):
     """A sequence of leaves: each accepts t only below the ray's limit (the

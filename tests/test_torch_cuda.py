@@ -34,12 +34,16 @@ accepted just outside its box through the slab test's rounding may be
 culled: prim agrees with the twin on >= 99.99% of rays, and where it
 agrees t, u and v are bit-equal; the first form of K2 keeps the tile vote
 and equals the twin bit for bit.
-K4's closest-hit walks test their leaves per warp with K3's leaf step
+K4's walks test their leaves per warp with K3's leaf step
 (`slot_exact`), where its first form left its leaf arithmetic to the
 compiler: against its twin and against bvh2_walk_v1.cu it is held to the
 bars above; against exact K3 on the same rays (the two packs share their
 plane leaves) the slot agrees on >= 99.99% of rays (coincident triangles
-may tie across leaves) and t is bit-equal where it agrees.
+may tie across leaves) and t is bit-equal where it agrees. K4's any-hit
+walk tests its leaves the same way, every lane latched: against its twin
+and its first form by the same bars, and against K3's latch by occlusion on
+>= 99.99% of rays (the two walks reach different first leaves, so their
+slots differ).
 """
 import numpy as np
 import pytest
@@ -316,11 +320,14 @@ def _k4_bars(label, out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["ordered", "skip"])
+@pytest.mark.parametrize("mode", bvh2.MODES)
 def test_k4_kernel_against_twin_first_form_and_k3(cuda, mode):
     """The warp-cooperative K4 walk against its twin and its first CUDA form
     (bvh2_walk_v1.cu) by the bars, and against exact K3 on the same rays:
-    the slot on >= 99.99%, t bit for bit where it agrees."""
+    the closest-hit walks by slot on >= 99.99%, t bit for bit where it
+    agrees; "any" against K3's latch by occlusion on >= 99.99% (the BVH8
+    walk reaches another first leaf, so the slots differ). Every hit lies
+    in (tnear, tfar); dead lanes miss."""
     packs, rays = _case(cuda)
     pack = packs["bvh3"]
     k0, v0 = bvh2.walk3_cuda.launches[mode], bvh2.walk3_cuda_v1.launches[mode]
@@ -331,8 +338,16 @@ def test_k4_kernel_against_twin_first_form_and_k3(cuda, mode):
     assert bvh2.walk3_cuda_v1.launches[mode] == v0 + 1
     _k4_bars(f"{mode} vs twin", new, bvh2.walk3_twin(pack, *rays, mode))
     _k4_bars(f"{mode} vs v1", new, old)
-    t3, l3 = bvh8.walk_cuda(packs["bvh8"], *rays)
-    same = new[1] == l3
-    assert same.float().mean().item() >= 0.9999, f"{mode} vs K3: {same.float().mean().item():.6f}"
-    assert torch.equal(new[0][same].view(torch.int32), t3[same].view(torch.int32))
+    if mode == "any":
+        _, l3 = bvh8.walk_cuda(packs["bvh8"], *rays, latch=True)
+        occ = ((new[1] >= 0) == (l3 >= 0)).float().mean().item()
+        assert occ >= 0.9999, f"any vs K3's latch: occlusion agrees on {occ:.6f}"
+    else:
+        t3, l3 = bvh8.walk_cuda(packs["bvh8"], *rays)
+        same = new[1] == l3
+        agree = same.float().mean().item()
+        assert agree >= 0.9999, f"{mode} vs K3: slot agrees on {agree:.6f}"
+        assert torch.equal(new[0][same].view(torch.int32), t3[same].view(torch.int32))
+    hit = new[1] >= 0
+    assert bool(((new[0][hit] > rays[2][hit]) & (new[0][hit] < rays[3][hit])).all())
     assert (new[1][rays[3] <= rays[2]] == -1).all()

@@ -1,6 +1,6 @@
-// Binary skip-BVH walk for Hopper (sm_90a), three modes. Closest hit
-// ("ordered", "skip"): inner nodes per thread, leaves per warp. Any hit:
-// one thread per ray.
+// Binary skip-BVH walk for Hopper (sm_90a), three modes, each with inner
+// nodes per thread and leaves per warp: closest hit ("ordered", "skip") and
+// any hit ("any").
 //
 // Replaces the TPU kernel K4, the three walks that `_launch3` selects in
 // tungsten_tpu/ops/pallas_bvh2.py:
@@ -44,26 +44,28 @@
 // nodes, so it lives in the 50 MB L2. The first form (bvh2_walk_v1.cu, one
 // thread per ray) waited on its leaf loads: 384 16-byte loads a leaf visit
 // in a serial loop, at addresses that differ between the lanes of a warp
-// once rays diverge, each ray reading its 6 KB leaf alone. The closest-hit
-// modes here take K3's and K5's design (walk_common.cuh `warp_leaf_rounds`):
+// once rays diverge, each ray reading its 6 KB leaf alone. The three modes
+// here take K3's and K5's design (walk_common.cuh `warp_leaf_rounds`):
 //   * per thread, the walk runs its inner nodes with the first form's rules
-//     until it reaches a leaf whose box it hits, and parks it. The skip walk
-//     then moves its pointer to skip[ptr]; the ordered walk pops the next
-//     pointer from its stack (kStack ints in local memory). Neither tests
-//     the next node's box before the leaf step has run, so each visit's
-//     limit min(tfar, best) is the first form's, and so is the visiting
-//     order;
+//     until it reaches a leaf whose box it hits, and parks it. The skip and
+//     any walks then move their pointer to skip[ptr]; the ordered walk pops
+//     the next pointer from its stack (kStack ints in local memory). None
+//     tests the next node's box before the leaf step has run, so each
+//     visit's limit min(tfar, best) is the first form's, and so is the
+//     visiting order;
 //   * once every lane has parked or finished, the warp stages each wanted
 //     leaf once in shared memory and tests it for its members with K3's
 //     leaf step (bvh8_common.cuh `ExactLeaf`: the 128 slots split across
 //     the lanes, `slot_exact`, the warp's (t, slot) minimum), double-
-//     buffered, with no lane latched;
+//     buffered. The closest-hit modes latch no lane. "any" latches every
+//     lane: a member takes its leaf's lowest hit slot with that slot's t
+//     (BinWalker::latch_hit) and leaves its walk. Its best stays kInf until
+//     then, so its limit min(tfar, best) is tfar, as `_walk_kernel3_any`'s;
 //   * 4 warps a block, 12 KB of dynamic shared memory a warp (two leaf
 //     buffers of 128 x 3 float4), 48 KB a block.
 // The leaf's arithmetic is `slot_exact`'s, which rounds as K3 does, not as
 // the first form's compiler-contracted expressions did: the two agree by
-// bars, not bits. "any" keeps the first form's per-thread body and its
-// arithmetic, as a kernel of its own.
+// bars, not bits.
 // What is left: the warp waits for its longest traversal before each round
 // of leaf steps, and a coherent warp (32 rays on one leaf) runs 32 member
 // steps of 4 slots a lane where the serial loop ran 128 slots a lane once.
@@ -78,7 +80,7 @@ namespace {
 using namespace bvh8;
 
 constexpr int kStack = 96;  // == STACK_DEPTH in ops/bvh2.py
-constexpr int kWarps = 4;   // warps a block (closest-hit modes)
+constexpr int kWarps = 4;   // warps a block
 constexpr int kSmemPerWarp = 2 * kLeafVec * 16;  // two leaf buffers
 constexpr int kSmem = kWarps * kSmemPerWarp;
 static_assert(kSmem <= 48 * 1024, "within the default dynamic shared memory limit");
@@ -94,13 +96,17 @@ struct BinWalker {
     ptr = -1;
     sp = 0;
   }
+  // "any": a latched member's hit at t (its leaf's lowest hit slot) ends the walk
+  static constexpr bool kLatchT = true;
+  __device__ __forceinline__ void latch_hit(float t) {
+    best = t;
+    leave();
+  }
 };
 
-// The slab test of node v's box against the ray r (a BinWalker, or the
-// any-hit kernel's AnyRay: fields ox..oz, ix..iz, tnear).
-template <class R>
-__device__ __forceinline__ bool box_hit(const float4* __restrict__ box, int v, const R& r,
-                                        float lim) {
+// The slab test of node v's box against the ray r.
+__device__ __forceinline__ bool box_hit(const float4* __restrict__ box, int v,
+                                        const BinWalker& r, float lim) {
   const float4 lo = __ldg(box + 2 * v);      // minx miny minz maxx
   const float4 hi = __ldg(box + 2 * v + 1);  // maxy maxz 0 0
   const float t0x = (lo.x - r.ox) * r.ix, t1x = (lo.w - r.ox) * r.ix;
@@ -111,8 +117,9 @@ __device__ __forceinline__ bool box_hit(const float4* __restrict__ box, int v, c
   return (tmin <= tmax) && (tmax > r.tnear) && (tmin < lim);
 }
 
-// The closest-hit walks: kOrdered = mode 0, else mode 1.
-template <bool kOrdered>
+// The three walks: kMode 0 ordered, 1 skip, 2 any (the skip walk, every
+// lane latched).
+template <int kMode>
 __global__ void __launch_bounds__(kWarps * 32) bvh2_walk_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tnear_in, const float* __restrict__ tfar_in,
@@ -138,7 +145,10 @@ __global__ void __launch_bounds__(kWarps * 32) bvh2_walk_kernel(
     w.iz = 1.0f / (w.dz == 0.0f ? 1e-30f : w.dz);
     if (w.tnear < w.tfar) w.ptr = 0;
   }
-  ExactLeaf leaf_step{planes, smem_all + (threadIdx.x >> 5) * 2 * kLeafVec, 0u, lane};
+  constexpr bool kOrdered = kMode == 0;
+  // "any" latches every lane; only a lane that parks a leaf becomes a member
+  ExactLeaf leaf_step{planes, smem_all + (threadIdx.x >> 5) * 2 * kLeafVec,
+                      kMode == 2 ? kFull : 0u, lane};
   int stack[kOrdered ? kStack : 1];
   warp_leaf_rounds(w, [&](BinWalker& w) {
     while (w.parked < 0 && w.ptr >= 0) {
@@ -181,75 +191,10 @@ __global__ void __launch_bounds__(kWarps * 32) bvh2_walk_kernel(
   }
 }
 
-// ---- mode 2, "any": the first form's per-thread body ----
-
-struct AnyRay {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
-};
-
-// The leaf's lowest hit slot (-1: none) and its t.
-__device__ __forceinline__ int plane_leaf_first(const float4* __restrict__ planes, int blk,
-                                                int leaf, const AnyRay& r, float lim,
-                                                float& t_out) {
-  const float4* p = planes + (size_t)blk * leaf * 3;
-  for (int s = 0; s < leaf; ++s) {
-    const float4 N = __ldg(p + 3 * s);
-    const float4 U = __ldg(p + 3 * s + 1);
-    const float4 V = __ldg(p + 3 * s + 2);
-    const float ao = N.x * r.ox + N.y * r.oy + N.z * r.oz + N.w;
-    const float ad = N.x * r.dx + N.y * r.dy + N.z * r.dz;
-    const float t = -ao / ad;
-    const float u = (U.x * r.ox + U.y * r.oy + U.z * r.oz + U.w) +
-                    t * (U.x * r.dx + U.y * r.dy + U.z * r.dz);
-    const float w = (V.x * r.ox + V.y * r.oy + V.z * r.oz + V.w) +
-                    t * (V.x * r.dx + V.y * r.dy + V.z * r.dz);
-    if ((u >= 0.0f) && (w >= 0.0f) && (u + w <= 1.0f) && (t > r.tnear) && (t < lim)) {
-      t_out = t;
-      return s;
-    }
-  }
-  t_out = kInf;
-  return -1;
-}
-
-__global__ void bvh2_any_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ tnear_in, const float* __restrict__ tfar_in,
-    const float4* __restrict__ box, const int4* __restrict__ ni,
-    const float4* __restrict__ planes, int m_nodes, int n, int leaf,
-    float* __restrict__ out_t, int* __restrict__ out_local) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  AnyRay r;
-  r.ox = o[3 * i], r.oy = o[3 * i + 1], r.oz = o[3 * i + 2];
-  r.dx = d[3 * i], r.dy = d[3 * i + 1], r.dz = d[3 * i + 2];
-  r.tnear = tnear_in[i];
-  const float tfar = fminf(tfar_in[i], kInf);
-  float best = kInf;
-  int local = -1;
-  if (r.tnear < tfar) {
-    r.ix = 1.0f / (r.dx == 0.0f ? 1e-30f : r.dx);
-    r.iy = 1.0f / (r.dy == 0.0f ? 1e-30f : r.dy);
-    r.iz = 1.0f / (r.dz == 0.0f ? 1e-30f : r.dz);
-    int ptr = 0;
-    while (ptr < m_nodes) {
-      const int4 nd = __ldg(ni + ptr);
-      const bool h = box_hit(box, ptr, r, tfar);
-      if (h && nd.y > 0) {
-        float tb;
-        const int s = plane_leaf_first(planes, nd.x, leaf, r, tfar, tb);
-        if (s >= 0) {
-          best = tb;
-          local = nd.x * leaf + s;
-          break;  // any-hit: leave the walk
-        }
-      }
-      ptr = (h && nd.y == 0) ? ptr + 1 : nd.z;
-    }
-  }
-  out_t[i] = best;
-  out_local[i] = local;
-}
+// The kernel of each mode, indexed by mode.
+void (*const kKernels[3])(const float*, const float*, const float*, const float*, const float4*,
+                          const int4*, const float4*, int, int, float*, int*) = {
+    bvh2_walk_kernel<0>, bvh2_walk_kernel<1>, bvh2_walk_kernel<2>};
 
 }  // namespace
 
@@ -259,39 +204,20 @@ extern "C" int bvh2_walk(
     int m_nodes, int mode, int n, int leaf,
     float* out_t, int* out_local, void* stream) {
   if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* b = reinterpret_cast<const float4*>(box);
-  const int4* nodes = reinterpret_cast<const int4*>(ni);
-  const float4* p = reinterpret_cast<const float4*>(planes);
-  if (mode == 2) {
-    const int threads = 128;
-    bvh2_any_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
-        o, d, tnear, tfar, b, nodes, p, m_nodes, n, leaf, out_t, out_local);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (leaf != kLeaf || (mode != 0 && mode != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (leaf != kLeaf || mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = kWarps * 32;
-  const int blocks = (n + threads - 1) / threads;
-  if (mode == 0) {
-    bvh2_walk_kernel<true><<<blocks, threads, kSmem, s>>>(o, d, tnear, tfar, b, nodes, p,
-                                                          m_nodes, n, out_t, out_local);
-  } else {
-    bvh2_walk_kernel<false><<<blocks, threads, kSmem, s>>>(o, d, tnear, tfar, b, nodes, p,
-                                                           m_nodes, n, out_t, out_local);
-  }
+  kKernels[mode]<<<(n + threads - 1) / threads, threads, kSmem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      o, d, tnear, tfar, reinterpret_cast<const float4*>(box), reinterpret_cast<const int4*>(ni),
+      reinterpret_cast<const float4*>(planes), m_nodes, n, out_t, out_local);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks a multiprocessor of the closest-hit kernel of `mode`
-// (0 ordered, 1 skip), registers and shared memory permitting.
+// Resident blocks a multiprocessor of the kernel of `mode` (0 ordered,
+// 1 skip, 2 any), registers and shared memory permitting.
 extern "C" int bvh2_walk_blocks_per_sm(int mode) {
   int blocks = 0;
-  if (mode == 0) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh2_walk_kernel<true>, kWarps * 32,
-                                                  kSmem);
-  } else {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh2_walk_kernel<false>,
-                                                  kWarps * 32, kSmem);
-  }
+  if (mode < 0 || mode > 2) return 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kKernels[mode], kWarps * 32, kSmem);
   return blocks;
 }

@@ -23,6 +23,13 @@ struct Walker {
   int octant, local, sp, parked;  // parked: a leaf waiting for the warp, or -1
 
   __device__ __forceinline__ void leave() { sp = 0; }
+  // A latched member's hit: K3's latch reports best = 0 (not the hit's t,
+  // which ExactLeaf then neither keeps nor shuffles) and leaves.
+  static constexpr bool kLatchT = false;
+  __device__ __forceinline__ void latch_hit(float) {
+    best = 0.0f;
+    leave();
+  }
 };
 
 // The ray of lane i (or an empty walk for a lane past n or a dead ray).
@@ -104,7 +111,7 @@ __device__ __forceinline__ bool slot_exact(float4 N, float4 U, float4 V, float o
 constexpr int kLeafVec = kLeaf * 3;  // float4 rows of one plane leaf (N, U, V a slot)
 
 // The exact plane-form leaf step of the warp-cooperative walks over the BVH8
-// pack's planes (K3, bvh8_walk.cu; K4's closest-hit modes, bvh2_walk.cu): the
+// pack's planes (K3, bvh8_walk.cu; K4's three modes, bvh2_walk.cu): the
 // leaf policy of `warp_leaf_rounds`. stage() copies a leaf into the warp's
 // buffer (12 cp.async of 16 bytes a lane, coalesced). test() takes the
 // members of a leaf one after the other, each by the whole warp: the
@@ -113,9 +120,12 @@ constexpr int kLeafVec = kLeaf * 3;  // float4 rows of one plane leaf (N, U, V a
 // reads) against the member's lim = min(tfar, best) at this step, keeping
 // its lowest hit and the lowest slot among its least t; two redux.sync
 // minima over (order_key(t), slot) give the serial loop's winner. A latched
-// member takes its lowest hit slot, best = 0, and leaves its walk.
+// member takes its lowest hit slot and leaves its walk through the walker's
+// latch_hit(t): K3's Walker writes best = 0; K4-any's BinWalker (kLatchT)
+// writes best = t, the slot's own t, each lane keeping the t of its lowest
+// hit and the member taking it from the winning slot's lane.
 // The walker W supplies the ray (ox oy oz dx dy dz tnear), tfar, best, local,
-// parked and leave(), which ends its walk.
+// parked, kLatchT and latch_hit(t), which ends its walk.
 struct ExactLeaf {
   const float4* planes;  // (n_leaves, 128, 3): N, U, V (x y z c)
   float4* smem;          // this warp's [2][kLeafVec]
@@ -144,7 +154,7 @@ struct ExactLeaf {
       const float tnear = __shfl_sync(kFull, w.tnear, src);
       const float lim = __shfl_sync(kFull, lim_own, src);
       const bool latch = (latched >> src) & 1u;
-      float tb = kInf;
+      float tb = kInf, tfirst = kInf;
       unsigned sb = kNone, first = kNone;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -152,7 +162,10 @@ struct ExactLeaf {
         float t;
         if (slot_exact(p[3 * s], p[3 * s + 1], p[3 * s + 2], ox, oy, oz, dx, dy, dz, tnear, lim,
                        t)) {
-          if (first == kNone) first = s;
+          if (first == kNone) {
+            first = s;
+            tfirst = t;  // read only where W::kLatchT
+          }
           if (t < tb) {
             tb = t;
             sb = s;
@@ -163,14 +176,14 @@ struct ExactLeaf {
       float t_win = 0.0f;
       if (latch) {
         win = __reduce_min_sync(kFull, first);
+        if constexpr (W::kLatchT) t_win = __shfl_sync(kFull, tfirst, win & 31u);
       } else {
         win = warp_min_slot(tb, sb, t_win);
       }
       if (lane == src && win != kNone) {
         w.local = leaf * kLeaf + static_cast<int>(win);
         if (latch) {
-          w.best = 0.0f;
-          w.leave();  // any-hit: leave the walk
+          w.latch_hit(t_win);  // any-hit: leave the walk
         } else {
           w.best = t_win;
         }

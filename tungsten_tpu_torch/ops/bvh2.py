@@ -15,11 +15,13 @@ version vectorised over the lanes still walking:
   "skip"     `_walk_kernel3`: stackless skip-pointer closest hit;
   "any"      `_walk_kernel3_any`: skip-pointer walk that stops at the first
              hit in (tnear, tfar) (occluded_bvh_pallas3).
-The two closest-hit walks run inner nodes per thread and test leaves per
-warp: a lane parks each leaf whose box it hits, and the warp stages the
-leaf in shared memory once and tests it for every lane parked on it, with
-K3's leaf step (csrc/bvh8_common.cuh `ExactLeaf`); "any" runs one thread
-per ray. The kernel takes leaves of LEAF = 128 slots only. `walk3` picks by
+All three walks run inner nodes per thread and test leaves per warp: a
+lane parks each leaf whose box it hits, and the warp stages the leaf in
+shared memory once and tests it for every lane parked on it, with K3's leaf
+step (csrc/bvh8_common.cuh `ExactLeaf`); "any" latches every lane, so a
+lane leaves its walk at the first leaf with a hit, reporting that leaf's
+lowest hit slot and its t. The kernel takes leaves of LEAF = 128 slots
+only. `walk3` picks by
 the tensors' device: CUDA launches the kernel (or raises), CPU runs the
 twin. Each keeps a plain launch count per mode
 (`walk3_cuda.launches["ordered"]`, `walk3_twin.launches["any"]`, ...).
@@ -27,9 +29,9 @@ twin. Each keeps a plain launch count per mode
 `walk3_cuda_v1` launches the first CUDA form (csrc/bvh2_walk_v1.cu: one
 thread per ray in every mode, a serial slot loop), kept only so that a run
 can measure old and new on one card: the intersector benchmark and
-chip_smoke.py launch it, no query does. Its closest-hit leaf arithmetic is
-contracted by the compiler where the new kernel rounds as K3 does, so the
-two agree by bars, not bits. `coop_walk3` emulates the new kernel's
+chip_smoke.py launch it, no query does. Its leaf arithmetic is contracted
+by the compiler where the new kernel rounds as K3 does, so the two agree by
+bars, not bits, in every mode. `coop_walk3` emulates the new kernel's
 bookkeeping (parking, leaf rounds per 32-lane group, the warp's leaf step)
 in plain torch for the CPU tests; nothing else uses it.
 
@@ -290,8 +292,9 @@ def _launch(name, pack: Bvh3Pack, o, d, tnear, tfar, mode):
 def walk3_cuda(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
     """Launch the CUDA K4 walk (csrc/bvh2_walk.cu) on the current stream.
     Returns (t (n,) f32, local slot (n,) i64; -1 = miss), as walk3_twin.
-    Raises on a pack whose leaves are not LEAF wide: the closest-hit walks
-    split exactly that many slots across a warp."""
+    All three modes test their leaves per warp. Raises on a pack whose
+    leaves are not LEAF wide: the leaf step splits exactly that many slots
+    across a warp."""
     if pack.leaf != LEAF:
         raise ValueError(f"the K4 kernel takes leaves of {LEAF} slots; the pack's are "
                          f"{pack.leaf} wide")
@@ -342,20 +345,23 @@ def occluded_bvh3(pack: Bvh3Pack, o, d, tnear, tfar):
 # ---------------------------------------------------------------------------
 
 def coop_walk3(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
-    """csrc/bvh2_walk.cu's closest-hit walks ("ordered", "skip") as the
-    kernel schedules them, in plain torch. Lanes form groups of WARP. Every
-    lane descends by the kernel's rules until it parks a leaf whose box it
-    hits or its walk ends: the skip walk moves on to skip[ptr], the ordered
-    walk pops its next pointer, and neither tests that node's box before
-    the leaf step. Then each group runs leaf steps while a lane is parked:
-    the lowest parked lane leads, the lanes parked on its leaf are the
-    members, and each member's leaf is tested against the lim it has at
-    that step, min(tfar, best), through the warp's leaf step
-    (bvh8.coop_leaf_step, coop_merge; no lane latched). Returns (t, local)
-    as walk3_twin; the slot test is the twin's (bvh8.plane_leaf).
-    `coop_walk3.work` counts box and slot tests as walk3_twin.work does."""
-    if mode not in ("ordered", "skip"):
-        raise ValueError(f"mode {mode!r}: the warp-cooperative walks are ordered and skip")
+    """csrc/bvh2_walk.cu's three walks as the kernel schedules them, in
+    plain torch. Lanes form groups of WARP. Every lane descends by the
+    kernel's rules until it parks a leaf whose box it hits or its walk
+    ends: the skip and any walks move on to skip[ptr], the ordered walk pops
+    its next pointer, and none tests that node's box before the leaf step.
+    Then each group runs leaf steps while a lane is parked: the lowest
+    parked lane leads, the lanes parked on its leaf are the members, and
+    each member's leaf is tested against the lim it has at that step,
+    min(tfar, best), through the warp's leaf step (bvh8.coop_leaf_step).
+    The closest-hit walks latch no lane and merge with coop_merge. "any"
+    latches every lane: best stays INF until its walk ends, so its lim is
+    tfar, and a member with a hit takes its leaf's lowest hit slot with that
+    slot's t and ends its walk. Returns (t, local) as walk3_twin; the slot
+    test is the twin's (bvh8.plane_leaf). `coop_walk3.work` counts box and
+    slot tests as walk3_twin.work does."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
     n, m, L = o.shape[0], pack.n_nodes, pack.leaf
     tfar = torch.clamp(tfar, max=INF)
     inv = safe_inv(d)
@@ -382,7 +388,7 @@ def coop_walk3(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
             oa, ia, tn = o[act], inv[act], tnear[act]
             lim = torch.minimum(tfar[act], best[act])
             work["box"] += act.numel() + (int((~is_leaf).sum()) if mode == "ordered" else 0)
-            if mode == "skip":
+            if mode != "ordered":
                 h = box_hit(box_t[p], oa, ia, tn, lim)
                 parked[act] = torch.where(h & is_leaf, nd[:, 0], -1)
                 nxt = torch.where(h & ~is_leaf, p + 1, nd[:, 2])
@@ -419,10 +425,16 @@ def coop_walk3(pack: Bvh3Pack, o, d, tnear, tfar, mode: str = "ordered"):
             work["tri"] += mem.numel() * L
             t, h = plane_leaf(pack.tri_planes[blk], o[mem], d[mem], tnear[mem],
                               torch.minimum(tfar[mem], best[mem]))
-            unlatched = torch.zeros(mem.numel(), dtype=torch.bool)
-            t_win, slot = coop_leaf_step(t, h, unlatched)
-            best[mem], local[mem], _ = coop_merge(t_win, slot, unlatched, best[mem], local[mem],
-                                                  blk * L, fast=False)
+            latched = torch.full((mem.numel(),), mode == "any", dtype=torch.bool)
+            t_win, slot = coop_leaf_step(t, h, latched)
+            if mode == "any":  # BinWalker::latch_hit: best = the slot's t, the walk ends
+                hit = slot >= 0
+                best[mem] = torch.where(hit, t_win, best[mem])
+                local[mem] = torch.where(hit, blk * L + slot, local[mem])
+                ptr[mem[hit]] = -1
+            else:
+                best[mem], local[mem], _ = coop_merge(t_win, slot, latched, best[mem],
+                                                      local[mem], blk * L, fast=False)
             parked[mem] = -1
 
 

@@ -630,22 +630,26 @@ def order_key(t):
 
 
 def coop_leaf_step(t, h, latched):
-    """The exact kernel's leaf step (bvh8_walk.cu `ExactLeaf::test`) on k
-    member rays' slot results t, h (k, LEAF): lane l holds slots l, l+32,
-    l+64, l+96 and keeps its lowest hit and the lowest slot among its least
-    t; two minima over the warp take the least key, then the least slot
-    with that key (the lowest hit under the latch); the winner's t comes
-    from the lane that holds it. Returns (t (k,), slot (k,), -1 = none)."""
+    """The exact kernel's leaf step (bvh8_common.cuh `ExactLeaf::test`) on
+    k member rays' slot results t, h (k, LEAF): lane l holds slots l, l+32,
+    l+64, l+96 and keeps its lowest hit with that hit's t, and the lowest
+    slot among its least t; two minima over the warp take the least key,
+    then the least slot with that key (the lowest hit under the latch); the
+    winner's t comes from the lane that holds it (a latched ray's: the t of
+    its lowest hit slot). Returns (t (k,), slot (k,), -1 = none)."""
     k = t.shape[0]
     tl = t.reshape(k, LEAF // WARP, WARP)  # [ray, j, lane] = slot lane + 32 j
     hl = h.reshape(k, LEAF // WARP, WARP)
     slot = (torch.arange(LEAF).reshape(LEAF // WARP, WARP)).expand(k, -1, -1)
     tb = torch.full((k, WARP), INF)
+    tfirst = torch.full((k, WARP), INF)
     sb = torch.full((k, WARP), NONE_KEY, dtype=torch.int64)
     first = torch.full((k, WARP), NONE_KEY, dtype=torch.int64)
     for j in range(LEAF // WARP):  # the lane's loop, in slot order
         hit = hl[:, j]
-        first = torch.where(hit & (first == NONE_KEY), slot[:, j], first)
+        new_first = hit & (first == NONE_KEY)
+        first = torch.where(new_first, slot[:, j], first)
+        tfirst = torch.where(new_first, tl[:, j], tfirst)
         take = hit & (tl[:, j] < tb)
         tb = torch.where(take, tl[:, j], tb)
         sb = torch.where(take, slot[:, j], sb)
@@ -654,7 +658,9 @@ def coop_leaf_step(t, h, latched):
     win_c = torch.where((sb != NONE_KEY) & (key == kmin), sb, NONE_KEY).min(dim=1).values
     win_l = first.min(dim=1).values
     win = torch.where(latched, win_l, win_c)
-    t_win = tb.gather(1, (win_c & (WARP - 1))[:, None]).squeeze(1)
+    t_c = tb.gather(1, (win_c & (WARP - 1))[:, None]).squeeze(1)
+    t_l = tfirst.gather(1, (win_l & (WARP - 1))[:, None]).squeeze(1)
+    t_win = torch.where(latched, t_l, t_c)
     return torch.where(win == NONE_KEY, INF, t_win), torch.where(win == NONE_KEY, -1, win)
 
 

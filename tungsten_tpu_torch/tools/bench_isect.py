@@ -2,7 +2,8 @@
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
         [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri
-                   (and bvh8v1,bvh8anyv1,bvh8fastv1,bvh3v1,bvh3skipv1,bvhv1,bvh1v1,triv1)]
+                   (and bvh8v1,bvh8anyv1,bvh8fastv1,bvh3v1,bvh3skipv1,bvh3anyv1,bvhv1,
+                    bvh1v1,triv1)]
         [--trials 5]
         [--device cuda|cpu]
 
@@ -30,9 +31,10 @@ on one card:
   bvh8v1    K3 closest hit (bvh8_walk_v1.cu)      bvh8anyv1 its latched any-hit
   bvh8fastv1 K3-fast raw (bvh8_walk_fast_v1.cu)
   bvh3v1    K4 ordered (bvh2_walk_v1.cu)          bvh3skipv1 K4 skip (bvh2_walk_v1.cu)
+  bvh3anyv1 K4 any-hit (bvh2_walk_v1.cu)
   bvhv1     K5-v2 (bvh_walk_v1.cu)                bvh1v1    K5-v1 (bvh_walk_v1.cu)
   triv1     K2 (intersect_stream_v1.cu)
-e.g. --kernels bvh8,bvh8v1,bvh3,bvh3v1,bvh3skip,bvh3skipv1,bvh,bvhv1,tri,triv1.
+e.g. --kernels bvh8,bvh8v1,bvh3,bvh3v1,bvh3skip,bvh3skipv1,bvh3any,bvh3anyv1,tri,triv1.
 On a CUDA device each walk's kernel and its plain twin are timed with CUDA
 events after a warm-up, as the median of --trials runs; on the CPU only the
 twins run (the port's CPU path), timed by the host clock. Nothing falls back
@@ -81,10 +83,10 @@ from ..scene.load import load_scene
 
 KERNELS = ("bvh8", "bvh8any", "bvh8fast", "bvh8fastq", "bvh3", "bvh3skip", "bvh3any", "bvh",
            "bvh1", "tri")
-V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1", "bvh3v1", "bvh3skipv1", "bvhv1", "bvh1v1",
-              "triv1")  # by name only, for comparison
+V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1", "bvh3v1", "bvh3skipv1", "bvh3anyv1", "bvhv1",
+              "bvh1v1", "triv1")  # by name only, for comparison
 # any-hit walk -> its closest-hit walk
-ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1"}
+ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1", "bvh3anyv1": "bvh3v1"}
 UNSUPPORTED = {
     "bvhx": "the JAX tool imports tungsten_tpu/ops/pallas_bvhx.py, which the JAX "
             "package does not contain",
@@ -150,6 +152,7 @@ def walks(scene, name):
                    P(bvh2.walk3_twin, p3, mode="ordered")),
         "bvh3skipv1": (P(bvh2.walk3_cuda_v1, p3, mode="skip"),
                        P(bvh2.walk3_twin, p3, mode="skip")),
+        "bvh3anyv1": (P(bvh2.walk3_cuda_v1, p3, mode="any"), P(bvh2.walk3_twin, p3, mode="any")),
         "bvh": (P(bvh.walk_packet_cuda, pv), P(bvh.walk_packet_twin, pv)),
         "bvh1": (P(bvh.walk_packet_cuda, pv, prune=False),
                  P(bvh.walk_packet_twin, pv, prune=False)),
@@ -173,6 +176,9 @@ def query(scene, name, rays):
         mode = "ordered" if name == "bvh3v1" else "skip"
         h = hit_from_slots(scene.pbvh3.prim_map, scene.tris, *rays[:2],
                            *walk(scene.pbvh3, *rays, mode=mode))
+    elif name == "bvh3anyv1":
+        walk = bvh2.walk3_cuda_v1 if on_card else bvh2.walk3_twin
+        return walk(scene.pbvh3, *rays, mode="any")[1] >= 0, None
     elif name == "triv1":
         walk = k2.stream_cuda_v1 if on_card else k2.stream_twin
         h = k2.hit_from_stream(scene.ptris, *walk(scene.ptris, *rays))
