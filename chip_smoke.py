@@ -96,14 +96,15 @@ printing a result):
                 launch counts reset just before and read just after;
   5b. lockstep - the slice of the lockstep path tracer at full width:
                 materialtest-area (materialtest-synth plus an emissive quad
-                and an emissive mesh) at 1000x563, 32 spp, 64 bounces through
+                and an emissive mesh) at 1000x563, 8 spp (cut from the
+                scene's 32 to make room for phase 8), 64 bounces through
                 render_flat(wavefront="lockstep"), the launch counts reset
                 just before and read just after: the fast kernel launches
                 once per camera walk and once per bounce run, the exact K3
                 kernel once per shadow walk and once per repair, no twin
-                launches; then the same scene through wavefront="regen", the
-                two images' channel means within 5e-3. Wall time and
-                Mpaths/s of both;
+                launches; then the same scene through wavefront="regen" at
+                32 spp, the two images' channel means within 5e-3. Wall time
+                and Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
                 ten walks and the nine first forms (v1 walks; 57 timed rows;
@@ -123,10 +124,30 @@ printing a result):
                 non-negative; the K5 and K2 images' channel means lie within
                 5e-3 of the K3 image's, >= 90% of their pixels within
                 1e-3 + 1e-3 |K3|. Wall time and Mpaths/s per route.
-No earlier phase was cut in depth to make room for the lockstep render.
+  8. interior - the interior cell's surfaces (dielectric, rough_dielectric,
+                plastic, rough_plastic with a checker roughness, conductor,
+                mirror, a null-BSDF light fixture, an .hdr sky):
+                synth.write_scene writes small-interior and interior-synth,
+                their skies through the port's RGBE writer, and the reader
+                must give the sky back within RGBE's 8-bit mantissa;
+                small-interior through render_scene in both wavefronts
+                against tests/data/torch_port_interior_ref.json (numpy BVH
+                build); interior-synth flattened, one regen pass (1 spp)
+                counting each BSDF type's hits (all seven new types hit),
+                then at 1000x563, 32 spp, 64 bounces through regen and
+                lockstep with the launch counts reset just before and read
+                just after each: K3 and K3-fast launch in both (regen's
+                closest-hit walks also go through K3-fast), lockstep's
+                counts add up as in phase 5b, no other walk, twin or v1
+                kernel; each image finite and non-negative, the two
+                wavefronts' channel means within 5e-3. Wall time and
+                Mpaths/s of both.
+To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
+8; no other phase was cut.
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
-render for K3, phase 5b's lockstep render for K3-fast, phase 7's route
+render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
+renders beside as launches_interior; phase 7's route
 renders for K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
 K4 in its three modes, K5, K2 and the first forms),
@@ -246,6 +267,12 @@ OPS = {"box": 25, "plane": 45, "mt": 54, "plane_bf16x3_mma": 108, "plane_bf16x3"
 FAST_BAR = 0.9999  # fast query vs exact query, prim
 # lockstep vs regen, full width: two estimators of one integral, 18M paths each
 WAVEFRONT_RTOL = 5e-3
+# phase 5b's lockstep render, cut from the scene's 32 spp to make room for
+# phase 8 (its regen render keeps 32)
+AREA_LOCKSTEP_SPP = 8
+# the interior cell's BSDF types that phase 8 must see hit, JAX type ids
+INTERIOR_TYPES = {1: "null", 2: "mirror", 7: "dielectric", 8: "rough_dielectric",
+                  9: "conductor", 10: "plastic", 11: "rough_plastic"}
 # H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
 # FLOP/s on them, HBM3 B/s
 F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -425,6 +452,18 @@ def numpy_bvh_build():
         accel_bvh._NATIVE = saved
 
 
+def check_lockstep_launches(label, n_fast, n_exact, passes, max_bounces):
+    """A lockstep render's walk launches: per pass one camera walk and one
+    2N walk per bounce run, each with its repair launch, and one shadow walk
+    per bounce run; returns the bounces run."""
+    bounces = n_fast - passes
+    check(passes <= bounces <= passes * max_bounces and n_exact == n_fast + bounces,
+          f"{label}: {passes} passes ran {bounces} bounces ({bounces / passes:.1f} a pass): "
+          f"{n_fast} = passes + bounces fast launches, {n_exact} = repairs + shadow walks "
+          f"exact launches")
+    return bounces
+
+
 def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
     """render_scene of a small scene against the JAX package's channel
     means; K3 and K3-fast must launch and no twin."""
@@ -448,6 +487,72 @@ def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
     rel = np.abs(means - want) / np.abs(want)
     check((rel <= MEAN_RTOL).all(), f"{name}: channel means {means.round(6).tolist()} vs "
           f"JAX {np.round(want, 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL})")
+
+
+def interior_phase(work, dev, card):
+    """Phase 8: the interior cell's surfaces. Returns the kernel launch
+    counts of the two full-width renders, {wavefront: counts()}."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators.path_tracer import count_bsdf_hits
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.models.bsdfs.dispatch import type_name
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    paths = {size: synth.write_scene(os.path.join(work, size), size)
+             for size in ("small-interior", "interior-synth")}
+    sky = load_image(os.path.join(work, "interior-synth", "sky.hdr"))
+    want = synth._sky(*synth.SIZES["interior-synth"][2:4])
+    check(sky.shape == want.shape and bool(np.all(np.abs(sky - want) <= want.max(
+        axis=-1, keepdims=True) * 2.0**-7)), f"interior: sky.hdr {sky.shape} reads back within "
+          f"RGBE's 8-bit mantissa, peak {sky.max():.1f}")
+    with numpy_bvh_build():
+        for wavefront in ("regen", "lockstep"):
+            render_vs_ref("8 interior", paths["small-interior"], "torch_port_interior_ref.json",
+                          dev, wavefront)
+
+    t0 = time.time()
+    scene = flatten_scene(load_scene(paths["interior-synth"]), dev)
+    m = scene.meta
+    log(f"[8 interior] interior-synth flattened in {time.time() - t0:.1f} s: "
+        f"{scene.tris.v0.shape[0]} triangles, {m.n_lights} lights {scene.lights.apx_kind}, "
+        f"BSDF types {[type_name(t) for t in scene.materials.present]}; "
+        f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
+    with count_bsdf_hits(dev) as hits:
+        render_flat(scene, spp=1, seed=DEFAULT_SEED, wavefront="regen")
+    log(f"[8 interior] BSDF hits of one regen pass (1 spp, {m.res_x * m.res_y} paths): "
+        + json.dumps({type_name(t): n for t, n in sorted(hits.items())}))
+    check(all(hits.get(t, 0) > 0 for t in INTERIOR_TYPES),
+          f"interior: camera paths hit each of {sorted(INTERIOR_TYPES.values())}")
+
+    means, launches = {}, {}
+    for wavefront in ("regen", "lockstep"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        img = render_flat(scene, spp=m.spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        dt = time.time() - t0
+        c = launches[wavefront] = counts()
+        others = {k: v for k, v in c.items()
+                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
+        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
+              f"interior {wavefront}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
+              f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+        if wavefront == "lockstep":
+            check_lockstep_launches("interior lockstep", c["bvh8.walk_fast_cuda"],
+                                    c["bvh8.walk_cuda"], m.spp, m.max_bounces)
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"interior {wavefront}: {img.shape} image finite and "
+              f"non-negative")
+        means[wavefront] = img.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[8 interior] interior-synth {wavefront}: {m.res_x}x{m.res_y} {m.spp} spp in "
+            f"{dt:.2f} s: {m.res_x * m.res_y * m.spp / dt / 1e6:.4f} Mpaths/s on {card}; "
+            f"channel means {means[wavefront].round(6).tolist()}")
+    rel = np.abs(means["lockstep"] - means["regen"]) / np.abs(means["regen"])
+    check((rel <= WAVEFRONT_RTOL).all(), f"interior-synth: lockstep channel means vs regen's "
+          f"(rel {rel.max():.2e} <= {WAVEFRONT_RTOL})")
+    return launches
 
 
 def main():
@@ -889,10 +994,11 @@ def main():
         f"{am.res_x}x{am.res_y}, {am.spp} spp, max_bounces {am.max_bounces}")
     area_imgs = {}
     for wavefront in ("lockstep", "regen"):
+        spp_w = AREA_LOCKSTEP_SPP if wavefront == "lockstep" else am.spp
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
-        img = render_flat(area, spp=am.spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        img = render_flat(area, spp=spp_w, seed=DEFAULT_SEED, wavefront=wavefront)
         dt = time.time() - t0
         c = counts()
         others = {k: v for k, v in c.items()
@@ -904,16 +1010,11 @@ def main():
             # per pass 1 camera walk + one 2N walk per bounce run, each with
             # its repair launch; one shadow walk per bounce run
             lock_fast, lock_exact = c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"]
-            bounces_run = lock_fast - am.spp
-            check(am.spp <= bounces_run <= am.spp * am.max_bounces
-                  and lock_exact == lock_fast + bounces_run,
-                  f"lockstep: {am.spp} passes ran {bounces_run} bounces "
-                  f"({bounces_run / am.spp:.1f} a pass): {lock_fast} = passes + bounces fast "
-                  f"launches, {lock_exact} = repairs + shadow walks exact launches")
+            check_lockstep_launches("lockstep", lock_fast, lock_exact, spp_w, am.max_bounces)
         check(img.shape == (am.res_y, am.res_x, 3) and np.isfinite(img).all()
               and (img >= 0).all(), f"{wavefront}: {img.shape} image finite and non-negative")
-        log(f"[5b lockstep] materialtest-area {wavefront}: {am.res_x}x{am.res_y} {am.spp} spp in "
-            f"{dt:.2f} s: {am.res_x * am.res_y * am.spp / dt / 1e6:.4f} Mpaths/s on {card}")
+        log(f"[5b lockstep] materialtest-area {wavefront}: {am.res_x}x{am.res_y} {spp_w} spp in "
+            f"{dt:.2f} s: {am.res_x * am.res_y * spp_w / dt / 1e6:.4f} Mpaths/s on {card}")
         area_imgs[wavefront] = img.reshape(-1, 3).astype(np.float64).mean(0)
     rel = np.abs(area_imgs["lockstep"] - area_imgs["regen"]) / np.abs(area_imgs["regen"])
     check((rel <= WAVEFRONT_RTOL).all(), f"materialtest-area: lockstep channel means "
@@ -1012,6 +1113,8 @@ def main():
         check(close.mean() >= PIX_BAR, f"route {label}: {close.mean():.6f} of pixels within "
               f"{PIX_ATOL} + {PIX_RTOL} |K3| (>= {PIX_BAR})")
 
+    interior_launches = interior_phase(work, dev, card)
+
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1028,6 +1131,8 @@ def main():
                        fast_work["tri"] * OPS["plane_bf16x3_mma"])
     fast_entry["exact_k3_ms"] = exact_ms
     entries.append(fast_entry)
+    for row, key in zip(entries, ("bvh8.walk_cuda", "bvh8.walk_fast_cuda")):
+        row["launches_interior"] = {w: c[key] for w, c in interior_launches.items()}
     for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b
     n_bench = res["n"]

@@ -351,3 +351,39 @@ def test_k4_kernel_against_twin_first_form_and_k3(cuda, mode):
     hit = new[1] >= 0
     assert bool(((new[0][hit] > rays[2][hit]) & (new[0][hit] < rays[3][hit])).all())
     assert (new[1][rays[3] <= rays[2]] == -1).all()
+
+
+@pytest.mark.cuda
+def test_small_interior_on_the_card_matches_reference(cuda, tmp_path):
+    """`small-interior` (the interior cell's surfaces: dielectric, rough
+    dielectric, plastic, rough plastic with textured roughness, conductor,
+    mirror, a null-BSDF light fixture, an .hdr sky) rendered on the card in
+    both wavefronts, on the numpy BVH build, against the JAX package's
+    channel means in tests/data/torch_port_interior_ref.json within 5e-3;
+    the render's walks go through K3 and K3-fast, no twin."""
+    import json
+    import os
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+    from tungsten_tpu_torch.renderer.render import render_scene
+
+    with open(os.path.join(os.path.dirname(__file__), "data",
+                           "torch_port_interior_ref.json")) as f:
+        ref = json.load(f)
+    path = synth.write_scene(str(tmp_path), "small-interior")
+    native, accel_bvh._NATIVE = accel_bvh._NATIVE, False
+    try:
+        for wavefront in ("regen", "lockstep"):
+            k3, fast = bvh8.walk_cuda.launches, bvh8.walk_fast_cuda.launches
+            twins = bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches
+            hdr, _ = render_scene(path, torch.device("cuda"), seed=ref["seed"],
+                                  wavefront=wavefront)
+            assert bvh8.walk_cuda.launches > k3 and bvh8.walk_fast_cuda.launches > fast
+            assert bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches == twins
+            assert np.isfinite(hdr).all() and (hdr >= 0).all()
+            means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
+            np.testing.assert_allclose(means, ref["channel_means"][wavefront], rtol=5e-3,
+                                       err_msg=wavefront)
+    finally:
+        accel_bvh._NATIVE = native

@@ -244,8 +244,14 @@ def _edit_small(doc, what):
         doc["media"] = [{"name": "fog", "type": "homogeneous"}]
     elif what == "thinlens":
         doc["camera"]["type"] = "thinlens"
-    elif what == "other bsdf":
-        bsdfs[2] = {"name": "inner", "type": "dielectric"}
+    elif what == "other bsdf":  # a wrapper: the coats, mixed and transparency wait
+        bsdfs[2] = {"name": "inner", "type": "smooth_coat", "substrate": "ball"}
+    elif what == "dielectric":
+        bsdfs[2] = {"name": "inner", "type": "dielectric", "ior": 1.5}
+    elif what == "textured roughness":
+        bsdfs[1]["roughness"] = {"type": "checker", "on_color": 0.05, "off_color": 0.3}
+    elif what == "hdr sky":
+        prims[3]["emission"] = "sky.hdr"
     elif what == "aov":
         doc["renderer"]["output_buffers"] = [{"type": "normal"}]
     elif what == "no env":
@@ -263,22 +269,30 @@ def _edit_small(doc, what):
     return doc
 
 
-NOW_PORTED = {"area light": 2, "no env": 0}  # edit -> the light rows it leaves
+# edit -> the light rows it leaves
+NOW_PORTED = {"area light": 2, "no env": 0, "dielectric": 1, "textured roughness": 1,
+              "hdr sky": 1}
 
 
 @pytest.mark.parametrize("what", ["analytic sphere", "area light", "media", "thinlens",
                                   "other bsdf", "aov", "no env", "point light",
-                                  "emissive disk", "cap light", "two envs", "unsampled env"])
+                                  "emissive disk", "cap light", "two envs", "unsampled env",
+                                  "dielectric", "textured roughness", "hdr sky"])
 def test_missing_features_raise(tmp_path, what):
     """Every feature outside the port raises NotImplementedError naming it;
-    none is skipped silently. The two that have joined the port since (an
-    emissive cube beside the sky; a scene without an env light) flatten, with
-    the light rows they should have."""
+    none is skipped silently. Those that have joined the port since (an
+    emissive cube beside the sky; a scene without an env light; a
+    dielectric; a textured roughness; an .hdr env map) flatten, with the
+    light rows they should have."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
 
     path = synth.write_scene(str(tmp_path), "small")
+    if what == "hdr sky":
+        from tungsten_tpu_torch.io.imageio import load_pfm, save_hdr
+
+        save_hdr(str(tmp_path / "sky.hdr"), load_pfm(str(tmp_path / "sky.pfm")))
     with open(path) as f:
         doc = _edit_small(json.load(f), what)
     with open(path, "w") as f:

@@ -42,11 +42,13 @@ runs on the device).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..math import vecops as vo
 from ..models.bsdfs.common import Lobes
-from ..models.bsdfs.dispatch import bsdf_eval, bsdf_pdf, bsdf_sample, gather
+from ..models.bsdfs.dispatch import N_TYPES, bsdf_eval, bsdf_pdf, bsdf_sample, gather
 from ..models.cameras.pinhole import camera_rays_w
 from ..models.primitives import lights as L
 from ..models.primitives.analytic import (hit_geom, intersect_analytic, normal_at,
@@ -64,6 +66,32 @@ SHADOW_FUDGE = 1.0 - 1e-3  # cf. attenuatedEmission's 1+1e-3 (TraceBase.cpp:155)
 
 
 BRUTE_MAX_TRIS = 64  # at or below: brute force, no pack (path_tracer.py:90, :106)
+
+_HIT_COUNTS = None  # (N_TYPES + 1,) int64 while count_bsdf_hits is open
+
+
+@contextlib.contextmanager
+def count_bsdf_hits(device):
+    """Count the surface vertices both tracers shade, per BSDF type id,
+    while the context is open: yields a dict that holds {type id: hits}
+    (types hit at least once) on exit. Off, it costs one `is None` test an
+    iteration; on, one index_add_ an iteration, with no host sync."""
+    global _HIT_COUNTS
+    acc = torch.zeros(N_TYPES + 1, dtype=torch.int64, device=device)
+    out = {}
+    _HIT_COUNTS = acc
+    try:
+        yield out
+    finally:
+        _HIT_COUNTS = None
+        out.update({t: n for t, n in enumerate(acc[:N_TYPES].tolist()) if n})
+
+
+def _count_hits(shaded, mtype):
+    """Add the shaded lanes' BSDF types to the open count (the last slot
+    takes the other lanes)."""
+    _HIT_COUNTS.index_add_(0, torch.where(shaded, mtype, N_TYPES),
+                           torch.ones_like(mtype))
 
 
 def _with_analytic(scene: FlatScene, o, d, tnear, tfar, walk) -> Hit:
@@ -327,6 +355,8 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         # ---- surface shading data + ONE material gather ----
         p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
         mat_pre = gather(mats, texs, mat_id, uv)
+        if _HIT_COUNTS is not None:
+            _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
         hit_backside = vo.dot(ns, d) > 0.0
         if meta.enable_two_sided:
@@ -361,8 +391,11 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         if do_nee:
             _, ls, cp_pick, smp = _choose_and_sample_light(scene, smp, vp)
             wo_l = vo.to_local(*frame, ls.d)
-            f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l)
-            pdf_b = bsdf_pdf(mats, mat_pre, uv, wi, wo_l)
+            f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l, nonspecular_only=True,
+                            textures=texs)
+            # the competing strategy is the continuation sampler's density
+            # over continuous directions: the full pdf, lobe choice included
+            pdf_b = bsdf_pdf(mats, mat_pre, uv, wi, wo_l, textures=texs)
             w_light = warps.power_heuristic(ls.pdf * cp_pick, pdf_b)
             # with one env light, the escape winner along ls.d is the chosen
             # light whenever an infinite light was chosen, so the JAX package's
@@ -387,7 +420,7 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         # ---- continuation sample ----
         u_c2, smp = smp.next_2d()
         u_c1, smp = smp.next_1d()
-        bs = bsdf_sample(mats, mat_pre, uv, wi, u_c2, u_c1)
+        bs = bsdf_sample(mats, mat_pre, uv, wi, u_c2, u_c1, textures=texs)
         wo_w = vo.to_global(*frame, bs.wo)
         pdf_cont = bs.pdf
         throughput = throughput * torch.where(alive[..., None], bs.weight, 1.0)
@@ -442,10 +475,10 @@ def _unified_nee_prepare(scene: FlatScene, smp: Sampler, vp, frame, wi, mat_pre,
     """NEE setup at a surface vertex: one chosen light, the light-sampling
     and the bsdf-sampling strategy (path_tracer.py:558-647, no media).
     Consumes 7 sampler dims. Returns the sampler and the deferred-ray data;
-    the visibility rays are traced by the caller. (The JAX package asks its
-    BSDFs for their non-specular lobes only here; lambert and rough_conductor
-    have no other.)"""
-    mats = scene.materials
+    the visibility rays are traced by the caller. Both strategies see the
+    non-specular lobes only: a dirac lobe cannot meet a sampled light
+    direction."""
+    mats, texs = scene.materials, scene.textures
     u_choose, smp = smp.next_1d()
     li, choice_weight = L.choose_light(scene, u_choose, vp)
     is_env_choice = scene.lights.is_env[li]
@@ -453,14 +486,16 @@ def _unified_nee_prepare(scene: FlatScene, smp: Sampler, vp, frame, wi, mat_pre,
 
     # strategy 1: f and pdf at the sampled light direction
     wo_l = vo.to_local(*frame, ls.d)
-    f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l)
-    mis_l = warps.power_heuristic(ls.pdf, bsdf_pdf(mats, mat_pre, uv, wi, wo_l))
+    f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l, nonspecular_only=True, textures=texs)
+    mis_l = warps.power_heuristic(ls.pdf, bsdf_pdf(mats, mat_pre, uv, wi, wo_l,
+                                                   nonspecular_only=True, textures=texs))
     cand = ls.valid & (ls.pdf > 0.0) & torch.any(f_l > 0.0, dim=-1)
 
     # strategy 2: bsdf sampling
     u_bs2, smp = smp.next_2d()
     u_bs1, smp = smp.next_1d()
-    bs = bsdf_sample(mats, mat_pre, uv, wi, u_bs2, u_bs1)
+    bs = bsdf_sample(mats, mat_pre, uv, wi, u_bs2, u_bs1, nonspecular_only=True,
+                     textures=texs)
     mis_cand = bs.valid & torch.any(bs.weight > 0.0, dim=-1)
 
     skip = Lobes.is_pure_specular(lobes) | (lobes == Lobes.FORWARD) | (lobes == 0)
@@ -588,6 +623,8 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         # ---- surface shading data ----
         p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
         mat_pre = gather(mats, texs, mat_id, uv)
+        if _HIT_COUNTS is not None:
+            _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
         hit_backside = vo.dot(ns, d) > 0.0
         if meta.enable_two_sided:
@@ -623,7 +660,7 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         # ---- continuation sample ----
         u_c2, smp = smp.next_2d()
         u_c1, smp = smp.next_1d()
-        bs = bsdf_sample(mats, mat_pre, uv, wi, u_c2, u_c1)
+        bs = bsdf_sample(mats, mat_pre, uv, wi, u_c2, u_c1, textures=texs)
         wo_w = vo.to_global(*frame, bs.wo)
         throughput = throughput * torch.where(alive[..., None], bs.weight, 1.0)
         was_specular = torch.where(hit_surface_lane, Lobes.has_specular(bs.lobe), was_specular)

@@ -2,8 +2,11 @@
 
 Port of tungsten_tpu/models/bsdfs/common.py (BsdfLobes.hpp:13-34 flags).
 Directions are in the local shading frame (+z = shading normal), wi points
-away from the surface, eval() returns f * |cos(theta_o)|, sample() returns
-weight = f*cos/pdf and a solid-angle pdf.
+away from the surface, eval() returns f * |cos(theta_o)| with the
+non-adjoint eta^2 folded in, sample() returns weight = f*cos/pdf and a
+solid-angle pdf; dirac lobes report pdf as a discrete probability and
+eval() / pdf() exclude them. A roughness slot holds a scalar or a texture
+id encoded as -(id + 2) (pack_roughness / resolve_roughness).
 """
 from __future__ import annotations
 
@@ -65,3 +68,32 @@ class BsdfSample:
             lobe=torch.zeros((n,), dtype=torch.int64, device=device),
             valid=torch.zeros((n,), dtype=torch.bool, device=device),
         )
+
+
+def pack_roughness(spec, key, default, tex_builder):
+    """Roughness parameter slot: the scalar value, or -(tex_id + 2) where
+    the scene drives it with a texture (the reference's roughness is a
+    Texture, e.g. RoughConductorBsdf::_roughness). resolve_roughness
+    decodes it at eval time."""
+    r = spec.get(key, default)
+    if isinstance(r, (int, float)):
+        return float(r)
+    from ..textures.textures import texture_from_spec
+
+    tid = texture_from_spec(r, tex_builder, spec.get("_resolve_path"))
+    tex_builder.rough_ids.append(tid)
+    return -(float(tid) + 2.0)
+
+
+def resolve_roughness(ctx, rough_param, uv):
+    """Per-lane roughness: scalar slots pass through; negative-encoded
+    texture ids evaluate the texture's first channel at uv, over the static
+    texture kinds the roughness slots use (`MaterialTable.rough_kinds`)."""
+    from ..textures.textures import eval_texture
+
+    mats, textures = ctx
+    if len(mats.rough_kinds) == 0:
+        return rough_param  # static: no textured roughness in this scene
+    tid = torch.clamp((-rough_param - 2.0).to(torch.int64), min=0)
+    tex_r = eval_texture(textures, tid, uv, may=mats.rough_kinds)[..., 0]
+    return torch.where(rough_param < -1.0, tex_r, rough_param)

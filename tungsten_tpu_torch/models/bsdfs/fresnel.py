@@ -1,11 +1,27 @@
-"""Conductor Fresnel term (Fresnel.hpp, Shirley's form) on torch tensors.
+"""Fresnel terms (Fresnel.hpp:15-123) on torch tensors: dielectric (with
+cos theta_t out) and conductor (Shirley's form).
 
-Port of conductor_reflectance from tungsten_tpu/models/bsdfs/fresnel.py; the
-dielectric and thin-film terms wait for the BSDFs that use them.
+Port of tungsten_tpu/models/bsdfs/fresnel.py; the thin-film term waits for
+the BSDF that uses it.
 """
 from __future__ import annotations
 
 import torch
+
+
+def dielectric_reflectance(eta, cos_i):
+    """eta = etaI/etaT for cos_i > 0 rays; handles both sides like the
+    reference (flips eta when cos_i < 0). Returns (F, cos_t)."""
+    flip = cos_i < 0.0
+    eta = torch.where(flip, 1.0 / eta, eta)
+    ci = torch.abs(cos_i)
+    sin_t_sq = eta * eta * (1.0 - ci * ci)
+    tir = sin_t_sq > 1.0
+    ct = torch.sqrt(torch.clamp(1.0 - sin_t_sq, min=0.0))
+    rs = (eta * ci - ct) / torch.clamp(eta * ci + ct, min=1e-20)
+    rp = (eta * ct - ci) / torch.clamp(eta * ct + ci, min=1e-20)
+    f = 0.5 * (rs * rs + rp * rp)
+    return torch.where(tir, 1.0, f), torch.where(tir, 0.0, ct)
 
 
 def conductor_reflectance(eta, k, cos_i):

@@ -17,18 +17,18 @@ def pack(spec, params, tex_builder):
     return params  # no extra parameters
 
 
-def eval(params, albedo, uv, wi, wo):
+def eval(ctx, params, albedo, uv, wi, wo, nonspecular_only=False):
     valid = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
     f = albedo * (warps.INV_PI * torch.clamp(wo[..., 2], min=0.0))[..., None]
     return torch.where(valid[..., None], f, 0.0)
 
 
-def pdf(params, albedo, uv, wi, wo):
+def pdf(ctx, params, albedo, uv, wi, wo, nonspecular_only=False):
     valid = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
     return torch.where(valid, warps.cosine_hemisphere_pdf(wo), 0.0)
 
 
-def sample(params, albedo, uv, wi, u2, u1):
+def sample(ctx, params, albedo, uv, wi, u2, u1, nonspecular_only=False):
     wo = warps.cosine_hemisphere(u2)
     valid = wi[..., 2] > 0.0
     return BsdfSample(

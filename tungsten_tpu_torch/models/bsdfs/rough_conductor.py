@@ -2,8 +2,8 @@
 complex-IOR Fresnel, on torch tensors.
 
 Port of tungsten_tpu/models/bsdfs/rough_conductor.py. Params: [0:3] eta rgb,
-[3:6] k rgb, [6] roughness, [7] distribution id. Roughness textures are not
-ported (pack raises NotImplementedError).
+[3:6] k rgb, [6] roughness (a scalar or a texture: common.pack_roughness),
+[7] distribution id.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 
 from ...math import vecops as vo
 from . import microfacet as mf
-from .common import BsdfSample, Lobes
+from .common import BsdfSample, Lobes, pack_roughness, resolve_roughness
 from .complex_ior import lookup
 from .fresnel import conductor_reflectance
 
@@ -30,10 +30,7 @@ def pack(spec, params, tex_builder):
         eta, k = mat
     params[0:3] = np.asarray(eta, np.float32)
     params[3:6] = np.asarray(k, np.float32)
-    rough = spec.get("roughness", 0.1)
-    if not isinstance(rough, (int, float)):
-        raise NotImplementedError("textured roughness is not ported")
-    params[6] = float(rough)
+    params[6] = pack_roughness(spec, "roughness", 0.1, tex_builder)
     params[7] = mf.dist_id(spec.get("distribution", "ggx"))
     return params
 
@@ -42,8 +39,9 @@ def _unpack(params):
     return params[..., 0:3], params[..., 3:6], params[..., 6], params[..., 7].to(torch.int64)
 
 
-def eval(params, albedo, uv, wi, wo):
+def eval(ctx, params, albedo, uv, wi, wo, nonspecular_only=False):
     eta, k, rough, dist = _unpack(params)
+    rough = resolve_roughness(ctx, rough, uv)
     alpha = mf.roughness_to_alpha(dist, rough)
     hr = vo.normalize(wi + wo, eps=1e-12)
     cos_m = vo.dot(wi, hr)
@@ -55,8 +53,9 @@ def eval(params, albedo, uv, wi, wo):
     return torch.where(valid[..., None], albedo * f * fr[..., None], 0.0)
 
 
-def pdf(params, albedo, uv, wi, wo):
+def pdf(ctx, params, albedo, uv, wi, wo, nonspecular_only=False):
     _, _, rough, dist = _unpack(params)
+    rough = resolve_roughness(ctx, rough, uv)
     alpha = mf.roughness_to_alpha(dist, rough)
     hr = vo.normalize(wi + wo, eps=1e-12)
     p = mf.pdf(dist, alpha, hr) * 0.25 / torch.clamp(torch.abs(vo.dot(wi, hr)), min=1e-20)
@@ -64,8 +63,9 @@ def pdf(params, albedo, uv, wi, wo):
     return torch.where(valid, p, 0.0)
 
 
-def sample(params, albedo, uv, wi, u2, u1):
+def sample(ctx, params, albedo, uv, wi, u2, u1, nonspecular_only=False):
     eta, k, rough, dist = _unpack(params)
+    rough = resolve_roughness(ctx, rough, uv)
     alpha = mf.roughness_to_alpha(dist, rough)
     m = mf.sample(dist, alpha, u2)
     wi_dot_m = vo.dot(wi, m)

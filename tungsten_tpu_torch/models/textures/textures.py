@@ -50,6 +50,9 @@ class TextureBuilder:
         self._blob_meta: List[tuple] = []
         self._blob_off = 0
         self._cache = {}
+        # texture ids referenced by BSDF roughness slots (pack_roughness):
+        # their kinds are resolve_roughness's static `may` hint
+        self.rough_ids: List[int] = []
 
     def add_constant(self, rgb) -> int:
         rgb = np.asarray(rgb, np.float32).ravel()

@@ -4,7 +4,8 @@ Port of the slice subset of tungsten_tpu/scene/flatten.py. The host build
 (`flatten_arrays`) is the same numpy code as the JAX package's, so it yields
 the same tables: the triangle SoA in BVH leaf order, the packed shading rows
 (`shade_pack`, with one virtual row per analytic prim after the T
-triangles), the packed material rows (`gpack2`), the texture table, the env
+triangles), the packed material rows (`gpack2`) with the texture kinds
+that roughness slots use (`rough_kinds`), the texture table, the env
 light with its alias-table Distribution2D, the light table (`lights`: one
 row per emissive mesh / quad / cube with its triangle set and area CDF, then
 the env light's row; `tri_light` and the last column of `shade_pack` map a
@@ -29,13 +30,16 @@ so the JAX package's flattened scene can be carried across as numpy arrays
 and both packages render the very same tables. Each BVH pack and the
 analytic table is taken all-or-none (OPTIONAL).
 
-The slice supports mesh / quad / cube geometry, each emissive or not,
-non-emissive analytic sphere / disk / cylinder prims, lambert and
-rough_conductor materials, constant / checker / bitmap textures, at most one
-samplable infinite_sphere beside the area lights, and a pinhole camera.
-Everything else (emissive analytic prims, point lights, cap lights,
-skydomes, several env lights, ...) raises NotImplementedError naming the
-missing piece.
+The port supports mesh / quad / cube geometry, each emissive or not,
+non-emissive analytic sphere / disk / cylinder prims, the BSDF families of
+models/bsdfs/dispatch.py (lambert, null, mirror, rough_conductor,
+dielectric, rough_dielectric, conductor, plastic, rough_plastic; roughness
+scalar or textured), constant / checker / bitmap textures from PFM, .hdr
+(or, with cv2, .exr) and LDR images, at most one samplable infinite_sphere
+beside the area lights, and a pinhole camera. Everything else (emissive
+analytic prims, point lights, cap lights, skydomes, several env lights, the
+wrapper and fiber BSDFs, ...) raises NotImplementedError naming the missing
+piece.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ import torch
 from ..accel.bvh import build_bvh_best
 from ..io.meshio import compute_smooth_normals, load_mesh
 from ..math import transform as tf
-from ..models.bsdfs.dispatch import MaterialTable, pack_materials
+from ..models.bsdfs.dispatch import MaterialTable, build_gpack2, pack_materials
 from ..models.primitives import analytic, tessellate
 from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
 from ..ops.bvh import BvhPack, build_bvh_pack
@@ -75,7 +79,8 @@ ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
     "tri_ng", "tri_uv0", "tri_uv1", "tri_uv2", "tri_light",
     *(f"lights.{k}" for k, _ in LIGHT_FIELDS), *(f"lights.{k}" for k in LIGHT_STATICS),
-    "materials.gpack2", "textures.tpack", "textures.data", "textures.data4",
+    "materials.gpack2", "materials.rough_kinds",
+    "textures.tpack", "textures.data", "textures.data4",
     "env.rot", "env.inv_rot", "env.tex",
     "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
     "camera.rot", "camera.pos", "camera.plane_dist",
@@ -224,7 +229,13 @@ class FlatScene:
 
 
 def _check_slice(doc: SceneDocument):
-    """Raise NotImplementedError for every scene feature the port lacks."""
+    """Raise NotImplementedError for every scene feature the port lacks:
+    media, cameras other than pinhole, AOV buffers, point / cap / skydome
+    lights, an unsampled or a second infinite_sphere, primitives other than
+    mesh / quad / cube / sphere / disk / cylinder, emissive analytic prims.
+    BSDF types (dispatch.pack_materials), textures (texture_from_spec) and
+    image formats (io/imageio.py) are checked where they are packed; the
+    nine BSDF families, textured roughness and .hdr images pass."""
     if doc.media:
         raise NotImplementedError("participating media are not ported")
     cam = doc.camera
@@ -454,12 +465,9 @@ def flatten_arrays(doc: SceneDocument):
     }
     lights.update({k: np.asarray(lights[k], dt) for k, dt in LIGHT_FIELDS})
 
+    rough_kinds = np.asarray(tex_builder.kinds_of(tex_builder.rough_ids), np.int32)
     tex = tex_builder.build_arrays()
-    gpack = mats["gpack"]
-    at = gpack[:, -1].astype(np.int64)
-    gpack2 = np.concatenate(
-        [gpack, mats["lobes"].astype(np.float32)[:, None],
-         tex["tpack"][np.clip(at, 0, tex["tpack"].shape[0] - 1)]], axis=1).astype(np.float32)
+    gpack2 = build_gpack2(mats, tex["tpack"])
 
     # ---- camera ----
     cam = doc.camera
@@ -497,7 +505,7 @@ def flatten_arrays(doc: SceneDocument):
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
         "tri_ng": tri_ng, "tri_uv0": uv0, "tri_uv1": uv1, "tri_uv2": uv2,
         "tri_light": tri_light, **{f"lights.{k}": v for k, v in lights.items()},
-        "materials.gpack2": gpack2,
+        "materials.gpack2": gpack2, "materials.rough_kinds": rough_kinds,
         "textures.tpack": tex["tpack"], "textures.data": tex["data"],
         "textures.data4": tex["data4"],
         "env.rot": rot.astype(np.float32), "env.inv_rot": rot.T.astype(np.float32),
@@ -592,7 +600,8 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         tri_ng=t("tri_ng"), tri_uv0=t("tri_uv0"), tri_uv1=t("tri_uv1"), tri_uv2=t("tri_uv2"),
         tri_light=torch.as_tensor(np.array(arrays["tri_light"], np.int64), device=device),
         lights=LightTable.from_arrays(sub("lights"), device),
-        materials=MaterialTable.from_arrays(arrays["materials.gpack2"], device),
+        materials=MaterialTable.from_arrays(arrays["materials.gpack2"],
+                                            arrays["materials.rough_kinds"], device),
         textures=textures,
         env=env,
         camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),

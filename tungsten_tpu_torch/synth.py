@@ -1,8 +1,8 @@
 """Scenes built in code: a materialtest-like scene in two sizes, with variants.
 
 `write_scene(out_dir, size)` writes scene.json, ball.obj and, where the
-size has them, sky.pfm and lamp.obj into out_dir and returns the scene.json path. The scene has materialtest's
-features:
+size has them, sky.pfm, sky.hdr, lamp.obj and orb.obj into out_dir and
+returns the scene.json path. The scene has materialtest's features:
 
   * a lambert floor quad with a checker albedo;
   * a rough_conductor ball (Cu, GGX, roughness 0.1): a UV-sphere OBJ with
@@ -22,6 +22,20 @@ features:
     its ceiling: no env light, every path ends inside (a Cornell-box kind of
     scene).
 
+The two interior sizes build another scene with the interior cell's surfaces
+(BASELINE.json configs[1]: area lights, NEE/MIS, dielectric and plastic
+BSDFs, an HDR env map): a closed room of cubes (floor, ceiling, walls) with
+one window in its back wall, and in it
+  * the ball mesh as a smooth dielectric (ior 1.5);
+  * a rough_dielectric cube, a thin frosted pane;
+  * a plastic sphere and a rough_plastic sphere whose roughness is a checker
+    texture (orb.obj, a smaller UV sphere);
+  * a smooth conductor sphere (Au) and a mirror quad on the right wall;
+  * an emissive ceiling quad, the light fixture, with the null BSDF;
+  * the sky as sky.hdr, written by the port's RGBE writer, seen through the
+    window;
+  * lambert walls and a lambert floor with a checker albedo.
+
 Sizes:
   materialtest-synth  80,000-triangle ball, 512x256 sky, 1000x563, 32 spp,
                       max_bounces 64 (materialtest's renderer block; the
@@ -33,6 +47,12 @@ Sizes:
   materialtest-area       materialtest-synth plus the two area lights
   small-area              small plus the two area lights
   small-box               small's ball and cube in the closed box
+  interior-synth      the interior scene at materialtest-synth's scale: the
+                      80,000-triangle ball, 9,216-triangle orbs, 512x256
+                      sky, 1000x563, 32 spp, max_bounces 64
+  small-interior      the interior scene at small's: 2,000-triangle ball,
+                      576-triangle orbs, 128x64 sky, 64x48, 4 spp,
+                      max_bounces 6
 
 Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size]
 """
@@ -45,7 +65,7 @@ import sys
 
 import numpy as np
 
-from .io.imageio import save_pfm
+from .io.imageio import save_hdr, save_pfm
 
 SIZES = {
     # name: (sphere u segments, v segments, sky w, sky h, res, spp, max_bounces)
@@ -57,6 +77,9 @@ SIZES["small-analytic"] = SIZES["small"]
 SIZES["materialtest-area"] = SIZES["materialtest-synth"]
 SIZES["small-area"] = SIZES["small"]
 SIZES["small-box"] = SIZES["small"]
+SIZES["interior-synth"] = SIZES["materialtest-synth"]
+SIZES["small-interior"] = SIZES["small"]
+ORB_SEGMENTS = {"interior-synth": (96, 48), "small-interior": (24, 12)}  # orb.obj
 LAMP_SEGMENTS = (8, 4)  # lamp.obj: 2 * 8 * 4 = 64 triangles
 
 # the -analytic sizes' extra materials and prims
@@ -90,6 +113,59 @@ BOX_PRIMS = [
      "transform": {"position": [0.0, 2.0, 2.5], "scale": [8.0, 4.0, 10.0]}},
     {"type": "quad", "bsdf": "inner", "emission": [12.0, 11.0, 9.0],
      "transform": {"position": [0.0, 3.95, 1.5], "scale": 2.0, "rotation": [180, 0, 0]}},
+]
+
+
+# the interior sizes: a room of wall slabs 0.2 thick, x in [-4, 4], y in
+# [0, 3.5], z in [-4, 6], its window in the back wall at x in [-3, -0.6], y in
+# [1, 2.8]; (position, scale) of each slab
+INTERIOR_WALLS = [
+    ([0.0, -0.1, 1.0], [8.4, 0.2, 10.4]),  # floor
+    ([0.0, 3.6, 1.0], [8.4, 0.2, 10.4]),  # ceiling
+    ([-4.1, 1.75, 1.0], [0.2, 3.5, 10.4]),  # left wall
+    ([4.1, 1.75, 1.0], [0.2, 3.5, 10.4]),  # right wall
+    ([0.0, 1.75, 6.1], [8.4, 3.5, 0.2]),  # front wall, behind the camera
+    ([-3.5, 1.75, -4.1], [1.0, 3.5, 0.2]),  # back wall, left of the window
+    ([1.7, 1.75, -4.1], [4.6, 3.5, 0.2]),  # back wall, right of it
+    ([-1.8, 0.5, -4.1], [2.4, 1.0, 0.2]),  # below the window
+    ([-1.8, 3.15, -4.1], [2.4, 0.7, 0.2]),  # above it
+]
+INTERIOR_BSDFS = [
+    {"name": "wall", "type": "lambert", "albedo": [0.7, 0.68, 0.62]},
+    {"name": "floor", "type": "lambert",
+     "albedo": {"type": "checker", "on_color": [0.75, 0.7, 0.6],
+                "off_color": [0.3, 0.28, 0.25], "res_u": 8, "res_v": 10}},
+    {"name": "glass", "type": "dielectric", "ior": 1.5},
+    {"name": "frosted", "type": "rough_dielectric", "ior": 1.5, "distribution": "ggx",
+     "roughness": 0.15},
+    {"name": "blue_plastic", "type": "plastic", "ior": 1.5, "albedo": [0.1, 0.35, 0.8]},
+    {"name": "red_plastic", "type": "rough_plastic", "ior": 1.5, "distribution": "ggx",
+     "albedo": [0.8, 0.25, 0.1],
+     "roughness": {"type": "checker", "on_color": 0.05, "off_color": 0.5,
+                   "res_u": 8, "res_v": 4}},
+    {"name": "gold", "type": "conductor", "material": "Au"},
+    {"name": "mirror", "type": "mirror", "albedo": 0.9},
+    {"name": "fixture", "type": "null"},
+]
+INTERIOR_PRIMS = [
+    {"type": "mesh", "file": "ball.obj", "smooth": True, "bsdf": "glass",
+     "transform": {"position": [0.4, 1.0, -0.8]}},
+    {"type": "cube", "bsdf": "frosted",  # a frosted pane standing on the floor
+     "transform": {"position": [-2.2, 0.5, 0.6], "scale": [1.4, 1.0, 0.08],
+                   "rotation": [0, 25, 0]}},
+    {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "blue_plastic",
+     "transform": {"position": [2.4, 0.6, 0.8], "scale": 0.6}},
+    {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "red_plastic",
+     "transform": {"position": [-0.9, 0.55, 1.9], "scale": 0.55}},
+    {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "gold",
+     "transform": {"position": [1.5, 0.45, 2.3], "scale": 0.45}},
+    {"type": "quad", "bsdf": "mirror",
+     "transform": {"position": [3.95, 1.6, 0.0], "scale": [2.0, 1.0, 3.0],
+                   "rotation": [0, 0, 90]}},
+    {"type": "quad", "bsdf": "fixture", "emission": [14.0, 12.5, 10.0],
+     "transform": {"position": [0.0, 3.49, 1.0], "scale": 1.6, "rotation": [180, 0, 0]}},
+    {"type": "infinite_sphere", "emission": "sky.hdr",
+     "transform": {"rotation": [0, 200, 0]}},
 ]
 
 
@@ -135,7 +211,26 @@ def _sky(w: int, h: int) -> np.ndarray:
     return sky.astype(np.float32)
 
 
+def _interior_dict(size: str) -> dict:
+    res, spp, max_b = SIZES[size][4:]
+    walls = [{"type": "cube", "bsdf": "floor" if i == 0 else "wall",
+              "transform": {"position": p, "scale": sc}}
+             for i, (p, sc) in enumerate(INTERIOR_WALLS)]
+    return {
+        "bsdfs": copy.deepcopy(INTERIOR_BSDFS),
+        "primitives": walls + copy.deepcopy(INTERIOR_PRIMS),
+        "camera": {"type": "pinhole", "tonemap": "filmic", "fov": 60,
+                   "resolution": list(res),
+                   "transform": {"position": [0.2, 1.7, 5.6], "look_at": [-0.3, 1.2, -2.0],
+                                 "up": [0, 1, 0]}},
+        "integrator": {"type": "path_tracer", "max_bounces": max_b},
+        "renderer": {"spp": spp, "spp_step": spp},
+    }
+
+
 def scene_dict(size: str) -> dict:
+    if size in ORB_SEGMENTS:
+        return _interior_dict(size)
     nu, nv, sw, sh, res, spp, max_b = SIZES[size]
     doc = {
         "bsdfs": [
@@ -184,7 +279,10 @@ def write_scene(out_dir: str, size: str = "small") -> str:
     _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
     if size.endswith("-area"):
         _write_sphere_obj(os.path.join(out_dir, "lamp.obj"), *LAMP_SEGMENTS)
-    if not size.endswith("-box"):
+    if size in ORB_SEGMENTS:
+        _write_sphere_obj(os.path.join(out_dir, "orb.obj"), *ORB_SEGMENTS[size])
+        save_hdr(os.path.join(out_dir, "sky.hdr"), _sky(sw, sh))
+    elif not size.endswith("-box"):
         save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
     path = os.path.join(out_dir, "scene.json")
     with open(path, "w") as f:
