@@ -6,7 +6,9 @@
 Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
-  2. build    - nvcc builds the ten kernel sources (csrc/bvh8_walk.cu,
+  2. build    - the host's BVH builder (native/, portable flags) is built
+                beside the kernels where it is absent; nvcc builds the ten
+                kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
                 bvh2_walk.cu, bvh2_walk_v1.cu, bvh_walk.cu, bvh_walk_v1.cu,
                 intersect_stream.cu, intersect_stream_v1.cu) into build/, one
@@ -134,20 +136,47 @@ printing a result):
                 against tests/data/torch_port_interior_ref.json (numpy BVH
                 build); interior-synth flattened, one regen pass (1 spp)
                 counting each BSDF type's hits (all seven new types hit),
-                then at 1000x563, 32 spp, 64 bounces through regen and
-                lockstep with the launch counts reset just before and read
-                just after each: K3 and K3-fast launch in both (regen's
+                then at 1000x563, 64 bounces through regen (32 spp) and
+                lockstep (16 spp) with the launch counts reset just before
+                and read just after each: K3 and K3-fast launch in both (regen's
                 closest-hit walks also go through K3-fast), lockstep's
                 counts add up as in phase 5b, no other walk, twin or v1
                 kernel; each image finite and non-negative, the two
                 wavefronts' channel means within 5e-3. Wall time and
                 Mpaths/s of both.
+  9. surfaces - the remaining surfaces (smooth_coat, rough_coat, mixed,
+                transparency, oren_nayar, phong, diffuse_transmission,
+                thinsheet, forward) and the lockstep tracer's forward-lobe
+                branch: small-coat through render_scene in both wavefronts
+                and small-cutout through lockstep against
+                tests/data/torch_port_{coat,cutout}_ref.json (numpy BVH
+                build); coat-synth and cutout-synth flattened; one profile
+                window each (torch.profiler, CUDA activity): one regen batch
+                of 1 pass of coat-synth and one lockstep pass of 8 bounces of
+                cutout-synth, each run once bare (coat's counting each BSDF
+                type's hits: every new type must be hit) and once profiled,
+                printing the CUDA kernels per iteration, the device-busy share
+                and the five kernels of most device time; then coat-synth at
+                1000x563 through regen (32 spp) and lockstep (4 spp) and
+                cutout-synth through lockstep (4 spp; forward lobes: the
+                crossing-walk branch), each counting the BSDF types' hits
+                (every new type of the scene must be hit), the launch counts
+                reset just before and read just after each: K3 and K3-fast
+                launch, no other walk, twin or v1
+                kernel; coat's lockstep counts add up as in phase 5b,
+                cutout's as the forward branch walks (per bounce one path
+                walk, and one 2N crossing walk of 1-8 steps; each a fast
+                launch with its repair, no shadow walk); each image finite
+                and non-negative; coat-synth's two wavefronts' channel means
+                within 5e-3. Wall time, iterations and Mpaths/s of each.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
-8; no other phase was cut.
+8; to make room for phase 9, phase 8's lockstep render from 32 to 16; phase
+9's lockstep renders run 4 spp (coat-synth's 32 kept by regen).
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
-renders beside as launches_interior; phase 7's route
+renders beside as launches_interior and phase 9's three as
+launches_surfaces; phase 7's route
 renders for K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
 K4 in its three modes, K5, K2 and the first forms),
@@ -273,13 +302,31 @@ AREA_LOCKSTEP_SPP = 8
 # the interior cell's BSDF types that phase 8 must see hit, JAX type ids
 INTERIOR_TYPES = {1: "null", 2: "mirror", 7: "dielectric", 8: "rough_dielectric",
                   9: "conductor", 10: "plastic", 11: "rough_plastic"}
+# phase 8's lockstep render, cut from the scene's 32 spp to make room for
+# phase 9 (its regen render keeps 32; on an H100 the two wavefronts' means
+# stood 2.04e-3 apart at 16 spp, 2.2e-3 at 32: the bar is 5e-3)
+INTERIOR_LOCKSTEP_SPP = 16
+# the surface scenes' BSDF types that phase 9 must see hit, JAX type ids
+SURFACE_TYPES = {"coat-synth": {4: "smooth_coat", 5: "oren_nayar", 6: "phong", 15: "mixed",
+                                16: "diffuse_transmission", 17: "rough_coat"},
+                 "cutout-synth": {12: "thinsheet", 13: "transparency", 14: "forward"}}
+# phase 9's lockstep renders, 4 spp (coat-synth's regen render keeps the
+# scene's 32): at 8 spp the script took 469 s on an H100 machine, and a host
+# 1.3-1.6x slower (as one has measured) would pass the 600 s the script
+# keeps under
+SURFACE_LOCKSTEP_SPP = 4
+PROFILE_BOUNCES = 8  # the profile window over cutout-synth's lockstep
 # H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
 # FLOP/s on them, HBM3 B/s
 F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
 
 
+T0 = time.time()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of output, after the seconds since the script started."""
+    print(f"{time.time() - T0:7.1f} {msg}", flush=True)
 
 
 def card_line():
@@ -438,6 +485,32 @@ def k4_bars(label, out, ref, t_atol, atol_all):
     return err
 
 
+def build_native_bvh():
+    """Start the host's BVH builder (native/bvh_builder.cpp, which the
+    flatten uses where native/libtungsten_native.so exists: seconds, not
+    the numpy build's ~10 s for an 80,000-triangle scene) with portable
+    flags, so that every host builds the same trees; returns a function that
+    waits for it and logs the result. A failed build leaves the numpy
+    build, which gives other valid trees (host time only)."""
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+
+    lib = os.path.join(REPO, "native", "libtungsten_native.so")
+    if os.path.exists(lib):
+        return lambda: log(f"[2 build] {lib} present: the flatten's BVH builder")
+    t0 = time.time()
+    proc = subprocess.Popen(["make", "-C", os.path.join(REPO, "native"),
+                             "CXXFLAGS=-O3 -fPIC -std=c++17"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        out, _ = proc.communicate()
+        accel_bvh._NATIVE = None  # loaded at the next build
+        log(f"[2 build] native BVH builder: make exit {proc.returncode} in "
+            f"{time.time() - t0:.2f} s{'' if proc.returncode == 0 else ': ' + out[-500:]}")
+
+    return wait
+
+
 @contextlib.contextmanager
 def numpy_bvh_build():
     """The small reference renders use the numpy BVH build, as the JAX
@@ -462,6 +535,102 @@ def check_lockstep_launches(label, n_fast, n_exact, passes, max_bounces):
           f"{n_fast} = passes + bounces fast launches, {n_exact} = repairs + shadow walks "
           f"exact launches")
     return bounces
+
+
+def check_forward_launches(label, n_fast, n_exact, calls, passes, max_bounces):
+    """A lockstep render through the forward-lobe branch: per bounce one
+    path walk, and where NEE runs one 2N crossing walk of 1 to MAX_CROSSINGS
+    closest-hit steps; every closest-hit walk is a fast launch with its
+    repair launch, and no shadow walk runs. `calls` holds the bounces
+    (shading) and crossing walks counted by `tracer_calls`."""
+    from tungsten_tpu_torch.integrators.path_tracer import MAX_CROSSINGS
+
+    bounces, walks = calls["shading"], calls["crossing"]
+    steps = n_fast - bounces
+    check(n_exact == n_fast and passes <= bounces <= passes * max_bounces
+          and walks <= bounces and walks <= steps <= walks * MAX_CROSSINGS,
+          f"{label}: {passes} passes ran {bounces} bounces ({bounces / passes:.1f} a pass) and "
+          f"{walks} crossing walks of {steps} steps ({steps / max(walks, 1):.2f} a walk): "
+          f"{n_fast} = bounces + steps fast launches, {n_exact} repair launches")
+    return bounces
+
+
+@contextlib.contextmanager
+def tracer_calls():
+    """Counts, while open, of the path tracer's once-an-iteration calls:
+    "shading" (`_shading_data`: one a regen iteration or a lockstep bounce)
+    and "crossing" (`_trace_transparent`: one 2N crossing walk a forward
+    bounce that runs NEE)."""
+    from tungsten_tpu_torch.integrators import path_tracer as pt
+
+    out = {"shading": 0, "crossing": 0}
+    saved = pt._shading_data, pt._trace_transparent
+
+    def shading(*a):
+        out["shading"] += 1
+        return saved[0](*a)
+
+    def crossing(*a):
+        out["crossing"] += 1
+        return saved[1](*a)
+
+    pt._shading_data, pt._trace_transparent = shading, crossing
+    try:
+        yield out
+    finally:
+        pt._shading_data, pt._trace_transparent = saved
+
+
+def profile_window(label, fn, card):
+    """fn() timed bare, then again under torch.profiler with CUDA activity
+    only (host-side op records would slow the host-bound loop the window
+    measures): the CUDA kernels launched per iteration (per `_shading_data`
+    call), the device-busy share (the union of the device's activity
+    intervals over the window's wall, under the profiler and over the bare
+    wall), and the five kernel names of most device time. The device events
+    are read from the profiler's raw results: building its Python event tree
+    for ~10^6 kernels took minutes. Returns a dict of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    with tracer_calls() as calls:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spans, by_name, kernels = [], {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        spans.append((e.start_ns(), e.end_ns()))
+        n, ns = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, ns + e.duration_ns())
+        low = name.lower()
+        kernels += "memcpy" not in low and "memset" not in low
+    busy, end = 0, -1
+    for a, b in sorted(spans):  # the union of the intervals, ns
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    iters = max(calls["shading"], 1)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
+    out = {"iterations": calls["shading"], "wall_s": wall, "bare_wall_s": bare,
+           "device_busy_s": busy / 1e9, "busy_share": busy / 1e9 / wall,
+           "busy_share_of_bare_wall": busy / 1e9 / bare, "kernels": kernels,
+           "kernels_per_iteration": kernels / iters,
+           "top5": [[k[:120], n, round(ns / 1e6, 4)] for k, (n, ns) in top],
+           "read_s": time.perf_counter() - t0}
+    log(f"[9 profile] {label} on {card}: {json.dumps(out)}")
+    check(bool(spans), f"{label}: the profiler saw the device's activity")
+    return out
 
 
 def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
@@ -528,10 +697,11 @@ def interior_phase(work, dev, card):
 
     means, launches = {}, {}
     for wavefront in ("regen", "lockstep"):
+        spp = m.spp if wavefront == "regen" else INTERIOR_LOCKSTEP_SPP
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
-        img = render_flat(scene, spp=m.spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        img = render_flat(scene, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
         dt = time.time() - t0
         c = launches[wavefront] = counts()
         others = {k: v for k, v in c.items()
@@ -541,18 +711,112 @@ def interior_phase(work, dev, card):
               f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
         if wavefront == "lockstep":
             check_lockstep_launches("interior lockstep", c["bvh8.walk_fast_cuda"],
-                                    c["bvh8.walk_cuda"], m.spp, m.max_bounces)
+                                    c["bvh8.walk_cuda"], spp, m.max_bounces)
         check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all()
               and (img >= 0).all(), f"interior {wavefront}: {img.shape} image finite and "
               f"non-negative")
         means[wavefront] = img.reshape(-1, 3).astype(np.float64).mean(0)
-        log(f"[8 interior] interior-synth {wavefront}: {m.res_x}x{m.res_y} {m.spp} spp in "
-            f"{dt:.2f} s: {m.res_x * m.res_y * m.spp / dt / 1e6:.4f} Mpaths/s on {card}; "
+        log(f"[8 interior] interior-synth {wavefront}: {m.res_x}x{m.res_y} {spp} spp in "
+            f"{dt:.2f} s: {m.res_x * m.res_y * spp / dt / 1e6:.4f} Mpaths/s on {card}; "
             f"channel means {means[wavefront].round(6).tolist()}")
     rel = np.abs(means["lockstep"] - means["regen"]) / np.abs(means["regen"])
     check((rel <= WAVEFRONT_RTOL).all(), f"interior-synth: lockstep channel means vs regen's "
           f"(rel {rel.max():.2e} <= {WAVEFRONT_RTOL})")
     return launches
+
+
+def surfaces_phase(work, dev, card):
+    """Phase 9: the remaining surfaces and the forward-lobe branch. Returns
+    ({render: counts()} of the three full-width renders, {window: profile})."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators.path_tracer import count_bsdf_hits
+    from tungsten_tpu_torch.models.bsdfs.dispatch import type_name
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    paths = {size: synth.write_scene(os.path.join(work, size), size)
+             for size in ("small-coat", "small-cutout", "coat-synth", "cutout-synth")}
+    with numpy_bvh_build():
+        for wavefront in ("regen", "lockstep"):
+            render_vs_ref("9 surfaces", paths["small-coat"], "torch_port_coat_ref.json", dev,
+                          wavefront)
+        render_vs_ref("9 surfaces", paths["small-cutout"], "torch_port_cutout_ref.json", dev,
+                      "lockstep")
+
+    scenes = {}
+    for size in ("coat-synth", "cutout-synth"):
+        t0 = time.time()
+        sc = scenes[size] = flatten_scene(load_scene(paths[size]), dev)
+        m = sc.meta
+        log(f"[9 surfaces] {size} flattened in {time.time() - t0:.1f} s: "
+            f"{sc.tris.v0.shape[0]} triangles, {m.n_lights} lights {sc.lights.apx_kind}, "
+            f"BSDF types {[type_name(t) for t in sc.materials.present]}, forward lobes "
+            f"{m.has_forward}, gpack3 {sc.materials.gpack3 is not None}; "
+            f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
+    coat, cutout = scenes["coat-synth"], scenes["cutout-synth"]
+    short = dataclasses.replace(cutout, meta=dataclasses.replace(cutout.meta,
+                                                                 max_bounces=PROFILE_BOUNCES))
+    hits = {}
+
+    def check_hits(label, size, h):
+        log(f"[9 surfaces] BSDF hits of {label}: "
+            + json.dumps({type_name(t): n for t, n in sorted(h.items())}))
+        check(all(h.get(t, 0) > 0 for t in SURFACE_TYPES[size]),
+              f"{label}: camera paths hit each of {sorted(SURFACE_TYPES[size].values())}")
+
+    def coat_pass():  # one regen pass, 1 spp; its first (bare) run counts the hits
+        with count_bsdf_hits(dev) as h:
+            render_flat(coat, spp=1, seed=DEFAULT_SEED, wavefront="regen")
+        hits.setdefault("coat", h)
+
+    profiles = {
+        "coat-synth regen batch (1 pass)": profile_window(
+            "coat-synth, one regen batch of 1 pass", coat_pass, card),
+        f"cutout-synth lockstep ({PROFILE_BOUNCES} bounces)": profile_window(
+            f"cutout-synth, one lockstep pass of {PROFILE_BOUNCES} bounces",
+            lambda: render_flat(short, spp=1, seed=DEFAULT_SEED, wavefront="lockstep"), card),
+    }
+    check_hits("one regen pass of coat-synth (1 spp)", "coat-synth", hits["coat"])
+
+    means, launches = {}, {}
+    for size, wavefront in (("coat-synth", "regen"), ("coat-synth", "lockstep"),
+                            ("cutout-synth", "lockstep")):
+        sc = scenes[size]
+        m = sc.meta
+        spp = m.spp if wavefront == "regen" else SURFACE_LOCKSTEP_SPP
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with tracer_calls() as calls, count_bsdf_hits(dev) as h:
+            img = render_flat(sc, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        dt = time.time() - t0
+        label = f"{size} {wavefront}"
+        check_hits(f"the {label} render ({spp} spp)", size, h)
+        c = launches[label] = counts()
+        others = {k: v for k, v in c.items()
+                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
+        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
+              f"{label}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
+              f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+        if m.has_forward:
+            check_forward_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], calls,
+                                   spp, m.max_bounces)
+        elif wavefront == "lockstep":
+            check_lockstep_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], spp,
+                                    m.max_bounces)
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"{label}: {img.shape} image finite and non-negative")
+        means[label] = img.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[9 surfaces] {label}: {m.res_x}x{m.res_y} {spp} spp in {dt:.2f} s: "
+            f"{m.res_x * m.res_y * spp / dt / 1e6:.4f} Mpaths/s on {card}; "
+            f"{calls['shading']} iterations ({dt / max(calls['shading'], 1) * 1e3:.1f} ms each); "
+            f"channel means {means[label].round(6).tolist()}")
+    rel = (np.abs(means["coat-synth lockstep"] - means["coat-synth regen"])
+           / np.abs(means["coat-synth regen"]))
+    check((rel <= WAVEFRONT_RTOL).all(), f"coat-synth: lockstep channel means vs regen's "
+          f"(rel {rel.max():.2e} <= {WAVEFRONT_RTOL})")
+    return launches, profiles
 
 
 def main():
@@ -576,11 +840,13 @@ def main():
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
                "bvh2_walk_v1", "bvh_walk", "bvh_walk_v1", "intersect_stream",
                "intersect_stream_v1")
+    native = build_native_bvh()
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
     log(f"[2 build] {', '.join(sources)} built in {time.time() - t0:.2f} s (nvcc, sm_90a, "
         f"in parallel)")
+    native()
     for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream"):
         occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
         occ.restype = ctypes.c_int
@@ -1114,6 +1380,7 @@ def main():
               f"{PIX_ATOL} + {PIX_RTOL} |K3| (>= {PIX_BAR})")
 
     interior_launches = interior_phase(work, dev, card)
+    surface_launches, _ = surfaces_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -1133,6 +1400,7 @@ def main():
     entries.append(fast_entry)
     for row, key in zip(entries, ("bvh8.walk_cuda", "bvh8.walk_fast_cuda")):
         row["launches_interior"] = {w: c[key] for w, c in interior_launches.items()}
+        row["launches_surfaces"] = {w: c[key] for w, c in surface_launches.items()}
     for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b
     n_bench = res["n"]

@@ -387,3 +387,39 @@ def test_small_interior_on_the_card_matches_reference(cuda, tmp_path):
                                        err_msg=wavefront)
     finally:
         accel_bvh._NATIVE = native
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,ref_file", [("small-coat", "torch_port_coat_ref.json"),
+                                           ("small-cutout", "torch_port_cutout_ref.json")])
+def test_surface_scenes_on_the_card_match_reference(cuda, tmp_path, size, ref_file):
+    """`small-coat` (smooth_coat, rough_coat, mixed, oren_nayar, phong,
+    diffuse_transmission; both wavefronts) and `small-cutout`
+    (transparency, thinsheet, forward: lockstep's crossing-walk branch)
+    rendered on the card, on the numpy BVH build, against the JAX package's
+    channel means in tests/data within 5e-3, each wavefront the reference
+    holds; the walks go through K3 and K3-fast, no twin."""
+    import json
+    import os
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+    from tungsten_tpu_torch.renderer.render import render_scene
+
+    with open(os.path.join(os.path.dirname(__file__), "data", ref_file)) as f:
+        ref = json.load(f)
+    path = synth.write_scene(str(tmp_path), size)
+    native, accel_bvh._NATIVE = accel_bvh._NATIVE, False
+    try:
+        for wavefront, want in ref["channel_means"].items():
+            k3, fast = bvh8.walk_cuda.launches, bvh8.walk_fast_cuda.launches
+            twins = bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches
+            hdr, _ = render_scene(path, torch.device("cuda"), seed=ref["seed"],
+                                  wavefront=wavefront)
+            assert bvh8.walk_cuda.launches > k3 and bvh8.walk_fast_cuda.launches > fast
+            assert bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches == twins
+            assert np.isfinite(hdr).all() and (hdr >= 0).all()
+            means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
+            np.testing.assert_allclose(means, want, rtol=5e-3, err_msg=wavefront)
+    finally:
+        accel_bvh._NATIVE = native

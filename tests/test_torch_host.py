@@ -244,8 +244,8 @@ def _edit_small(doc, what):
         doc["media"] = [{"name": "fog", "type": "homogeneous"}]
     elif what == "thinlens":
         doc["camera"]["type"] = "thinlens"
-    elif what == "other bsdf":  # a wrapper: the coats, mixed and transparency wait
-        bsdfs[2] = {"name": "inner", "type": "smooth_coat", "substrate": "ball"}
+    elif what == "other bsdf":  # a fiber: hair, lambertian_fiber and rough_wire wait
+        bsdfs[2] = {"name": "inner", "type": "hair"}
     elif what == "dielectric":
         bsdfs[2] = {"name": "inner", "type": "dielectric", "ior": 1.5}
     elif what == "textured roughness":

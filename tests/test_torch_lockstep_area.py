@@ -42,7 +42,8 @@ from tungsten_tpu_torch.ops import bvh8
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 REFS = {"small-area": "torch_port_area_ref.json", "small-box": "torch_port_box_ref.json",
-        "small-interior": "torch_port_interior_ref.json"}
+        "small-interior": "torch_port_interior_ref.json",
+        "small-coat": "torch_port_coat_ref.json", "small-cutout": "torch_port_cutout_ref.json"}
 SIZES = ["small-area"]  # this file's scene
 
 
@@ -61,10 +62,11 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def jax_case(size, tmp_path_factory):
+def jax_case(size, tmp_path_factory, wavefronts=("lockstep", "regen")):
     """`size` in both packages on the numpy BVH build: {"scene" (the port's,
     on the CPU), "seed", and the JAX package's results: "one_pass" (one
-    lockstep pass, trace_batch), "lockstep" and "regen" (render_flat)}."""
+    lockstep pass, trace_batch), and render_flat with each of `wavefronts`
+    under its name}."""
     import tungsten_tpu.accel.bvh as jbvh
     import tungsten_tpu_torch.accel.bvh as tbvh
     from tungsten_tpu.integrators.path_tracer import trace_batch as jtrace_batch
@@ -89,9 +91,9 @@ def jax_case(size, tmp_path_factory):
         one_pass=np.asarray(jtrace_batch(js, seed, jnp.asarray(lane), jnp.asarray(px),
                                          jnp.asarray(py), jnp.uint32(2), n_passes=1)),
         # passes_per_batch=1: the lockstep render reuses the one-pass compile
-        lockstep=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="lockstep",
-                                    passes_per_batch=1)),
-        regen=np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront="regen")))
+        **{w: np.asarray(jrender(js, seed=DEFAULT_SEED, wavefront=w, passes_per_batch=1)
+                         if w == "lockstep" else jrender(js, seed=DEFAULT_SEED, wavefront=w))
+           for w in wavefronts})
     mp.undo()
     return out
 
@@ -203,7 +205,7 @@ def test_lockstep_and_regen_agree(cases, size):
     check_wavefronts_agree(cases[size])
 
 
-def check_means_file(c, size):
+def check_means_file(c, size, wavefronts=("lockstep", "regen")):
     """The JSON file carries the JAX renders' means for the check on the
     card; rtol 1e-4 leaves room for another CPU's float rounding in XLA, far
     below the 5e-3 that check applies."""
@@ -211,7 +213,8 @@ def check_means_file(c, size):
         data = json.load(f)
     assert data["scene"] == size and data["seed"] == c["seed"]
     assert data["spp"] == 4 and data["resolution"] == [64, 48]
-    for w in ("lockstep", "regen"):
+    assert sorted(data["channel_means"]) == sorted(wavefronts)
+    for w in wavefronts:
         np.testing.assert_allclose(data["channel_means"][w], c[w].reshape(-1, 3).mean(0),
                                    rtol=1e-4, err_msg=w)
 
@@ -222,8 +225,10 @@ def test_reference_means_files_match(cases, size):
 
 
 def test_wavefront_argument():
-    """auto is regen (the port has no device mesh and no forward lobes); an
-    unknown name raises; trace_pass refuses what the lockstep port lacks."""
+    """auto is regen (the port has no device mesh) unless a material has a
+    forward lobe, and then lockstep (render.py:149); an unknown name
+    raises; trace_pass refuses what the lockstep port lacks, media and AOVs,
+    naming them."""
     from tungsten_tpu_torch.integrators import path_tracer as pt
     from tungsten_tpu_torch.renderer import render
 
@@ -236,6 +241,8 @@ def test_wavefront_argument():
         meta = Meta()
         shade_pack = torch.zeros(1)
 
+    fwd = Scene()
+    fwd.meta = type("M", (Meta,), {"has_forward": True})()
     calls = []
     mp = pytest.MonkeyPatch()
     mp.setattr(render, "trace_regen_batch",
@@ -246,11 +253,13 @@ def test_wavefront_argument():
                or torch.zeros((16, 3)))
     for w in ("auto", "regen", "lockstep"):
         render.render_flat(Scene(), wavefront=w)
+    render.render_flat(fwd, wavefront="auto")
     mp.undo()
-    assert calls == ["regen", "regen", "lockstep"]
+    assert calls == ["regen", "regen", "lockstep", "lockstep"]
     with pytest.raises(ValueError):
         render.render_flat(Scene(), wavefront="tiles")
-    fwd = Scene()
-    fwd.meta = type("M", (Meta,), {"has_forward": True})()
-    with pytest.raises(NotImplementedError, match="forward"):
-        pt.trace_pass(fwd, (0, 0), None, None, None)
+    for field, value, name in (("has_media", True, "media"), ("aovs", ("normal",), "AOVs")):
+        bad = Scene()
+        bad.meta = type("M", (Meta,), {field: value})()
+        with pytest.raises(NotImplementedError, match=name):
+            pt.trace_pass(bad, (0, 0), None, None, None)

@@ -2,8 +2,11 @@
 
 Counterpart of tungsten_tpu/__init__.py. The JAX package stays the
 reference; this package runs its main path (scene load -> flatten ->
-regenerating or lockstep wavefront path tracer -> framebuffer; nine BSDF
-families, textured roughness, .hdr images) with plain torch tensor code and hand-written CUDA kernels for the walks: the BVH8
+regenerating or lockstep wavefront path tracer -> framebuffer; every surface
+BSDF but the fibers, the wrappers over one level of nesting, forward lobes
+through the lockstep tracer's crossing walk, textured parameters, .hdr
+images) with plain torch tensor code and hand-written CUDA kernels for the
+walks: the BVH8
 walk, exact and fast (ops/bvh8.py + csrc/bvh8_walk.cu, bvh8_walk_fast.cu),
 the binary walk (ops/bvh2.py + csrc/bvh2_walk.cu), the packet walk
 (ops/bvh.py + csrc/bvh_walk.cu) and the streaming brute force

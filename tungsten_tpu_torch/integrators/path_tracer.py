@@ -1,11 +1,14 @@
 """Wavefront path tracers with NEE and MIS (torch): regenerating and lockstep.
 
-Port of `trace_regen_batch`, `_trace_pass_fast` / `trace_pass` /
-`trace_batch` and the helpers they call from
-tungsten_tpu/integrators/path_tracer.py (lines 67-150, 558-1232, 1236-1811)
-for the port's configuration: triangles and non-emissive analytic prims,
-area lights (emissive meshes, quads, cubes) beside at most one samplable env
-light, no media, no forward lobes, no AOVs, no sample table.
+Port of `trace_regen_batch`, `_trace_pass_fast` / `trace_pass` (both its
+branches) / `trace_batch` and the helpers they call from
+tungsten_tpu/integrators/path_tracer.py (lines 67-255, 278-412, 558-1232,
+1236-2111) for the port's configuration: triangles and non-emissive analytic
+prims, every surface BSDF but the fibers, area lights (emissive meshes,
+quads, cubes) beside at most one samplable env light, no media, no AOVs, no
+sample table. Forward lobes (thinsheet, transparency, forward) take the
+lockstep tracer's crossing-walk branch (`_trace_pass_forward`); regen
+refuses them, as the JAX package does.
 
 Regenerating (`trace_regen_batch`): a fixed-width wavefront of W lanes runs
 the bounce loop; a lane whose path ends respawns a camera path from the
@@ -24,7 +27,10 @@ estimator is the reference's (TraceBase::estimateDirect): at each vertex one
 chosen light, a light-strategy shadow ray and a separate bsdf-strategy ray.
 Per bounce the shadow rays take the any-hit walk (`_occluded_raw`) and the
 [bsdf-strategy | continuation] rays share ONE 2N-lane closest-hit walk
-(`_intersect`).
+(`_intersect`). With forward lobes (`_trace_pass_forward`) a bounce walks
+the path's ray, then both strategies' rays in one 2N-lane crossing walk
+(`_trace_transparent`: up to 8 closest-hit walks, each crossing a
+forward-lobed surface).
 
 The intersector dispatch is the JAX package's TPU route (`_intersect`,
 `_intersect_tris`, `_intersect_mixed`, `_occluded_raw`): analytic prims
@@ -48,7 +54,8 @@ import torch
 
 from ..math import vecops as vo
 from ..models.bsdfs.common import Lobes
-from ..models.bsdfs.dispatch import N_TYPES, bsdf_eval, bsdf_pdf, bsdf_sample, gather
+from ..models.bsdfs.dispatch import (N_TYPES, bsdf_eval, bsdf_pdf, bsdf_sample,
+                                     forward_transparency, gather, stash_substrate)
 from ..models.cameras.pinhole import camera_rays_w
 from ..models.primitives import lights as L
 from ..models.primitives.analytic import (hit_geom, intersect_analytic, normal_at,
@@ -195,6 +202,19 @@ def _shading_frame(ns, flip):
     return t_ax, b_ax, n_ax
 
 
+def _local_frame(meta, ns, d, lobes):
+    """(frame, wi): the shading frame, flipped where a backside hit meets a
+    non-transmissive material under two-sided shading
+    (makeLocalScatterEvent, TraceBase.cpp:24-51), and -d in it."""
+    hit_backside = vo.dot(ns, d) > 0.0
+    if meta.enable_two_sided:
+        flip = hit_backside & ~Lobes.is_transmissive(lobes)
+    else:
+        flip = torch.zeros_like(hit_backside)
+    frame = _shading_frame(ns, flip)
+    return frame, vo.to_local(*frame, -d)
+
+
 def _sample_chosen_light(scene: FlatScene, smp: Sampler, li, is_env_choice, p):
     """sampleDirect of the chosen light li as seen from p: the area sample,
     replaced by the env's where the env was chosen. Draws a point pair, then
@@ -282,8 +302,10 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
     n_passes * W paths. seed: (s0, s1) uint32 pair. Returns rad (n_pix, 3),
     the per-pixel radiance SUM."""
     meta = scene.meta
-    if meta.has_forward or meta.has_media or meta.aovs:
-        raise NotImplementedError("regen path: forward lobes, media and AOVs are not ported")
+    if meta.has_forward:  # path_tracer.py:1262 asserts the same
+        raise NotImplementedError("regen path: forward lobes need trace_pass (lockstep)")
+    if meta.has_media or meta.aovs:
+        raise NotImplementedError("regen path: media and AOVs are not ported")
     dev = px_cycle.device
     W = px_cycle.shape[0]
     n_pix = meta.res_x * meta.res_y
@@ -321,7 +343,7 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
     state = regen(state)
     hit = _intersect(scene, state["o"], state["d"], state["near"],
                      torch.where(state["alive"], INF, 0.0))
-    mats, texs = scene.materials, scene.textures
+    texs = scene.textures
     latch2 = torch.cat([full(True, torch.bool), full(False, torch.bool)])
 
     while bool(state["alive"].any().item()):
@@ -354,17 +376,14 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
 
         # ---- surface shading data + ONE material gather ----
         p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
-        mat_pre = gather(mats, texs, mat_id, uv)
+        # with gpack3 the gather brings the substrate rows too: stashed for
+        # the wrappers' nested calls (path_tracer.py:1459-1466)
+        mats, mat_pre = stash_substrate(scene.materials, gather(scene.materials, texs,
+                                                                mat_id, uv))
         if _HIT_COUNTS is not None:
             _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
-        hit_backside = vo.dot(ns, d) > 0.0
-        if meta.enable_two_sided:
-            flip = hit_backside & ~Lobes.is_transmissive(lobes)
-        else:
-            flip = torch.zeros_like(hit_backside)
-        frame = _shading_frame(ns, flip)
-        wi = vo.to_local(*frame, -d)
+        frame, wi = _local_frame(meta, ns, d, lobes)
 
         # ---- hit an emitter: MIS against the previous vertex's light strategy ----
         if scene.lights.has_surface:
@@ -509,15 +528,20 @@ def _unified_nee_prepare(scene: FlatScene, smp: Sampler, vp, frame, wi, mat_pre,
         choice_weight=choice_weight)
 
 
-def _unified_nee_finish(scene: FlatScene, data, blocked, h_mis: Hit):
+def _unified_nee_finish(scene: FlatScene, data, blocked, h_mis: Hit, w_shadow=None,
+                        w_mis_ray=None):
     """The visibility results -> the vertex's NEE contribution (N, 3)
     (path_tracer.py:650-722, no media). `blocked` is the shadow strategy's
     occlusion boolean, `h_mis` the bsdf strategy's closest hit: it counts
     where it lands on the front of the chosen area light, or escapes while
-    the chosen light is the env."""
+    the chosen light is the env. Through forward lobes (`_nee`,
+    path_tracer.py:278-412) each strategy's ray carries the transparency of
+    the surfaces it crossed: `w_shadow`, `w_mis_ray` (N, 3)."""
     ls, li, is_env_choice = data["ls"], data["li"], data["is_env"]
     contrib_l = data["f_l"] * ls.radiance * (
         data["mis_l"] / torch.clamp(ls.pdf, min=1e-30))[..., None]
+    if w_shadow is not None:
+        contrib_l = contrib_l * w_shadow
     contrib_l = torch.where((data["cand"] & ~blocked)[..., None], contrib_l, 0.0)
 
     h = h_mis
@@ -547,9 +571,43 @@ def _unified_nee_finish(scene: FlatScene, data, blocked, h_mis: Hit):
 
     mis_b = warps.power_heuristic(data["pdf_mis"], light_pdf)
     contrib_b = e * data["w_mis"] * mis_b[..., None]
+    if w_mis_ray is not None:
+        contrib_b = contrib_b * w_mis_ray
     contrib_b = torch.where((data["mis_cand"] & match)[..., None], contrib_b, 0.0)
     total = (contrib_l + contrib_b) * data["choice_weight"][..., None]
     return torch.where(data["skip"][..., None], 0.0, total)
+
+
+def _add_hit_emission(scene: FlatScene, emission, throughput, lanes, d, ng, uv, light_id,
+                      was_specular, bounce):
+    """emission + what the emitters hit on `lanes` send back, counted where
+    NEE did not sample it (after a specular bounce, or with light sampling
+    off) and only on their front (lockstep; TraceBase::evalDirect)."""
+    meta = scene.meta
+    if not scene.lights.has_surface:  # no row carries a light id
+        return emission
+    li_hit = torch.clamp(light_id, min=0)
+    geo_front = -vo.dot(d, ng) > torch.clamp(scene.lights.cone_cos[li_hit], min=0.0)
+    add = lanes & (light_id >= 0) & geo_front & (bounce >= meta.min_bounces)
+    if meta.enable_light_sampling:
+        add = add & was_specular
+    e_hit = eval_texture(scene.textures, scene.lights.tex[li_hit], uv,
+                         may=scene.lights.emit_kinds)
+    return emission + torch.where(add[..., None], throughput * e_hit, 0.0)
+
+
+def _roulette(throughput, alive, u_rr, bounce):
+    """Russian roulette from the fourth bounce (PathTracer.cpp:111-117):
+    a path whose max |throughput| fell below 0.1 survives with that
+    probability, its throughput divided by it. -> (throughput, alive)."""
+    if bounce <= 2:
+        return throughput, alive
+    rp = vo.max3(torch.abs(throughput))
+    do_rr = rp < 0.1
+    survive = u_rr < rp
+    throughput = torch.where((do_rr & survive & alive)[..., None],
+                             throughput / torch.clamp(rp, min=1e-30)[..., None], throughput)
+    return throughput, alive & (~do_rr | survive)
 
 
 def _strat_fields(meta, seed, lane_ids, px, py):
@@ -626,24 +684,10 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         if _HIT_COUNTS is not None:
             _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
-        hit_backside = vo.dot(ns, d) > 0.0
-        if meta.enable_two_sided:
-            flip = hit_backside & ~Lobes.is_transmissive(lobes)
-        else:
-            flip = torch.zeros_like(hit_backside)
-        frame = _shading_frame(ns, flip)
-        wi = vo.to_local(*frame, -d)
+        frame, wi = _local_frame(meta, ns, d, lobes)
 
-        # ---- hit an emitter: counted where NEE did not sample it ----
-        if scene.lights.has_surface:  # else no row carries a light id
-            li_hit = torch.clamp(light_id, min=0)
-            geo_front = -vo.dot(d, ng) > torch.clamp(scene.lights.cone_cos[li_hit], min=0.0)
-            gate_emit = was_specular if meta.enable_light_sampling else full(True, torch.bool)
-            add_emit = (hit_surface_lane & (light_id >= 0) & geo_front & gate_emit
-                        & (bounce >= meta.min_bounces))
-            e_hit = eval_texture(texs, scene.lights.tex[li_hit], uv,
-                                 may=scene.lights.emit_kinds)
-            emission = emission + torch.where(add_emit[..., None], throughput * e_hit, 0.0)
+        emission = _add_hit_emission(scene, emission, throughput, hit_surface_lane, d, ng, uv,
+                                     light_id, was_specular, bounce)
 
         vp = p
         throughput_vertex = throughput
@@ -667,16 +711,8 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         alive = alive & torch.where(hit_surface_lane, bs.valid, True)
         alive = alive & (vo.max3(torch.abs(throughput)) > 0.0)
 
-        # ---- russian roulette ----
-        rp = vo.max3(torch.abs(throughput))
         u_rr, smp = smp.next_1d()
-        if bounce > 2:
-            do_rr = rp < 0.1
-            survive = u_rr < rp
-            throughput = torch.where((do_rr & survive & alive)[..., None],
-                                     throughput / torch.clamp(rp, min=1e-30)[..., None],
-                                     throughput)
-            alive = alive & (~do_rr | survive)
+        throughput, alive = _roulette(throughput, alive, u_rr, bounce)
         cont_far = torch.where(alive, INF, 0.0) if bounce + 1 < meta.max_bounces else full(0.0)
 
         # ---- any-hit shadows + merged [mis | continuation] closest hit ----
@@ -696,14 +732,166 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
     return torch.where(torch.isfinite(emission), emission, 0.0)
 
 
+# ---------------------------------------------------------------------------
+# lockstep with forward lobes: the transparency lottery and the crossing walk
+# ---------------------------------------------------------------------------
+
+MAX_CROSSINGS = 8  # the crossing walk's steps (path_tracer.py:185)
+
+
+def _trace_transparent(scene: FlatScene, o, d, far):
+    """The generalized shadow walk without media (TraceBase::
+    generalizedShadowRayImpl; path_tracer.py:170-255): intersect, cross a
+    forward-lobed surface (weight *= its transparency), stop at any other
+    hit, for at most MAX_CROSSINGS closest-hit walks. Returns (weight (N, 3),
+    the terminal Hit with t from the original origin); a lane still crossing
+    after the last step ends with weight 0. The JAX package runs every step;
+    here the loop stops once every lane is done (one `.item()` a step), where
+    the further steps would change nothing."""
+    mats, texs = scene.materials, scene.textures
+    n, dev = o.shape[0], o.device
+    eps = torch.full((n,), DEFAULT_EPSILON, device=dev)
+    weight = torch.ones((n, 3), device=dev)
+    t_base = torch.zeros((n,), device=dev)
+    cur_o, remaining = o, far
+    done = torch.zeros((n,), dtype=torch.bool, device=dev)
+    fin = Hit(t=torch.full((n,), INF, device=dev),
+              prim=torch.full((n,), -1, dtype=torch.int64, device=dev),
+              u=torch.zeros((n,), device=dev), v=torch.zeros((n,), device=dev))
+    for _ in range(MAX_CROSSINGS):
+        h = _intersect(scene, cur_o, d, eps, torch.where(done, 0.0, remaining))
+        did_hit = (h.prim >= 0) & ~done
+        ng_h, uvh = hit_geom(scene, h.prim, cur_o + d * h.t[..., None], h.u, h.v)
+        mat_id = scene.shade_pack[torch.clamp(h.prim, min=0), 18].to(torch.int64)  # tri_mat
+        pre = gather(mats, texs, mat_id, uvh)
+        t_ax, b_ax = vo.tangent_frame(ng_h)
+        trans = forward_transparency(mats, pre, uvh, vo.to_local(t_ax, b_ax, ng_h, -d), texs)
+        can_cross = Lobes.has_forward(pre[3]) & torch.any(trans > 0.0, dim=-1)
+        terminal = did_hit & ~can_cross
+        fin = Hit(t=torch.where(terminal, t_base + h.t, fin.t),
+                  prim=torch.where(terminal, h.prim, fin.prim),
+                  u=torch.where(terminal, h.u, fin.u), v=torch.where(terminal, h.v, fin.v))
+        crossing = did_hit & can_cross
+        weight = torch.where(crossing[..., None], weight * trans, weight)
+        done = done | terminal | ~did_hit
+        t_base = torch.where(crossing, t_base + h.t, t_base)
+        remaining = torch.where(crossing, remaining - h.t, remaining)
+        cur_o = torch.where(crossing[..., None], cur_o + d * h.t[..., None], cur_o)
+        if bool(done.all().item()):
+            break
+    return torch.where(done[..., None], weight, 0.0), fin
+
+
+def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
+    """One sample per lane for scenes with forward lobes: trace_pass's slow
+    branch without media, AOVs or compaction (path_tracer.py:1803-2111).
+    Per bounce one closest-hit walk for the path, the transparency lottery
+    (pass straight through a forward-lobed surface with probability
+    avg(transparency), TraceBase.cpp:528-537), and NEE with both strategies'
+    rays in ONE 2N-lane crossing walk (`_trace_transparent`)."""
+    meta = scene.meta
+    dev = px.device
+    n = px.shape[0]
+    mats, texs = scene.materials, scene.textures
+    seed = (int(seed[0]) & MASK32, int(seed[1]) & MASK32)
+    samp_idx, pix_key = _strat_fields(meta, seed, lane_ids, px, py)
+    strat = samp_idx is not None
+    sampler = Sampler.create(seed, lane_ids, samp_idx, pix_key, strat)
+    u_cam, sampler = sampler.next_2d()  # no (0,2)-sequence AA on this branch
+    u_lens, sampler = sampler.next_2d()
+    o, d, cam_w = camera_rays_w(scene.camera, meta, px, py, u_cam, u_lens)
+    o, d = o.contiguous(), d.contiguous()
+    base_dim = sampler.dim
+
+    def full(v, dtype=torch.float32):
+        return torch.full((n,), v, dtype=dtype, device=dev)
+
+    throughput = cam_w[..., None].expand(n, 3)
+    emission = torch.zeros((n, 3), device=dev)
+    alive = cam_w > 0.0
+    was_specular = full(True, torch.bool)
+    near = full(1e-4)
+    do_nee = meta.enable_light_sampling and meta.n_lights > 0
+
+    bounce = 0
+    while bounce < meta.max_bounces and bool(alive.any().item()):
+        smp = Sampler(seed, sampler.lane_id, base_dim + bounce * DIMS_PER_BOUNCE,
+                      samp_idx, pix_key, strat).prefetch(8)
+        hit = _intersect(scene, o, d, near, torch.where(alive, INF, 0.0))
+        did_hit = (hit.prim >= 0) & alive
+        smp = smp.skip(3)  # the medium-interaction dims (no media)
+        hit_surface_lane = did_hit
+
+        # ---- misses: environment ----
+        if meta.has_env:
+            gate = L.infinite_needs_escape_add(scene, d, was_specular)
+            add_env = alive & ~did_hit & gate & (bounce >= meta.min_bounces)
+            emission = emission + torch.where(
+                add_env[..., None], throughput * L.infinite_radiance(scene, d), 0.0)
+        alive = alive & did_hit
+        smp = smp.skip(6)  # the volume NEE and phase dims (no media)
+
+        # ---- surface shading data ----
+        p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
+        mat_pre = gather(mats, texs, mat_id, uv)
+        if _HIT_COUNTS is not None:
+            _count_hits(hit_surface_lane, mat_pre[1])
+        lobes = mat_pre[3]
+        frame, wi = _local_frame(meta, ns, d, lobes)
+
+        # ---- the transparency lottery ----
+        u_fwd, smp = smp.next_1d()
+        trans_f = forward_transparency(mats, mat_pre, uv, wi, texs)
+        trans_scalar = vo.avg3(trans_f)
+        go_forward = hit_surface_lane & (u_fwd < trans_scalar)
+        fwd_weight = trans_f / torch.clamp(trans_scalar, min=1e-20)[..., None]
+        shaded = hit_surface_lane & ~go_forward
+
+        emission = _add_hit_emission(scene, emission, throughput, shaded, d, ng, uv, light_id,
+                                     was_specular, bounce)
+
+        # ---- NEE: both strategies' rays in one 2N crossing walk ----
+        if do_nee:
+            smp, nee = _unified_nee_prepare(scene, smp, p, frame, wi, mat_pre, uv, lobes)
+            nee_gate = shaded & (bounce < meta.max_bounces - 1)
+            far2 = torch.cat([torch.where(nee_gate, nee["shadow_far"], 0.0),
+                              torch.where(nee_gate, nee["mis_far"], 0.0)])
+            w2, h2 = _trace_transparent(scene, torch.cat([p, p]),
+                                        torch.cat([nee["ls"].d, nee["wo_mis"]]), far2)
+            h_mis = Hit(t=h2.t[n:], prim=h2.prim[n:], u=h2.u[n:], v=h2.v[n:])
+            contrib = _unified_nee_finish(scene, nee, h2.prim[:n] >= 0, h_mis, w2[:n], w2[n:])
+            emission = emission + torch.where(nee_gate[..., None], throughput * contrib, 0.0)
+        else:
+            smp = smp.skip(5)
+
+        # ---- continuation: the bsdf sample, or straight on through ----
+        u_c2, smp = smp.next_2d()
+        u_c1, smp = smp.next_1d()
+        bs = bsdf_sample(mats, mat_pre, uv, wi, u_c2, u_c1, textures=texs)
+        wo_w = vo.where3(go_forward, d, vo.to_global(*frame, bs.wo))
+        step = vo.where3(go_forward, fwd_weight, bs.weight)
+        throughput = throughput * torch.where(hit_surface_lane[..., None], step, 1.0)
+        was_specular = torch.where(shaded, Lobes.has_specular(bs.lobe), was_specular)
+        alive = alive & torch.where(shaded, bs.valid, True)
+        alive = alive & (vo.max3(torch.abs(throughput)) > 0.0)
+
+        u_rr, smp = smp.next_1d()
+        throughput, alive = _roulette(throughput, alive, u_rr, bounce)
+        o, d, near = p, wo_w, full(DEFAULT_EPSILON)
+        bounce += 1
+    return torch.where(torch.isfinite(emission), emission, 0.0)
+
+
 def trace_pass(scene: FlatScene, seed, lane_ids, px, py):
-    """Trace one sample for each lane; returns radiance (N, 3). Scenes with
-    forward-lobed materials need the JAX package's crossing-walk NEE, which
-    is not ported."""
-    if scene.meta.has_forward or scene.meta.has_media or scene.meta.aovs:
-        raise NotImplementedError(
-            "lockstep path: forward lobes (trace_pass's slow branch), media and AOVs "
-            "are not ported")
+    """Trace one sample for each lane; returns radiance (N, 3). As the JAX
+    package dispatches (path_tracer.py:1810): `_trace_pass_fast` without
+    forward lobes, the crossing-walk branch `_trace_pass_forward` with
+    them. Media and AOVs are not ported."""
+    meta = scene.meta
+    if meta.has_media or meta.aovs:
+        raise NotImplementedError("lockstep path: media and AOVs are not ported")
+    if meta.has_forward:
+        return _trace_pass_forward(scene, seed, lane_ids, px, py)
     return _trace_pass_fast(scene, seed, lane_ids, px, py)
 
 

@@ -45,6 +45,10 @@ class Lobes:
     def has_specular(lobes):
         return (lobes & Lobes.SPECULAR) != 0
 
+    @staticmethod
+    def has_forward(lobes):
+        return (lobes & Lobes.FORWARD) != 0
+
 
 @dataclass
 class BsdfSample:

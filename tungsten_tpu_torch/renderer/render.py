@@ -5,8 +5,8 @@ render_scene) with its `wavefront` argument: "regen" is the regenerating
 wavefront (trace_regen_batch, per-pixel sums from the device), "lockstep"
 the lockstep one (trace_batch, per-lane sums accumulated through the
 lane -> pixel map), "auto" the JAX package's rule: regen on one device
-unless a material has a forward lobe (the port has no device mesh and no
-forward lobes, so "auto" is regen). Batches are capped by a static
+unless a material has a forward lobe, lockstep then (the port has no device
+mesh). Batches are capped by a static
 `passes_per_batch`, which is what the JAX package does off the TPU (its
 DispatchGovernor probes a TPU watchdog and is not ported). Adaptive sampling,
 meshes of devices, several samples per pass and resume files are not ported.

@@ -26,6 +26,16 @@ def cosine_hemisphere_pdf(w):
     return torch.clamp(w[..., 2], min=0.0) * INV_PI
 
 
+def uniform_hemisphere(u):
+    phi = (2.0 * math.pi) * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - u[..., 1] * u[..., 1], min=0.0))
+    return torch.stack([torch.cos(phi) * r, torch.sin(phi) * r, u[..., 1]], dim=-1)
+
+
+def uniform_hemisphere_pdf(w):
+    return torch.full(w.shape[:-1], INV_TWO_PI, dtype=torch.float32, device=w.device)
+
+
 def uniform_sphere(u):
     phi = u[..., 0] * (2.0 * math.pi)
     z = u[..., 1] * 2.0 - 1.0

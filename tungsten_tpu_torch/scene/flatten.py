@@ -31,15 +31,15 @@ and both packages render the very same tables. Each BVH pack and the
 analytic table is taken all-or-none (OPTIONAL).
 
 The port supports mesh / quad / cube geometry, each emissive or not,
-non-emissive analytic sphere / disk / cylinder prims, the BSDF families of
-models/bsdfs/dispatch.py (lambert, null, mirror, rough_conductor,
-dielectric, rough_dielectric, conductor, plastic, rough_plastic; roughness
-scalar or textured), constant / checker / bitmap textures from PFM, .hdr
-(or, with cv2, .exr) and LDR images, at most one samplable infinite_sphere
-beside the area lights, and a pinhole camera. Everything else (emissive
-analytic prims, point lights, cap lights, skydomes, several env lights, the
-wrapper and fiber BSDFs, ...) raises NotImplementedError naming the missing
-piece.
+non-emissive analytic sphere / disk / cylinder prims, every surface BSDF of
+models/bsdfs/dispatch.py (all but the fibers, the wrappers with their
+`gpack3` substrate rows; roughness, ratio, alpha and thickness scalar or
+textured; `meta.has_forward` set where a material has a forward lobe),
+constant / checker / bitmap textures from PFM, .hdr (or, with cv2, .exr)
+and LDR images, at most one samplable infinite_sphere beside the area
+lights, and a pinhole camera. Everything else (emissive analytic prims,
+point lights, cap lights, skydomes, several env lights, the fiber BSDFs,
+...) raises NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ import torch
 from ..accel.bvh import build_bvh_best
 from ..io.meshio import compute_smooth_normals, load_mesh
 from ..math import transform as tf
-from ..models.bsdfs.dispatch import MaterialTable, build_gpack2, pack_materials
+from ..models.bsdfs.dispatch import MaterialTable, build_gpack2, build_gpack3, pack_materials
 from ..models.primitives import analytic, tessellate
 from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
 from ..ops.bvh import BvhPack, build_bvh_pack
@@ -79,7 +79,7 @@ ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
     "tri_ng", "tri_uv0", "tri_uv1", "tri_uv2", "tri_light",
     *(f"lights.{k}" for k, _ in LIGHT_FIELDS), *(f"lights.{k}" for k in LIGHT_STATICS),
-    "materials.gpack2", "materials.rough_kinds",
+    "materials.gpack2", "materials.gpack3", "materials.rough_kinds",
     "textures.tpack", "textures.data", "textures.data4",
     "env.rot", "env.inv_rot", "env.tex",
     "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
@@ -92,7 +92,9 @@ ARRAY_KEYS = (
 # groups of ARRAY_KEYS taken all-or-none: None (or absent) where the JAX
 # flatten left the pack out, or the scene has no analytic prims
 OPTIONAL = ("pbvh8", "pbvh3", "pbvh", "ana")
-NULLABLE = ("textures.data4",)  # None in a scene without bitmap textures
+# None in a scene without bitmap textures, and without a single-substrate
+# wrapper BSDF or with a mixed one (dispatch.build_gpack3)
+NULLABLE = ("textures.data4", "materials.gpack3")
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
 ANALYTIC = ("sphere", "disk", "cylinder")  # flatten.py's analytic branch
@@ -234,8 +236,8 @@ def _check_slice(doc: SceneDocument):
     lights, an unsampled or a second infinite_sphere, primitives other than
     mesh / quad / cube / sphere / disk / cylinder, emissive analytic prims.
     BSDF types (dispatch.pack_materials), textures (texture_from_spec) and
-    image formats (io/imageio.py) are checked where they are packed; the
-    nine BSDF families, textured roughness and .hdr images pass."""
+    image formats (io/imageio.py) are checked where they are packed; every
+    surface BSDF but the fibers, textured parameters and .hdr images pass."""
     if doc.media:
         raise NotImplementedError("participating media are not ported")
     cam = doc.camera
@@ -468,6 +470,7 @@ def flatten_arrays(doc: SceneDocument):
     rough_kinds = np.asarray(tex_builder.kinds_of(tex_builder.rough_ids), np.int32)
     tex = tex_builder.build_arrays()
     gpack2 = build_gpack2(mats, tex["tpack"])
+    gpack3 = build_gpack3(mats, gpack2)
 
     # ---- camera ----
     cam = doc.camera
@@ -505,7 +508,8 @@ def flatten_arrays(doc: SceneDocument):
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
         "tri_ng": tri_ng, "tri_uv0": uv0, "tri_uv1": uv1, "tri_uv2": uv2,
         "tri_light": tri_light, **{f"lights.{k}": v for k, v in lights.items()},
-        "materials.gpack2": gpack2, "materials.rough_kinds": rough_kinds,
+        "materials.gpack2": gpack2, "materials.gpack3": gpack3,
+        "materials.rough_kinds": rough_kinds,
         "textures.tpack": tex["tpack"], "textures.data": tex["data"],
         "textures.data4": tex["data4"],
         "env.rot": rot.astype(np.float32), "env.inv_rot": rot.T.astype(np.float32),
@@ -538,7 +542,7 @@ def flatten_arrays(doc: SceneDocument):
         low_order_scattering=bool(integ.get("low_order_scattering", True)),
         include_surfaces=bool(integ.get("include_surfaces", True)),
         enable_two_sided=bool(integ.get("enable_two_sided_shading", True)),
-        has_media=False, has_forward=False, camera_medium=-1,
+        has_media=False, has_forward=bool(np.any(mats["lobes"] & 0x80)), camera_medium=-1,
         spp=int(doc.renderer.get("spp", 32)),
         spp_step=int(doc.renderer.get("spp_step", 16)),
         use_bvh=bool(doc.renderer.get("scene_bvh", True)),
@@ -601,7 +605,8 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         tri_light=torch.as_tensor(np.array(arrays["tri_light"], np.int64), device=device),
         lights=LightTable.from_arrays(sub("lights"), device),
         materials=MaterialTable.from_arrays(arrays["materials.gpack2"],
-                                            arrays["materials.rough_kinds"], device),
+                                            arrays["materials.rough_kinds"], device,
+                                            arrays.get("materials.gpack3")),
         textures=textures,
         env=env,
         camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),

@@ -36,6 +36,23 @@ one window in its back wall, and in it
     window;
   * lambert walls and a lambert floor with a checker albedo.
 
+The two coat sizes and the two cut-out sizes build the materialtest-like
+scene with the remaining surfaces (every non-fiber type the interior sizes
+do not show), lit by the sky and one emissive quad facing down:
+  * coat: the ball as a smooth_coat (ior 1.5, thickness 1, a coloured
+    sigma_a) over rough_conductor Cu; an oren_nayar floor with a checker
+    roughness; the cube as a mixed BSDF of lambert and phong with a checker
+    ratio; three orbs: a rough_coat over lambert (checker roughness), a
+    phong and a diffuse_transmission. No forward lobe, so both wavefronts
+    render it.
+  * cutout: the ball as a transparency over lambert with a checker alpha
+    (seen through in stripes); a thinsheet bubble orb with thin-film
+    interference; a forward quad standing across part of the view; a
+    lambert checker floor and a plastic orb; the light above the ball and
+    the bubble, so shadow rays cross them. Forward lobes: lockstep only.
+  No rough coat or rough dielectric closes a volume with internal
+  reflections (the parity trap of ROADMAP §3): the coats reflect only.
+
 Sizes:
   materialtest-synth  80,000-triangle ball, 512x256 sky, 1000x563, 32 spp,
                       max_bounces 64 (materialtest's renderer block; the
@@ -53,6 +70,10 @@ Sizes:
   small-interior      the interior scene at small's: 2,000-triangle ball,
                       576-triangle orbs, 128x64 sky, 64x48, 4 spp,
                       max_bounces 6
+  coat-synth, cutout-synth    the coat and cut-out scenes at
+                      materialtest-synth's scale (80,000-triangle ball,
+                      9,216-triangle orbs)
+  small-coat, small-cutout    the same at small's (576-triangle orbs)
 
 Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size]
 """
@@ -79,7 +100,14 @@ SIZES["small-area"] = SIZES["small"]
 SIZES["small-box"] = SIZES["small"]
 SIZES["interior-synth"] = SIZES["materialtest-synth"]
 SIZES["small-interior"] = SIZES["small"]
-ORB_SEGMENTS = {"interior-synth": (96, 48), "small-interior": (24, 12)}  # orb.obj
+# the surface scenes: size -> its kind
+SURFACES = {"coat-synth": "coat", "small-coat": "coat", "cutout-synth": "cutout",
+            "small-cutout": "cutout"}
+for _size in SURFACES:
+    SIZES[_size] = SIZES["small" if _size.startswith("small") else "materialtest-synth"]
+INTERIOR = ("interior-synth", "small-interior")
+ORB_SEGMENTS = {size: (24, 12) if size.startswith("small") else (96, 48)
+                for size in INTERIOR + tuple(SURFACES)}  # orb.obj
 LAMP_SEGMENTS = (8, 4)  # lamp.obj: 2 * 8 * 4 = 64 triangles
 
 # the -analytic sizes' extra materials and prims
@@ -169,6 +197,75 @@ INTERIOR_PRIMS = [
 ]
 
 
+# the surface scenes: the materialtest floor, ball and cube with other
+# BSDFs, three orbs, and a light quad facing down beside the sky
+SURFACE_BSDFS = {
+    "coat": [
+        {"name": "floor", "type": "oren_nayar", "albedo": [0.7, 0.68, 0.62],
+         "roughness": {"type": "checker", "on_color": 0.9, "off_color": 0.1,
+                       "res_u": 20, "res_v": 20}},
+        {"name": "ball", "type": "smooth_coat", "ior": 1.5, "thickness": 1.0,
+         "sigma_a": [0.05, 0.3, 0.6],
+         "substrate": {"type": "rough_conductor", "material": "Cu", "distribution": "ggx",
+                       "roughness": 0.1}},
+        {"name": "inner", "type": "mixed",
+         "ratio": {"type": "checker", "on_color": 0.85, "off_color": 0.15,
+                   "res_u": 4, "res_v": 4},
+         "bsdf0": {"type": "lambert", "albedo": [0.6, 0.3, 0.2]},
+         "bsdf1": {"type": "phong", "albedo": [0.8, 0.8, 0.7], "exponent": 40,
+                   "diffuse_ratio": 0.2}},
+        {"name": "coat_orb", "type": "rough_coat", "ior": 1.5, "distribution": "ggx",
+         "roughness": {"type": "checker", "on_color": 0.05, "off_color": 0.35,
+                       "res_u": 8, "res_v": 4},
+         "substrate": {"type": "lambert", "albedo": [0.15, 0.4, 0.7]}},
+        {"name": "phong_orb", "type": "phong", "albedo": [0.9, 0.75, 0.3], "exponent": 60,
+         "diffuse_ratio": 0.3},
+        {"name": "translucent_orb", "type": "diffuse_transmission",
+         "albedo": [0.8, 0.85, 0.7], "transmittance": 0.5},
+        {"name": "lamp", "type": "lambert", "albedo": 0.5},
+    ],
+    "cutout": [
+        {"name": "floor", "type": "lambert",
+         "albedo": {"type": "checker", "on_color": [0.8, 0.8, 0.8],
+                    "off_color": [0.2, 0.2, 0.2], "res_u": 20, "res_v": 20}},
+        {"name": "ball", "type": "transparency",
+         "alpha": {"type": "checker", "on_color": 1.0, "off_color": 0.1,
+                   "res_u": 1, "res_v": 12},
+         "base": {"type": "lambert", "albedo": [0.75, 0.35, 0.15]}},
+        {"name": "bubble", "type": "thinsheet", "ior": 1.33, "enable_interference": True,
+         "thickness": 0.8},
+        {"name": "veil", "type": "forward"},
+        {"name": "plastic_orb", "type": "plastic", "ior": 1.5, "albedo": [0.1, 0.5, 0.25]},
+        {"name": "lamp", "type": "lambert", "albedo": 0.5},
+    ],
+}
+SURFACE_PRIMS = {
+    "coat": [
+        {"type": "cube", "bsdf": "inner",
+         "transform": {"position": [1.9, 0.5, 0.6], "scale": 1.0, "rotation": [0, 30, 0]}},
+        {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "coat_orb",
+         "transform": {"position": [-1.8, 0.45, 0.8], "scale": 0.45}},
+        {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "phong_orb",
+         "transform": {"position": [-0.9, 0.35, 2.1], "scale": 0.35}},
+        {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "translucent_orb",
+         "transform": {"position": [1.0, 0.4, 2.3], "scale": 0.4}},
+    ],
+    "cutout": [
+        {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "bubble",
+         "transform": {"position": [-1.5, 0.75, 1.3], "scale": 0.6}},
+        {"type": "quad", "bsdf": "veil",  # stands upright, facing the camera
+         "transform": {"position": [1.5, 0.9, 0.9], "scale": [1.4, 1.0, 1.8],
+                       "rotation": [90, 0, 0]}},
+        {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "plastic_orb",
+         "transform": {"position": [0.9, 0.4, 2.3], "scale": 0.4}},
+    ],
+}
+# above the ball and the bubble (cutout: so their shadow rays cross them)
+SURFACE_LIGHT = {"type": "quad", "bsdf": "lamp", "emission": [9.0, 8.0, 7.0],
+                 "transform": {"position": [-0.6, 3.6, 0.5], "scale": 1.6,
+                               "rotation": [180, 0, 0]}}
+
+
 def _write_sphere_obj(path: str, nu: int, nv: int):
     """Unit UV sphere, 2 * nu * nv triangles, with normals and uvs."""
     us = np.linspace(0.0, 2.0 * np.pi, nu + 1)
@@ -229,7 +326,7 @@ def _interior_dict(size: str) -> dict:
 
 
 def scene_dict(size: str) -> dict:
-    if size in ORB_SEGMENTS:
+    if size in INTERIOR:
         return _interior_dict(size)
     nu, nv, sw, sh, res, spp, max_b = SIZES[size]
     doc = {
@@ -267,6 +364,11 @@ def scene_dict(size: str) -> dict:
     if size.endswith("-box"):
         doc["bsdfs"].append(copy.deepcopy(BOX_BSDF))
         doc["primitives"] = doc["primitives"][1:3] + copy.deepcopy(BOX_PRIMS)
+    if size in SURFACES:
+        kind = SURFACES[size]
+        doc["bsdfs"] = copy.deepcopy(SURFACE_BSDFS[kind])
+        doc["primitives"][2:3] = copy.deepcopy(SURFACE_PRIMS[kind]) + [
+            copy.deepcopy(SURFACE_LIGHT)]  # the cube's place, before the env light
     return doc
 
 
@@ -281,6 +383,7 @@ def write_scene(out_dir: str, size: str = "small") -> str:
         _write_sphere_obj(os.path.join(out_dir, "lamp.obj"), *LAMP_SEGMENTS)
     if size in ORB_SEGMENTS:
         _write_sphere_obj(os.path.join(out_dir, "orb.obj"), *ORB_SEGMENTS[size])
+    if size in INTERIOR:
         save_hdr(os.path.join(out_dir, "sky.hdr"), _sky(sw, sh))
     elif not size.endswith("-box"):
         save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
