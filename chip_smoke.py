@@ -7,16 +7,21 @@ Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
   2. build    - the host's BVH builder (native/, portable flags) is built
-                beside the kernels where it is absent; nvcc builds the ten
+                beside the kernels where it is absent; nvcc builds the eleven
                 kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
                 bvh2_walk.cu, bvh2_walk_v1.cu, bvh_walk.cu, bvh_walk_v1.cu,
-                intersect_stream.cu, intersect_stream_v1.cu) into build/, one
-                nvcc per source, all at once, and prints what ptxas said of
-                the two BVH8 kernels, K4, K5 and K2 (registers, shared memory,
-                spills) and their resident blocks a multiprocessor (K4's
-                kernel in each of its three modes);
-  3. kernel   - the BVH8 walk (K3) against its plain PyTorch twin at the
+                intersect_stream.cu, intersect_stream_v1.cu, gather_walk.cu)
+                into build/, one nvcc per source, all at once, and prints
+                what ptxas said of the two BVH8 kernels, K4, K5, K2 and K1
+                (registers, shared memory, stack, spills) and their resident
+                blocks a multiprocessor (K4's kernel in each of its three
+                modes);
+  3. kernel   - materialtest-synth flattened, with what its gather pack
+                (gbvh) costs the flatten: build_gather_pack timed on the
+                flatten's BVH build and on the numpy one (so also on
+                interior-synth in phase 8);
+                the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
                 the camera rays, closest hit, plus latched shadow lanes from
@@ -82,6 +87,15 @@ printing a result):
                 by the t bar below (with the grazing floor on all lanes). The
                 fast kernel and the repair launch against v1 are timed in
                 turns;
+  3e. K1     - the gather walk (gather_walk.cu) on the materialtest-synth
+                gbvh pack: against its twin bit for bit in t, prim, u and v
+                in closest, latched and mixed mode on the 65,536 random rays,
+                the 563,000 camera rays and the 2N batch; its query against
+                brute force on the 8,192 rays (prim); against exact K3 on the
+                2N batch (prim on the closest-hit lanes, occlusion on the
+                latched ones, the lanes that differ printed); K3 and K1 at
+                2N in turns (K3, K1, K1, K3); the twin's node and leaf
+                rounds, for the bound;
   4. small    - the `small` scene through render_scene, its per-channel
                 means against the JAX package's (tests/data/...json);
   4b. analytic - `small-analytic` (three analytic prims) the same way,
@@ -119,13 +133,14 @@ printing a result):
                 and incoherent rays, in turns, and so K4 (ordered, skip,
                 any), K5 (both modes) and K2 against their first forms;
   7. routes   - materialtest-analytic at 1000x563 and 32 spp through
-                render_flat on three FlatScenes of one flatten: all packs
-                (the render walks K3), pbvh8 = pbvh3 = None (K5-v2) and
-                pbvh8 = pbvh3 = pbvh = None (K2). Each route launches its
-                kernel and nothing else; each image is finite and
-                non-negative; the K5 and K2 images' channel means lie within
-                5e-3 of the K3 image's, >= 90% of their pixels within
-                1e-3 + 1e-3 |K3|. Wall time and Mpaths/s per route.
+                render_flat on four FlatScenes of one flatten: all packs
+                (the render walks K3), pbvh8 = None (K1), pbvh8 = gbvh =
+                pbvh3 = None (K5-v2) and pbvh8 = gbvh = pbvh3 = pbvh = None
+                (K2). Each route launches its kernel and nothing else; each
+                image is finite and non-negative; the K1, K5 and K2 images'
+                channel means lie within 5e-3 of the K3 image's, >= 90% of
+                their pixels within 1e-3 + 1e-3 |K3|. Wall time and Mpaths/s
+                per route.
   8. interior - the interior cell's surfaces (dielectric, rough_dielectric,
                 plastic, rough_plastic with a checker roughness, conductor,
                 mirror, a null-BSDF light fixture, an .hdr sky):
@@ -169,19 +184,34 @@ printing a result):
                 launch with its repair, no shadow walk); each image finite
                 and non-negative; coat-synth's two wavefronts' channel means
                 within 5e-3. Wall time, iterations and Mpaths/s of each.
+  10. lights  - every light kind but the skydome: small-lights (an emissive
+                sphere, a disk with a 30-degree cone and a cylinder, two
+                envs, two caps, a point light) through render_scene in both
+                wavefronts against tests/data/torch_port_lights_ref.json
+                (numpy BVH build); lights-synth at 1000x563 through regen
+                (32 spp) and lockstep (LIGHTS_LOCKSTEP_SPP = 8), each
+                counting the light rows NEE chose (count_light_choices:
+                every row, so every kind, chosen), the launch counts reset
+                just before and read just after (K3 and K3-fast only;
+                lockstep's counts add up as in phase 5b), each image finite
+                and non-negative; the two wavefronts' channel means printed.
+                Wall time and Mpaths/s of each.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
 8; to make room for phase 9, phase 8's lockstep render from 32 to 16; phase
 9's lockstep renders run 4 spp (coat-synth's 32 kept by regen).
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
-renders beside as launches_interior and phase 9's three as
-launches_surfaces; phase 7's route
-renders for K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
+renders beside as launches_interior, phase 9's three as
+launches_surfaces and phase 10's two as launches_lights; phase 7's route
+renders for K1, K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
 K4 in its three modes, K5, K2 and the first forms),
 and the kernel's and twin's ms and the kernel's bound on the rays of those
-launches: the 2N batch for K3, K3-fast, K5-v2 and K2 (K5-v2's and K2's ms
+launches: the 2N batch for K3, K3-fast, K1, K5-v2 and K2 (K1's ms the mean
+of its turns against exact K3, whose time is beside as exact_k3_ms, with
+the twin's rounds as twin_rounds; K1 is XLA gathers on the TPU, no
+pl.pallas_call, which its row's tpu_form says; K5-v2's and K2's ms
 the mean of their turns against their first forms; the benchmark's coherent
 time beside as bench_ms, the first form's 2N time as v1_ms), the benchmark's
 coherent rays for K4, K5-v1 and the first forms (their 2N time and bound
@@ -191,8 +221,9 @@ bytes the kernel must move (inputs read once, outputs written once) over
 3.35 TB/s and the operations its rays need over the peak rate of their type
 (f32 at 67 TFLOP/s; K3-fast's products of bf16 pairs with their f32 sums at
 the bf16 matrix rate, 989 TFLOP/s; H100 SXM data sheet), counted on the same
-rays at the OPS costs below: box and triangle tests by the twin; for K2 the
-chunk boxes, the sub-boxes of the chunks each ray's box hits and its
+rays at the OPS costs below: box and triangle tests by the twin (K1's
+node rounds at 8 slab tests, its leaf rounds at 8 Moller-Trumbore tests);
+for K2 the chunk boxes, the sub-boxes of the chunks each ray's box hits and its
 Moller-Trumbore tests of the real triangles of the sub-boxes it hits, each
 charged to the stage where the test ends (`intersect_stream.sub_box_work`),
 with the chunk-level bound of earlier PRs beside as bound_chunk_ms. A first
@@ -316,6 +347,9 @@ SURFACE_TYPES = {"coat-synth": {4: "smooth_coat", 5: "oren_nayar", 6: "phong", 1
 # keeps under
 SURFACE_LOCKSTEP_SPP = 4
 PROFILE_BOUNCES = 8  # the profile window over cutout-synth's lockstep
+# phase 10's lockstep render of lights-synth (its regen render keeps the
+# scene's 32 spp)
+LIGHTS_LOCKSTEP_SPP = 8
 # H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
 # FLOP/s on them, HBM3 B/s
 F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -350,14 +384,14 @@ def t_close(a, b, atol, atol_all=0.0):
 
 def counted():
     """Every kernel wrapper and twin that keeps a launch count."""
-    from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
+    from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, gather_bvh, intersect_stream
 
     return (bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
             bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda, bvh2.walk3_twin,
             bvh2.walk3_cuda_v1,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, bvh.walk_packet_cuda_v1,
             intersect_stream.stream_cuda, intersect_stream.stream_twin,
-            intersect_stream.stream_cuda_v1)
+            intersect_stream.stream_cuda_v1, gather_bvh.walk_cuda, gather_bvh.walk_twin)
 
 
 def reset_counts():
@@ -429,15 +463,16 @@ def median_ms(fn, reps=5):
 TURNS = {}  # label -> (v1 ms, new ms): every timing in turns of the run
 
 
-def turns(label, fn_old, fn_new, card):
-    """A v1 kernel and its new form timed in turns (v1, new, new, v1), each
-    turn the median of 5 launches; each kernel's time is the mean of its two
-    turns."""
+def turns(label, fn_old, fn_new, card, names=("v1", "new")):
+    """A v1 kernel and its new form (or two kernels `names`) timed in turns
+    (v1, new, new, v1), each turn the median of 5 launches; each kernel's
+    time is the mean of its two turns."""
     t = [median_ms(f) for f in (fn_old, fn_new, fn_new, fn_old)]
     old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     TURNS[label] = (old_ms, new_ms)
-    log(f"  turns {label} on {card}: v1 {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
-        f"{t[2]:.4f} ms -> v1 {old_ms:.4f}, new {new_ms:.4f} ({old_ms / new_ms:.2f}x)")
+    a, b = names
+    log(f"  turns {label} on {card}: {a} {t[0]:.4f} / {t[3]:.4f} ms, {b} {t[1]:.4f} / "
+        f"{t[2]:.4f} ms -> {a} {old_ms:.4f}, {b} {new_ms:.4f} ({old_ms / new_ms:.2f}x)")
     return old_ms, new_ms
 
 
@@ -523,6 +558,25 @@ def numpy_bvh_build():
         yield
     finally:
         accel_bvh._NATIVE = saved
+
+
+def gbvh_cost(label, scene, flatten_s):
+    """What the gather pack (gbvh, K1's) adds to a flatten: build_gather_pack
+    on the scene's triangles, timed on the flatten's BVH build and on the
+    numpy one (a host without native/libtungsten_native.so)."""
+    from tungsten_tpu_torch.ops.gather_bvh import build_gather_pack
+
+    tris = [x.cpu().numpy() for x in (scene.tris.v0, scene.tris.e1, scene.tris.e2)]
+    t0 = time.time()
+    build_gather_pack(*tris)
+    native_s = time.time() - t0
+    with numpy_bvh_build():
+        t0 = time.time()
+        build_gather_pack(*tris)
+        numpy_s = time.time() - t0
+    log(f"[{label}] gbvh: build_gather_pack {native_s:.3f} s of the load and flatten's "
+        f"{flatten_s:.3f} s (without it {flatten_s - native_s:.3f} s); {numpy_s:.3f} s on the "
+        f"numpy BVH build")
 
 
 def check_lockstep_launches(label, n_fast, n_exact, passes, max_bounces):
@@ -658,6 +712,126 @@ def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
           f"JAX {np.round(want, 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL})")
 
 
+def k1_phase(scene, sets, r2, latch, sub, hb, n_pix, card):
+    """Phase 3e: K1 (gather_walk.cu) on the materialtest-synth gbvh pack.
+    `sets` are phase 3's (label, rays, mixed latch mask): the random rays,
+    the camera rays and the 2N batch. Returns the K1 row's numbers."""
+    from tungsten_tpu_torch.ops import bvh8, gather_bvh
+
+    gp, pack = scene.gbvh, scene.pbvh8
+    log(f"[3e K1] the gather walk on materialtest-synth: {gp.n_rows} rows of {gather_bvh.ROW} "
+        f"floats, depth {gp.depth} (bitstack {gp.depth + 2} of {gather_bvh.MAX_LEVELS} levels)")
+    reset_counts()
+    for label, rr, lanes in sets:
+        for mode, lat in (("closest", None), ("latched", True), ("mixed", lanes)):
+            out = gather_bvh.walk_cuda(gp, *rr, lat)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            twin = gather_bvh.walk_twin(gp, *rr, lat)
+            torch.cuda.synchronize()
+            check(same_bits(out, twin), f"K1 {label} {mode}: t, prim, u and v equal the twin's "
+                  f"bit for bit (prim agree {agree(out[1], twin[1]):.6f}, hits "
+                  f"{(out[1] >= 0).float().mean().item():.4f}; twin {time.time() - t0:.1f} s, "
+                  f"{gather_bvh.walk_twin.work})")
+    c = counts()
+    check(c["gather_bvh.walk_cuda"] == c["gather_bvh.walk_twin"] == 3 * len(sets),
+          f"K1 and its twin launched {c['gather_bvh.walk_cuda']} / {c['gather_bvh.walk_twin']} "
+          f"times")
+    hk = gather_bvh.intersect_bvh_gather(gp, *sub)
+    check(agree(hk.prim, hb.prim) >= BAR, f"K1 8192 rays: query vs brute force prim agree "
+          f"{agree(hk.prim, hb.prim):.6f} (>= {BAR})")
+    # against exact K3 on the 2N batch: the closest-hit lanes by prim, the
+    # latched lanes by occlusion (the walks reach different first hits)
+    h1 = gather_bvh.intersect_bvh_gather_mixed(gp, *r2, latch)
+    h3 = bvh8.intersect_mixed(pack, scene.tris, *r2, latch)
+    closest = ~latch
+    same = h1.prim[closest] == h3.prim[closest]
+    check(same.float().mean().item() >= BAR, f"K1 vs exact K3, 2N closest-hit lanes: prim "
+          f"agree {same.float().mean().item():.6f} (>= {BAR}); {int((~same).sum())} lanes "
+          f"differ")
+    occ = (h1.prim[latch] >= 0) == (h3.prim[latch] >= 0)
+    check(occ.float().mean().item() >= K4_K3_BAR, f"K1 vs K3's latch, 2N latched lanes: "
+          f"occlusion agree {occ.float().mean().item():.6f} (>= {K4_K3_BAR}); "
+          f"{int((~occ).sum())} lanes differ")
+    k3_ms, k1_ms = turns("K3 vs K1 2N mixed", lambda: bvh8.walk_cuda(pack, *r2, latch),
+                         lambda: gather_bvh.walk_cuda(gp, *r2, latch), card, ("K3", "K1"))
+    twin_out = gather_bvh.walk_twin(gp, *r2, latch)
+    work = dict(gather_bvh.walk_twin.work)
+    plain_ms = cuda_ms(lambda: gather_bvh.walk_twin(gp, *r2, latch), reps=1)
+    k1_bytes = nbytes(*r2, latch, gp.rows) + 16 * r2[0].shape[0]  # t, prim, u, v out
+    k1_ops = work["node"] * 8 * OPS["box"] + work["leaf"] * 8 * OPS["mt"]
+    err = (twin_out[0] - h1.t).abs()[(h1.prim >= 0) & closest].max().item()
+    log(f"[3e K1] 2N={2 * n_pix} mixed on {card}: K1 {k1_ms:.3f} ms, exact K3 {k3_ms:.3f} ms, "
+        f"twin {plain_ms:.3f} ms; twin rounds {work}")
+    return dict(ms=k1_ms, k3_ms=k3_ms, plain_ms=plain_ms, bytes=k1_bytes, ops=k1_ops,
+                err=err, work=work)
+
+
+def lights_phase(work, dev, card):
+    """Phase 10: the lights. small-lights in both wavefronts against
+    tests/data/torch_port_lights_ref.json (numpy BVH build); lights-synth at
+    full width through regen (its 32 spp) and lockstep (LIGHTS_LOCKSTEP_SPP),
+    each counting the light rows NEE chose: every light kind must be chosen.
+    Returns {render: counts()}."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators.path_tracer import count_light_choices
+    from tungsten_tpu_torch.models.primitives.lights import light_kinds
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    paths = {size: synth.write_scene(os.path.join(work, size), size)
+             for size in ("small-lights", "lights-synth")}
+    with numpy_bvh_build():
+        for wavefront in ("regen", "lockstep"):
+            render_vs_ref("10 lights", paths["small-lights"], "torch_port_lights_ref.json", dev,
+                          wavefront)
+    t0 = time.time()
+    sc = flatten_scene(load_scene(paths["lights-synth"]), dev)
+    m = sc.meta
+    kinds = light_kinds(sc)
+    log(f"[10 lights] lights-synth flattened in {time.time() - t0:.1f} s: "
+        f"{sc.tris.v0.shape[0]} triangles, {sc.ana.n} analytic prims, {m.n_lights} lights "
+        f"{kinds}, envs {m.n_envs}, caps {m.n_caps} (escape {m.esc_caps}); "
+        f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
+    means, launches = {}, {}
+    for wavefront in ("regen", "lockstep"):
+        spp = m.spp if wavefront == "regen" else LIGHTS_LOCKSTEP_SPP
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with count_light_choices(dev) as chosen:
+            img = render_flat(sc, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        dt = time.time() - t0
+        label = f"lights-synth {wavefront}"
+        by_kind = {}
+        for i, n in chosen.items():
+            by_kind[kinds[i]] = by_kind.get(kinds[i], 0) + n
+        log(f"[10 lights] light choices of the {label} render ({spp} spp): "
+            + json.dumps({f"{i} {kinds[i]}": n for i, n in sorted(chosen.items())}))
+        check(set(chosen) == set(range(m.n_lights)) and set(by_kind) == set(kinds),
+              f"{label}: NEE chose every light row, each kind {by_kind}")
+        c = launches[label] = counts()
+        others = {k: v for k, v in c.items()
+                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
+        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
+              f"{label}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
+              f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+        if wavefront == "lockstep":
+            check_lockstep_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], spp,
+                                    m.max_bounces)
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"{label}: {img.shape} image finite and non-negative")
+        means[wavefront] = img.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[10 lights] {label}: {m.res_x}x{m.res_y} {spp} spp in {dt:.2f} s: "
+            f"{m.res_x * m.res_y * spp / dt / 1e6:.4f} Mpaths/s on {card}; channel means "
+            f"{means[wavefront].round(6).tolist()}")
+    rel = np.abs(means["lockstep"] - means["regen"]) / np.abs(means["regen"])
+    log(f"[10 lights] lights-synth: lockstep's channel means vs regen's, rel {rel.max():.3e} "
+        f"({LIGHTS_LOCKSTEP_SPP} against {m.spp} spp)")
+    return launches
+
+
 def interior_phase(work, dev, card):
     """Phase 8: the interior cell's surfaces. Returns the kernel launch
     counts of the two full-width renders, {wavefront: counts()}."""
@@ -683,11 +857,13 @@ def interior_phase(work, dev, card):
 
     t0 = time.time()
     scene = flatten_scene(load_scene(paths["interior-synth"]), dev)
+    flatten_s = time.time() - t0
     m = scene.meta
-    log(f"[8 interior] interior-synth flattened in {time.time() - t0:.1f} s: "
+    log(f"[8 interior] interior-synth flattened in {flatten_s:.1f} s: "
         f"{scene.tris.v0.shape[0]} triangles, {m.n_lights} lights {scene.lights.apx_kind}, "
         f"BSDF types {[type_name(t) for t in scene.materials.present]}; "
         f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
+    gbvh_cost("8 interior", scene, flatten_s)
     with count_bsdf_hits(dev) as hits:
         render_flat(scene, spp=1, seed=DEFAULT_SEED, wavefront="regen")
     log(f"[8 interior] BSDF hits of one regen pass (1 spp, {m.res_x * m.res_y} paths): "
@@ -839,7 +1015,7 @@ def main():
     t0 = time.time()
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
                "bvh2_walk_v1", "bvh_walk", "bvh_walk_v1", "intersect_stream",
-               "intersect_stream_v1")
+               "intersect_stream_v1", "gather_walk")
     native = build_native_bvh()
     _build.build(*sources)
     for name in sources:
@@ -847,7 +1023,7 @@ def main():
     log(f"[2 build] {', '.join(sources)} built in {time.time() - t0:.2f} s (nvcc, sm_90a, "
         f"in parallel)")
     native()
-    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream"):
+    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream", "gather_walk"):
         occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
         occ.restype = ctypes.c_int
         log(f"[2 build] {name}: {occ()} resident blocks of 128 threads a multiprocessor; "
@@ -861,10 +1037,12 @@ def main():
     big_path = synth.write_scene(os.path.join(work, "mt"), "materialtest-synth")
     t0 = time.time()
     scene = flatten_scene(load_scene(big_path), dev)
+    flatten_s = time.time() - t0
     n_tris = scene.tris.v0.shape[0]
-    log(f"[3 kernel] materialtest-synth flattened in {time.time() - t0:.1f} s: "
+    log(f"[3 kernel] materialtest-synth flattened in {flatten_s:.1f} s: "
         f"{n_tris} triangles, {scene.pbvh8.kid_t.shape[0]} BVH8 nodes, "
         f"{scene.pbvh8.tri_planes.shape[0]} leaves")
+    gbvh_cost("3 kernel", scene, flatten_s)
     pack = scene.pbvh8
     gen = np.random.default_rng(0)
     lo = scene.tris.v0.min(0).values.cpu().numpy() - 0.5
@@ -1217,6 +1395,8 @@ def main():
     fast_bytes = (nbytes(o2, d2, n2, f2, pack.boxes, pack.kid_t, pack.order_t,
                          pack.tri_planes_hi, pack.tri_planes_lo) + 8 * o2.shape[0])
 
+    k1 = k1_phase(scene, v1_cases, r2, latch, sub, hb, n_pix, card)
+
     # small renders against the JAX package's means
     with numpy_bvh_build():
         render_vs_ref("4 small", synth.write_scene(os.path.join(work, "small"), "small"),
@@ -1312,9 +1492,10 @@ def main():
         "bvh.walk_packet_cuda.v2", "bvh.walk_packet_cuda.v1", "intersect_stream.stream_cuda",
         "bvh8.walk_fast_cuda", "bvh8.walk_cuda_v1", "bvh8.walk_fast_cuda_v1",
         "bvh.walk_packet_cuda_v1.v2", "bvh.walk_packet_cuda_v1.v1",
-        "intersect_stream.stream_cuda_v1"]
+        "intersect_stream.stream_cuda_v1", "gather_bvh.walk_cuda"]
     check(all(bench_launches[k] > 0 for k in new_keys),
-          f"isect: K4 / K5 / K2 / K3-fast / v1 launches {[bench_launches[k] for k in new_keys]}")
+          f"isect: K4 / K5 / K2 / K3-fast / v1 / K1 launches "
+          f"{[bench_launches[k] for k in new_keys]}")
     bscene = bench_isect.load(big_path, dev)
     p8, bp3, bpv, bpt = bscene.pbvh8, bscene.pbvh3, bscene.pbvh, bscene.ptris
     for ray_kind in ("coherent", "incoherent"):
@@ -1345,9 +1526,11 @@ def main():
         f"{m.res_x}x{m.res_y}, {m.spp} spp")
     routes = (  # K3's closest-hit walks go through K3-fast and its repair
         ("K3", "bvh8.walk_cuda", full),
-        ("K5-v2", "bvh.walk_packet_cuda.v2", dataclasses.replace(full, pbvh8=None, pbvh3=None)),
+        ("K1", "gather_bvh.walk_cuda", dataclasses.replace(full, pbvh8=None)),
+        ("K5-v2", "bvh.walk_packet_cuda.v2",
+         dataclasses.replace(full, pbvh8=None, gbvh=None, pbvh3=None)),
         ("K2", "intersect_stream.stream_cuda",
-         dataclasses.replace(full, pbvh8=None, pbvh3=None, pbvh=None)),
+         dataclasses.replace(full, pbvh8=None, gbvh=None, pbvh3=None, pbvh=None)),
     )
     imgs, route_launches = {}, {}
     for label, key, sc in routes:
@@ -1368,7 +1551,7 @@ def main():
         imgs[label], route_launches[label] = img, c[key]
     ref_img = imgs["K3"]
     ref_means = ref_img.reshape(-1, 3).astype(np.float64).mean(0)
-    for label in ("K5-v2", "K2"):
+    for label in ("K1", "K5-v2", "K2"):
         img = imgs[label]
         means = img.reshape(-1, 3).astype(np.float64).mean(0)
         rel = np.abs(means - ref_means) / np.abs(ref_means)
@@ -1381,6 +1564,7 @@ def main():
 
     interior_launches = interior_phase(work, dev, card)
     surface_launches, _ = surfaces_phase(work, dev, card)
+    light_launches = lights_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -1401,6 +1585,15 @@ def main():
     for row, key in zip(entries, ("bvh8.walk_cuda", "bvh8.walk_fast_cuda")):
         row["launches_interior"] = {w: c[key] for w, c in interior_launches.items()}
         row["launches_surfaces"] = {w: c[key] for w, c in surface_launches.items()}
+        row["launches_lights"] = {w: c[key] for w, c in light_launches.items()}
+    # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
+    # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
+    k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",
+                   "tungsten_tpu/ops/gather_bvh.py:216", route_launches["K1"], k1["err"],
+                   k1["ms"], k1["plain_ms"], k1["bytes"], k1["ops"])
+    k1_row["tpu_form"] = "XLA gathers (`_phase`), not pl.pallas_call"
+    k1_row["exact_k3_ms"], k1_row["twin_rounds"] = k1["k3_ms"], k1["work"]
+    entries.append(k1_row)
     for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b
     n_bench = res["n"]

@@ -8,13 +8,14 @@ import copy
 import pytest
 
 from tungsten_tpu_torch import synth
-from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect_stream
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, gather_bvh, intersect_stream
 from tungsten_tpu_torch.tools import bench_isect
 
 COUNTERS = ((bvh8.walk_cuda, bvh8.walk_twin), (bvh8.walk_fast_cuda, bvh8.walk_fast_twin),
             (bvh2.walk3_cuda, bvh2.walk3_twin),
             (bvh.walk_packet_cuda, bvh.walk_packet_twin),
-            (intersect_stream.stream_cuda, intersect_stream.stream_twin))
+            (intersect_stream.stream_cuda, intersect_stream.stream_twin),
+            (gather_bvh.walk_cuda, gather_bvh.walk_twin))
 
 
 def test_entry_point_on_small(tmp_path, capsys):
@@ -34,21 +35,23 @@ def test_entry_point_on_small(tmp_path, capsys):
             assert all(twin.launches[m] > t0[m] for m in t0)
         else:
             assert twin.launches > t0
-    # brute force for each of the 10 walks (+ t for the 8 closest-hit ones),
-    # K4 vs K5 (mask and t), each any-hit walk vs its closest-hit walk, and
-    # each of the 9 other walks vs K2 on the coherent rays
-    assert len(res["agree"]) == 10 + 8 + 2 + 2 + 9
+    # brute force for each of the 12 walks (+ t for the 9 closest-hit ones),
+    # K4 vs K5 (mask and t), each of the 3 any-hit walks vs its closest-hit
+    # walk, and each of the 11 other walks vs K2 on the coherent rays
+    assert len(res["agree"]) == 12 + 9 + 2 + 3 + 11
     assert all(v >= bench_isect.BAR for v in res["agree"].values()), res["agree"]
     assert out.count("agreement ") == len(res["agree"])
-    assert out.count("not run (CPU)") == 30
+    assert out.count("not run (CPU)") == 36
+    # K1 tests 8 slabs a node round and 8 triangles a leaf round
+    work = res["times"][("coherent", "gather")]["work"]
+    assert work["box"] == 8 * work["node"] > 0 and work["tri"] == 8 * work["leaf"] > 0
     # the whole fast query does the raw fast walk's work plus the repair walk's
     for kind in ("coherent", "incoherent"):
         raw, whole = (res["times"][(kind, n)]["work"] for n in ("bvh8fast", "bvh8fastq"))
         assert whole["box"] >= raw["box"] and whole["tri"] >= raw["tri"]
 
 
-@pytest.mark.parametrize("name,reason", [("bvhx", "pallas_bvhx"), ("gather", "K1"),
-                                         ("gatherany", "K1"), ("bvh9", "unknown")])
+@pytest.mark.parametrize("name,reason", [("bvhx", "pallas_bvhx"), ("bvh9", "unknown")])
 def test_unsupported_kernels_raise(name, reason):
     with pytest.raises(ValueError, match=reason):
         bench_isect.main(["--device", "cpu", "--n", "16", "--kernels", f"bvh8,{name}"])

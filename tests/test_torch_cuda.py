@@ -7,8 +7,9 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
-K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1) and K2
-(intersect_stream.cu), and the first CUDA forms of K3, K3-fast, K4, K5 and
+K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1), K2
+(intersect_stream.cu) and K1 (gather_walk.cu: closest, any, mixed; bit for
+bit with its twin, and by the bars against brute force), and the first CUDA forms of K3, K3-fast, K4, K5 and
 K2, kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
 bvh2_walk_v1.cu, bvh_walk_v1.cu, intersect_stream_v1.cu).
 Bars: local slot (prim) agrees on >= 99.9%
@@ -49,7 +50,7 @@ import numpy as np
 import pytest
 import torch
 
-from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, intersect, intersect_stream
+from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, gather_bvh, intersect, intersect_stream
 
 BAR = 0.999
 
@@ -423,3 +424,52 @@ def test_surface_scenes_on_the_card_match_reference(cuda, tmp_path, size, ref_fi
             np.testing.assert_allclose(means, want, rtol=5e-3, err_msg=wavefront)
     finally:
         accel_bvh._NATIVE = native
+
+
+def _k1_case(dev):
+    """The K1 pack of _case's scene (its own 8-ary tree) and _case's rays."""
+    packs, rays = _case(dev)
+    v0, e1, e2 = (x.cpu().numpy() for x in packs["tri_soa"])
+    pack = gather_bvh.GatherBvhPack.from_arrays(gather_bvh.build_gather_pack(v0, e1, e2), dev)
+    return packs, pack, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
+def test_k1_kernel_bit_equal_to_twin(cuda, mode):
+    """K1 (gather_walk.cu) rounds every operation as its twin does: t, prim,
+    u and v equal bit for bit, in closest, latched and mixed mode; dead
+    lanes miss; the launch counts move by one each."""
+    _, pack, (o, d, tn, tf) = _k1_case(cuda)
+    latch = {"closest": None, "any": True,
+             "mixed": torch.arange(o.shape[0], device=cuda) % 2 == 0}[mode]
+    k0, t0 = gather_bvh.walk_cuda.launches, gather_bvh.walk_twin.launches
+    out = gather_bvh.walk_cuda(pack, o, d, tn, tf, latch)
+    torch.cuda.synchronize()
+    twin = gather_bvh.walk_twin(pack, o, d, tn, tf, latch)
+    assert gather_bvh.walk_cuda.launches == k0 + 1 and gather_bvh.walk_twin.launches == t0 + 1
+    assert _same_bits(out, twin), f"{mode}: prim agrees on {(out[1] == twin[1]).float().mean()}"
+    hit = (out[1] >= 0).float().mean().item()
+    assert 0.1 < hit < 0.9
+    assert bool((out[1][tf <= tn] == -1).all())
+
+
+@pytest.mark.cuda
+def test_k1_queries_against_brute_force(cuda):
+    """K1's closest-hit query against intersect_brute: prim on >= 99.9% of
+    the rays, t within rtol 1e-5 where it agrees; its any-hit query against
+    the brute-force hit mask on >= 99.9%; `walk` sends CUDA tensors to the
+    kernel."""
+    packs, pack, rays = _k1_case(cuda)
+    o, d, tn, tf = (x[:4096] for x in rays)
+    tris = intersect.TriangleSoA(*packs["tri_soa"])
+    hb = intersect.intersect_brute(tris, o, d, tn, tf)
+    k0, t0 = gather_bvh.walk_cuda.launches, gather_bvh.walk_twin.launches
+    hk = gather_bvh.intersect_bvh_gather(pack, o, d, tn, tf)
+    occ = gather_bvh.occluded_bvh_gather(pack, o, d, tn, tf)
+    assert gather_bvh.walk_cuda.launches == k0 + 2 and gather_bvh.walk_twin.launches == t0
+    same = hk.prim == hb.prim
+    assert same.float().mean().item() >= BAR
+    both = same & (hb.prim >= 0)
+    torch.testing.assert_close(hk.t[both], hb.t[both], rtol=1e-5, atol=1e-6)
+    assert (occ == (hb.prim >= 0)).float().mean().item() >= BAR

@@ -32,15 +32,17 @@ def numpy_bvh(monkeypatch, tmp_path):
 
 def jax_arrays(js):
     """The JAX FlatScene's arrays under the port's ARRAY_KEYS, None where a
-    pack on the way is None (a pack the JAX flatten left out)."""
-    from tungsten_tpu_torch.scene.flatten import ARRAY_KEYS
+    pack on the way is None (a pack the JAX flatten left out), and its env
+    lights under "envs"."""
+    from tungsten_tpu_torch.scene.flatten import ARRAY_KEYS, ENV_KEYS
 
-    out = {}
-    for k in ARRAY_KEYS:
-        v = js
-        for part in k.split("."):
-            v = None if v is None else getattr(v, part)
-        out[k] = None if v is None else np.asarray(v)
+    def get(obj, key):
+        for part in key.split("."):
+            obj = None if obj is None else getattr(obj, part)
+        return None if obj is None else np.asarray(obj)
+
+    out = {k: get(js, k) for k in ARRAY_KEYS}
+    out["envs"] = [{k: get(e, k) for k in ENV_KEYS} for e in js.envs]
     return out
 
 
@@ -143,8 +145,9 @@ def test_flatten_matches_jax_flatscene_analytic(numpy_bvh, tmp_path):
 
 def test_from_arrays_takes_each_pack_all_or_none(numpy_bvh, tmp_path):
     """A JAX scene whose VMEM gates dropped pbvh8 / pbvh3 / pbvh carries
-    across without them; a pack given in part, or pbvh3 without the pbvh8
-    whose leaves it shares, is refused."""
+    across without them; a pack given in part, pbvh3 without the pbvh8
+    whose leaves it shares, or env lights that do not match meta.n_envs, is
+    refused."""
     from tungsten_tpu.scene.flatten import flatten_scene as jflatten
     from tungsten_tpu.scene.load import load_scene as jload
     from tungsten_tpu_torch import synth
@@ -168,6 +171,10 @@ def test_from_arrays_takes_each_pack_all_or_none(numpy_bvh, tmp_path):
         from_arrays(drop("ptris"), js.meta, cpu)
     with pytest.raises(ValueError, match="pbvh3"):
         from_arrays(drop("pbvh8"), js.meta, cpu)
+    assert js.meta.n_envs == len(arrays["envs"]) >= 1
+    for envs in ([], arrays["envs"] * 2):  # the env lights must match meta.n_envs
+        with pytest.raises(KeyError, match="n_envs"):
+            from_arrays({**arrays, "envs": envs}, js.meta, cpu)
 
 
 def test_all_analytic_scene_flattens(tmp_path):
@@ -236,8 +243,12 @@ def test_device_helper():
 
 def _edit_small(doc, what):
     prims, bsdfs = doc["primitives"], doc["bsdfs"]
-    if what == "analytic sphere":  # an emissive one: analytic area lights wait
+    if what == "analytic sphere":  # an emissive one
         prims.append({"type": "sphere", "bsdf": "inner", "emission": 5.0})
+    elif what == "emissive cylinder":
+        prims.append({"type": "cylinder", "bsdf": "inner", "power": 20.0})
+    elif what == "skydome":  # the skydome bake waits (ROADMAP)
+        prims.append({"type": "skydome", "turbidity": 3, "intensity": 2})
     elif what == "area light":
         prims[2]["emission"] = 5.0
     elif what == "media":
@@ -271,19 +282,23 @@ def _edit_small(doc, what):
 
 # edit -> the light rows it leaves
 NOW_PORTED = {"area light": 2, "no env": 0, "dielectric": 1, "textured roughness": 1,
-              "hdr sky": 1}
+              "hdr sky": 1, "analytic sphere": 2, "emissive cylinder": 2, "point light": 2,
+              "emissive disk": 2, "cap light": 2, "two envs": 2, "unsampled env": 0}
+SURFACE_LIGHTS = ("area light", "analytic sphere", "emissive cylinder", "emissive disk")
 
 
 @pytest.mark.parametrize("what", ["analytic sphere", "area light", "media", "thinlens",
                                   "other bsdf", "aov", "no env", "point light",
                                   "emissive disk", "cap light", "two envs", "unsampled env",
-                                  "dielectric", "textured roughness", "hdr sky"])
+                                  "dielectric", "textured roughness", "hdr sky",
+                                  "emissive cylinder", "skydome"])
 def test_missing_features_raise(tmp_path, what):
     """Every feature outside the port raises NotImplementedError naming it;
     none is skipped silently. Those that have joined the port since (an
     emissive cube beside the sky; a scene without an env light; a
-    dielectric; a textured roughness; an .hdr env map) flatten, with the
-    light rows they should have."""
+    dielectric; a textured roughness; an .hdr env map; emissive analytic
+    prims, point and cap lights, two envs, an unsampled env) flatten, with
+    the light rows they should have."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
@@ -300,7 +315,7 @@ def test_missing_features_raise(tmp_path, what):
     if what in NOW_PORTED:
         scene = flatten_scene(load_scene(path), torch.device("cpu"))
         assert scene.meta.n_lights == NOW_PORTED[what]
-        assert scene.lights.has_surface == (what == "area light")
+        assert scene.lights.has_surface == (what in SURFACE_LIGHTS)
         return
     with pytest.raises(NotImplementedError):
         flatten_scene(load_scene(path), torch.device("cpu"))

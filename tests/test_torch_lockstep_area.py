@@ -20,9 +20,9 @@ exact walk's latch.
     the render tests' own;
   * render_flat(wavefront="lockstep") and render_flat(wavefront="regen")
     against the JAX render_flat with the same argument, same bars per pixel;
-  * the lockstep render on the other intersector routes (no pbvh8: K4's
-    any-hit walk for the shadow rays, K5 for the closest hits; no BVH pack:
-    K2 for both) against the same JAX render;
+  * the lockstep render on the other intersector routes (no pbvh8 and no
+    gbvh: K4's any-hit walk for the shadow rays, K5 for the closest hits;
+    no BVH pack: K2 for both) against the same JAX render;
   * the port's lockstep and regen renders are two streams of one estimator:
     at 16 spp (49,152 paths a render; the twins' cost on the CPU grows with
     the number of passes, so not 64) their per-channel means agree within 5%;
@@ -43,7 +43,8 @@ from tungsten_tpu_torch.ops import bvh8
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 REFS = {"small-area": "torch_port_area_ref.json", "small-box": "torch_port_box_ref.json",
         "small-interior": "torch_port_interior_ref.json",
-        "small-coat": "torch_port_coat_ref.json", "small-cutout": "torch_port_cutout_ref.json"}
+        "small-coat": "torch_port_coat_ref.json", "small-cutout": "torch_port_cutout_ref.json",
+        "small-lights": "torch_port_lights_ref.json"}
 SIZES = ["small-area"]  # this file's scene
 
 
@@ -172,16 +173,17 @@ def test_render_matches_jax(cases, size, wavefront):
 
 @pytest.mark.parametrize("route", ["K5", "K2"])
 def test_lockstep_on_the_other_routes(cases, route):
-    """Without pbvh8 the shadow rays take K4's any-hit walk and the closest
-    hits K5; without any BVH pack both take K2 (closest hit's prim >= 0).
-    Each still matches the JAX lockstep render."""
+    """Without pbvh8 and gbvh (K1, which tests/test_torch_gather_bvh.py
+    drives) the shadow rays take K4's any-hit walk and the closest hits K5;
+    without any BVH pack both take K2 (closest hit's prim >= 0). Each still
+    matches the JAX lockstep render."""
     import dataclasses
 
     from tungsten_tpu_torch.ops import bvh, bvh2, intersect_stream
     from tungsten_tpu_torch.renderer.render import render_flat
 
     c = cases["small-area"]
-    dropped = {"K5": ("pbvh8",), "K2": ("pbvh8", "pbvh3", "pbvh")}[route]
+    dropped = {"K5": ("pbvh8", "gbvh"), "K2": ("pbvh8", "gbvh", "pbvh3", "pbvh")}[route]
     scene = dataclasses.replace(c["scene"], **dict.fromkeys(dropped))
 
     def counts():

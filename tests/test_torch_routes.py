@@ -4,8 +4,9 @@
 cylinder) rendered by the JAX package on the CPU, as its own tests run it
 (analytic prims first, then the binary BVH walk `intersect_bvh`), against
 the port on each route of `_intersect_tris`, the packs dropped with
-dataclasses.replace: all packs (the K3 twin), pbvh8 = pbvh3 = None (K5's)
-and pbvh8 = pbvh3 = pbvh = None (K2's). Both packages use the numpy BVH
+dataclasses.replace: all packs (the K3 twin), pbvh8 = None (K1's),
+pbvh8 = gbvh = pbvh3 = None (K5's) and pbvh8 = gbvh = pbvh3 = pbvh = None
+(K2's). Both packages use the numpy BVH
 build. Bars, as test_torch_render.py's: per-channel means within 2e-3
 relative, >= 98% of pixels within 1e-3 + 1e-3 * |ref| (a path whose hit
 flips between two walks shades differently).
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from tungsten_tpu_torch.ops import bvh, bvh8, intersect_stream
+from tungsten_tpu_torch.ops import bvh, bvh8, gather_bvh, intersect_stream
 from test_torch_lockstep_area import one_torch_thread  # noqa: F401
 
 REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -31,8 +32,9 @@ REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
 # route -> (packs dropped, the twin whose launches it moves)
 ROUTES = {
     "K3": ((), lambda: bvh8.walk_twin.launches),
-    "K5": (("pbvh8", "pbvh3"), lambda: bvh.walk_packet_twin.launches["v2"]),
-    "K2": (("pbvh8", "pbvh3", "pbvh"), lambda: intersect_stream.stream_twin.launches),
+    "K1": (("pbvh8",), lambda: gather_bvh.walk_twin.launches),
+    "K5": (("pbvh8", "gbvh", "pbvh3"), lambda: bvh.walk_packet_twin.launches["v2"]),
+    "K2": (("pbvh8", "gbvh", "pbvh3", "pbvh"), lambda: intersect_stream.stream_twin.launches),
 }
 
 
@@ -95,14 +97,15 @@ def test_jax_scene_without_packs_renders_on_k2(scenes):
     from tungsten_tpu_torch.scene.flatten import from_arrays
 
     arrays = {k: v for k, v in scenes["arrays"].items()
-              if k.split(".")[0] not in ("pbvh8", "pbvh3", "pbvh")}
+              if k.split(".")[0] not in ("pbvh8", "gbvh", "pbvh3", "pbvh")}
     scene = from_arrays(arrays, scenes["meta"], torch.device("cpu"))
     assert scene.pbvh8 is None and scene.pbvh3 is None and scene.pbvh is None
+    assert scene.gbvh is None
     assert scene.ana is not None and scene.ptris.n_tris == scene.tris.v0.shape[0]
     before = _launches()
     img = render_flat(scene, seed=scenes["seed"])
     moved = {r: n - before[r] for r, n in _launches().items()}
-    assert moved["K2"] > 0 and moved["K3"] == moved["K5"] == 0, moved
+    assert moved["K2"] > 0 and moved["K3"] == moved["K1"] == moved["K5"] == 0, moved
     _check_image(img, scenes["ref"])
 
 

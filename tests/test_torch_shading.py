@@ -170,7 +170,7 @@ def test_choose_and_sample_light_env_only(scenes, rng):
     """In an env-only scene the choice is static (light 0, pdf 1) and the
     area sample is merged away: `is_env` is set on every lane, so the merged
     sample IS the env sample; the port gives the same light, sample, choice
-    pdf and sampler position."""
+    pdf, light kind flags and sampler position."""
     from tungsten_tpu.integrators.path_tracer import _choose_and_sample_light as jchoose
     from tungsten_tpu.models.primitives import lights as JL
     from tungsten_tpu.sampling.sampler import Sampler as JSampler
@@ -184,8 +184,10 @@ def test_choose_and_sample_light_env_only(scenes, rng):
     jsmp = JSampler.create(jnp.asarray(np.array([5, 0], np.uint32)), jnp.asarray(lane))
     tsmp = TSampler.create((5, 0), torch.as_tensor(lane.astype(np.int64)))
     li, is_env, is_cap, is_point, lsj, cpj, jsmp = jchoose(js, jsmp, jnp.asarray(p))
-    lit, lst, cpt, tsmp = tchoose(ts, tsmp, torch.as_tensor(p))
+    lit, is_env_t, is_cap_t, is_point_t, lst, cpt, tsmp = tchoose(ts, tsmp, torch.as_tensor(p))
     np.testing.assert_array_equal(lit.numpy(), np.asarray(li))
+    for mine, ref in ((is_env_t, is_env), (is_cap_t, is_cap), (is_point_t, is_point)):
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
     assert np.asarray(is_env).all() and not np.asarray(is_cap).any()
     assert not np.asarray(is_point).any() and (np.asarray(li) == 0).all()
     u_point = JSampler.create(jnp.asarray(np.array([5, 0], np.uint32)),

@@ -5,12 +5,13 @@ reference; this package runs its main path (scene load -> flatten ->
 regenerating or lockstep wavefront path tracer -> framebuffer; every surface
 BSDF but the fibers, the wrappers over one level of nesting, forward lobes
 through the lockstep tracer's crossing walk, textured parameters, .hdr
-images) with plain torch tensor code and hand-written CUDA kernels for the
-walks: the BVH8
+images, every light kind but the skydome) with plain torch tensor code and
+hand-written CUDA kernels for the walks: the BVH8
 walk, exact and fast (ops/bvh8.py + csrc/bvh8_walk.cu, bvh8_walk_fast.cu),
-the binary walk (ops/bvh2.py + csrc/bvh2_walk.cu), the packet walk
-(ops/bvh.py + csrc/bvh_walk.cu) and the streaming brute force
-(ops/intersect_stream.py + csrc/intersect_stream.cu). The intersector
+the gather walk (ops/gather_bvh.py + csrc/gather_walk.cu), the binary walk
+(ops/bvh2.py + csrc/bvh2_walk.cu), the packet walk (ops/bvh.py +
+csrc/bvh_walk.cu) and the streaming brute force (ops/intersect_stream.py +
+csrc/intersect_stream.cu). The intersector
 benchmark (tools/bench_isect.py) times them all. It imports torch and numpy,
 never jax.
 

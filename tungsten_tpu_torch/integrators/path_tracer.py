@@ -3,10 +3,11 @@
 Port of `trace_regen_batch`, `_trace_pass_fast` / `trace_pass` (both its
 branches) / `trace_batch` and the helpers they call from
 tungsten_tpu/integrators/path_tracer.py (lines 67-255, 278-412, 558-1232,
-1236-2111) for the port's configuration: triangles and non-emissive analytic
-prims, every surface BSDF but the fibers, area lights (emissive meshes,
-quads, cubes) beside at most one samplable env light, no media, no AOVs, no
-sample table. Forward lobes (thinsheet, transparency, forward) take the
+1236-2111) for the port's configuration: triangles and analytic prims,
+every surface BSDF but the fibers, every light of the JAX flatten but the
+skydome (area lights, analytic emitters with a disk's emission cone, any
+number of envs, sampled or not, spherical caps, point lights with MIS
+weight 1), no media, no AOVs, no sample table. Forward lobes (thinsheet, transparency, forward) take the
 lockstep tracer's crossing-walk branch (`_trace_pass_forward`); regen
 refuses them, as the JAX package does.
 
@@ -36,9 +37,12 @@ The intersector dispatch is the JAX package's TPU route (`_intersect`,
 `_intersect_tris`, `_intersect_mixed`, `_occluded_raw`): analytic prims
 first, their t clipping the triangle walk; then the first pack the scene
 carries, pbvh8 (K3: closest hit through the fast walk with its exact repair,
-any-hit through the exact walk's latch), pbvh (K5) or ptris (K2, which every
-scene has); brute force at 64 triangles or fewer. The regen 2N walk latches
-the shadow lanes (any-hit) on K3 and is a plain closest-hit walk on the
+any-hit through the exact walk's latch), gbvh (K1, closest, latched and
+mixed in one per-lane walk), pbvh (K5; any-hit through K4 where pbvh3 is
+there) or ptris (K2, which every scene has); brute force at 64 triangles or
+fewer. The JAX package takes gbvh first on the TPU; the port keeps K3
+first, its measured main path, and K1 second. The regen 2N walk latches the
+shadow lanes (any-hit) on K3 and K1 and is a plain closest-hit walk on the
 other routes (same booleans).
 
 RNG streams key on the global path id (regen) or on (pass, lane) (lockstep),
@@ -61,7 +65,7 @@ from ..models.primitives import lights as L
 from ..models.primitives.analytic import (hit_geom, intersect_analytic, normal_at,
                                           occluded_analytic)
 from ..models.textures.textures import eval_texture
-from ..ops import bvh, bvh2, bvh8
+from ..ops import bvh, bvh2, bvh8, gather_bvh
 from ..ops.intersect import INF, Hit, intersect_brute
 from ..ops.intersect_stream import intersect_stream
 from ..sampling import warps
@@ -75,6 +79,7 @@ SHADOW_FUDGE = 1.0 - 1e-3  # cf. attenuatedEmission's 1+1e-3 (TraceBase.cpp:155)
 BRUTE_MAX_TRIS = 64  # at or below: brute force, no pack (path_tracer.py:90, :106)
 
 _HIT_COUNTS = None  # (N_TYPES + 1,) int64 while count_bsdf_hits is open
+_CHOICE_COUNTS = None  # {"acc": (L,) int64} while count_light_choices is open
 
 
 @contextlib.contextmanager
@@ -92,6 +97,33 @@ def count_bsdf_hits(device):
     finally:
         _HIT_COUNTS = None
         out.update({t: n for t, n in enumerate(acc[:N_TYPES].tolist()) if n})
+
+
+@contextlib.contextmanager
+def count_light_choices(device):
+    """Count the light rows that NEE chooses at the vertices where it runs,
+    in both tracers, while the context is open: yields a dict that holds
+    {light index: choices} (rows chosen at least once) on exit;
+    `lights.light_kinds(scene)` names each row's kind. Off, it costs one
+    `is None` test a bounce; on, one index_add_ a bounce, with no host sync."""
+    global _CHOICE_COUNTS
+    state = {"acc": torch.zeros(0, dtype=torch.int64, device=device)}
+    out = {}
+    _CHOICE_COUNTS = state
+    try:
+        yield out
+    finally:
+        _CHOICE_COUNTS = None
+        out.update({i: n for i, n in enumerate(state["acc"].tolist()) if n})
+
+
+def _count_choices(li, lanes, n_lights):
+    """Add the chosen light rows of `lanes` to the open count."""
+    acc = _CHOICE_COUNTS["acc"]
+    if acc.numel() < n_lights:
+        acc = _CHOICE_COUNTS["acc"] = torch.cat(
+            [acc, torch.zeros(n_lights - acc.numel(), dtype=torch.int64, device=acc.device)])
+    acc.index_add_(0, li, lanes.long())
 
 
 def _count_hits(shaded, mtype):
@@ -118,11 +150,15 @@ def _with_analytic(scene: FlatScene, o, d, tnear, tfar, walk) -> Hit:
 
 def _intersect_tris(scene: FlatScene, o, d, tnear, tfar) -> Hit:
     """Closest hit over the triangles through the first pack the scene
-    carries: pbvh8 (K3), pbvh (K5), else ptris (K2) (path_tracer.py:87-108)."""
+    carries: pbvh8 (K3), gbvh (K1), pbvh (K5), else ptris (K2)
+    (path_tracer.py:87-108). The JAX package takes gbvh first on the TPU;
+    the port keeps K3 first, its measured main path."""
     if scene.tris.v0.shape[0] <= BRUTE_MAX_TRIS:
         return intersect_brute(scene.tris, o, d, tnear, tfar)
     if scene.pbvh8 is not None:
         return bvh8.intersect(scene.pbvh8, scene.tris, o, d, tnear, tfar)
+    if scene.gbvh is not None:
+        return gather_bvh.intersect_bvh_gather(scene.gbvh, o, d, tnear, tfar)
     if scene.pbvh is not None:
         return bvh.intersect_bvh(scene.pbvh, o, d, tnear, tfar)
     return intersect_stream(scene.ptris, o, d, tnear, tfar)
@@ -135,14 +171,19 @@ def _intersect(scene: FlatScene, o, d, tnear, tfar) -> Hit:
 
 
 def _intersect_mixed(scene: FlatScene, o, d, tnear, tfar, latch) -> Hit:
-    """ONE walk for a mixed [any-hit | closest-hit] wavefront: on K3 latched
-    lanes stop at their first hit (only prim >= 0 is meaningful); the other
-    routes run closest hit on every lane, which gives the same booleans
-    (path_tracer.py:1171-1198)."""
-    if scene.pbvh8 is None or scene.tris.v0.shape[0] <= BRUTE_MAX_TRIS:
+    """ONE walk for a mixed [any-hit | closest-hit] wavefront: on K3, else
+    on K1, latched lanes stop at their first hit (only prim >= 0 is
+    meaningful); the other routes run closest hit on every lane, which gives
+    the same booleans (path_tracer.py:1171-1198)."""
+    if scene.tris.v0.shape[0] <= BRUTE_MAX_TRIS:
         return _intersect(scene, o, d, tnear, tfar)
-    return _with_analytic(scene, o, d, tnear, tfar, lambda far: bvh8.intersect_mixed(
-        scene.pbvh8, scene.tris, o, d, tnear, far, latch))
+    if scene.pbvh8 is not None:
+        return _with_analytic(scene, o, d, tnear, tfar, lambda far: bvh8.intersect_mixed(
+            scene.pbvh8, scene.tris, o, d, tnear, far, latch))
+    if scene.gbvh is not None:
+        return _with_analytic(scene, o, d, tnear, tfar, lambda far: (
+            gather_bvh.intersect_bvh_gather_mixed(scene.gbvh, o, d, tnear, far, latch)))
+    return _intersect(scene, o, d, tnear, tfar)
 
 
 def _shading_data(scene: FlatScene, hit: Hit, o, d):
@@ -173,11 +214,14 @@ def _shading_data(scene: FlatScene, hit: Hit, o, d):
 
 def _occluded_raw_tris(scene: FlatScene, p, d, near, far):
     """Any-hit over the triangles: pbvh8 -> K3's latch (exact f32: a phantom
-    of the fast walk would occlude falsely), pbvh3 -> K4's any-hit walk, else
-    the closest hit's prim >= 0 (path_tracer.py:1213-1232)."""
+    of the fast walk would occlude falsely), gbvh -> K1 with every lane
+    latched, pbvh3 -> K4's any-hit walk, else the closest hit's prim >= 0
+    (path_tracer.py:1213-1232)."""
     if scene.tris.v0.shape[0] > BRUTE_MAX_TRIS:
         if scene.pbvh8 is not None:
             return bvh8.occluded(scene.pbvh8, p, d, near, far)
+        if scene.gbvh is not None:
+            return gather_bvh.occluded_bvh_gather(scene.gbvh, p, d, near, far)
         if scene.pbvh3 is not None:
             return bvh2.occluded_bvh3(scene.pbvh3, p, d, near, far)
     return _intersect_tris(scene, p, d, near, far).prim >= 0
@@ -216,23 +260,33 @@ def _local_frame(meta, ns, d, lobes):
 
 
 def _sample_chosen_light(scene: FlatScene, smp: Sampler, li, is_env_choice, p):
-    """sampleDirect of the chosen light li as seen from p: the area sample,
-    replaced by the env's where the env was chosen. Draws a point pair, then
-    the triangle pick (the pending half of the choice's draw, where there is
-    one)."""
+    """sampleDirect of the chosen light li as seen from p: the area (or
+    analytic) sample, replaced by the env's, the cap's or the point's where
+    one of those was chosen (path_tracer.py:1146-1166). Draws a point pair,
+    then the triangle pick (the pending half of the choice's draw, where
+    there is one). Returns (LightSample, is_cap, is_point, sampler)."""
+    meta = scene.meta
     u_point, smp = smp.next_2d()
     u_tri, smp = smp.next_1d()
     ls = L.sample_area_direct(scene, li, p, u_tri, u_point)
-    if L.any_infinite_sampled(scene.meta):
+    if any(i >= 0 for i in meta.env_light_idx):
         ls = L._merge_ls(is_env_choice, L.sample_env_direct(scene, li, u_point), ls)
-    return ls, smp
+    is_cap = is_point = torch.zeros_like(is_env_choice)
+    if any(i >= 0 for i in meta.cap_light_idx):
+        is_cap = scene.lights.cap_slot[li] >= 0
+        ls = L._merge_ls(is_cap, L.sample_cap_direct(scene, li, u_point), ls)
+    if meta.point_light_index >= 0:
+        is_point = scene.lights.pt_slot[li] >= 0
+        ls = L._merge_ls(is_point, L.sample_point_direct(scene, li, p), ls)
+    return ls, is_cap, is_point, smp
 
 
 def _choose_and_sample_light(scene: FlatScene, smp: Sampler, p):
     """Radiance-weighted light choice (TraceBase::chooseLight) + sampleDirect
-    over the light kinds (area / env). Consumes 4 sampler dims. Returns (li,
-    LightSample, choice_pdf, sampler); LightSample.pdf excludes the choice
-    pdf. With one light the choice, its pdf and the light's kind are static
+    over the light kinds (area / analytic / env / cap / point). Consumes 4
+    sampler dims. Returns (li, is_env, is_cap, is_point, LightSample,
+    choice_pdf, sampler); LightSample.pdf excludes the choice pdf. With one
+    light the choice, its pdf and whether it is an env are static
     (path_tracer.py:1123-1168)."""
     meta = scene.meta
     n = p.shape[0]
@@ -246,8 +300,8 @@ def _choose_and_sample_light(scene: FlatScene, smp: Sampler, p):
         choice_pdf = torch.where(choice_weight > 0.0,
                                  1.0 / torch.clamp(choice_weight, min=1e-30), 0.0)
         is_env_choice = scene.lights.is_env[li]
-    ls, smp = _sample_chosen_light(scene, smp, li, is_env_choice, p)
-    return li, ls, choice_pdf, smp
+    ls, is_cap, is_point, smp = _sample_chosen_light(scene, smp, li, is_env_choice, p)
+    return li, is_env_choice, is_cap, is_point, ls, choice_pdf, smp
 
 
 def _regen(scene, s, seed, px_cycle, py_cycle, pix_cycle, pass_base, W, total, strat):
@@ -361,7 +415,7 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         # ---- misses: environment, MIS against the previous light sample ----
         miss = s["alive"] & (hit.prim < 0)
         mis_applies = (~s["was_specular"] & s["nee_active"]) if do_nee else torch.zeros_like(miss)
-        if meta.has_env:
+        if meta.has_env or meta.has_cap:
             if do_nee:
                 lp_inf = (L.infinite_winner_pdf(scene, d)
                           * L.infinite_winner_choice_pdf(scene, d, o))
@@ -408,7 +462,8 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
 
         # ---- NEE: light strategy only (the continuation is the bsdf half) ----
         if do_nee:
-            _, ls, cp_pick, smp = _choose_and_sample_light(scene, smp, vp)
+            li, is_env_c, is_cap_c, is_point_c, ls, cp_pick, smp = _choose_and_sample_light(
+                scene, smp, vp)
             wo_l = vo.to_local(*frame, ls.d)
             f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l, nonspecular_only=True,
                             textures=texs)
@@ -416,11 +471,18 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
             # over continuous directions: the full pdf, lobe choice included
             pdf_b = bsdf_pdf(mats, mat_pre, uv, wi, wo_l, textures=texs)
             w_light = warps.power_heuristic(ls.pdf * cp_pick, pdf_b)
-            # with one env light, the escape winner along ls.d is the chosen
-            # light whenever an infinite light was chosen, so the JAX package's
-            # masked-infinite-choice override (escape_winner) never fires
+            w_light = torch.where(is_point_c, 1.0, w_light)  # dirac: no bsdf strategy
+            if L.any_infinite_sampled(meta):
+                # a masked infinite choice: the continuation's escape credits
+                # only the LAST infinite light that ls.d meets; where that is
+                # not the chosen light, the light strategy is its only
+                # estimator and takes weight 1 (path_tracer.py:1582-1593)
+                wl_d, _, _ = L.escape_winner(scene, ls.d, want_radiance=False)
+                w_light = torch.where((is_env_c | is_cap_c) & (wl_d != li), 1.0, w_light)
             skip_l = (Lobes.is_pure_specular(lobes) | (lobes == Lobes.FORWARD) | (lobes == 0))
             nee_gate = hit_surface_lane & (bounce < meta.max_bounces - 1)
+            if _CHOICE_COUNTS is not None:
+                _count_choices(li, nee_gate, meta.n_lights)
             cand = (ls.valid & (ls.pdf > 0.0) & torch.any(f_l > 0.0, dim=-1)
                     & ~skip_l & nee_gate)
             shadow_far = torch.where(
@@ -501,13 +563,14 @@ def _unified_nee_prepare(scene: FlatScene, smp: Sampler, vp, frame, wi, mat_pre,
     u_choose, smp = smp.next_1d()
     li, choice_weight = L.choose_light(scene, u_choose, vp)
     is_env_choice = scene.lights.is_env[li]
-    ls, smp = _sample_chosen_light(scene, smp, li, is_env_choice, vp)
+    ls, _, is_point, smp = _sample_chosen_light(scene, smp, li, is_env_choice, vp)
 
     # strategy 1: f and pdf at the sampled light direction
     wo_l = vo.to_local(*frame, ls.d)
     f_l = bsdf_eval(mats, mat_pre, uv, wi, wo_l, nonspecular_only=True, textures=texs)
     mis_l = warps.power_heuristic(ls.pdf, bsdf_pdf(mats, mat_pre, uv, wi, wo_l,
                                                    nonspecular_only=True, textures=texs))
+    mis_l = torch.where(is_point, 1.0, mis_l)  # dirac: no bsdf strategy
     cand = ls.valid & (ls.pdf > 0.0) & torch.any(f_l > 0.0, dim=-1)
 
     # strategy 2: bsdf sampling
@@ -671,7 +734,7 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         alive = alive & did_hit
 
         # ---- misses: environment ----
-        if meta.has_env:
+        if meta.has_env or meta.has_cap:
             miss = alive_in & (hit.prim < 0)
             gate = L.infinite_needs_escape_add(scene, d, was_specular)
             add_env = miss & gate & (bounce >= meta.min_bounces)
@@ -696,6 +759,8 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         if do_nee:
             smp, nee = _unified_nee_prepare(scene, smp, vp, frame, wi, mat_pre, uv, lobes)
             nee_gate = hit_surface_lane & (bounce < meta.max_bounces - 1)
+            if _CHOICE_COUNTS is not None:
+                _count_choices(nee["li"], nee_gate, meta.n_lights)
             shadow_far = torch.where(nee_gate, nee["shadow_far"], 0.0)
             mis_far = torch.where(nee_gate, nee["mis_far"], 0.0)
         else:
@@ -823,7 +888,7 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
         hit_surface_lane = did_hit
 
         # ---- misses: environment ----
-        if meta.has_env:
+        if meta.has_env or meta.has_cap:
             gate = L.infinite_needs_escape_add(scene, d, was_specular)
             add_env = alive & ~did_hit & gate & (bounce >= meta.min_bounces)
             emission = emission + torch.where(
@@ -854,6 +919,8 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
         if do_nee:
             smp, nee = _unified_nee_prepare(scene, smp, p, frame, wi, mat_pre, uv, lobes)
             nee_gate = shaded & (bounce < meta.max_bounces - 1)
+            if _CHOICE_COUNTS is not None:
+                _count_choices(nee["li"], nee_gate, meta.n_lights)
             far2 = torch.cat([torch.where(nee_gate, nee["shadow_far"], 0.0),
                               torch.where(nee_gate, nee["mis_far"], 0.0)])
             w2, h2 = _trace_transparent(scene, torch.cat([p, p]),

@@ -1,7 +1,7 @@
 """Analytic sphere / disk / cylinder primitives (torch).
 
-Port of the intersection half of tungsten_tpu/models/primitives/analytic.py
-(lines 38-288, 527-598): the table, the closest analytic hit over all A
+Port of tungsten_tpu/models/primitives/analytic.py but `sample_position`
+(lines 38-456, 527-598): the table, the closest analytic hit over all A
 prims as (A, N) tensor math, the geometric normal at a surface point, and
 the host-side parameter extraction. It is plain tensor code, as the JAX
 module is plain XLA; no kernel is involved.
@@ -12,9 +12,10 @@ integrator overrides the normal and uv of those rows at the hit.
 
 `hit_geom` gives the geometric normal and uv at any hit (a triangle or an
 analytic prim), `occluded_analytic` the any-hit test the shadow rays run
-before the triangle walk. Light sampling of analytic emitters
-(sample_direct, direct_pdf, sample_position) is not ported: the flatten
-refuses emissive analytic prims.
+before the triangle walk. The direct sampling of analytic emitters
+(`sample_direct`, `direct_pdf`, lines 309-456) is ported; `sample_position`
+(line 458), which only `sample_emitter_position` reaches, waits for the
+light tracer.
 """
 from __future__ import annotations
 
@@ -298,6 +299,140 @@ def hit_geom(scene, prim, p, u, v):
         ng = torch.where(is_a, normal_at(scene.ana, prim - n_tris, p), ng)
         uv = torch.where(is_a, torch.stack([u, v], -1), uv)
     return ng, uv
+
+
+def _frame_to_global(axis, local):
+    """TangentFrame(axis).toGlobal(local), batched (Duff et al. branchless)."""
+    s = torch.where(axis[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + axis[..., 2])
+    b = axis[..., 0] * axis[..., 1] * a
+    t = torch.stack([1.0 + s * axis[..., 0] ** 2 * a, s * b, -s * axis[..., 0]], -1)
+    bt = torch.stack([b, s + axis[..., 1] ** 2 * a, -axis[..., 1]], -1)
+    return t * local[..., 0:1] + bt * local[..., 1:2] + axis * local[..., 2:3]
+
+
+def sample_direct(ana: AnalyticTable, k, p, u2, u1):
+    """Primitive::sampleDirect of analytic prim k (N,) from points p (N, 3):
+
+    sphere   : a uniform direction in the cone the sphere subtends, pdf =
+               uniformSphericalCapPdf; invalid inside (Sphere.cpp:173-191);
+    disk     : a uniform point on the disk, its front side and emission cone
+               only, pdf = r^2 / (cos * pi r^2) (Disk.cpp:177-193);
+    cylinder : a uniform surface point (a cap by its area share), pdf =
+               r^2 / (cos * area) (Cylinder.cpp:152-201).
+
+    Returns (d, dist, pdf, uv, valid), uv the intersectionInfo uv at the lit
+    point (the emission is evaluated there)."""
+    k = torch.clamp(k, 0, max(ana.n - 1, 0)).long()
+    ptype = ana.ptype[k]
+    pos = ana.pos[k]
+    r = ana.radius[k]
+    area = ana.area[k]
+    ir = ana.inv_rot[k]
+
+    # ---- sphere: a cap sample about L = pos - p ----
+    lv = pos - p
+    dist_c = torch.sqrt(torch.clamp(torch.sum(lv * lv, -1), min=1e-30))
+    c = dist_c * dist_c - r * r
+    outside = c > 0.0
+    cos_max = torch.sqrt(torch.clamp(c, min=0.0)) / dist_c
+    cos_t = cos_max + u2[..., 1] * (1.0 - cos_max)  # uniformSphericalCap(xi, cosMax)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = u2[..., 0] * (2.0 * np.pi)
+    local = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], -1)
+    d_sph = _frame_to_global(lv / dist_c[..., None], local)
+    b = dist_c * cos_t
+    det = torch.sqrt(torch.clamp(b * b - c, min=0.0))
+    t_sph = b - det
+    pdf_sph = (0.5 / np.pi) / torch.clamp(1.0 - cos_max, min=1e-9)
+    hp = p + d_sph * t_sph[..., None]  # uv at the hit (Sphere::intersectionInfo)
+    ng_s = (hp - pos) / torch.clamp(r, min=1e-30)[..., None]
+    ln = torch.einsum("nij,nj->ni", ir, ng_s)
+    u_s = torch.atan2(ln[..., 1], ln[..., 0]) * (0.5 / np.pi) + 0.5
+    u_s = torch.where(torch.isnan(u_s), 0.0, u_s)
+    v_s = torch.acos(torch.clamp(ln[..., 2], -1.0, 1.0)) * (1.0 / np.pi)
+
+    # ---- disk: a uniform point ----
+    rt = torch.sqrt(torch.clamp(u2[..., 0], min=0.0)) * r
+    phi_d = u2[..., 1] * (2.0 * np.pi)
+    lqx = rt * torch.cos(phi_d)
+    lqy = rt * torch.sin(phi_d)
+    nrm = ana.axis[k]
+    q_d = pos + lqx[..., None] * ana.frame_b[k] + lqy[..., None] * ana.frame_t[k]
+    dv_d = q_d - p
+    r_sq_d = torch.sum(dv_d * dv_d, -1)
+    t_dsk = torch.sqrt(torch.clamp(r_sq_d, min=1e-30))
+    d_dsk = dv_d / t_dsk[..., None]
+    cos_d = -torch.sum(nrm * d_dsk, -1)
+    front_d = torch.sum(nrm * (p - pos), -1) >= 0.0
+    cone_ok = -(-cos_d) >= ana.cos_apex[k]  # -d.n >= cosApex
+    pdf_dsk = r_sq_d / torch.clamp(cos_d * area, min=1e-30)
+    # uv: intersectionInfo at q (x along the bitangent, y along the tangent)
+    u_d = torch.atan2(lqy, lqx) * (0.5 / np.pi) + 0.5
+    u_d = torch.where((lqx == 0.0) & (lqy == 0.0), 0.0, u_d)
+    v_d = rt / torch.clamp(r, min=1e-30)
+
+    # ---- cylinder: a uniform position, the area pdf ----
+    hh = ana.half_h[k]
+    cap_area = 2.0 * np.pi * r * r
+    p_cap = torch.where(ana.capped[k], cap_area / torch.clamp(area, min=1e-30), 0.0)
+    take_cap = u1 < p_cap
+    # the cap pick rescales u1; its upper half picks the sign
+    u1r = torch.where(take_cap, u1 / torch.clamp(p_cap, min=1e-9), 0.0)
+    sign = torch.where(u1r < 0.5, -1.0, 1.0)
+    cx = rt * torch.cos(phi_d)  # a uniform disk point, as the disk branch's
+    cy = rt * torch.sin(phi_d)
+    zero = torch.zeros_like(hh)
+    pc_cap = torch.stack([cx, sign * hh, cy], -1)
+    n_cap = torch.stack([zero, sign, zero], -1)
+    uv_cap = torch.stack([cx / torch.clamp(r, min=1e-30) * 0.5 + 0.5,
+                          cy / torch.clamp(r, min=1e-30) * 0.5 + 0.5], -1)
+    phi_c = u2[..., 0] * (2.0 * np.pi)  # the lateral surface: uniformCylinder(xi)
+    zc = u2[..., 1] * 2.0 - 1.0
+    pc_lat = torch.stack([torch.cos(phi_c) * r, zc * hh, torch.sin(phi_c) * r], -1)
+    n_lat = torch.stack([torch.cos(phi_c), torch.zeros_like(zc), torch.sin(phi_c)], -1)
+    uv_lat = torch.stack([u2[..., 0], u2[..., 1]], -1)
+    tc = take_cap[..., None]
+    pc = torch.where(tc, pc_cap, pc_lat)
+    nc = torch.where(tc, n_cap, n_lat)
+    uv_c = torch.where(tc, uv_cap, uv_lat)
+    q_c = pos + torch.einsum("nji,nj->ni", ir, pc)  # rot * p + pos
+    ng_c = torch.einsum("nji,nj->ni", ir, nc)
+    dv_c = q_c - p
+    r_sq_c = torch.sum(dv_c * dv_c, -1)
+    t_cyl = torch.sqrt(torch.clamp(r_sq_c, min=1e-30))
+    d_cyl = dv_c / t_cyl[..., None]
+    cos_c = -torch.sum(ng_c * d_cyl, -1)
+    pdf_cyl = r_sq_c / torch.clamp(cos_c * area, min=1e-30)
+
+    is_s, is_d = ptype == SPHERE, ptype == DISK
+
+    def sel3(a, b, c):
+        return torch.where(is_s[..., None], a, torch.where(is_d[..., None], b, c))
+
+    def sel1(a, b, c):
+        return torch.where(is_s, a, torch.where(is_d, b, c))
+
+    uv = sel3(torch.stack([u_s, v_s], -1), torch.stack([u_d, v_d], -1), uv_c)
+    valid = sel1(outside, front_d & cone_ok & (cos_d > 0.0), cos_c > 0.0)
+    return (sel3(d_sph, d_dsk, d_cyl), sel1(t_sph, t_dsk, t_cyl),
+            sel1(pdf_sph, pdf_dsk, pdf_cyl), uv, valid)
+
+
+def direct_pdf(ana: AnalyticTable, k, p, hit_p, d):
+    """Primitive::directPdf of a bsdf-strategy ray from p that hits analytic
+    prim k at hit_p along d: the sphere's spherical-cap pdf
+    (Sphere.cpp:222-227), r^2 / (|cos| * area) for disk and cylinder
+    (Disk.cpp:225-232; sampleDirect's area form for the cylinder)."""
+    k = torch.clamp(k, 0, max(ana.n - 1, 0)).long()
+    r = ana.radius[k]
+    dist_c = torch.sqrt(torch.clamp(torch.sum((ana.pos[k] - p) ** 2, -1), min=1e-30))
+    cos_max = torch.sqrt(torch.clamp(dist_c * dist_c - r * r, min=0.0)) / dist_c
+    pdf_sph = (0.5 / np.pi) / torch.clamp(1.0 - cos_max, min=1e-9)
+    cos_t = torch.abs(torch.sum(normal_at(ana, k, hit_p) * d, -1))
+    r_sq = torch.sum((hit_p - p) ** 2, -1)
+    pdf_area = r_sq / torch.clamp(cos_t * ana.area[k], min=1e-30)
+    return torch.where(ana.ptype[k] == SPHERE, pdf_sph, pdf_area)
 
 
 # ---------------------------------------------------------------------------

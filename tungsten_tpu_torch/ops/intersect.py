@@ -4,8 +4,9 @@ Port of tungsten_tpu/ops/intersect.py:24-154. `intersect_brute` is the plain
 all-pairs Moller-Trumbore that every walk is held against, and the render's
 intersector at 64 triangles or fewer. Above that the render falls through
 the scene's packs (integrators/path_tracer.py `_intersect_tris`): the BVH8
-walk (ops/bvh8.py, K3), the packet walk (ops/bvh.py, K5) or the streaming
-brute force (ops/intersect_stream.py, K2). The XLA binary skip-walk
+walk (ops/bvh8.py, K3), the gather walk (ops/gather_bvh.py, K1), the packet
+walk (ops/bvh.py, K5) or the streaming brute force (ops/intersect_stream.py,
+K2). The XLA binary skip-walk
 `intersect_bvh`, the JAX package's intersector off the TPU, is not ported.
 """
 from __future__ import annotations

@@ -14,15 +14,17 @@ analytic prim table (`ana`, None without analytic prims) and the
 intersector packs the render's dispatch falls through
 (integrators/path_tracer.py `_intersect_tris`):
   pbvh8  the BVH8 pack (K3);
+  gbvh   the gather pack (K1: an 8-ary tree of 8-triangle leaves, its own
+         tree), built over 64 triangles as the JAX flatten builds it;
   pbvh3  the binary pack (K4; it shares pbvh8's plane slabs);
   pbvh   the packet pack (K5);
   ptris  the streaming brute-force pack (K2), always present.
-The three BVH packs come from one binary tree with 128-triangle leaves. The
-JAX package builds them only under its TPU VMEM gates (13 MB for pbvh8 and
-pbvh3, 10 MB for pbvh, none at 64 triangles or fewer) and leaves them None
-otherwise; the port's own flatten always builds them, and a FlatScene
-without them (the JAX package's, or `dataclasses.replace(scene, pbvh8=None,
-...)`) renders through the next pack of the fall-through.
+The pbvh8, pbvh3 and pbvh packs come from one binary tree with 128-triangle
+leaves. The JAX package builds them only under its TPU VMEM gates (13 MB for
+pbvh8 and pbvh3, 10 MB for pbvh, none at 64 triangles or fewer) and leaves
+them None otherwise; the port's own flatten always builds them, and a
+FlatScene without them (the JAX package's, or `dataclasses.replace(scene,
+pbvh8=None, ...)`) renders through the next pack of the fall-through.
 
 `from_arrays(arrays, meta, device)` is the one constructor of FlatScene. It
 takes the arrays under the JAX FlatScene's own attribute paths (ARRAY_KEYS),
@@ -30,16 +32,20 @@ so the JAX package's flattened scene can be carried across as numpy arrays
 and both packages render the very same tables. Each BVH pack and the
 analytic table is taken all-or-none (OPTIONAL).
 
-The port supports mesh / quad / cube geometry, each emissive or not,
-non-emissive analytic sphere / disk / cylinder prims, every surface BSDF of
-models/bsdfs/dispatch.py (all but the fibers, the wrappers with their
-`gpack3` substrate rows; roughness, ratio, alpha and thickness scalar or
-textured; `meta.has_forward` set where a material has a forward lobe),
-constant / checker / bitmap textures from PFM, .hdr (or, with cv2, .exr)
-and LDR images, at most one samplable infinite_sphere beside the area
-lights, and a pinhole camera. Everything else (emissive analytic prims,
-point lights, cap lights, skydomes, several env lights, the fiber BSDFs,
-...) raises NotImplementedError naming the missing piece.
+The port supports mesh / quad / cube geometry and analytic sphere / disk /
+cylinder prims, each emissive or not (a disk's emission cone included),
+every surface BSDF of models/bsdfs/dispatch.py (all but the fibers, the
+wrappers with their `gpack3` substrate rows; roughness, ratio, alpha and
+thickness scalar or textured; `meta.has_forward` set where a material has a
+forward lobe), constant / checker / bitmap textures from PFM, .hdr (or, with
+cv2, .exr) and LDR images, the lights of the JAX flatten but the skydome:
+area lights, any number of infinite_sphere lights (sampled or not; `envs`
+in primitive order, `env` the last, the escape winner), infinite_sphere_cap
+lights (the `cap` table) and point lights (the `point` table), and a pinhole
+camera. The light rows come in the JAX flatten's order: the area and
+analytic emitters in primitive order, then the sampled envs, the sampled
+caps, the points. Everything else (skydomes, media, the fiber BSDFs, other
+cameras, ...) raises NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ from ..models.textures.textures import TextureBuilder, TextureTable, texture_fro
 from ..ops.bvh import BvhPack, build_bvh_pack
 from ..ops.bvh2 import Bvh3Pack, build_bvh_pack3
 from ..ops.bvh8 import Bvh8Pack, build_bvh_pack8, tri_tree
+from ..ops.gather_bvh import GatherBvhPack, build_gather_pack
 from ..ops.intersect import TriangleSoA
 from ..ops.intersect_stream import TriPack, build_tri_pack
 from ..sampling.distributions import Distribution2D
@@ -67,12 +74,15 @@ DEFAULT_EPSILON = 5e-4  # TraceableScene.hpp:39
 
 # numpy arrays a FlatScene is made from, under the JAX FlatScene's attribute
 # paths (getattr along key.split("."); a pack the JAX flatten left out is None)
+ENV_KEYS = ("rot", "inv_rot", "tex", "dist.alias_pack", "dist.joint_pdf", "dist.shape")
 LIGHT_FIELDS = (  # LightTable's arrays in order, with their numpy types
     ("offset", np.int32), ("count", np.int32), ("cdf_offset", np.int32),
     ("area", np.float32), ("tex", np.int32), ("is_env", np.bool_),
     ("cone_cos", np.float32), ("is_dirac", np.bool_), ("tri_idx", np.int32),
     ("cdf", np.float32), ("apx_avg", np.float32), ("apx_base", np.float32),
-    ("apx_e0", np.float32), ("apx_e1", np.float32), ("apx_n", np.float32))
+    ("apx_e0", np.float32), ("apx_e1", np.float32), ("apx_n", np.float32),
+    ("ana_prim", np.int32), ("pt_slot", np.int32), ("env_slot", np.int32),
+    ("cap_slot", np.int32), ("apx_cbase", np.float32))
 LIGHT_STATICS = ("max_count", "apx_kind", "has_surface", "emit_kinds")
 
 ARRAY_KEYS = (
@@ -81,23 +91,28 @@ ARRAY_KEYS = (
     *(f"lights.{k}" for k, _ in LIGHT_FIELDS), *(f"lights.{k}" for k in LIGHT_STATICS),
     "materials.gpack2", "materials.gpack3", "materials.rough_kinds",
     "textures.tpack", "textures.data", "textures.data4",
-    "env.rot", "env.inv_rot", "env.tex",
-    "env.dist.alias_pack", "env.dist.joint_pdf", "env.dist.shape",
+    *(f"env.{k}" for k in ENV_KEYS),
+    "cap.dir", "cap.cos_angle", "cap.radiance", "point.pos", "point.intensity",
     "camera.rot", "camera.pos", "camera.plane_dist",
     "ptris.tris_t", "ptris.clusters", "ptris.n_tris",
     "pbvh8.boxes", "pbvh8.kid", "pbvh8.order", "pbvh8.planes", "pbvh8.prim_map",
+    "gbvh.rows", "gbvh.root", "gbvh.n_rows", "gbvh.depth", "gbvh.n_tris",
     "pbvh3.nf", "pbvh3.ni", "pbvh.nodes", "pbvh.tris", "pbvh.prim_map", "pbvh.n_nodes",
     *(f"ana.{k}" for k, _ in analytic.FIELDS),
 )
 # groups of ARRAY_KEYS taken all-or-none: None (or absent) where the JAX
 # flatten left the pack out, or the scene has no analytic prims
-OPTIONAL = ("pbvh8", "pbvh3", "pbvh", "ana")
+OPTIONAL = ("pbvh8", "gbvh", "pbvh3", "pbvh", "ana")
+# besides ARRAY_KEYS, arrays["envs"] lists every env light in primitive
+# order (the JAX FlatScene's `envs`), each a dict under ENV_KEYS
 # None in a scene without bitmap textures, and without a single-substrate
 # wrapper BSDF or with a mixed one (dispatch.build_gpack3)
 NULLABLE = ("textures.data4", "materials.gpack3")
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
 ANALYTIC = ("sphere", "disk", "cylinder")  # flatten.py's analytic branch
+APX_KINDS = ("quad", "sphere", "disk", "point", "const", "none")
+LIGHT_PRIMS = ("infinite_sphere", "infinite_sphere_cap", "point")
 
 
 @dataclass
@@ -109,8 +124,9 @@ class CameraParams:
 
 @dataclass
 class LightTable:
-    """Lights: per-light triangle sets with area CDFs (flatten.py
-    LightTable, without the analytic / point / env-slot / cap columns)."""
+    """Lights: per-light triangle sets with area CDFs, and the columns that
+    send a row to its analytic prim, point, env or cap (flatten.py
+    LightTable)."""
 
     offset: torch.Tensor  # (L,) start into tri_idx
     count: torch.Tensor  # (L,)
@@ -127,9 +143,14 @@ class LightTable:
     apx_base: torch.Tensor  # (L, 3) quad base
     apx_e0: torch.Tensor  # (L, 3) quad edge0
     apx_e1: torch.Tensor  # (L, 3) quad edge1
-    apx_n: torch.Tensor  # (L, 3) quad plane normal
+    apx_n: torch.Tensor  # (L, 3) quad / disk plane normal
+    ana_prim: torch.Tensor  # (L,) analytic prim index, -1 = triangles
+    pt_slot: torch.Tensor  # (L,) PointLight row, -1 = not a point light
+    env_slot: torch.Tensor  # (L,) FlatScene.envs slot, -1 = not an env
+    cap_slot: torch.Tensor  # (L,) CapLight row, -1 = not a cap light
+    apx_cbase: torch.Tensor  # (L, 3) disk emission-cone base
     max_count: int  # static: the largest triangle set
-    apx_kind: tuple  # static, per light: "quad" | "const" | "none"
+    apx_kind: tuple  # static, per light: "quad" | "sphere" | "disk" | "point" | "const" | "none"
     has_surface: bool  # static: some area light exists
     emit_kinds: tuple  # static: texture kinds of the area lights' emission
 
@@ -138,8 +159,8 @@ class LightTable:
         """From numpy arrays under LIGHT_FIELDS' and LIGHT_STATICS' names."""
         kinds = tuple(str(k) for k in np.asarray(arrays["apx_kind"]).tolist())
         for k in kinds:
-            if k not in ("quad", "const", "none"):
-                raise NotImplementedError(f"approximateRadiance kind '{k}' is not ported")
+            if k not in APX_KINDS:
+                raise ValueError(f"unknown approximateRadiance kind '{k}'")
         def t(k, dt):  # indices as int64, torch's index type
             return torch.as_tensor(np.array(arrays[k], np.int64 if dt == np.int32 else dt),
                                    device=device)
@@ -158,6 +179,35 @@ class EnvLight:
     tex: int  # emission texture id
     dist: Distribution2D  # over the emission bitmap (sin-weighted, dilated)
     tex_kind: int  # static texture type of `tex`
+
+
+@dataclass
+class CapLight:
+    """Directional spherical-cap lights (InfiniteSphereCap.cpp:233-249), a
+    table of C caps: axis = the transform's +Y, uniform radiance inside the
+    cone. LightTable.cap_slot maps a light row to its cap."""
+
+    dir: torch.Tensor  # (C, 3)
+    cos_angle: torch.Tensor  # (C,)
+    radiance: torch.Tensor  # (C, 3)
+
+
+@dataclass
+class PointLight:
+    """Dirac point lights (Point.cpp): intensity = power / (4 pi), a table
+    of P points; LightTable.pt_slot maps a light row to its point."""
+
+    pos: torch.Tensor  # (P, 3)
+    intensity: torch.Tensor  # (P, 3)
+
+
+def _default_point() -> dict:
+    return {"pos": np.zeros((1, 3), np.float32), "intensity": np.zeros((1, 3), np.float32)}
+
+
+def _default_cap() -> dict:
+    return {"dir": np.array([[0.0, 1.0, 0.0]], np.float32),
+            "cos_angle": np.ones((1,), np.float32), "radiance": np.zeros((1, 3), np.float32)}
 
 
 @dataclass(frozen=True)
@@ -224,20 +274,26 @@ class FlatScene:
     camera: CameraParams
     ptris: TriPack
     pbvh8: Bvh8Pack | None
+    gbvh: GatherBvhPack | None
     pbvh3: Bvh3Pack | None
     pbvh: BvhPack | None
     ana: analytic.AnalyticTable | None
     meta: SceneMeta
+    cap: CapLight
+    point: PointLight
+    # every env light in primitive order (env is envs[-1], the escape winner;
+    # the earlier ones are sampled through LightTable.env_slot)
+    envs: tuple = ()
 
 
 def _check_slice(doc: SceneDocument):
     """Raise NotImplementedError for every scene feature the port lacks:
-    media, cameras other than pinhole, AOV buffers, point / cap / skydome
-    lights, an unsampled or a second infinite_sphere, primitives other than
-    mesh / quad / cube / sphere / disk / cylinder, emissive analytic prims.
-    BSDF types (dispatch.pack_materials), textures (texture_from_spec) and
-    image formats (io/imageio.py) are checked where they are packed; every
-    surface BSDF but the fibers, textured parameters and .hdr images pass."""
+    media, cameras other than pinhole, AOV buffers, skydome lights, and
+    primitives other than mesh / quad / cube / sphere / disk / cylinder and
+    the infinite_sphere, infinite_sphere_cap and point lights. BSDF types
+    (dispatch.pack_materials), textures (texture_from_spec) and image formats
+    (io/imageio.py) are checked where they are packed; every surface BSDF
+    but the fibers, textured parameters and .hdr images pass."""
     if doc.media:
         raise NotImplementedError("participating media are not ported")
     cam = doc.camera
@@ -246,25 +302,64 @@ def _check_slice(doc: SceneDocument):
     if any(b.get("type") in ("depth", "normal", "albedo")
            for b in doc.renderer.get("output_buffers", [])):
         raise NotImplementedError("AOV output buffers are not ported")
-    n_env = 0
     for prim in doc.primitives:
         ptype = prim.get("type", "mesh")
-        emissive = "emission" in prim or "power" in prim
-        if ptype == "infinite_sphere":
-            if emissive:
-                if not prim.get("sample", True):
-                    raise NotImplementedError("an unsampled infinite_sphere is not ported")
-                n_env += 1
-            continue
-        if ptype in ("point", "infinite_sphere_cap", "skydome"):
-            raise NotImplementedError(f"'{ptype}' lights are not ported")
-        if ptype not in ("mesh", "quad", "cube") + ANALYTIC:
+        if ptype == "skydome":
+            raise NotImplementedError("'skydome' lights are not ported")
+        if ptype not in ("mesh", "quad", "cube") + ANALYTIC + LIGHT_PRIMS:
             raise NotImplementedError(f"primitive type '{ptype}' is not ported")
-        if emissive and ptype in ANALYTIC:
-            raise NotImplementedError(f"an emissive analytic '{ptype}' is not ported")
-    if n_env > 1:
-        raise NotImplementedError(
-            f"several infinite_sphere lights are not ported, the scene has {n_env}")
+
+
+def _apx_geometry(ptype: str, m: np.ndarray, prim: dict) -> dict:
+    """approximateRadiance geometry of an emissive quad, sphere or disk
+    (flatten.py:351-382; Quad.cpp:256-281, Sphere.cpp:266-271,
+    Disk.cpp:268-295): base, the edges or radii, the plane normal and a
+    disk's emission-cone base. Other prims weigh as "none" (a uniform share)."""
+    r3 = m[:3, :3]
+    zero3 = np.zeros(3)
+    if ptype == "quad":
+        e0 = r3 @ np.array([1.0, 0.0, 0.0])
+        e1 = r3 @ np.array([0.0, 0.0, 1.0])
+        nq = np.cross(e1, e0)
+        return dict(kind="quad", base=m[:3, 3] - 0.5 * e0 - 0.5 * e1, e0=e0, e1=e1,
+                    n=nq / max(np.linalg.norm(nq), 1e-30), cbase=zero3)
+    scale = np.linalg.norm(r3, axis=0)
+    if ptype == "sphere":
+        return dict(kind="sphere", base=m[:3, 3], e0=np.array([float(scale.max()), 0.0, 0.0]),
+                    e1=zero3, n=zero3, cbase=zero3)
+    r = float(max(scale[0], scale[2]))
+    nd = r3 @ np.array([0.0, 1.0, 0.0])
+    nd = nd / max(np.linalg.norm(nd), 1e-30)
+    ca = np.deg2rad(float(prim.get("cone_angle", 90.0)))
+    td, bd = analytic._tangent_frame(nd)
+    return dict(kind="disk", base=m[:3, 3], e0=td * r, e1=bd * r, n=nd,
+                cbase=m[:3, 3] - nd / max(np.sin(ca), 1e-9))
+
+
+# a light row's fields where the row does not give them (and the one row of a
+# scene without lights)
+_LIGHT_DEFAULTS = dict(area=1.0, is_env=False, cone_cos=0.0, is_dirac=False, ana_prim=-1,
+                       pt_slot=-1, env_slot=-1, cap_slot=-1, apx_avg=0.0, apx_base=None,
+                       apx_e0=None, apx_e1=None, apx_n=None, apx_cbase=None)
+
+
+def _light_row(tri_idx_list, cdf_list, count=0, tex=0, kind="none", avg=0.0, base=None,
+               e0=None, e1=None, n=None, cbase=None, **fields) -> dict:
+    """One light row (flatten.py's l_* lists): its triangle set starts after
+    the sets listed so far; the fields it does not give take _LIGHT_DEFAULTS."""
+    return {**_LIGHT_DEFAULTS, "offset": sum(len(x) for x in tri_idx_list), "count": count,
+            "cdf_offset": sum(len(x) for x in cdf_list), "tex": tex, "kind": kind,
+            "apx_avg": avg, "apx_base": base, "apx_e0": e0, "apx_e1": e1, "apx_n": n,
+            "apx_cbase": cbase, **fields}
+
+
+def _default_env(tex: int) -> dict:
+    """flatten.py _default_env: a black constant env (the arrays of `env`
+    in a scene without one)."""
+    dist = Distribution2D.build_arrays(np.ones((1, 1), np.float32))
+    return {"rot": np.eye(3, dtype=np.float32), "inv_rot": np.eye(3, dtype=np.float32),
+            "tex": np.int32(tex), "dist.alias_pack": dist["alias_pack"],
+            "dist.joint_pdf": dist["joint_pdf"], "dist.shape": np.asarray(dist["shape"])}
 
 
 def _env_weights(img: np.ndarray) -> np.ndarray:
@@ -286,22 +381,40 @@ def flatten_arrays(doc: SceneDocument):
 
     # ---- geometry (flatten.py primitive loop: tessellated and analytic) ----
     pos_l, n_l, uv_l, idx_l, mat_l, prim_l = [], [], [], [], [], []
-    emissive_prims = []  # primitive indices of the area lights, in order
-    prim_apx = {}  # primitive index -> approximateRadiance geometry (quads)
-    env_specs = []
+    emissive_prims = []  # primitive indices of the area / analytic lights, in order
+    prim_apx = {}  # primitive index -> approximateRadiance geometry
+    prim_cone_cos = {}  # primitive index -> a disk's emission-cone cos
+    env_specs, cap_specs, point_specs = [], [], []  # in primitive order
     ana_entries = []  # analytic prims in primitive order (virtual ids T + k)
+    ana_prim_of = {}  # primitive index -> analytic index
     vert_base = 0
     for pi, prim in enumerate(doc.primitives):
         ptype = prim.get("type", "mesh")
         m = tf.mat4_from_json(prim.get("transform"))
+        emissive = "emission" in prim or "power" in prim
         if ptype == "infinite_sphere":
-            if "emission" in prim or "power" in prim:
-                env_specs.append((prim, m))
+            if emissive:
+                env_specs.append((prim, m, pi))
             continue
+        if ptype == "point":
+            point_specs.append((prim, m))
+            continue
+        if ptype == "infinite_sphere_cap":
+            cap_specs.append((prim, m, pi))
+            continue
+        if emissive and ptype in ("quad", "sphere", "disk"):
+            prim_apx[pi] = _apx_geometry(ptype, m, prim)
+        if ptype == "disk":
+            ca = float(prim.get("cone_angle", 90.0))
+            if ca < 90.0:
+                prim_cone_cos[pi] = float(np.cos(np.deg2rad(ca)))
         if ptype in ANALYTIC:
             entry = analytic.extract_params(ptype, m, prim)
             entry["_mat"] = prim["_bsdf_index"]
+            ana_prim_of[pi] = len(ana_entries)
             ana_entries.append(entry)
+            if emissive:
+                emissive_prims.append(pi)
             continue
         if ptype == "mesh":
             mesh = load_mesh(doc.resolve_path(prim["file"]))
@@ -312,17 +425,8 @@ def flatten_arrays(doc: SceneDocument):
                                       uv=mesh.uv, indices=mesh.indices)
         else:
             soup = _TESSELLATED[ptype]()
-        if "emission" in prim or "power" in prim:
+        if emissive:
             emissive_prims.append(pi)
-            if ptype == "quad":
-                # Quad::approximateRadiance geometry (flatten.py:361-368);
-                # meshes and cubes return -1 there: the uniform share
-                r3 = m[:3, :3]
-                e0 = r3 @ np.array([1.0, 0.0, 0.0])
-                e1 = r3 @ np.array([0.0, 0.0, 1.0])
-                nq = np.cross(e1, e0)
-                prim_apx[pi] = dict(base=m[:3, 3] - 0.5 * e0 - 0.5 * e1, e0=e0, e1=e1,
-                                    n=nq / max(np.linalg.norm(nq), 1e-30))
         wpos = tf.transform_point(m, soup.pos).astype(np.float32)
         if soup.normal is not None:
             wn = tf.transform_normal(m, soup.normal)
@@ -401,70 +505,124 @@ def flatten_arrays(doc: SceneDocument):
         return texture_from_spec(prim["emission"], tex_builder, doc.resolve_path)
 
     # one light row per emissive primitive: its triangles (ids after the BVH
-    # permutation) and their area CDF
+    # permutation) and their area CDF, or its analytic prim (no triangles)
     tri_light = np.full(len(tri_mat), -1, np.int32)
-    rows = []  # (offset, count, cdf_offset, area, tex, is_env, apx kind, avg, geometry)
+    rows = []  # one dict per light row (_light_row's fields)
     tri_idx_list, cdf_list = [], []
-    zero3 = np.zeros(3)
     for pi in emissive_prims:
-        sel = np.nonzero(tri_prim == pi)[0].astype(np.int32)
-        total = float(face_area[sel].sum())
-        if len(sel) == 0 or total <= 0:
-            continue
-        tri_light[sel] = len(rows)
-        cdf = np.concatenate([[0.0], np.cumsum(face_area[sel] / total)]).astype(np.float32)
-        cdf[-1] = 1.0
-        tex_id = emission_tex(doc.primitives[pi], total)
+        prim = doc.primitives[pi]
+        if pi in ana_prim_of:
+            k = ana_prim_of[pi]
+            total = float(ana_entries[k]["area"])
+            ana_entries[k]["_light"] = len(rows)
+            sel, cdf = None, None
+        else:
+            sel = np.nonzero(tri_prim == pi)[0].astype(np.int32)
+            total = float(face_area[sel].sum())
+            if len(sel) == 0 or total <= 0:
+                continue
+            tri_light[sel] = len(rows)
+            cdf = np.concatenate([[0.0], np.cumsum(face_area[sel] / total)]).astype(np.float32)
+            cdf[-1] = 1.0
+        tex_id = emission_tex(prim, total)
         apx = prim_apx.get(pi)
-        rows.append(dict(
-            offset=sum(len(x) for x in tri_idx_list), count=len(sel),
-            cdf_offset=sum(len(x) for x in cdf_list), area=total, tex=tex_id, is_env=False,
-            kind="quad" if apx else "none",
-            avg=float(np.max(tex_builder.average(tex_id))) if apx else 0.0,
-            **(apx or dict(base=zero3, e0=zero3, e1=zero3, n=zero3))))
-        tri_idx_list.append(sel)
-        cdf_list.append(cdf)
-    n_area = len(rows)
+        rows.append(_light_row(
+            tri_idx_list, cdf_list, count=0 if sel is None else len(sel), area=total, tex=tex_id,
+            cone_cos=prim_cone_cos.get(pi, 0.0), ana_prim=ana_prim_of.get(pi, -1),
+            avg=float(np.max(tex_builder.average(tex_id))) if apx else 0.0, **(apx or {})))
+        if sel is not None:
+            tri_idx_list.append(sel)
+            cdf_list.append(cdf)
 
-    etex = tex_builder.add_constant([0.0, 0.0, 0.0])  # flatten.py _default_env
-    rot = np.eye(3)
-    is_const = True
-    if env_specs:
-        prim, m = env_specs[0]
+    # env lights in primitive order (flatten.py:724-797): the last one is the
+    # escape winner (`env`); each samplable one has a light row. The default
+    # env's black texture comes first, as flatten.py's _default_env adds it
+    default_tex = tex_builder.add_constant([0.0, 0.0, 0.0])
+    envs, env_const, env_light_idx = [], [], []
+    for slot, (prim, m, _) in enumerate(env_specs):
         rot = m[:3, :3].astype(np.float64)
         rot = rot / np.maximum(np.linalg.norm(rot, axis=0, keepdims=True), 1e-30)
         etex = emission_tex(prim, 1.0)
         is_const = not isinstance(prim.get("emission"), str)
-        # InfiniteSphere::approximateRadiance = 2 pi * avg max
-        rows.append(dict(
-            offset=sum(len(x) for x in tri_idx_list), count=0,
-            cdf_offset=sum(len(x) for x in cdf_list), area=1.0, tex=etex, is_env=True,
-            kind="const", avg=float(2.0 * np.pi * np.max(tex_builder.average(etex))),
-            base=zero3, e0=zero3, e1=zero3, n=zero3))
-    if is_const:
-        dist = Distribution2D.build_arrays(np.ones((1, 1), np.float32))
-    else:
-        dist = Distribution2D.build_arrays(_env_weights(tex_builder.image(etex)))
+        weights = (np.ones((1, 1), np.float32) if is_const
+                   else _env_weights(tex_builder.image(etex)))
+        dist = Distribution2D.build_arrays(weights)
+        envs.append({"rot": rot.astype(np.float32), "inv_rot": rot.T.astype(np.float32),
+                     "tex": np.int32(etex), "dist.alias_pack": dist["alias_pack"],
+                     "dist.joint_pdf": dist["joint_pdf"], "dist.shape": np.asarray(dist["shape"])})
+        env_const.append(is_const)
+        if prim.get("sample", True):
+            env_light_idx.append(len(rows))
+            # InfiniteSphere::approximateRadiance = 2 pi * avg max
+            rows.append(_light_row(
+                tri_idx_list, cdf_list, tex=etex, is_env=True, env_slot=slot, kind="const",
+                avg=float(2.0 * np.pi * np.max(tex_builder.average(etex)))))
+        else:
+            env_light_idx.append(-1)
+    env_prim_index = env_specs[-1][2] if env_specs else -1
+
+    # spherical-cap lights (flatten.py:799-857): a cap can win the escape
+    # only where it is listed after the last env
+    cap = _default_cap()
+    cap_rows, cap_light_idx, esc_caps = [], [], []
+    for slot, (prim, m, cap_pi) in enumerate(cap_specs):
+        rot = m[:3, :3].astype(np.float64)
+        rot = rot / np.maximum(np.linalg.norm(rot, axis=0, keepdims=True), 1e-30)
+        cap_dir = rot @ np.array([0.0, 1.0, 0.0])
+        cap_dir = cap_dir / max(np.linalg.norm(cap_dir), 1e-30)
+        cos_cap = float(np.cos(np.deg2rad(float(prim.get("cap_angle", 10.0)))))
+        if "power" in prim:  # power * powerToRadianceFactor = power / (2 pi (1 - cos))
+            rad = np.broadcast_to(np.asarray(prim["power"], np.float64), (3,)) / (
+                2.0 * np.pi * max(1.0 - cos_cap, 1e-9))
+        else:
+            rad = np.broadcast_to(np.asarray(prim.get("emission", 1.0), np.float64), (3,))
+        cap_rows.append((cap_dir, cos_cap, rad))
+        if prim.get("sample", True):
+            cap_light_idx.append(len(rows))
+            # InfiniteSphereCap::approximateRadiance = 2 pi (1 - cos) avg max
+            rows.append(_light_row(tri_idx_list, cdf_list, cap_slot=slot, kind="const",
+                                   avg=float(2.0 * np.pi * (1.0 - cos_cap) * np.max(rad))))
+        else:
+            cap_light_idx.append(-1)
+        if cap_pi > env_prim_index:
+            esc_caps.append(slot)
+    if cap_rows:
+        cap = {"dir": np.asarray([c[0] for c in cap_rows], np.float32),
+               "cos_angle": np.asarray([c[1] for c in cap_rows], np.float32),
+               "radiance": np.asarray([c[2] for c in cap_rows], np.float32)}
+
+    # dirac point lights (flatten.py:859-896): one light row and one
+    # PointLight row each
+    point = _default_point()
+    pt_pos, pt_int = [], []
+    for prim, m in point_specs:
+        ppos = (m @ np.array([0.0, 0.0, 0.0, 1.0]))[:3]
+        pw = np.broadcast_to(np.asarray(prim.get("power", prim.get("emission", 1.0)),
+                                        np.float64), (3,))
+        # Point::approximateRadiance = intensity.max / r^2
+        rows.append(_light_row(tri_idx_list, cdf_list, is_dirac=True, pt_slot=len(pt_pos),
+                               kind="point", avg=float(np.max(pw / (4.0 * np.pi))), base=ppos))
+        pt_pos.append(ppos)
+        pt_int.append(pw / (4.0 * np.pi))
+    if pt_pos:
+        point = {"pos": np.asarray(pt_pos, np.float32), "intensity": np.asarray(pt_int, np.float32)}
+    point_index = next((i for i, r in enumerate(rows) if r["pt_slot"] >= 0), -1)
+
     n_lights = len(rows)
-    env_index = n_lights - 1 if env_specs else -1
-
-    def col(key, default):
-        return [r[key] for r in rows] or [default]
-
-    lights = {
-        "offset": col("offset", 0), "count": col("count", 0),
-        "cdf_offset": col("cdf_offset", 0), "area": col("area", 1.0), "tex": col("tex", 0),
-        "is_env": col("is_env", False), "cone_cos": [0.0] * max(n_lights, 1),
-        "is_dirac": [False] * max(n_lights, 1),
+    surface = [r for r in rows if r["env_slot"] < 0 and r["cap_slot"] < 0 and r["pt_slot"] < 0]
+    zero3 = np.zeros(3)
+    lights = {k: [r[k] for r in rows] or [_LIGHT_DEFAULTS.get(k, 0)] for k, _ in LIGHT_FIELDS
+              if k not in ("tri_idx", "cdf")}  # one default row without lights
+    lights.update({
         "tri_idx": np.concatenate(tri_idx_list or [np.zeros(1, np.int32)]),
         "cdf": np.concatenate(cdf_list or [np.array([0.0, 1.0], np.float32)]),
-        "apx_avg": col("avg", 0.0), "apx_base": col("base", zero3), "apx_e0": col("e0", zero3),
-        "apx_e1": col("e1", zero3), "apx_n": col("n", zero3),
         "max_count": max([r["count"] for r in rows] + [1]),
         "apx_kind": tuple(r["kind"] for r in rows),
-        "has_surface": n_area > 0,
-        "emit_kinds": tex_builder.kinds_of([r["tex"] for r in rows[:n_area]]),
-    }
+        "has_surface": bool(surface),
+        "emit_kinds": tex_builder.kinds_of([r["tex"] for r in surface]),
+    })
+    for k in ("apx_base", "apx_e0", "apx_e1", "apx_n", "apx_cbase"):
+        lights[k] = [np.asarray(v, np.float64) if v is not None else zero3 for v in lights[k]]
     lights.update({k: np.asarray(lights[k], dt) for k, dt in LIGHT_FIELDS})
 
     rough_kinds = np.asarray(tex_builder.kinds_of(tex_builder.rough_ids), np.int32)
@@ -489,15 +647,20 @@ def flatten_arrays(doc: SceneDocument):
         "pbvh.n_nodes": len(tree.count),
     }
 
+    if len(p0) > 64:  # the gather pack, over 64 triangles (flatten.py:1073-1077)
+        packs.update({f"gbvh.{k}": v for k, v in build_gather_pack(p0, e1, e2).items()})
+
     # ---- analytic prim table + virtual-id rows (flatten.py:922-946): the
-    # shading rows grow by one row per analytic prim (its material, no
-    # light, zero geometry that the integrator overrides at the hit) ----
+    # shading rows grow by one row per analytic prim (its material, its
+    # light row or -1, zero geometry that the integrator overrides at the
+    # hit) ----
     ana = analytic.build_table(ana_entries)
     if ana is not None:
         tri_mat = np.concatenate([tri_mat, np.array([e["_mat"] for e in ana_entries], np.int32)])
         z3 = np.zeros((len(ana_entries), 3), np.float32)
         z2 = np.zeros((len(ana_entries), 2), np.float32)
-        tri_light = np.concatenate([tri_light, np.full(len(ana_entries), -1, np.int32)])
+        tri_light = np.concatenate(
+            [tri_light, np.array([e.get("_light", -1) for e in ana_entries], np.int32)])
         tri_ng, n0, n1, n2 = (np.concatenate([x, z3]) for x in (tri_ng, n0, n1, n2))
         uv0, uv1, uv2 = (np.concatenate([x, z2]) for x in (uv0, uv1, uv2))
         packs.update({f"ana.{k}": v for k, v in ana.items()})
@@ -512,10 +675,9 @@ def flatten_arrays(doc: SceneDocument):
         "materials.rough_kinds": rough_kinds,
         "textures.tpack": tex["tpack"], "textures.data": tex["data"],
         "textures.data4": tex["data4"],
-        "env.rot": rot.astype(np.float32), "env.inv_rot": rot.T.astype(np.float32),
-        "env.tex": np.int32(etex),
-        "env.dist.alias_pack": dist["alias_pack"], "env.dist.joint_pdf": dist["joint_pdf"],
-        "env.dist.shape": np.asarray(dist["shape"]),
+        **{f"env.{k}": v for k, v in (envs[-1] if envs else _default_env(default_tex)).items()},
+        "envs": envs,
+        **{f"cap.{k}": v for k, v in cap.items()}, **{f"point.{k}": v for k, v in point.items()},
         "camera.rot": cam_m[:3, :3].astype(np.float32),
         "camera.pos": cam_m[:3, 3].astype(np.float32),
         "camera.plane_dist": np.float32(plane_dist),
@@ -531,11 +693,16 @@ def flatten_arrays(doc: SceneDocument):
         res_x=int(res[0]), res_y=int(res[1]),
         camera_type="pinhole", tonemap=cam.get("tonemap", "gamma"),
         filter=cam.get("reconstruction_filter", "tent"), fov_deg=fov,
-        n_lights=n_lights, has_env=bool(env_specs), env_light_index=env_index,
-        env_is_constant=is_const,
+        n_lights=n_lights, has_env=bool(env_specs),
+        env_light_index=env_light_idx[-1] if envs else -1,
+        env_is_constant=env_const[-1] if envs else True,
         stratified=bool(doc.renderer.get("stratified_sampler", False)),
-        n_envs=len(env_specs), env_const=(is_const,) * len(env_specs),
-        env_light_idx=(env_index,) * len(env_specs),
+        has_cap=bool(cap_specs),
+        cap_light_index=next((i for i in cap_light_idx if i >= 0), -1),
+        cap_after_env=bool(esc_caps), n_envs=len(envs), env_const=tuple(env_const),
+        env_light_idx=tuple(env_light_idx), n_caps=len(cap_specs),
+        cap_light_idx=tuple(cap_light_idx), esc_caps=tuple(esc_caps),
+        point_light_index=point_index,
         min_bounces=int(integ.get("min_bounces", 0)), max_bounces=max_b,
         enable_light_sampling=bool(integ.get("enable_light_sampling", True)),
         enable_volume_light_sampling=bool(integ.get("enable_volume_light_sampling", True)),
@@ -557,10 +724,12 @@ def _group(key: str) -> str:
 
 
 def from_arrays(arrays: dict, meta, device) -> FlatScene:
-    """FlatScene on `device` from numpy arrays under ARRAY_KEYS and a meta
-    object with SceneMeta's fields (the port's or the JAX package's). An
-    OPTIONAL group whose arrays are all absent or None gives None; one that
-    is partly given raises KeyError, as does a missing required array."""
+    """FlatScene on `device` from numpy arrays under ARRAY_KEYS (and the env
+    lights under "envs", each a dict under ENV_KEYS) and a meta object with
+    SceneMeta's fields (the port's or the JAX package's). An OPTIONAL group
+    whose arrays are all absent or None gives None; one that is partly
+    given raises KeyError, as does a missing required array or an "envs" list
+    whose length is not meta.n_envs."""
     given = {k for k in ARRAY_KEYS if arrays.get(k) is not None}
     missing = [k for k in ARRAY_KEYS
                if k not in given and _group(k) not in OPTIONAL and k not in NULLABLE]
@@ -572,23 +741,32 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
     if has["pbvh3"] and not has["pbvh8"]:
         raise ValueError("from_arrays: pbvh3 shares pbvh8's leaves and cannot come without it")
     meta = SceneMeta(**{f.name: getattr(meta, f.name) for f in dataclasses.fields(SceneMeta)})
+    envs = arrays.get("envs") or ()
+    if len(envs) != meta.n_envs:
+        raise KeyError(f"from_arrays: {len(envs)} env lights under 'envs', meta.n_envs = "
+                       f"{meta.n_envs}")
 
     def t(key):
         return torch.as_tensor(np.array(arrays[key], np.float32), device=device)
 
     textures = TextureTable.from_arrays(
         arrays["textures.tpack"], arrays["textures.data"], arrays["textures.data4"], device)
-    env_tex = int(np.asarray(arrays["env.tex"]))
-    env = EnvLight(
-        rot=t("env.rot"), inv_rot=t("env.inv_rot"), tex=env_tex,
-        dist=Distribution2D.from_arrays(arrays["env.dist.alias_pack"],
-                                        arrays["env.dist.joint_pdf"],
-                                        np.asarray(arrays["env.dist.shape"]), device),
-        tex_kind=int(np.asarray(arrays["textures.tpack"])[env_tex, -1]),
-    )
 
     def sub(prefix):
         return {k.split(".", 1)[1]: arrays[k] for k in ARRAY_KEYS if k.startswith(prefix + ".")}
+
+    def env_light(a):
+        tex = int(np.asarray(a["tex"]))
+        return EnvLight(
+            rot=torch.as_tensor(np.array(a["rot"], np.float32), device=device),
+            inv_rot=torch.as_tensor(np.array(a["inv_rot"], np.float32), device=device), tex=tex,
+            dist=Distribution2D.from_arrays(a["dist.alias_pack"], a["dist.joint_pdf"],
+                                            np.asarray(a["dist.shape"]), device),
+            tex_kind=int(np.asarray(arrays["textures.tpack"])[tex, -1]))
+
+    def table(cls, prefix):
+        return cls(**{k: torch.as_tensor(np.array(v, np.float32), device=device)
+                      for k, v in sub(prefix).items()})
 
     # the bf16 halves of pbvh8's planes may come along, as bit patterns
     halves = {k: arrays.get(f"pbvh8.{k}") for k in ("planes_hi", "planes_lo")}
@@ -608,15 +786,19 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
                                             arrays["materials.rough_kinds"], device,
                                             arrays.get("materials.gpack3")),
         textures=textures,
-        env=env,
+        env=env_light(sub("env")),
         camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),
                             plane_dist=t("camera.plane_dist")),
         ptris=TriPack.from_arrays(sub("ptris"), device),
         pbvh8=pbvh8,
+        gbvh=GatherBvhPack.from_arrays(sub("gbvh"), device) if has["gbvh"] else None,
         pbvh3=pbvh3,
         pbvh=pbvh,
         ana=analytic.AnalyticTable.from_arrays(sub("ana"), device) if has["ana"] else None,
         meta=meta,
+        cap=table(CapLight, "cap"),
+        point=table(PointLight, "point"),
+        envs=tuple(env_light(a) for a in envs),
     )
 
 

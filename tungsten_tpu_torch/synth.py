@@ -36,6 +36,14 @@ one window in its back wall, and in it
     window;
   * lambert walls and a lambert floor with a checker albedo.
 
+The two lights sizes build the materialtest-like scene with every light
+kind of the JAX flatten but the skydome, beside its floor, ball and cube:
+an emissive sphere, an emissive disk with a 30-degree emission cone facing
+down, an emissive capped cylinder, a constant infinite_sphere, a spherical
+cap listed before the last env (NEE-sampled, masked on escape), the bitmap
+sky (the last env, the escape winner), a cap given by its power and listed
+after it (it wins the escapes inside its cone) and a point light.
+
 The two coat sizes and the two cut-out sizes build the materialtest-like
 scene with the remaining surfaces (every non-fiber type the interior sizes
 do not show), lit by the sky and one emissive quad facing down:
@@ -74,6 +82,8 @@ Sizes:
                       materialtest-synth's scale (80,000-triangle ball,
                       9,216-triangle orbs)
   small-coat, small-cutout    the same at small's (576-triangle orbs)
+  lights-synth        the lights scene at materialtest-synth's scale
+  small-lights        the same at small's
 
 Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size]
 """
@@ -106,6 +116,9 @@ SURFACES = {"coat-synth": "coat", "small-coat": "coat", "cutout-synth": "cutout"
 for _size in SURFACES:
     SIZES[_size] = SIZES["small" if _size.startswith("small") else "materialtest-synth"]
 INTERIOR = ("interior-synth", "small-interior")
+LIGHTS = ("lights-synth", "small-lights")
+SIZES["lights-synth"] = SIZES["materialtest-synth"]
+SIZES["small-lights"] = SIZES["small"]
 ORB_SEGMENTS = {size: (24, 12) if size.startswith("small") else (96, 48)
                 for size in INTERIOR + tuple(SURFACES)}  # orb.obj
 LAMP_SEGMENTS = (8, 4)  # lamp.obj: 2 * 8 * 4 = 64 triangles
@@ -133,6 +146,24 @@ AREA_LIGHTS = [
     {"type": "mesh", "file": "lamp.obj", "smooth": False, "bsdf": "inner",
      "emission": [4.0, 6.0, 10.0],
      "transform": {"position": [2.2, 1.6, 1.8], "scale": 0.3}},
+]
+# the lights sizes' lights: (before the sky, after it); the sky stays where
+# it is, the last env
+LIGHTS_BEFORE_SKY = [
+    {"type": "sphere", "bsdf": "inner", "emission": [6.0, 5.0, 4.0],
+     "transform": {"position": [-1.6, 0.45, 1.2], "scale": 0.35}},
+    {"type": "disk", "bsdf": "inner", "emission": [30.0, 26.0, 20.0], "cone_angle": 30.0,
+     "transform": {"position": [1.4, 2.4, 1.3], "scale": 0.4, "rotation": [180, 0, 0]}},
+    {"type": "cylinder", "bsdf": "inner", "emission": [1.5, 3.0, 4.0], "capped": True,
+     "transform": {"position": [2.6, 0.3, -0.8], "scale": [0.2, 0.6, 0.2]}},
+    {"type": "infinite_sphere", "emission": [0.05, 0.06, 0.08]},
+    {"type": "infinite_sphere_cap", "emission": 20.0, "cap_angle": 8.0,
+     "transform": {"rotation": [35, 0, 0]}},
+]
+LIGHTS_AFTER_SKY = [
+    {"type": "infinite_sphere_cap", "power": 40.0, "cap_angle": 5.0,
+     "transform": {"rotation": [-30, 40, 0]}},
+    {"type": "point", "power": [40.0, 35.0, 30.0], "transform": {"position": [-0.8, 2.2, 1.8]}},
 ]
 # the -box size: walls seen from inside (two-sided shading), one ceiling light
 BOX_BSDF = {"name": "wall", "type": "lambert", "albedo": [0.7, 0.68, 0.62]}
@@ -364,6 +395,9 @@ def scene_dict(size: str) -> dict:
     if size.endswith("-box"):
         doc["bsdfs"].append(copy.deepcopy(BOX_BSDF))
         doc["primitives"] = doc["primitives"][1:3] + copy.deepcopy(BOX_PRIMS)
+    if size in LIGHTS:
+        doc["primitives"] = (doc["primitives"][:3] + copy.deepcopy(LIGHTS_BEFORE_SKY)
+                             + doc["primitives"][3:] + copy.deepcopy(LIGHTS_AFTER_SKY))
     if size in SURFACES:
         kind = SURFACES[size]
         doc["bsdfs"] = copy.deepcopy(SURFACE_BSDFS[kind])

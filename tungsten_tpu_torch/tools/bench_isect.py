@@ -1,9 +1,9 @@
 """Intersector benchmark of the port: every BVH walk on the same rays.
 
     python -m tungsten_tpu_torch.tools.bench_isect [--scene PATH] [--n 131072]
-        [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri
-                   (and bvh8v1,bvh8anyv1,bvh8fastv1,bvh3v1,bvh3skipv1,bvh3anyv1,bvhv1,
-                    bvh1v1,triv1)]
+        [--kernels bvh8,bvh8any,bvh8fast,bvh8fastq,bvh3,bvh3skip,bvh3any,bvh,bvh1,tri,
+                   gather,gatherany (and bvh8v1,bvh8anyv1,bvh8fastv1,bvh3v1,bvh3skipv1,
+                   bvh3anyv1,bvhv1,bvh1v1,triv1)]
         [--trials 5]
         [--device cuda|cpu]
 
@@ -24,6 +24,8 @@ Kernels (each a walk of one pack of the flattened scene):
   bvh3any   K4 any-hit                            bvh       K5-v2 closest hit (bvh_walk.cu)
   bvh1      K5-v1 closest hit (bvh_walk.cu, no    tri       K2 streaming brute force
             best-t pruning in the box tests)                (intersect_stream.cu)
+  gather    K1 closest hit (gather_walk.cu: the   gatherany K1 any-hit, every lane latched
+            8-ary tree of 8-triangle leaves)
 Besides, by name only (not in the default list): the first CUDA forms
 ("v1": one thread per ray; K2's with the TPU kernel's tile vote) of K3,
 K3-fast, K4, K5 and K2, kept to be measured beside the redesigned kernels
@@ -74,7 +76,7 @@ import torch
 from .. import device as get_device
 from .. import synth
 from ..models.cameras.pinhole import camera_rays_w
-from ..ops import bvh, bvh2, bvh8, intersect_stream as k2
+from ..ops import bvh, bvh2, bvh8, gather_bvh, intersect_stream as k2
 from ..ops.bvh8 import hit_from_slots
 from ..ops.intersect import INF, intersect_brute
 from ..sampling.sampler import Sampler
@@ -82,16 +84,15 @@ from ..scene.flatten import flatten_scene
 from ..scene.load import load_scene
 
 KERNELS = ("bvh8", "bvh8any", "bvh8fast", "bvh8fastq", "bvh3", "bvh3skip", "bvh3any", "bvh",
-           "bvh1", "tri")
+           "bvh1", "tri", "gather", "gatherany")
 V1_KERNELS = ("bvh8v1", "bvh8anyv1", "bvh8fastv1", "bvh3v1", "bvh3skipv1", "bvh3anyv1", "bvhv1",
               "bvh1v1", "triv1")  # by name only, for comparison
 # any-hit walk -> its closest-hit walk
-ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1", "bvh3anyv1": "bvh3v1"}
+ANY_OF = {"bvh8any": "bvh8", "bvh3any": "bvh3", "bvh8anyv1": "bvh8v1", "bvh3anyv1": "bvh3v1",
+          "gatherany": "gather"}
 UNSUPPORTED = {
     "bvhx": "the JAX tool imports tungsten_tpu/ops/pallas_bvhx.py, which the JAX "
             "package does not contain",
-    "gather": "K1 (tungsten_tpu/ops/gather_bvh.py, XLA gathers) is not ported",
-    "gatherany": "K1 (tungsten_tpu/ops/gather_bvh.py, XLA gathers) is not ported",
 }
 RAY_KINDS = ("coherent", "incoherent", "dead")
 BAR = 0.999
@@ -135,9 +136,12 @@ fast_query_twin.work = {"box": 0, "tri": 0}
 
 def walks(scene, name):
     """(kernel walk, twin walk) of one kernel name; each takes (o, d, tnear, tfar)."""
-    p8, p3, pv, pt = scene.pbvh8, scene.pbvh3, scene.pbvh, scene.ptris
+    p8, p3, pv, pt, pg = scene.pbvh8, scene.pbvh3, scene.pbvh, scene.ptris, scene.gbvh
     P = functools.partial
     return {
+        "gather": (P(gather_bvh.walk_cuda, pg), P(gather_bvh.walk_twin, pg)),
+        "gatherany": (P(gather_bvh.walk_cuda, pg, latch=True),
+                      P(gather_bvh.walk_twin, pg, latch=True)),
         "bvh8": (P(bvh8.walk_cuda, p8), P(bvh8.walk_twin, p8)),
         "bvh8any": (P(bvh8.walk_cuda, p8, latch=True), P(bvh8.walk_twin, p8, latch=True)),
         "bvh8fast": (P(bvh8.walk_fast_cuda, p8), P(bvh8.walk_fast_twin, p8)),
@@ -200,6 +204,10 @@ def query(scene, name, rays):
                                                            prune=name == "bvh"))
     elif name == "tri":
         h = k2.intersect_stream(scene.ptris, *rays)
+    elif name == "gather":
+        h = gather_bvh.intersect_bvh_gather(scene.gbvh, *rays)
+    elif name == "gatherany":
+        return gather_bvh.occluded_bvh_gather(scene.gbvh, *rays), None
     elif name == "bvh8any":
         return bvh8.occluded(scene.pbvh8, *rays), None
     else:
