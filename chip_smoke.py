@@ -189,21 +189,50 @@ printing a result):
                 envs, two caps, a point light) through render_scene in both
                 wavefronts against tests/data/torch_port_lights_ref.json
                 (numpy BVH build); lights-synth at 1000x563 through regen
-                (32 spp) and lockstep (LIGHTS_LOCKSTEP_SPP = 8), each
+                (32 spp) and lockstep (LIGHTS_LOCKSTEP_SPP = 2), each
                 counting the light rows NEE chose (count_light_choices:
                 every row, so every kind, chosen), the launch counts reset
                 just before and read just after (K3 and K3-fast only;
                 lockstep's counts add up as in phase 5b), each image finite
                 and non-negative; the two wavefronts' channel means printed.
                 Wall time and Mpaths/s of each.
+  11. camera  - the cameras, the tabulated filters, the AOVs, the render
+                driver and the CLI: small-camera (thinlens with a 6-blade
+                aperture, cat-eye and focus pivot under mitchell_netravali;
+                the same with a bitmap aperture; equirectangular under
+                lanczos; a 96x16 cubemap under catmull_rom) through
+                render_buffers in both wavefronts against
+                tests/data/torch_port_camera_ref.json (numpy BVH build): the
+                channel means and the depth / normal / albedo means (each
+                AOV's within 5e-3 of its largest channel mean); then
+                camera-synth at full width: the port's CLI
+                (tungsten_tpu_torch.tools.tungsten.main, in process, one
+                scene) on the thinlens variant at 1000x563, 32 spp (regen, two
+                batches of 16, adaptive sampling off), its resume file on:
+                the LDR, HDR and three AOV files written, the image finite
+                and non-negative, the AOVs plausible (at the ball's centre,
+                whose albedo is 1, each pixel's normal is its albedo's share
+                of a unit vector, depth > 0 there); resume: 16 spp saved, then
+                resumed to 32, equals the CLI's straight 32-spp state bit for
+                bit (sums, counts, halves, Welford state, AOV sums and
+                counts); an adaptive render (16 warm-up passes, then 8
+                adaptive lockstep passes): every count >= 16, the counts not
+                uniform, the whole budget spent, the image finite, K3-fast
+                launched; the equirectangular (1000x500) and cubemap
+                (1536x256) variants at 16 spp through regen, each image
+                finite. Each render's launch counts reset just before and
+                read just after (K3 and K3-fast only); wall time and
+                Mpaths/s of each.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
 8; to make room for phase 9, phase 8's lockstep render from 32 to 16; phase
-9's lockstep renders run 4 spp (coat-synth's 32 kept by regen).
+9's lockstep renders run 4 spp (coat-synth's 32 kept by regen); to make
+room for phase 11, phase 10's lockstep render from 8 to 2.
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
 renders beside as launches_interior, phase 9's three as
-launches_surfaces and phase 10's two as launches_lights; phase 7's route
+launches_surfaces, phase 10's two as launches_lights and phase 11's as
+launches_camera; phase 7's route
 renders for K1, K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
 K4 in its three modes, K5, K2 and the first forms),
@@ -345,11 +374,22 @@ SURFACE_TYPES = {"coat-synth": {4: "smooth_coat", 5: "oren_nayar", 6: "phong", 1
 # scene's 32): at 8 spp the script took 469 s on an H100 machine, and a host
 # 1.3-1.6x slower (as one has measured) would pass the 600 s the script
 # keeps under
+# (not 2 for cutout-synth: a thin sheet's interference reflectance 1 - T
+# can round a few ulps below 0, as in the JAX package, and at 2 spp a pixel
+# of its image was negative)
 SURFACE_LOCKSTEP_SPP = 4
 PROFILE_BOUNCES = 8  # the profile window over cutout-synth's lockstep
 # phase 10's lockstep render of lights-synth (its regen render keeps the
-# scene's 32 spp)
-LIGHTS_LOCKSTEP_SPP = 8
+# scene's 32 spp), cut from 8 to 2 to make room for phase 11: the script
+# took 593 s with phase 11 and 4 spp here on an H100 machine whose host
+# slowed down mid-run
+# (every kind is still chosen ~10^4 times; no BSDF of the scene has a
+# negative weight)
+LIGHTS_LOCKSTEP_SPP = 2
+# phase 11: the camera-synth renders' spp (the CLI's takes the scene's 32)
+CAMERA_RESUME_SPP = 16  # saved, then resumed to the scene's 32
+CAMERA_WARMUP_SPP, CAMERA_ADAPTIVE_PASSES = 16, 8
+CAMERA_OTHER_SPP = 16  # equirectangular and cubemap
 # H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
 # FLOP/s on them, HBM3 B/s
 F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -687,6 +727,16 @@ def profile_window(label, fn, card):
     return out
 
 
+def k3_only(label, c):
+    """K3 and K3-fast launched, no other walk, twin or v1 kernel, in the
+    counts c of one render."""
+    others = {k: v for k, v in c.items()
+              if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
+    check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
+          f"{label}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
+          f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+
+
 def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
     """render_scene of a small scene against the JAX package's channel
     means; K3 and K3-fast must launch and no twin."""
@@ -812,11 +862,7 @@ def lights_phase(work, dev, card):
         check(set(chosen) == set(range(m.n_lights)) and set(by_kind) == set(kinds),
               f"{label}: NEE chose every light row, each kind {by_kind}")
         c = launches[label] = counts()
-        others = {k: v for k, v in c.items()
-                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
-        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
-              f"{label}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
-              f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+        k3_only(label, c)
         if wavefront == "lockstep":
             check_lockstep_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], spp,
                                     m.max_bounces)
@@ -829,6 +875,187 @@ def lights_phase(work, dev, card):
     rel = np.abs(means["lockstep"] - means["regen"]) / np.abs(means["regen"])
     log(f"[10 lights] lights-synth: lockstep's channel means vs regen's, rel {rel.max():.3e} "
         f"({LIGHTS_LOCKSTEP_SPP} against {m.spp} spp)")
+    return launches
+
+
+@contextlib.contextmanager
+def timed_renders():
+    """Times, while open, each render_buffers call that the CLI makes: a
+    list of (seconds, OutputBuffers), the device synchronised at the end."""
+    from tungsten_tpu_torch.renderer import render
+
+    out, saved = [], render.render_buffers
+
+    def timed(*a, **k):
+        t0 = time.time()
+        bufs = saved(*a, **k)
+        torch.cuda.synchronize()
+        out.append((time.time() - t0, bufs))
+        return bufs
+
+    render.render_buffers = timed
+    try:
+        yield out
+    finally:
+        render.render_buffers = saved
+
+
+def camera_phase(work, dev, card):
+    """Phase 11: the cameras, filters, AOVs, the driver and the CLI.
+    Returns {render: counts()} of its full-width renders."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.renderer.framebuffer import OutputBuffers, scene_hash
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_buffers
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.tools import tungsten as cli
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_camera_ref.json")) as f:
+        ref = json.load(f)
+    with numpy_bvh_build():
+        for variant, want in ref["variants"].items():
+            path = synth.write_scene(os.path.join(work, f"small-camera-{variant}"),
+                                     "small-camera", variant)
+            scene = flatten_scene(load_scene(path), dev)
+            for wavefront in ("regen", "lockstep"):
+                name = f"small-camera {variant} ({wavefront})"
+                reset_counts()
+                bufs = render_buffers(scene, seed=ref["seed"], wavefront=wavefront)
+                k3_only(name, counts())
+                img = bufs.color()
+                check(np.isfinite(img).all() and (img >= 0).all(),
+                      f"{name}: image finite and non-negative")
+                means = img.reshape(-1, 3).astype(np.float64).mean(0)
+                rel = np.abs(means - want["channel_means"][wavefront]) / np.abs(
+                    want["channel_means"][wavefront])
+                aov_rel = {}
+                for k, b in want["aov_means"][wavefront].items():
+                    a = bufs.aov(k).reshape(-1, len(b)).astype(np.float64).mean(0)
+                    aov_rel[k] = float(np.abs(a - b).max() / np.abs(b).max())
+                check((rel <= MEAN_RTOL).all() and all(r <= MEAN_RTOL for r in aov_rel.values())
+                      and sorted(aov_rel) == sorted(bufs.aovs),
+                      f"{name}: channel means {means.round(6).tolist()} vs JAX (rel "
+                      f"{rel.max():.2e}), AOV means rel {aov_rel} (<= {MEAN_RTOL})")
+
+    launches = {}
+    paths = {v: synth.write_scene(os.path.join(work, f"camera-synth-{v}"), "camera-synth", v)
+             for v in ("thinlens", "equirectangular", "cubemap")}
+    path = paths["thinlens"]
+    with open(path) as f:
+        doc = json.load(f)
+    # the uniform render (Tungsten's renderer samples adaptively by default),
+    # its state kept for the resume check
+    doc["renderer"].update(adaptive_sampling=False, enable_resume_render=True,
+                           resume_render_file="cli.state")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    out_dir = os.path.dirname(path)
+    state = os.path.join(out_dir, "cli.state")
+    if os.path.exists(state):
+        os.remove(state)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    with timed_renders() as renders:
+        cli.main([path, "-q"])
+    wall = time.time() - t0
+    c = launches["thinlens CLI (regen)"] = counts()
+    k3_only("camera-synth thinlens CLI", c)
+    (dt, straight), = renders
+    h, w = straight.res
+    spp = int(straight.count.max())
+    log(f"[11 camera] CLI on camera-synth thinlens (blade aperture, cat-eye, focus pivot, "
+        f"mitchell_netravali, AOVs): {w}x{h} {spp} spp, render {dt:.2f} s: "
+        f"{w * h * spp / dt / 1e6:.4f} Mpaths/s on {card}; the whole CLI (load, flatten, "
+        f"render, write) {wall:.2f} s")
+    files = {k: os.path.join(out_dir, f) for k, f in (
+        ("ldr", "thinlens_ldr.pfm"), ("hdr", "thinlens.pfm"),
+        *((f"{a}_{e}", f"thinlens_{a}{'_ldr' if e == 'ldr' else ''}.pfm")
+          for a in ("depth", "normal", "albedo") for e in ("ldr", "hdr")))}
+    check(all(os.path.exists(f) for f in files.values()) and os.path.exists(state),
+          f"CLI: wrote {sorted(os.path.basename(f) for f in files.values())} and its state")
+    hdr, normal, depth, albedo = (load_image(files[k]) for k in (
+        "hdr", "normal_hdr", "depth_hdr", "albedo_hdr"))
+    check(hdr.shape == (h, w, 3) and np.isfinite(hdr).all() and (hdr >= 0).all()
+          and spp == 32 and (straight.count == spp).all(),
+          f"CLI: {hdr.shape} image finite and non-negative, {spp} spp everywhere")
+    # the ball (albedo 1) at the centre, the focus pivot: a pixel's albedo is
+    # the share of its samples that recorded (the cat-eye vignettes the
+    # rest), and its normal that share of a unit normal
+    cy, cx = h // 2, w // 2
+    centre = (slice(cy - 8, cy + 8), slice(cx - 8, cx + 8))
+    unit = np.linalg.norm(normal[centre], axis=-1) / albedo[centre].mean(-1)
+    check(np.linalg.norm(normal, axis=-1).max() <= 1.0 + 1e-4 and (albedo[centre] > 0).all()
+          and np.abs(unit - 1.0).max() < 0.02 and (depth[centre] > 0).all(),
+          f"CLI: AOVs plausible: at the ball's centre the normals {unit.min():.5f}-"
+          f"{unit.max():.5f} long, the share of samples recorded "
+          f"{albedo[centre].mean(-1).min():.3f}-{albedo[centre].mean(-1).max():.3f}, depth "
+          f"{depth[centre][..., 0].min():.4f}-{depth[centre][..., 0].max():.4f} of its maximum")
+
+    # resume: CAMERA_RESUME_SPP saved, then resumed to the CLI's spp, equals
+    # the CLI's straight render (its state file) bit for bit
+    scene = flatten_scene(load_scene(path), dev)
+    sh = scene_hash(load_scene(path))
+    part = os.path.join(out_dir, "part.state")
+    if os.path.exists(part):
+        os.remove(part)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    render_buffers(scene, spp=CAMERA_RESUME_SPP, passes_per_batch=16, resume_file=part,
+                   scene_hash_value=sh)
+    resumed = render_buffers(scene, spp=spp, passes_per_batch=16, resume_file=part,
+                             scene_hash_value=sh)
+    dt = time.time() - t0
+    launches["thinlens resume (regen)"] = counts()
+    k3_only("camera-synth thinlens resume", launches["thinlens resume (regen)"])
+    saved = OutputBuffers(w, h, aovs=tuple(straight.aovs))
+    check(saved.load_state(state, sh) == {"next_pass": spp}, "CLI: its state file loads")
+    arrays = ("sum", "count", "sum_a", "sum_b", "count_a", "count_b", "mean", "m2", "aov_count")
+    same = {k: bool(np.array_equal(getattr(resumed, k), getattr(saved, k))) for k in arrays}
+    same.update({f"{g} {k}": bool(np.array_equal(getattr(resumed, g)[k], getattr(saved, g)[k]))
+                 for g in ("aovs", "aovs_a", "aovs_b") for k in resumed.aovs})
+    check(all(same.values()) and resumed.passes == saved.passes == 2,
+          f"resume: {CAMERA_RESUME_SPP} spp saved, resumed to {spp}, equals the straight "
+          f"render bit for bit {same}; {w * h * spp / dt / 1e6:.4f} Mpaths/s ({dt:.2f} s)")
+
+    # adaptive: one regen batch of warm-up, then lockstep passes by tile error
+    spp_a = CAMERA_WARMUP_SPP + CAMERA_ADAPTIVE_PASSES
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    bufs = render_buffers(scene, spp=spp_a, adaptive=True, passes_per_batch=CAMERA_WARMUP_SPP)
+    dt = time.time() - t0
+    c = launches["thinlens adaptive"] = counts()
+    k3_only("camera-synth thinlens adaptive", c)
+    img = bufs.color()
+    check(bufs.count.min() >= CAMERA_WARMUP_SPP and bufs.count.max() > bufs.count.min()
+          and bufs.count.sum() == spp_a * w * h and bufs.passes == 1 + CAMERA_ADAPTIVE_PASSES
+          and np.isfinite(img).all(), f"adaptive: {CAMERA_WARMUP_SPP} warm-up + "
+          f"{CAMERA_ADAPTIVE_PASSES} adaptive passes, counts {int(bufs.count.min())}-"
+          f"{int(bufs.count.max())}, the whole budget spent, image finite; "
+          f"{w * h * spp_a / dt / 1e6:.4f} Mpaths/s ({dt:.2f} s) on {card}")
+
+    for variant in ("equirectangular", "cubemap"):
+        sc = flatten_scene(load_scene(paths[variant]), dev)
+        m = sc.meta
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        img = render_buffers(sc, spp=CAMERA_OTHER_SPP, seed=DEFAULT_SEED,
+                             wavefront="regen").color()
+        dt = time.time() - t0
+        c = launches[f"{variant} (regen)"] = counts()
+        k3_only(f"camera-synth {variant}", c)
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"camera-synth {variant} ({m.filter}): {img.shape} image "
+              f"finite and non-negative")
+        log(f"[11 camera] camera-synth {variant}: {m.res_x}x{m.res_y} {CAMERA_OTHER_SPP} spp in "
+            f"{dt:.2f} s: {m.res_x * m.res_y * CAMERA_OTHER_SPP / dt / 1e6:.4f} Mpaths/s on "
+            f"{card}; channel means {img.reshape(-1, 3).mean(0).round(6).tolist()}")
+    log("[11 camera] K3 / K3-fast launches: " + json.dumps(
+        {k: [c["bvh8.walk_cuda"], c["bvh8.walk_fast_cuda"]] for k, c in launches.items()}))
     return launches
 
 
@@ -880,11 +1107,7 @@ def interior_phase(work, dev, card):
         img = render_flat(scene, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
         dt = time.time() - t0
         c = launches[wavefront] = counts()
-        others = {k: v for k, v in c.items()
-                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
-        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
-              f"interior {wavefront}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
-              f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+        k3_only(f"interior {wavefront}", c)
         if wavefront == "lockstep":
             check_lockstep_launches("interior lockstep", c["bvh8.walk_fast_cuda"],
                                     c["bvh8.walk_cuda"], spp, m.max_bounces)
@@ -970,11 +1193,7 @@ def surfaces_phase(work, dev, card):
         label = f"{size} {wavefront}"
         check_hits(f"the {label} render ({spp} spp)", size, h)
         c = launches[label] = counts()
-        others = {k: v for k, v in c.items()
-                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
-        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and not others,
-              f"{label}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
-              f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
+        k3_only(label, c)
         if m.has_forward:
             check_forward_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], calls,
                                    spp, m.max_bounces)
@@ -1447,11 +1666,7 @@ def main():
         img = render_flat(area, spp=spp_w, seed=DEFAULT_SEED, wavefront=wavefront)
         dt = time.time() - t0
         c = counts()
-        others = {k: v for k, v in c.items()
-                  if k not in ("bvh8.walk_cuda", "bvh8.walk_fast_cuda") and v}
-        check(c["bvh8.walk_fast_cuda"] > 0 and c["bvh8.walk_cuda"] > 0 and not others,
-              f"{wavefront}: K3-fast launched {c['bvh8.walk_fast_cuda']} times, exact K3 "
-              f"{c['bvh8.walk_cuda']}, every other walk and twin none {others}")
+        k3_only(f"materialtest-area {wavefront}", c)
         if wavefront == "lockstep":
             # per pass 1 camera walk + one 2N walk per bounce run, each with
             # its repair launch; one shadow walk per bounce run
@@ -1565,6 +1780,7 @@ def main():
     interior_launches = interior_phase(work, dev, card)
     surface_launches, _ = surfaces_phase(work, dev, card)
     light_launches = lights_phase(work, dev, card)
+    camera_launches = camera_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -1586,6 +1802,7 @@ def main():
         row["launches_interior"] = {w: c[key] for w, c in interior_launches.items()}
         row["launches_surfaces"] = {w: c[key] for w, c in surface_launches.items()}
         row["launches_lights"] = {w: c[key] for w, c in light_launches.items()}
+        row["launches_camera"] = {w: c[key] for w, c in camera_launches.items()}
     # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
     # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
     k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",

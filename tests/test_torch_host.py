@@ -283,7 +283,8 @@ def _edit_small(doc, what):
 # edit -> the light rows it leaves
 NOW_PORTED = {"area light": 2, "no env": 0, "dielectric": 1, "textured roughness": 1,
               "hdr sky": 1, "analytic sphere": 2, "emissive cylinder": 2, "point light": 2,
-              "emissive disk": 2, "cap light": 2, "two envs": 2, "unsampled env": 0}
+              "emissive disk": 2, "cap light": 2, "two envs": 2, "unsampled env": 0,
+              "thinlens": 1, "aov": 1}
 SURFACE_LIGHTS = ("area light", "analytic sphere", "emissive cylinder", "emissive disk")
 
 
@@ -297,8 +298,8 @@ def test_missing_features_raise(tmp_path, what):
     none is skipped silently. Those that have joined the port since (an
     emissive cube beside the sky; a scene without an env light; a
     dielectric; a textured roughness; an .hdr env map; emissive analytic
-    prims, point and cap lights, two envs, an unsampled env) flatten, with
-    the light rows they should have."""
+    prims, point and cap lights, two envs, an unsampled env; a thinlens
+    camera; an AOV buffer) flatten, with the light rows they should have."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene

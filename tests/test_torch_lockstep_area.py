@@ -229,8 +229,8 @@ def test_reference_means_files_match(cases, size):
 def test_wavefront_argument():
     """auto is regen (the port has no device mesh) unless a material has a
     forward lobe, and then lockstep (render.py:149); an unknown name
-    raises; trace_pass refuses what the lockstep port lacks, media and AOVs,
-    naming them."""
+    raises; trace_pass refuses what the lockstep port lacks, media, naming
+    them."""
     from tungsten_tpu_torch.integrators import path_tracer as pt
     from tungsten_tpu_torch.renderer import render
 
@@ -260,8 +260,7 @@ def test_wavefront_argument():
     assert calls == ["regen", "regen", "lockstep", "lockstep"]
     with pytest.raises(ValueError):
         render.render_flat(Scene(), wavefront="tiles")
-    for field, value, name in (("has_media", True, "media"), ("aovs", ("normal",), "AOVs")):
-        bad = Scene()
-        bad.meta = type("M", (Meta,), {field: value})()
-        with pytest.raises(NotImplementedError, match=name):
-            pt.trace_pass(bad, (0, 0), None, None, None)
+    bad = Scene()
+    bad.meta = type("M", (Meta,), {"has_media": True})()
+    with pytest.raises(NotImplementedError, match="media"):
+        pt.trace_pass(bad, (0, 0), None, None, None)

@@ -1,11 +1,14 @@
 """tungsten_tpu_torch: the PyTorch + CUDA port of tungsten_tpu.
 
 Counterpart of tungsten_tpu/__init__.py. The JAX package stays the
-reference; this package runs its main path (scene load -> flatten ->
+reference; this package runs its path tracer (scene load -> flatten ->
 regenerating or lockstep wavefront path tracer -> framebuffer; every surface
 BSDF but the fibers, the wrappers over one level of nesting, forward lobes
 through the lockstep tracer's crossing walk, textured parameters, .hdr
-images, every light kind but the skydome) with plain torch tensor code and
+images, every light kind but the skydome, every camera and reconstruction
+filter, the depth / normal / albedo AOVs; the render driver with samples
+per pass, adaptive sampling, resume files and checkpoints, and its command
+line, tools/tungsten.py) with plain torch tensor code and
 hand-written CUDA kernels for the walks: the BVH8
 walk, exact and fast (ops/bvh8.py + csrc/bvh8_walk.cu, bvh8_walk_fast.cu),
 the gather walk (ops/gather_bvh.py + csrc/gather_walk.cu), the binary walk
@@ -15,9 +18,9 @@ csrc/intersect_stream.cu). The intersector
 benchmark (tools/bench_isect.py) times them all. It imports torch and numpy,
 never jax.
 
-Package layout mirrors tungsten_tpu/ module for module; only the slice the
-main path needs is ported, and every feature it lacks raises
-NotImplementedError naming the missing piece.
+Package layout mirrors tungsten_tpu/ module for module; what is not ported
+yet (media, the skydome, curves and the fibers, the integrators other than
+the path tracer) raises NotImplementedError naming the missing piece.
 """
 import torch as _torch
 

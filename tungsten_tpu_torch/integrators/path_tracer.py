@@ -7,7 +7,8 @@ tungsten_tpu/integrators/path_tracer.py (lines 67-255, 278-412, 558-1232,
 every surface BSDF but the fibers, every light of the JAX flatten but the
 skydome (area lights, analytic emitters with a disk's emission cone, any
 number of envs, sampled or not, spherical caps, point lights with MIS
-weight 1), no media, no AOVs, no sample table. Forward lobes (thinsheet, transparency, forward) take the
+weight 1), the depth / normal / albedo AOVs (`_record_aovs`), no media,
+no sample table. Forward lobes (thinsheet, transparency, forward) take the
 lockstep tracer's crossing-walk branch (`_trace_pass_forward`); regen
 refuses them, as the JAX package does.
 
@@ -304,6 +305,48 @@ def _choose_and_sample_light(scene: FlatScene, smp: Sampler, p):
     return li, is_env_choice, is_cap, is_point, ls, choice_pdf, smp
 
 
+def _aov_state(n, dev):
+    """A lane's AOV fields, zero (path_tracer.py:789-795)."""
+    return dict(aov_recorded=torch.zeros((n,), dtype=torch.bool, device=dev),
+                aov_depth=torch.zeros((n,), device=dev), aov_dist=torch.zeros((n,), device=dev),
+                aov_normal=torch.zeros((n, 3), device=dev),
+                aov_albedo=torch.zeros((n, 3), device=dev))
+
+
+def _record_aovs(s, did_hit, t, shaded, lobes, ns, albedo, light_id, e_hit):
+    """The AOVs of a path's first non-specular surface vertex
+    (PathTracer.cpp:78-96; path_tracer.py:887-898): depth is the distance
+    the path travelled to it (aov_dist sums every hit's t), normal the
+    shading normal, albedo the albedo texture plus an emitter's emission
+    (e_hit, None without surface emitters). `shaded`: the lanes that shade a
+    surface here. Returns the lane's new AOV fields."""
+    dist = s["aov_dist"] + torch.where(did_hit, t, 0.0)
+    rec = shaded & ~s["aov_recorded"] & ~Lobes.is_pure_specular(lobes)
+    if e_hit is not None:
+        albedo = albedo + torch.where((light_id >= 0)[..., None], e_hit, 0.0)
+    return dict(aov_recorded=s["aov_recorded"] | rec, aov_dist=dist,
+                aov_depth=torch.where(rec, dist, s["aov_depth"]),
+                aov_normal=vo.where3(rec, ns, s["aov_normal"]),
+                aov_albedo=vo.where3(rec, albedo, s["aov_albedo"]))
+
+
+def _aux(aov):
+    """The tracers' AOV output {depth, normal, albedo} from the lane fields."""
+    return dict(depth=aov["aov_depth"], normal=aov["aov_normal"], albedo=aov["aov_albedo"])
+
+
+def _deposit(buf, idx, val):
+    """buf[idx] += val, the lanes that share a pixel summed in one fixed
+    order, so that a render is a function of its seed bit for bit (a resumed
+    render equals a straight one): on the card index_add_ adds with atomics
+    in any order, while index_put_ with accumulate sorts the indices first;
+    on the CPU index_add_ adds them one after another."""
+    if buf.is_cuda:
+        buf.index_put_((idx,), val, accumulate=True)
+    else:
+        buf.index_add_(0, idx, val)
+
+
 def _regen(scene, s, seed, px_cycle, py_cycle, pix_cycle, pass_base, W, total, strat):
     """Respawn dead lanes with the next path ids; past-budget lanes idle."""
     meta = scene.meta
@@ -347,6 +390,12 @@ def _regen(scene, s, seed, px_cycle, py_cycle, pix_cycle, pass_base, W, total, s
     out["pdf_cont"] = torch.where(take, 1.0, s["pdf_cont"])
     out["nee_active"] = torch.where(take, False, s["nee_active"])
     out["next_id"] = next_id
+    if "aov_dist" in s:  # a respawned path starts its AOVs afresh
+        out["aov_recorded"] = s["aov_recorded"] & ~take
+        out["aov_depth"] = torch.where(take, 0.0, s["aov_depth"])
+        out["aov_dist"] = torch.where(take, 0.0, s["aov_dist"])
+        out["aov_normal"] = torch.where(t3, 0.0, s["aov_normal"])
+        out["aov_albedo"] = torch.where(t3, 0.0, s["aov_albedo"])
     return out
 
 
@@ -354,12 +403,15 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
                       pass_base: int, n_passes: int = 1):
     """Regenerating wavefront PT over W = len(px_cycle) lanes and
     n_passes * W paths. seed: (s0, s1) uint32 pair. Returns rad (n_pix, 3),
-    the per-pixel radiance SUM."""
+    the per-pixel radiance SUM, and with AOVs (rad, {depth (n_pix,), normal
+    (n_pix, 3), albedo (n_pix, 3)}), the per-pixel sums of the finished
+    paths' AOVs (path_tracer.py:1771-1775)."""
     meta = scene.meta
     if meta.has_forward:  # path_tracer.py:1262 asserts the same
         raise NotImplementedError("regen path: forward lobes need trace_pass (lockstep)")
-    if meta.has_media or meta.aovs:
-        raise NotImplementedError("regen path: media and AOVs are not ported")
+    if meta.has_media:
+        raise NotImplementedError("regen path: media are not ported")
+    want_aovs = bool(meta.aovs)
     dev = px_cycle.device
     W = px_cycle.shape[0]
     n_pix = meta.res_x * meta.res_y
@@ -389,7 +441,10 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         nee_active=full(False, torch.bool),
         next_id=torch.zeros((), dtype=torch.int64, device=dev),
     )
-    rad_pix = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    if want_aovs:
+        state.update(_aov_state(W, dev))
+    # per pixel: radiance, and with AOVs depth, normal and albedo; one deposit
+    acc_pix = torch.zeros((n_pix, 10 if want_aovs else 3), dtype=torch.float32, device=dev)
 
     def regen(s):
         return _regen(scene, s, seed, px_cycle, py_cycle, pix_cycle, pass_base, W, total, strat)
@@ -456,6 +511,11 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
                                  may=scene.lights.emit_kinds)
             emission = emission + torch.where(
                 add_emit[..., None], throughput * e_hit * w_emit[..., None], 0.0)
+        else:
+            e_hit = None
+        if want_aovs:
+            aov = _record_aovs(s, did_hit, hit.t, hit_surface_lane, lobes, ns, mat_pre[2],
+                               light_id, e_hit)
 
         vp = p
         throughput_vertex = throughput
@@ -529,6 +589,12 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         s2.update(o=vp, d=wo_w, near=full(DEFAULT_EPSILON), throughput=throughput,
                   emission=emission, alive=alive, was_specular=was_specular,
                   bounce=bounce + 1, pdf_cont=pdf_cont, nee_active=nee_gate)
+        if want_aovs:  # a finished path deposits its AOVs (path_tracer.py:1720-1735)
+            s2.update(aov)
+            fin3 = fin[..., None]
+            aov_dep = torch.cat([torch.where(fin3, aov["aov_depth"][..., None], 0.0),
+                                 torch.where(fin3, aov["aov_normal"], 0.0),
+                                 torch.where(fin3, aov["aov_albedo"], 0.0)], -1)
         s2 = regen(s2)
 
         # ---- next-ray closest hit merged with the shadow batch: one 2N walk ----
@@ -539,13 +605,17 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
                 torch.cat([near_nee, s2["near"]]), torch.cat([shadow_far, far_next]), latch2)
             blocked = h2.prim[:n] >= 0
             hit = Hit(t=h2.t[n:], prim=h2.prim[n:], u=h2.u[n:], v=h2.v[n:])
-            # ONE scatter: finished-path deposit + NEE, by the pre-regen pixel
-            rad_pix.index_add_(0, old_pix, dep_val + torch.where(blocked[..., None], 0.0, nee_add))
+            # finished-path deposit + NEE, by the pre-regen pixel
+            dep_val = dep_val + torch.where(blocked[..., None], 0.0, nee_add)
         else:
-            rad_pix.index_add_(0, old_pix, dep_val)
             hit = _intersect(scene, s2["o"], s2["d"], s2["near"], far_next)
+        # ONE scatter a step: radiance and the AOVs side by side
+        _deposit(acc_pix, old_pix, torch.cat([dep_val, aov_dep], -1) if want_aovs else dep_val)
         state = s2
-    return rad_pix
+    if want_aovs:
+        return acc_pix[:, :3], dict(depth=acc_pix[:, 3], normal=acc_pix[:, 4:7],
+                                    albedo=acc_pix[:, 7:10])
+    return acc_pix
 
 
 # ---------------------------------------------------------------------------
@@ -645,10 +715,11 @@ def _add_hit_emission(scene: FlatScene, emission, throughput, lanes, d, ng, uv, 
                       was_specular, bounce):
     """emission + what the emitters hit on `lanes` send back, counted where
     NEE did not sample it (after a specular bounce, or with light sampling
-    off) and only on their front (lockstep; TraceBase::evalDirect)."""
+    off) and only on their front (lockstep; TraceBase::evalDirect). Returns
+    (emission, the emitters' radiance e_hit, None without surface emitters)."""
     meta = scene.meta
     if not scene.lights.has_surface:  # no row carries a light id
-        return emission
+        return emission, None
     li_hit = torch.clamp(light_id, min=0)
     geo_front = -vo.dot(d, ng) > torch.clamp(scene.lights.cone_cos[li_hit], min=0.0)
     add = lanes & (light_id >= 0) & geo_front & (bounce >= meta.min_bounces)
@@ -656,7 +727,7 @@ def _add_hit_emission(scene: FlatScene, emission, throughput, lanes, d, ng, uv, 
         add = add & was_specular
     e_hit = eval_texture(scene.textures, scene.lights.tex[li_hit], uv,
                          may=scene.lights.emit_kinds)
-    return emission + torch.where(add[..., None], throughput * e_hit, 0.0)
+    return emission + torch.where(add[..., None], throughput * e_hit, 0.0), e_hit
 
 
 def _roulette(throughput, alive, u_rr, bounce):
@@ -690,8 +761,9 @@ def _strat_fields(meta, seed, lane_ids, px, py):
 
 def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
     """One sample per lane, all lanes in lockstep (path_tracer.py:741-1097
-    for no sample table, no media, no AOVs, no compaction). seed: (s0, s1)
-    uint32 pair, the pass index folded into s1. Returns radiance (N, 3).
+    for no sample table, no media, no compaction). seed: (s0, s1) uint32
+    pair, the pass index folded into s1. Returns radiance (N, 3), and with
+    AOVs (radiance, {depth, normal, albedo}) at the lanes' own indices.
 
     Per bounce: the shadow rays take the any-hit walk, the [bsdf-strategy |
     continuation] rays one 2N-lane closest-hit walk."""
@@ -722,6 +794,7 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
     was_specular = full(True, torch.bool)
     do_nee = meta.enable_light_sampling and meta.n_lights > 0
     near_eps = full(DEFAULT_EPSILON)
+    aov = _aov_state(n, dev) if meta.aovs else None
 
     bounce = 0
     while bounce < meta.max_bounces and bool(alive.any().item()):
@@ -749,8 +822,11 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
         lobes = mat_pre[3]
         frame, wi = _local_frame(meta, ns, d, lobes)
 
-        emission = _add_hit_emission(scene, emission, throughput, hit_surface_lane, d, ng, uv,
-                                     light_id, was_specular, bounce)
+        emission, e_hit = _add_hit_emission(scene, emission, throughput, hit_surface_lane, d, ng,
+                                            uv, light_id, was_specular, bounce)
+        if aov is not None:
+            aov = _record_aovs(aov, did_hit, hit.t, hit_surface_lane, lobes, ns, mat_pre[2],
+                               light_id, e_hit)
 
         vp = p
         throughput_vertex = throughput
@@ -794,7 +870,8 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
             hit = _intersect(scene, vp, wo_w, near_eps, cont_far)
         o, d = vp, wo_w
         bounce += 1
-    return torch.where(torch.isfinite(emission), emission, 0.0)
+    rad = torch.where(torch.isfinite(emission), emission, 0.0)
+    return rad if aov is None else (rad, _aux(aov))
 
 
 # ---------------------------------------------------------------------------
@@ -849,7 +926,8 @@ def _trace_transparent(scene: FlatScene, o, d, far):
 
 def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
     """One sample per lane for scenes with forward lobes: trace_pass's slow
-    branch without media, AOVs or compaction (path_tracer.py:1803-2111).
+    branch without media or compaction (path_tracer.py:1803-2111); returns
+    as `_trace_pass_fast` does.
     Per bounce one closest-hit walk for the path, the transparency lottery
     (pass straight through a forward-lobed surface with probability
     avg(transparency), TraceBase.cpp:528-537), and NEE with both strategies'
@@ -877,6 +955,7 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
     was_specular = full(True, torch.bool)
     near = full(1e-4)
     do_nee = meta.enable_light_sampling and meta.n_lights > 0
+    aov = _aov_state(n, dev) if meta.aovs else None
 
     bounce = 0
     while bounce < meta.max_bounces and bool(alive.any().item()):
@@ -912,8 +991,11 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
         fwd_weight = trans_f / torch.clamp(trans_scalar, min=1e-20)[..., None]
         shaded = hit_surface_lane & ~go_forward
 
-        emission = _add_hit_emission(scene, emission, throughput, shaded, d, ng, uv, light_id,
-                                     was_specular, bounce)
+        emission, e_hit = _add_hit_emission(scene, emission, throughput, shaded, d, ng, uv,
+                                            light_id, was_specular, bounce)
+        if aov is not None:  # a lane passing straight through records none (:1980-1991)
+            aov = _record_aovs(aov, did_hit, hit.t, shaded, lobes, ns, mat_pre[2], light_id,
+                               e_hit)
 
         # ---- NEE: both strategies' rays in one 2N crossing walk ----
         if do_nee:
@@ -946,27 +1028,38 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
         throughput, alive = _roulette(throughput, alive, u_rr, bounce)
         o, d, near = p, wo_w, full(DEFAULT_EPSILON)
         bounce += 1
-    return torch.where(torch.isfinite(emission), emission, 0.0)
+    rad = torch.where(torch.isfinite(emission), emission, 0.0)
+    return rad if aov is None else (rad, _aux(aov))
 
 
 def trace_pass(scene: FlatScene, seed, lane_ids, px, py):
-    """Trace one sample for each lane; returns radiance (N, 3). As the JAX
-    package dispatches (path_tracer.py:1810): `_trace_pass_fast` without
-    forward lobes, the crossing-walk branch `_trace_pass_forward` with
-    them. Media and AOVs are not ported."""
+    """Trace one sample for each lane; returns radiance (N, 3), and with
+    AOVs (radiance, {depth, normal, albedo}). As the JAX package dispatches
+    (path_tracer.py:1810): `_trace_pass_fast` without forward lobes, the
+    crossing-walk branch `_trace_pass_forward` with them. Media are not
+    ported."""
     meta = scene.meta
-    if meta.has_media or meta.aovs:
-        raise NotImplementedError("lockstep path: media and AOVs are not ported")
+    if meta.has_media:
+        raise NotImplementedError("lockstep path: media are not ported")
     if meta.has_forward:
         return _trace_pass_forward(scene, seed, lane_ids, px, py)
     return _trace_pass_fast(scene, seed, lane_ids, px, py)
 
 
 def trace_batch(scene: FlatScene, seed, lane_base, px, py, pass_start: int, n_passes: int = 1):
-    """Sum of n_passes lockstep passes (N, 3); pass i runs under the seed
-    (seed[0], seed[1] + pass_start + i) (path_tracer.py:1781-1799)."""
-    acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=px.device)
+    """Sum of n_passes lockstep passes (N, 3), and with AOVs (sum, {depth,
+    normal, albedo} sums); pass i runs under the seed (seed[0], seed[1] +
+    pass_start + i) (path_tracer.py:1781-1799)."""
+    zero = torch.zeros(px.shape + (3,), dtype=torch.float32, device=px.device)
+    acc = zero
+    if scene.meta.aovs:
+        acc = (zero, dict(depth=torch.zeros(px.shape, device=px.device), normal=zero,
+                          albedo=zero))
     for i in range(n_passes):
         pass_seed = (int(seed[0]) & MASK32, (int(seed[1]) + int(pass_start) + i) & MASK32)
-        acc = acc + trace_pass(scene, pass_seed, lane_base, px, py)
+        out = trace_pass(scene, pass_seed, lane_base, px, py)
+        if scene.meta.aovs:
+            acc = (acc[0] + out[0], {k: v + out[1][k] for k, v in acc[1].items()})
+        else:
+            acc = acc + out
     return acc

@@ -1,8 +1,8 @@
 """Texture table: host-side assembly + batched evaluation on torch tensors.
 
-Port of tungsten_tpu/models/textures/textures.py for the constant, checker
-and bitmap types. The host side is the same numpy code (same ids, same packed
-rows), so tables built here equal the JAX package's; disk, blade and IES
+Port of tungsten_tpu/models/textures/textures.py for the constant, checker,
+bitmap, disk and blade types. The host side is the same numpy code (same
+ids, same packed rows), so tables built here equal the JAX package's; IES
 textures raise NotImplementedError.
 """
 from __future__ import annotations
@@ -10,12 +10,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
+import math
+
 import numpy as np
 import torch
 
 TEX_CONSTANT = 0
 TEX_CHECKER = 1
 TEX_BITMAP = 2
+TEX_DISK = 3
+TEX_BLADE = 4
 
 _PARAMS = 8
 _TEX4_MAX = 1 << 23  # texel count above which the 2x2-block pack is skipped
@@ -104,6 +108,24 @@ class TextureBuilder:
             self._cache[key] = idx
         return idx
 
+    def add_disk(self, value=1.0) -> int:
+        v = np.asarray(value, np.float32).ravel()
+        if v.size == 1:
+            v = np.repeat(v, 3)
+        p = np.zeros(_PARAMS, np.float32)
+        p[:3] = v
+        return self._push(TEX_DISK, p)
+
+    def add_blade(self, blades=6, angle=0.593412, value=1.0) -> int:
+        v = np.asarray(value, np.float32).ravel()
+        if v.size == 1:
+            v = np.repeat(v, 3)
+        p = np.zeros(_PARAMS, np.float32)
+        p[:3] = v
+        p[6] = blades
+        p[7] = angle
+        return self._push(TEX_BLADE, p)
+
     def _push(self, t: int, p: np.ndarray) -> int:
         self.types.append(t)
         self.params.append(p)
@@ -128,6 +150,11 @@ class TextureBuilder:
             return p[:3].copy()
         if t == TEX_CHECKER:
             return 0.5 * (p[:3] + p[3:6])
+        if t == TEX_DISK:
+            return np.float32(np.pi * 0.25) * p[:3]
+        if t == TEX_BLADE:
+            nb = max(p[6], 3.0)
+            return np.float32(0.125 * nb * np.sin(2.0 * np.pi / nb)) * p[:3]
         return self.image(tex_id).mean(axis=(0, 1))
 
     def build_arrays(self) -> dict:
@@ -204,6 +231,32 @@ def _eval_bitmap(data, params, uv, data4=None):
     return (c00 * (1 - fu) + c10 * fu) * (1 - fv) + (c01 * (1 - fu) + c11 * fu) * fv
 
 
+def _eval_disk(params, uv):
+    # DiskTexture::operator[]: the unit disk centred at uv (0.5, 0.5)
+    d = uv - 0.5
+    inside = d[..., 0] ** 2 + d[..., 1] ** 2 < 0.25
+    return torch.where(inside[..., None], params[..., 0:3], 0.0)
+
+
+def _eval_blade(params, uv):
+    # BladeTexture::operator[] (BladeTexture.cpp:73-88): the n-gon aperture
+    nb = torch.clamp(params[..., 6], min=3.0)
+    angle = params[..., 7]
+    blade_angle = (2.0 * math.pi) / nb
+    g = uv * 2.0 - 1.0
+    phi = torch.atan2(g[..., 1], g[..., 0]) - angle
+    phi = -(torch.floor(phi / blade_angle) * blade_angle + angle)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    lx = g[..., 0] * cp - g[..., 1] * sp
+    ly = g[..., 1] * cp + g[..., 0] * sp
+    bnx = torch.cos(blade_angle * 0.5)
+    bny = torch.sin(blade_angle * 0.5)
+    outside = bnx * (lx - 1.0) + bny * ly > 0.0
+    center = (uv[..., 0] + uv[..., 1]) == 0.0  # the reference's uv == 0 special case
+    val = torch.where(outside[..., None], 0.0, params[..., 0:3])
+    return torch.where(center[..., None], params[..., 0:3], val)
+
+
 def eval_texture(table: TextureTable, tex_id, uv, may=None, pre=None):
     """Batched lookup: tex_id (N,), uv (N, 2) -> rgb (N, 3), masked over the
     texture types present (narrowed by the static `may` hint). `pre` is an
@@ -223,6 +276,10 @@ def eval_texture(table: TextureTable, tex_id, uv, may=None, pre=None):
             val = _eval_checker(params, uv)
         elif t == TEX_BITMAP:
             val = _eval_bitmap(table.data, params, uv, table.data4)
+        elif t == TEX_DISK:
+            val = _eval_disk(params, uv)
+        elif t == TEX_BLADE:
+            val = _eval_blade(params, uv)
         else:
             raise NotImplementedError(f"texture type id {t} is not ported")
         out = torch.where((ttype == t)[..., None], val, out)
@@ -230,7 +287,8 @@ def eval_texture(table: TextureTable, tex_id, uv, may=None, pre=None):
 
 
 def texture_from_spec(spec, tex_builder: TextureBuilder, resolve_path=None) -> int:
-    """JSON texture value -> table id (constant, checker, bitmap)."""
+    """JSON texture value -> table id (constant, checker, bitmap, disk,
+    blade)."""
     if isinstance(spec, str):
         from ...io.imageio import load_image
 
@@ -253,5 +311,10 @@ def texture_from_spec(spec, tex_builder: TextureBuilder, resolve_path=None) -> i
             f = spec["file"]
             img = load_image(resolve_path(f) if resolve_path else f)
             return tex_builder.add_bitmap(img, path_key=f)
+        if t == "disk":
+            return tex_builder.add_disk(spec.get("value", 1.0))
+        if t == "blade":
+            return tex_builder.add_blade(spec.get("blades", 6), spec.get("angle", 0.593412),
+                                         spec.get("value", 1.0))
         raise NotImplementedError(f"texture type {t!r} is not ported")
     return tex_builder.add_constant(spec)

@@ -56,6 +56,12 @@ def power_heuristic(pdf0, pdf1):
     return p0 / torch.clamp(p0 + p1, min=1e-38)
 
 
+def uniform_disk(u):
+    phi = u[..., 0] * (2.0 * math.pi)
+    r = torch.sqrt(u[..., 1])
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
 def tent_filter_sample(u):
     """Analytic inverse-CDF sample of the tent filter on [-1, 1]."""
     return torch.where(

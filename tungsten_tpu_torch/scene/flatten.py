@@ -9,7 +9,7 @@ that roughness slots use (`rough_kinds`), the texture table, the env
 light with its alias-table Distribution2D, the light table (`lights`: one
 row per emissive mesh / quad / cube with its triangle set and area CDF, then
 the env light's row; `tri_light` and the last column of `shade_pack` map a
-triangle to its light), the pinhole camera, the static SceneMeta, the
+triangle to its light), the camera, the static SceneMeta, the
 analytic prim table (`ana`, None without analytic prims) and the
 intersector packs the render's dispatch falls through
 (integrators/path_tracer.py `_intersect_tris`):
@@ -41,11 +41,15 @@ forward lobe), constant / checker / bitmap textures from PFM, .hdr (or, with
 cv2, .exr) and LDR images, the lights of the JAX flatten but the skydome:
 area lights, any number of infinite_sphere lights (sampled or not; `envs`
 in primitive order, `env` the last, the escape winner), infinite_sphere_cap
-lights (the `cap` table) and point lights (the `point` table), and a pinhole
-camera. The light rows come in the JAX flatten's order: the area and
-analytic emitters in primitive order, then the sampled envs, the sampled
-caps, the points. Everything else (skydomes, media, the fiber BSDFs, other
-cameras, ...) raises NotImplementedError naming the missing piece.
+lights (the `cap` table) and point lights (the `point` table), every
+camera of the JAX package (pinhole, thinlens with a disk, blade, bitmap or
+constant aperture, cat-eye and focus pivot, equirectangular, cubemap; the
+flatten's camera section, flatten.py:948-1000) and the depth / normal /
+albedo output buffers (`meta.aovs`). The light rows come in the JAX
+flatten's order: the area and analytic emitters in primitive order, then the
+sampled envs, the sampled caps, the points. Everything else (skydomes,
+media, the fiber BSDFs, ...) raises NotImplementedError naming the missing
+piece.
 """
 from __future__ import annotations
 
@@ -84,6 +88,9 @@ LIGHT_FIELDS = (  # LightTable's arrays in order, with their numpy types
     ("ana_prim", np.int32), ("pt_slot", np.int32), ("env_slot", np.int32),
     ("cap_slot", np.int32), ("apx_cbase", np.float32))
 LIGHT_STATICS = ("max_count", "apx_kind", "has_surface", "emit_kinds")
+# CameraParams' arrays; the ap_dist ones are None without a bitmap aperture
+CAMERA_KEYS = ("rot", "pos", "plane_dist", "aperture_size", "focus_dist", "ap_angle", "cateye",
+               "ap_dist.alias_pack", "ap_dist.joint_pdf", "ap_dist.shape")
 
 ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
@@ -93,7 +100,7 @@ ARRAY_KEYS = (
     "textures.tpack", "textures.data", "textures.data4",
     *(f"env.{k}" for k in ENV_KEYS),
     "cap.dir", "cap.cos_angle", "cap.radiance", "point.pos", "point.intensity",
-    "camera.rot", "camera.pos", "camera.plane_dist",
+    *(f"camera.{k}" for k in CAMERA_KEYS),
     "ptris.tris_t", "ptris.clusters", "ptris.n_tris",
     "pbvh8.boxes", "pbvh8.kid", "pbvh8.order", "pbvh8.planes", "pbvh8.prim_map",
     "gbvh.rows", "gbvh.root", "gbvh.n_rows", "gbvh.depth", "gbvh.n_tris",
@@ -105,9 +112,11 @@ ARRAY_KEYS = (
 OPTIONAL = ("pbvh8", "gbvh", "pbvh3", "pbvh", "ana")
 # besides ARRAY_KEYS, arrays["envs"] lists every env light in primitive
 # order (the JAX FlatScene's `envs`), each a dict under ENV_KEYS
-# None in a scene without bitmap textures, and without a single-substrate
-# wrapper BSDF or with a mixed one (dispatch.build_gpack3)
-NULLABLE = ("textures.data4", "materials.gpack3")
+# None in a scene without bitmap textures, without a single-substrate
+# wrapper BSDF or with a mixed one (dispatch.build_gpack3), and without a
+# bitmap aperture
+NULLABLE = ("textures.data4", "materials.gpack3", "camera.ap_dist.alias_pack",
+            "camera.ap_dist.joint_pdf", "camera.ap_dist.shape")
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
 ANALYTIC = ("sphere", "disk", "cylinder")  # flatten.py's analytic branch
@@ -120,6 +129,11 @@ class CameraParams:
     rot: torch.Tensor  # (3, 3) camera-to-world rotation (columns = x, y, z)
     pos: torch.Tensor  # (3,)
     plane_dist: torch.Tensor  # ()
+    aperture_size: torch.Tensor  # () thinlens
+    focus_dist: torch.Tensor  # () thinlens
+    ap_angle: torch.Tensor  # () blade-aperture rotation (radians)
+    cateye: torch.Tensor  # () cat-eye vignetting strength
+    ap_dist: Distribution2D | None = None  # over a bitmap aperture's luminance
 
 
 @dataclass
@@ -288,20 +302,15 @@ class FlatScene:
 
 def _check_slice(doc: SceneDocument):
     """Raise NotImplementedError for every scene feature the port lacks:
-    media, cameras other than pinhole, AOV buffers, skydome lights, and
-    primitives other than mesh / quad / cube / sphere / disk / cylinder and
-    the infinite_sphere, infinite_sphere_cap and point lights. BSDF types
-    (dispatch.pack_materials), textures (texture_from_spec) and image formats
-    (io/imageio.py) are checked where they are packed; every surface BSDF
-    but the fibers, textured parameters and .hdr images pass."""
+    media, skydome lights, and primitives other than mesh / quad / cube /
+    sphere / disk / cylinder and the infinite_sphere, infinite_sphere_cap
+    and point lights. BSDF types (dispatch.pack_materials), textures
+    (texture_from_spec) and image formats (io/imageio.py) are checked where
+    they are packed; every surface BSDF but the fibers, textured parameters,
+    .hdr images, every camera and filter and the depth / normal / albedo
+    output buffers pass."""
     if doc.media:
         raise NotImplementedError("participating media are not ported")
-    cam = doc.camera
-    if cam.get("type", "pinhole") != "pinhole":
-        raise NotImplementedError(f"camera type {cam.get('type')!r} is not ported")
-    if any(b.get("type") in ("depth", "normal", "albedo")
-           for b in doc.renderer.get("output_buffers", [])):
-        raise NotImplementedError("AOV output buffers are not ported")
     for prim in doc.primitives:
         ptype = prim.get("type", "mesh")
         if ptype == "skydome":
@@ -372,6 +381,51 @@ def _env_weights(img: np.ndarray) -> np.ndarray:
     w = np.maximum(np.maximum(np.roll(w, 1, 1), np.roll(w, -1, 1)), w)
     w = np.maximum(np.maximum(np.roll(w, 1, 0), np.roll(w, -1, 0)), w)
     return w.astype(np.float32)
+
+
+def _camera_arrays(doc: SceneDocument, cam_m: np.ndarray) -> tuple:
+    """The thinlens fields (ThinlensCamera.cpp:55-100; flatten.py:959-1000):
+    aperture size, focus distance (from a named primitive's origin where
+    `focus_pivot` names one, ThinlensCamera.cpp:206-217), the aperture's
+    kind (disk, blade, bitmap or const), blade count and angle, the cat-eye
+    strength, and a bitmap aperture's Distribution2D arrays. Returns (the
+    camera arrays under CAMERA_KEYS' names, the aperture kind, the blade
+    count); the last two are SceneMeta's."""
+    cam = doc.camera
+    focus_dist = float(cam.get("focus_distance", 1.0))
+    pivot = cam.get("focus_pivot")
+    if pivot:
+        for p in doc.primitives:
+            if p.get("name") == pivot:
+                pm = tf.mat4_from_json(p.get("transform"))
+                focus_dist = float(np.linalg.norm(pm[:3, 3] - cam_m[:3, 3]))
+                break
+    ap_spec = cam.get("aperture")
+    # 0.593412: the JAX package's blade angle, a known caveat (ROADMAP §3)
+    kind, blades, angle, dist = "disk", 6, 0.593412, {}
+    if isinstance(ap_spec, str):
+        from ..io.imageio import load_image
+
+        img = np.asarray(load_image(doc.resolve_path(ap_spec)), np.float32)
+        lum = img.mean(-1) if img.ndim == 3 else img
+        dist = Distribution2D.build_arrays(np.maximum(lum, 0.0))
+        kind = "bitmap"
+    elif isinstance(ap_spec, dict):
+        t = ap_spec.get("type", "disk")
+        if t == "blade":
+            kind = "blade"
+            blades = int(ap_spec.get("blades", 6))
+            angle = float(ap_spec.get("angle", 0.593412))
+        elif t == "constant":
+            kind = "const"
+        # any other texture type keeps the uniform-disk default
+    elif isinstance(ap_spec, (int, float)):
+        kind = "const"
+    arrays = {"aperture_size": np.float32(cam.get("aperture_size", 0.001)),
+              "focus_dist": np.float32(focus_dist), "ap_angle": np.float32(angle),
+              "cateye": np.float32(cam.get("cateye", 0.0)),
+              **{f"ap_dist.{k}": dist.get(k) for k in ("alias_pack", "joint_pdf", "shape")}}
+    return arrays, kind, blades
 
 
 def flatten_arrays(doc: SceneDocument):
@@ -630,12 +684,13 @@ def flatten_arrays(doc: SceneDocument):
     gpack2 = build_gpack2(mats, tex["tpack"])
     gpack3 = build_gpack3(mats, gpack2)
 
-    # ---- camera ----
+    # ---- camera (flatten.py:948-1000) ----
     cam = doc.camera
     cam_m = tf.mat4_from_json(cam.get("transform"))
     cam_m[:3, 0] = -cam_m[:3, 0]  # Camera.cpp:63 setRight(-right)
     fov = float(cam.get("fov", 60.0))
     plane_dist = 1.0 / np.tan(np.deg2rad(fov) * 0.5)
+    camera, ap_kind, ap_blades = _camera_arrays(doc, cam_m)
 
     e1, e2 = p1 - p0, p2 - p0
     tree = tri_tree(p0, e1, e2, leaf_size=128)
@@ -681,6 +736,7 @@ def flatten_arrays(doc: SceneDocument):
         "camera.rot": cam_m[:3, :3].astype(np.float32),
         "camera.pos": cam_m[:3, 3].astype(np.float32),
         "camera.plane_dist": np.float32(plane_dist),
+        **{f"camera.{k}": v for k, v in camera.items()},
         **packs,
     }
 
@@ -691,7 +747,7 @@ def flatten_arrays(doc: SceneDocument):
     max_b = int(integ.get("max_bounces", 64))
     meta = SceneMeta(
         res_x=int(res[0]), res_y=int(res[1]),
-        camera_type="pinhole", tonemap=cam.get("tonemap", "gamma"),
+        camera_type=cam.get("type", "pinhole"), tonemap=cam.get("tonemap", "gamma"),
         filter=cam.get("reconstruction_filter", "tent"), fov_deg=fov,
         n_lights=n_lights, has_env=bool(env_specs),
         env_light_index=env_light_idx[-1] if envs else -1,
@@ -703,6 +759,8 @@ def flatten_arrays(doc: SceneDocument):
         env_light_idx=tuple(env_light_idx), n_caps=len(cap_specs),
         cap_light_idx=tuple(cap_light_idx), esc_caps=tuple(esc_caps),
         point_light_index=point_index,
+        aperture_kind=ap_kind, ap_blades=ap_blades,
+        cateye=float(cam.get("cateye", 0.0)),
         min_bounces=int(integ.get("min_bounces", 0)), max_bounces=max_b,
         enable_light_sampling=bool(integ.get("enable_light_sampling", True)),
         enable_volume_light_sampling=bool(integ.get("enable_volume_light_sampling", True)),
@@ -715,6 +773,9 @@ def flatten_arrays(doc: SceneDocument):
         use_bvh=bool(doc.renderer.get("scene_bvh", True)),
         bdpt_max_vertices=int(integ.get("bdpt_max_vertices", min(max_b + 1, 16))),
         has_analytic=ana is not None,
+        aovs=tuple((b.get("type"), b.get("output_file", ""), b.get("hdr_output_file", ""))
+                   for b in doc.renderer.get("output_buffers", [])
+                   if b.get("type") in ("depth", "normal", "albedo")),
     )
     return arrays, meta
 
@@ -787,8 +848,12 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
                                             arrays.get("materials.gpack3")),
         textures=textures,
         env=env_light(sub("env")),
-        camera=CameraParams(rot=t("camera.rot"), pos=t("camera.pos"),
-                            plane_dist=t("camera.plane_dist")),
+        camera=CameraParams(
+            **{k: t(f"camera.{k}") for k in CAMERA_KEYS if not k.startswith("ap_dist")},
+            ap_dist=None if arrays.get("camera.ap_dist.alias_pack") is None
+            else Distribution2D.from_arrays(*(arrays[f"camera.ap_dist.{k}"]
+                                              for k in ("alias_pack", "joint_pdf", "shape")),
+                                            device)),
         ptris=TriPack.from_arrays(sub("ptris"), device),
         pbvh8=pbvh8,
         gbvh=GatherBvhPack.from_arrays(sub("gbvh"), device) if has["gbvh"] else None,

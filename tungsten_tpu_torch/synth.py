@@ -44,6 +44,20 @@ cap listed before the last env (NEE-sampled, masked on escape), the bitmap
 sky (the last env, the escape winner), a cap given by its power and listed
 after it (it wins the escapes inside its cone) and a point light.
 
+The two camera sizes render the materialtest-like scene (floor, ball, cube,
+sky) through the other cameras, in four variants (`write_scene`'s
+`variant`):
+  * thinlens: a 6-blade aperture, cat-eye 0.5, focused on the ball by
+    `focus_pivot`, the mitchell_netravali filter, and depth, normal and
+    albedo output buffers;
+  * bitmap: the thinlens variant with a bitmap aperture (aperture.pfm, a
+    ring with a bright spot, written in code);
+  * equirectangular: the lat-long camera with the lanczos filter, at twice
+    the height's width;
+  * cubemap: six square faces side by side, the catmull_rom filter.
+Their outputs are PFM files (the LDR ones too at camera-synth's size: PFM
+needs neither PIL nor cv2), and small-camera's LDR outputs PNG.
+
 The two coat sizes and the two cut-out sizes build the materialtest-like
 scene with the remaining surfaces (every non-fiber type the interior sizes
 do not show), lit by the sky and one emissive quad facing down:
@@ -84,8 +98,12 @@ Sizes:
   small-coat, small-cutout    the same at small's (576-triangle orbs)
   lights-synth        the lights scene at materialtest-synth's scale
   small-lights        the same at small's
+  camera-synth        the camera scene at materialtest-synth's scale:
+                      thinlens and bitmap 1000x563, equirectangular
+                      1000x500, cubemap 1536x256 (256x256 faces)
+  small-camera        the same at small's: 64x48, cubemap 96x16
 
-Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size]
+Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size [variant]]
 """
 from __future__ import annotations
 
@@ -119,6 +137,20 @@ INTERIOR = ("interior-synth", "small-interior")
 LIGHTS = ("lights-synth", "small-lights")
 SIZES["lights-synth"] = SIZES["materialtest-synth"]
 SIZES["small-lights"] = SIZES["small"]
+CAMERA = ("camera-synth", "small-camera")
+SIZES["camera-synth"] = SIZES["materialtest-synth"]
+SIZES["small-camera"] = SIZES["small"]
+# variant -> (camera fields, filter, resolution of camera-synth, of small-camera)
+THINLENS = {"type": "thinlens", "aperture_size": 0.3, "cateye": 0.5, "focus_pivot": "ball",
+            "aperture": {"type": "blade", "blades": 6}}
+CAMERA_VARIANTS = {
+    "thinlens": (THINLENS, "mitchell_netravali", (1000, 563), (64, 48)),
+    "bitmap": ({**THINLENS, "aperture": "aperture.pfm"}, "mitchell_netravali", (1000, 563),
+               (64, 48)),
+    "equirectangular": ({"type": "equirectangular"}, "lanczos", (1000, 500), (64, 48)),
+    "cubemap": ({"type": "cubemap"}, "catmull_rom", (1536, 256), (96, 16)),
+}
+AOV_VARIANTS = ("thinlens", "bitmap")  # the variants with output buffers
 ORB_SEGMENTS = {size: (24, 12) if size.startswith("small") else (96, 48)
                 for size in INTERIOR + tuple(SURFACES)}  # orb.obj
 LAMP_SEGMENTS = (8, 4)  # lamp.obj: 2 * 8 * 4 = 64 triangles
@@ -356,7 +388,32 @@ def _interior_dict(size: str) -> dict:
     }
 
 
-def scene_dict(size: str) -> dict:
+def _aperture_image(n: int = 32) -> np.ndarray:
+    """A bitmap aperture: a ring, dimmer inside, with a bright spot on it."""
+    c = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    x, y = np.meshgrid(c, c)
+    r = np.hypot(x, y)
+    img = np.where(r < 0.9, np.where(r > 0.6, 1.0, 0.25), 0.0)
+    img = img + 4.0 * (np.hypot(x - 0.45, y + 0.45) < 0.2)
+    return np.repeat(img[..., None], 3, -1).astype(np.float32)
+
+
+def _camera_variant(doc: dict, size: str, variant: str) -> dict:
+    """The camera scene's `variant` (CAMERA_VARIANTS) at `size`."""
+    fields, rfilter, big, small = CAMERA_VARIANTS[variant]
+    doc["primitives"][1]["name"] = "ball"  # the thinlens focus pivot
+    doc["camera"].update(copy.deepcopy(fields), reconstruction_filter=rfilter,
+                         resolution=list(small if size.startswith("small") else big))
+    ldr = ".png" if size.startswith("small") else "_ldr.pfm"
+    doc["renderer"].update(output_file=variant + ldr, hdr_output_file=variant + ".pfm")
+    if variant in AOV_VARIANTS:
+        doc["renderer"]["output_buffers"] = [
+            {"type": t, "output_file": f"{variant}_{t}{ldr}",
+             "hdr_output_file": f"{variant}_{t}.pfm"} for t in ("depth", "normal", "albedo")]
+    return doc
+
+
+def scene_dict(size: str, variant: str | None = None) -> dict:
     if size in INTERIOR:
         return _interior_dict(size)
     nu, nv, sw, sh, res, spp, max_b = SIZES[size]
@@ -403,13 +460,19 @@ def scene_dict(size: str) -> dict:
         doc["bsdfs"] = copy.deepcopy(SURFACE_BSDFS[kind])
         doc["primitives"][2:3] = copy.deepcopy(SURFACE_PRIMS[kind]) + [
             copy.deepcopy(SURFACE_LIGHT)]  # the cube's place, before the env light
+    if size in CAMERA:
+        doc = _camera_variant(doc, size, variant or "thinlens")
     return doc
 
 
-def write_scene(out_dir: str, size: str = "small") -> str:
-    """Write the scene of `size` into out_dir; returns the scene.json path."""
+def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -> str:
+    """Write the scene of `size` (a camera size's `variant`, thinlens by
+    default) into out_dir; returns the scene.json path."""
     if size not in SIZES:
         raise ValueError(f"unknown size {size!r}; one of {sorted(SIZES)}")
+    if variant is not None and (size not in CAMERA or variant not in CAMERA_VARIANTS):
+        raise ValueError(f"variant {variant!r}: only the camera sizes {CAMERA} have variants, "
+                         f"one of {sorted(CAMERA_VARIANTS)}")
     nu, nv, sw, sh = SIZES[size][:4]
     os.makedirs(out_dir, exist_ok=True)
     _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
@@ -421,11 +484,13 @@ def write_scene(out_dir: str, size: str = "small") -> str:
         save_hdr(os.path.join(out_dir, "sky.hdr"), _sky(sw, sh))
     elif not size.endswith("-box"):
         save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
+    if size in CAMERA and variant == "bitmap":
+        save_pfm(os.path.join(out_dir, "aperture.pfm"), _aperture_image())
     path = os.path.join(out_dir, "scene.json")
     with open(path, "w") as f:
-        json.dump(scene_dict(size), f, indent=1)
+        json.dump(scene_dict(size, variant), f, indent=1)
     return path
 
 
 if __name__ == "__main__":
-    print(write_scene(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else "small"))
+    print(write_scene(sys.argv[1], *sys.argv[2:4]))
