@@ -7,13 +7,14 @@ Phases (each raises on failure, and the script then exits non-zero without
 printing a result):
   1. device   - the card's name and power limit;
   2. build    - the host's BVH builder (native/, portable flags) is built
-                beside the kernels where it is absent; nvcc builds the eleven
+                beside the kernels where it is absent; nvcc builds the twelve
                 kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
                 bvh2_walk.cu, bvh2_walk_v1.cu, bvh_walk.cu, bvh_walk_v1.cu,
-                intersect_stream.cu, intersect_stream_v1.cu, gather_walk.cu)
+                intersect_stream.cu, intersect_stream_v1.cu, gather_walk.cu,
+                grid_walk.cu)
                 into build/, one nvcc per source, all at once, and prints
-                what ptxas said of the two BVH8 kernels, K4, K5, K2 and K1
+                what ptxas said of the two BVH8 kernels, K4, K5, K2, K1 and K6
                 (registers, shared memory, stack, spills) and their resident
                 blocks a multiprocessor (K4's kernel in each of its three
                 modes);
@@ -112,7 +113,7 @@ printing a result):
                 launch counts reset just before and read just after;
   5b. lockstep - the slice of the lockstep path tracer at full width:
                 materialtest-area (materialtest-synth plus an emissive quad
-                and an emissive mesh) at 1000x563, 8 spp (cut from the
+                and an emissive mesh) at 1000x563, 4 spp (cut from the
                 scene's 32 to make room for phase 8), 64 bounces through
                 render_flat(wavefront="lockstep"), the launch counts reset
                 just before and read just after: the fast kernel launches
@@ -152,7 +153,7 @@ printing a result):
                 build); interior-synth flattened, one regen pass (1 spp)
                 counting each BSDF type's hits (all seven new types hit),
                 then at 1000x563, 64 bounces through regen (32 spp) and
-                lockstep (16 spp) with the launch counts reset just before
+                lockstep (12 spp) with the launch counts reset just before
                 and read just after each: K3 and K3-fast launch in both (regen's
                 closest-hit walks also go through K3-fast), lockstep's
                 counts add up as in phase 5b, no other walk, twin or v1
@@ -167,9 +168,10 @@ printing a result):
                 tests/data/torch_port_{coat,cutout}_ref.json (numpy BVH
                 build); coat-synth and cutout-synth flattened; one profile
                 window each (torch.profiler, CUDA activity): one regen batch
-                of 1 pass of coat-synth and one lockstep pass of 8 bounces of
-                cutout-synth, each run once bare (coat's counting each BSDF
-                type's hits: every new type must be hit) and once profiled,
+                of 1 pass of coat-synth and one lockstep pass of cutout-synth,
+                both of PROFILE_BOUNCES = 8 bounces, each run once bare
+                (coat's counting each BSDF type's hits: every new type must
+                be hit) and once profiled,
                 printing the CUDA kernels per iteration, the device-busy share
                 and the five kernels of most device time; then coat-synth at
                 1000x563 through regen (32 spp) and lockstep (4 spp) and
@@ -215,7 +217,7 @@ printing a result):
                 of a unit vector, depth > 0 there); resume: 16 spp saved, then
                 resumed to 32, equals the CLI's straight 32-spp state bit for
                 bit (sums, counts, halves, Welford state, AOV sums and
-                counts); an adaptive render (16 warm-up passes, then 8
+                counts); an adaptive render (16 warm-up passes, then 4
                 adaptive lockstep passes): every count >= 16, the counts not
                 uniform, the whole budget spent, the image finite, K3-fast
                 launched; the equirectangular (1000x500) and cubemap
@@ -223,16 +225,53 @@ printing a result):
                 finite. Each render's launch counts reset just before and
                 read just after (K3 and K3-fast only); wall time and
                 Mpaths/s of each.
+  12. media   - participating media: small-media's four variants (fog:
+                a homogeneous camera medium with the davis transmittance and
+                a Henyey-Greenstein phase; cloud: a 16^3 voxel medium with an
+                emission grid in an index-matched box; haze: an exponential
+                camera medium and an absorption-only atmosphere in an
+                analytic sphere; forward: fog with forward lobes) in every
+                wavefront the JAX package runs them in, against
+                tests/data/torch_port_media_ref.json (numpy BVH build): K3
+                and K3-fast launched, K6 in the cloud's renders only, no
+                twin; media-synth written (the cloud a 192^3 blob as a zip
+                5-4-3 .vdb by synth's writer) and flattened, the grid read
+                back bit for bit; K6 (grid_walk.cu) against its twin in both
+                modes, bit for bit (or within rtol 1e-6 on >= 99.9% of the
+                finite lanes, INF lanes equal), on 65,536 random rays
+                through the cloud and on the largest launch of each mode of
+                a 1-spp regen pass of the cloud (the render's own lanes), its
+                ms (median of 5 single-launch windows), the twin's, the
+                rounds the twin counts and the bound; that pass's K6 device
+                time against its wall; then media-synth at 1000x563, 64
+                bounces: fog, cloud and haze through regen (32 spp), fog and
+                cloud through lockstep (MEDIA_LOCKSTEP_SPP), forward
+                through the crossing-walk branch (MEDIA_FORWARD_SPP), each
+                with its launches reset just before and read just after: K3
+                and K3-fast launched, K6 in the cloud's only, lockstep's
+                counts as in phase 5b, the forward branch's as in phase 9
+                with two crossing walks a bounce (the volume NEE's and the
+                surface NEE's); each image finite and non-negative; wall,
+                Mpaths/s, iterations and launches of each.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
-8; to make room for phase 9, phase 8's lockstep render from 32 to 16; phase
-9's lockstep renders run 4 spp (coat-synth's 32 kept by regen); to make
-room for phase 11, phase 10's lockstep render from 8 to 2.
+8; to make room for phase 9, phase 8's lockstep render from 32 to 16 (at 8
+its wavefront check failed, 5.94e-3 against the 5e-3 bar); phase 9's
+lockstep renders run 4 spp (coat-synth's 32 kept by regen); to make room
+for phase 11, phase 10's lockstep render from 8 to 2; to make room for
+phase 12, phase 5b's from 8 to 4, phase 8's from 16 to 12, phase 11's
+adaptive passes from 8 to 4 and phase 9's coat-synth profile window from 64
+bounces to 8.
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
 renders beside as launches_interior, phase 9's three as
-launches_surfaces, phase 10's two as launches_lights and phase 11's as
-launches_camera; phase 7's route
+launches_surfaces, phase 10's two as launches_lights, phase 11's as
+launches_camera and phase 12's as launches_media; phase 12's cloud regen
+render for K6, whose ms, plain ms and bound are on the largest tau launch
+of the cloud's 1-spp regen pass, the other K6 checks beside; K6 is an XLA
+lax.while_loop on the TPU, no pl.pallas_call, which its row's tpu_form
+says, and its bound counts the twin's rounds at 2 Gauss nodes x 8 corners
+x 4 bytes and 210 f32 operations a round; phase 7's route
 renders for K1, K5-v2 and K2, the benchmark for K4, K5-v1 and the first forms),
 the largest |t| difference against its twin (the 2N batch for K3, K3-fast,
 K4 in its three modes, K5, K2 and the first forms),
@@ -357,15 +396,18 @@ FAST_BAR = 0.9999  # fast query vs exact query, prim
 # lockstep vs regen, full width: two estimators of one integral, 18M paths each
 WAVEFRONT_RTOL = 5e-3
 # phase 5b's lockstep render, cut from the scene's 32 spp to make room for
-# phase 8 (its regen render keeps 32)
-AREA_LOCKSTEP_SPP = 8
+# phase 8 (its regen render keeps 32), and from 8 to 4 for phase 12 (the
+# two wavefronts' means stood 6.19e-4 apart at 8 spp on an H100, against a
+# bar of 5e-3)
+AREA_LOCKSTEP_SPP = 4
 # the interior cell's BSDF types that phase 8 must see hit, JAX type ids
 INTERIOR_TYPES = {1: "null", 2: "mirror", 7: "dielectric", 8: "rough_dielectric",
                   9: "conductor", 10: "plastic", 11: "rough_plastic"}
 # phase 8's lockstep render, cut from the scene's 32 spp to make room for
 # phase 9 (its regen render keeps 32; on an H100 the two wavefronts' means
-# stood 2.04e-3 apart at 16 spp, 2.2e-3 at 32: the bar is 5e-3)
-INTERIOR_LOCKSTEP_SPP = 16
+# stood 2.04e-3 apart at 16 spp, 2.2e-3 at 32, 5.94e-3 at 8: the bar is
+# 5e-3), and from 16 to 12 to make room for phase 12
+INTERIOR_LOCKSTEP_SPP = 12
 # the surface scenes' BSDF types that phase 9 must see hit, JAX type ids
 SURFACE_TYPES = {"coat-synth": {4: "smooth_coat", 5: "oren_nayar", 6: "phong", 15: "mixed",
                                 16: "diffuse_transmission", 17: "rough_coat"},
@@ -377,8 +419,14 @@ SURFACE_TYPES = {"coat-synth": {4: "smooth_coat", 5: "oren_nayar", 6: "phong", 1
 # (not 2 for cutout-synth: a thin sheet's interference reflectance 1 - T
 # can round a few ulps below 0, as in the JAX package, and at 2 spp a pixel
 # of its image was negative)
+# (nor 2 for coat-synth: on an H100 its two wavefronts' means stood
+# 2.33e-3 apart at 4 spp, 3.81e-2 at 2, against a bar of 5e-3)
 SURFACE_LOCKSTEP_SPP = 4
-PROFILE_BOUNCES = 8  # the profile window over cutout-synth's lockstep
+# the depth of phase 9's profile windows: a regen pass of coat-synth and a
+# lockstep pass of cutout-synth (coat's at its 64 bounces took ~60 s of the
+# script, ~27 s of them the profiler's own teardown of ~800,000 kernel
+# events; cut to make room for phase 12)
+PROFILE_BOUNCES = 8
 # phase 10's lockstep render of lights-synth (its regen render keeps the
 # scene's 32 spp), cut from 8 to 2 to make room for phase 11: the script
 # took 593 s with phase 11 and 4 spp here on an H100 machine whose host
@@ -388,7 +436,7 @@ PROFILE_BOUNCES = 8  # the profile window over cutout-synth's lockstep
 LIGHTS_LOCKSTEP_SPP = 2
 # phase 11: the camera-synth renders' spp (the CLI's takes the scene's 32)
 CAMERA_RESUME_SPP = 16  # saved, then resumed to the scene's 32
-CAMERA_WARMUP_SPP, CAMERA_ADAPTIVE_PASSES = 16, 8
+CAMERA_WARMUP_SPP, CAMERA_ADAPTIVE_PASSES = 16, 4  # passes cut from 8 for phase 12
 CAMERA_OTHER_SPP = 16  # equirectangular and cubemap
 # H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
 # FLOP/s on them, HBM3 B/s
@@ -424,9 +472,10 @@ def t_close(a, b, atol, atol_all=0.0):
 
 def counted():
     """Every kernel wrapper and twin that keeps a launch count."""
-    from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, gather_bvh, intersect_stream
+    from tungsten_tpu_torch.ops import bvh, bvh2, bvh8, gather_bvh, grid_walk, intersect_stream
 
-    return (bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
+    return (grid_walk.walk_cuda, grid_walk.walk_twin,
+            bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
             bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda, bvh2.walk3_twin,
             bvh2.walk3_cuda_v1,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, bvh.walk_packet_cuda_v1,
@@ -631,18 +680,20 @@ def check_lockstep_launches(label, n_fast, n_exact, passes, max_bounces):
     return bounces
 
 
-def check_forward_launches(label, n_fast, n_exact, calls, passes, max_bounces):
+def check_forward_launches(label, n_fast, n_exact, calls, passes, max_bounces,
+                           walks_per_bounce=1):
     """A lockstep render through the forward-lobe branch: per bounce one
     path walk, and where NEE runs one 2N crossing walk of 1 to MAX_CROSSINGS
-    closest-hit steps; every closest-hit walk is a fast launch with its
-    repair launch, and no shadow walk runs. `calls` holds the bounces
+    closest-hit steps (with media two: the volume NEE's and the surface
+    NEE's, walks_per_bounce); every closest-hit walk is a fast launch with
+    its repair launch, and no shadow walk runs. `calls` holds the bounces
     (shading) and crossing walks counted by `tracer_calls`."""
     from tungsten_tpu_torch.integrators.path_tracer import MAX_CROSSINGS
 
     bounces, walks = calls["shading"], calls["crossing"]
     steps = n_fast - bounces
     check(n_exact == n_fast and passes <= bounces <= passes * max_bounces
-          and walks <= bounces and walks <= steps <= walks * MAX_CROSSINGS,
+          and walks <= walks_per_bounce * bounces and walks <= steps <= walks * MAX_CROSSINGS,
           f"{label}: {passes} passes ran {bounces} bounces ({bounces / passes:.1f} a pass) and "
           f"{walks} crossing walks of {steps} steps ({steps / max(walks, 1):.2f} a walk): "
           f"{n_fast} = bounces + steps fast launches, {n_exact} repair launches")
@@ -1154,8 +1205,8 @@ def surfaces_phase(work, dev, card):
             f"{m.has_forward}, gpack3 {sc.materials.gpack3 is not None}; "
             f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
     coat, cutout = scenes["coat-synth"], scenes["cutout-synth"]
-    short = dataclasses.replace(cutout, meta=dataclasses.replace(cutout.meta,
-                                                                 max_bounces=PROFILE_BOUNCES))
+    coat_short, short = (dataclasses.replace(sc, meta=dataclasses.replace(
+        sc.meta, max_bounces=PROFILE_BOUNCES)) for sc in (coat, cutout))
     hits = {}
 
     def check_hits(label, size, h):
@@ -1166,17 +1217,19 @@ def surfaces_phase(work, dev, card):
 
     def coat_pass():  # one regen pass, 1 spp; its first (bare) run counts the hits
         with count_bsdf_hits(dev) as h:
-            render_flat(coat, spp=1, seed=DEFAULT_SEED, wavefront="regen")
+            render_flat(coat_short, spp=1, seed=DEFAULT_SEED, wavefront="regen")
         hits.setdefault("coat", h)
 
     profiles = {
-        "coat-synth regen batch (1 pass)": profile_window(
-            "coat-synth, one regen batch of 1 pass", coat_pass, card),
+        f"coat-synth regen batch (1 pass, {PROFILE_BOUNCES} bounces)": profile_window(
+            f"coat-synth, one regen batch of 1 pass of {PROFILE_BOUNCES} bounces", coat_pass,
+            card),
         f"cutout-synth lockstep ({PROFILE_BOUNCES} bounces)": profile_window(
             f"cutout-synth, one lockstep pass of {PROFILE_BOUNCES} bounces",
             lambda: render_flat(short, spp=1, seed=DEFAULT_SEED, wavefront="lockstep"), card),
     }
-    check_hits("one regen pass of coat-synth (1 spp)", "coat-synth", hits["coat"])
+    check_hits(f"one regen pass of coat-synth (1 spp, {PROFILE_BOUNCES} bounces)", "coat-synth",
+               hits["coat"])
 
     means, launches = {}, {}
     for size, wavefront in (("coat-synth", "regen"), ("coat-synth", "lockstep"),
@@ -1214,6 +1267,257 @@ def surfaces_phase(work, dev, card):
     return launches, profiles
 
 
+# phase 12: the media-synth renders' spp (regen keeps the scene's 32)
+MEDIA_LOCKSTEP_SPP = 1  # fog and cloud through lockstep
+MEDIA_FORWARD_SPP = 1  # forward through the crossing-walk branch
+MEDIA_RENDERS = (("fog", "regen"), ("cloud", "regen"), ("haze", "regen"), ("fog", "lockstep"),
+                 ("cloud", "lockstep"), ("forward", "lockstep"))
+K6_RAYS = 65536
+# K6's f32 operations, counted from csrc/grid_walk.cu's body on the linear
+# (trilinear) path, an add, sub, mul, divide, floor / ceil, min, max or
+# comparison counting one: a lane's set-up (per axis |dq|, its test, the
+# reciprocal) 9; a round's boundary step (per axis the point 3, the sign
+# test 1, floor / ceil and its step 2, the axis's t 3; two mins, the
+# minimum progress 2, the clip 1, the live and done tests 2) 34, its
+# segment_tau 106 (the width 1; per Gauss node its t 2, the point 6, the
+# trilinear sample 43: the cell offset 3, floor 3, fractions 3, their
+# complements 3, eight corners' weight, product and sum 31; then the sum,
+# the half width and the product 3) and the fold 1; an inverse round's
+# crossing test 1 more; a bisection round the midpoint 2, segment_tau 106,
+# the sum and its test 2, and each found lane's last midpoint 2
+K6_OPS_LANE, K6_OPS_ROUND, K6_OPS_BISECT, K6_OPS_FOUND = 9, 141, 110, 2
+
+
+def k6_bound(work, n, walking, inverse, grid_bytes, masked):
+    """(bound_ms, bound_by, bytes, ops) of one K6 launch over n lanes, of
+    which `walking` walk, whose twin counted `work`. Bytes: what the launch
+    must move at least, the grid once (its cells are read from L2 after
+    their first touch), the walking lanes' rays, spans (and targets) once,
+    the mask (when given) and the output of every lane; over the memory
+    rate. Operations: K6_OPS_* on the twin's lane-rounds, over the f32
+    rate."""
+    from tungsten_tpu_torch.ops.grid_walk import BISECT_ROUNDS
+
+    n_bytes = (grid_bytes + walking * 4 * (3 + 3 + 1 + 1 + (1 if inverse else 0))
+               + n * (4 + (1 if masked else 0)))
+    found = work["bisect"] // BISECT_ROUNDS
+    ops = (walking * K6_OPS_LANE + work["rounds"] * (K6_OPS_ROUND + (1 if inverse else 0))
+           + work["bisect"] * K6_OPS_BISECT + found * K6_OPS_FOUND)
+    return (*bound(n_bytes, ops), n_bytes, ops)
+
+
+def k6_check(label, density, linear, args, card):
+    """K6 against its twin on one launch's inputs (oq, dq, ta, tb, mode,
+    target, mask): bit for bit, or within rtol 1e-6 on >= 99.9% of the
+    finite lanes with the INF lanes equal; the kernel's ms (median of 5
+    single-launch windows), the twin's ms (one run, host clock around it and
+    a synchronise), the twin's rounds and the bound. Returns a dict."""
+    from tungsten_tpu_torch.ops import grid_walk
+
+    oq, dq, ta, tb, mode, target, mask = args
+    out = grid_walk.walk_cuda(density, linear, oq, dq, ta, tb, mode, target, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = grid_walk.walk_twin(density, linear, oq, dq, ta, tb, mode, target, mask)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    work = dict(grid_walk.walk_twin.work)
+    fin = (out < 1e30) & (twin < 1e30)
+    err = float((out[fin] - twin[fin]).abs().max()) if bool(fin.any()) else 0.0
+    bits = bool(torch.equal(out, twin))
+    close = (torch.isclose(out[fin], twin[fin], rtol=1e-6, atol=0.0).float().mean().item()
+             if bool(fin.any()) else 1.0)
+    walking = int(mask.sum()) if mask is not None else oq.shape[0]
+    check(bits or (bool(torch.equal(out >= 1e30, twin >= 1e30)) and close >= BAR),
+          f"K6 {label} ({mode}, {oq.shape[0]} lanes, {walking} walking, {work['rounds']} "
+          f"rounds, {work['bisect']} bisection rounds): kernel == twin bit for bit: {bits}; "
+          f"within rtol 1e-6 on {close:.6f}, INF lanes equal, max |diff| {err:.3e}")
+    ms = median_ms(lambda: grid_walk.walk_cuda(density, linear, oq, dq, ta, tb, mode, target,
+                                               mask))
+    b_ms, b_by, n_bytes, ops = k6_bound(work, oq.shape[0], walking, mode == "inverse",
+                                        nbytes(density), mask is not None)
+    log(f"  K6 {label} {mode} on {card}: kernel {ms:.4f} ms, twin {twin_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes} bytes, {ops} f32 operations)")
+    return dict(ms=ms, plain_ms=twin_ms, err=err, work=work, bound_ms=b_ms, bound_by=b_by,
+                bytes=n_bytes, ops=ops, n=oq.shape[0], walking=walking, mode=mode)
+
+
+@contextlib.contextmanager
+def k6_recorder():
+    """While open, every K6 walk (grid_walk.walk, which launches the kernel
+    on CUDA rays and counts the launch there) is timed with CUDA events,
+    and the inputs of the walk with the most walking lanes of each mode are
+    kept: yields {"events": [(start, end)], "largest": {mode: (walking,
+    args)}}."""
+    from tungsten_tpu_torch.ops import grid_walk
+
+    saved = grid_walk.walk
+    rec = {"events": [], "largest": {}}
+
+    def recording(density, linear, oq, dq, ta, tb, mode="tau", tau_target=None, mask=None):
+        walking = int(mask.sum()) if mask is not None else oq.shape[0]
+        if walking > rec["largest"].get(mode, (0,))[0]:
+            keep = [None if x is None else x.clone() for x in (oq, dq, ta, tb, tau_target, mask)]
+            rec["largest"][mode] = (walking, (*keep[:4], mode, *keep[4:]))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = saved(density, linear, oq, dq, ta, tb, mode, tau_target, mask)
+        end.record()
+        rec["events"].append((start, end))
+        return out
+
+    grid_walk.walk = recording
+    try:
+        yield rec
+    finally:
+        grid_walk.walk = saved
+
+
+def media_phase(work, dev, card):
+    """Phase 12: participating media. small-media's four variants in the
+    wavefronts the JAX package runs them in against
+    tests/data/torch_port_media_ref.json (numpy BVH build); media-synth
+    written (the cloud a 192^3 zip-compressed .vdb) and flattened, the cloud
+    read back bit for bit; K6 against its twin on 65,536 random rays through
+    the cloud and on the largest launch of each mode of a 1-spp regen pass
+    of the cloud (which also gives K6's share of that pass's wall); then
+    media-synth at 1000x563: fog, cloud and haze through regen (32 spp),
+    fog and cloud through lockstep (MEDIA_LOCKSTEP_SPP), forward through the
+    crossing-walk branch (MEDIA_FORWARD_SPP), each counting its launches.
+    Returns (K6's kernels-line fields, {render: counts()})."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.models.grids import grid as tg
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    def walks_only(label, c, cloud):
+        k6 = c["grid_walk.walk_cuda"]
+        others = {k: v for k, v in c.items() if v and k not in (
+            "bvh8.walk_cuda", "bvh8.walk_fast_cuda", "grid_walk.walk_cuda")}
+        check(c["bvh8.walk_cuda"] > 0 and c["bvh8.walk_fast_cuda"] > 0 and (k6 > 0) == cloud
+              and not others, f"{label}: K3 launched {c['bvh8.walk_cuda']} times, K3-fast "
+              f"{c['bvh8.walk_fast_cuda']}, K6 {k6}; every other walk, twin and v1 kernel none "
+              f"{others}")
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_media_ref.json")) as f:
+        ref = json.load(f)
+    with numpy_bvh_build():
+        for variant, by_wavefront in ref["channel_means"].items():
+            path = synth.write_scene(os.path.join(work, f"small-media-{variant}"), "small-media",
+                                     variant)
+            sc = flatten_scene(load_scene(path), dev)
+            for wavefront, want in by_wavefront.items():
+                name = f"small-media {variant} ({wavefront})"
+                reset_counts()
+                img = render_flat(sc, seed=ref["seed"], wavefront=wavefront)
+                walks_only(name, counts(), variant == "cloud")
+                check(np.isfinite(img).all() and (img >= 0).all(),
+                      f"{name}: image finite and non-negative")
+                means = img.reshape(-1, 3).astype(np.float64).mean(0)
+                rel = np.abs(means - want) / np.abs(want)
+                check((rel <= MEAN_RTOL).all(), f"{name}: channel means "
+                      f"{means.round(6).tolist()} vs JAX {np.round(want, 6).tolist()} "
+                      f"(rel {rel.max():.2e} <= {MEAN_RTOL})")
+
+    t0 = time.time()
+    paths = {v: synth.write_scene(os.path.join(work, f"media-synth-{v}"), "media-synth", v)
+             for v in synth.MEDIA_VARIANTS}
+    vdb = os.path.join(os.path.dirname(paths["cloud"]), "cloud.vdb")
+    log(f"[12 media] media-synth written in {time.time() - t0:.1f} s (cloud.vdb "
+        f"{os.path.getsize(vdb) / 2**20:.1f} MiB, zip)")
+    scenes = {}
+    for v, path in paths.items():
+        t0 = time.time()
+        scenes[v] = sc = flatten_scene(load_scene(path), dev)
+        m = sc.meta
+        log(f"[12 media] media-synth {v} flattened in {time.time() - t0:.1f} s: "
+            f"{sc.tris.v0.shape[0]} triangles, {sc.media.n_media} media (kinds "
+            f"{sc.media.hetero_kind.tolist()}, transmittances {sc.media.trans_present}), camera "
+            f"medium {m.camera_medium}, forward lobes {m.has_forward}; {m.res_x}x{m.res_y}, "
+            f"{m.spp} spp, max_bounces {m.max_bounces}")
+    g = scenes["cloud"].media.vox_grids[0]
+    res = synth.CLOUD_RES["media-synth"]
+    want = torch.from_numpy(synth.cloud_density(res))
+    check(g.dims == (res,) * 3 and g.exact and g.linear and torch.equal(g.density.cpu(), want),
+          f"cloud: the {res}^3 grid read back from cloud.vdb bit for bit, exact_linear, "
+          f"{g.density.numel() * 4 / 2**20:.1f} MiB on the card")
+
+    # K6 on random rays through the cloud's box, both modes
+    gen = np.random.default_rng(12)
+    box = synth.CLOUD_BOX
+    lo = np.array(box["position"]) - np.array([0.5, 0.0, 0.5]) * box["scale"]
+    hi = lo + box["scale"]
+    o = torch.tensor(gen.uniform(lo - 0.5, hi + 0.5, (K6_RAYS, 3)), dtype=torch.float32,
+                     device=dev)
+    aim = torch.tensor(gen.uniform(lo + 0.2, hi - 0.2, (K6_RAYS, 3)), dtype=torch.float32,
+                       device=dev)
+    d = (aim - o) / (aim - o).norm(dim=1, keepdim=True)
+    zero = torch.zeros(K6_RAYS, device=dev)
+    oq, dq, ta, tb = tg._walk_inputs(g, o, d, zero, torch.full((K6_RAYS,), 4.0, device=dev))
+    k6 = {"random_tau": k6_check("random rays", g.density, True,
+                                 (oq, dq, ta, tb, "tau", None, None), card)}
+    tau = tg.grid_optical_depth(g, o, d, zero, torch.full((K6_RAYS,), 4.0, device=dev))
+    target = (tau * torch.tensor(gen.uniform(0.1, 1.3, K6_RAYS), dtype=torch.float32,
+                                 device=dev)).contiguous()
+    k6["random_inverse"] = k6_check("random rays", g.density, True,
+                                    (oq, dq, ta, tb, "inverse", target, None), card)
+
+    # the cloud render's own lanes: one regen pass, every K6 launch timed
+    cloud = scenes["cloud"]
+    m = cloud.meta
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with k6_recorder() as rec:
+        render_flat(cloud, spp=1, seed=DEFAULT_SEED, wavefront="regen")
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    k6_ms = sum(a.elapsed_time(b) for a, b in rec["events"])
+    log(f"[12 media] cloud, one regen pass (1 spp) on {card}: {len(rec['events'])} K6 launches, "
+        f"{k6_ms:.1f} ms of device time in a wall of {wall * 1e3:.1f} ms "
+        f"({k6_ms / wall / 10:.2f}%)")
+    k6["pass"] = dict(launches=len(rec["events"]), k6_ms=k6_ms, wall_ms=wall * 1e3)
+    for mode, (walking, args) in sorted(rec["largest"].items()):
+        k6[f"render_{mode}"] = k6_check(f"cloud render lanes ({walking} of {args[0].shape[0]})",
+                                        g.density, True, args, card)
+
+    launches, means = {}, {}
+    for variant, wavefront in MEDIA_RENDERS:
+        sc = scenes[variant]
+        m = sc.meta
+        spp = (m.spp if wavefront == "regen" else
+               MEDIA_FORWARD_SPP if m.has_forward else MEDIA_LOCKSTEP_SPP)
+        label = f"media-synth {variant} {wavefront}"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with tracer_calls() as calls:
+            img = render_flat(sc, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        dt = time.time() - t0
+        c = launches[label] = counts()
+        walks_only(label, c, variant == "cloud")
+        if m.has_forward:
+            check_forward_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], calls,
+                                   spp, m.max_bounces, walks_per_bounce=2)
+        elif wavefront == "lockstep":
+            check_lockstep_launches(label, c["bvh8.walk_fast_cuda"], c["bvh8.walk_cuda"], spp,
+                                    m.max_bounces)
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"{label}: {img.shape} image finite and non-negative")
+        means[label] = img.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[12 media] {label}: {m.res_x}x{m.res_y} {spp} spp in {dt:.2f} s: "
+            f"{m.res_x * m.res_y * spp / dt / 1e6:.4f} Mpaths/s on {card}; "
+            f"{calls['shading']} iterations ({'bounces' if wavefront == 'lockstep' else 'regen'}), "
+            f"K6 {c['grid_walk.walk_cuda']} launches, K3 {c['bvh8.walk_cuda']}, K3-fast "
+            f"{c['bvh8.walk_fast_cuda']}; channel means {means[label].round(6).tolist()}")
+    for variant in ("fog", "cloud"):
+        a, b = means[f"media-synth {variant} lockstep"], means[f"media-synth {variant} regen"]
+        log(f"[12 media] media-synth {variant}: lockstep's channel means vs regen's, rel "
+            f"{(np.abs(a - b) / np.abs(b)).max():.3e} ({MEDIA_LOCKSTEP_SPP} against {m.spp} spp)")
+    k6["launches"] = launches["media-synth cloud regen"]["grid_walk.walk_cuda"]
+    return k6, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
@@ -1234,7 +1538,7 @@ def main():
     t0 = time.time()
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
                "bvh2_walk_v1", "bvh_walk", "bvh_walk_v1", "intersect_stream",
-               "intersect_stream_v1", "gather_walk")
+               "intersect_stream_v1", "gather_walk", "grid_walk")
     native = build_native_bvh()
     _build.build(*sources)
     for name in sources:
@@ -1242,7 +1546,8 @@ def main():
     log(f"[2 build] {', '.join(sources)} built in {time.time() - t0:.2f} s (nvcc, sm_90a, "
         f"in parallel)")
     native()
-    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream", "gather_walk"):
+    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream", "gather_walk",
+                 "grid_walk"):
         occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
         occ.restype = ctypes.c_int
         log(f"[2 build] {name}: {occ()} resident blocks of 128 threads a multiprocessor; "
@@ -1781,6 +2086,7 @@ def main():
     surface_launches, _ = surfaces_phase(work, dev, card)
     light_launches = lights_phase(work, dev, card)
     camera_launches = camera_phase(work, dev, card)
+    k6, media_launches = media_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -1803,6 +2109,7 @@ def main():
         row["launches_surfaces"] = {w: c[key] for w, c in surface_launches.items()}
         row["launches_lights"] = {w: c[key] for w, c in light_launches.items()}
         row["launches_camera"] = {w: c[key] for w, c in camera_launches.items()}
+        row["launches_media"] = {w: c[key] for w, c in media_launches.items()}
     # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
     # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
     k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",
@@ -1811,6 +2118,24 @@ def main():
     k1_row["tpu_form"] = "XLA gathers (`_phase`), not pl.pallas_call"
     k1_row["exact_k3_ms"], k1_row["twin_rounds"] = k1["k3_ms"], k1["work"]
     entries.append(k1_row)
+    # K6: XLA lax.while_loop on the TPU, no pl.pallas_call; its launches from
+    # the media-synth cloud regen render, its times and bound on the largest
+    # tau launch of the cloud's 1-spp regen pass (the render's own lanes),
+    # the other launches beside
+    r = k6["render_tau"]
+    k6_row = entry("grid_walk", "tungsten_tpu_torch/csrc/grid_walk.cu",
+                   "tungsten_tpu/models/grids/grid.py:156", k6["launches"],
+                   max(v["err"] for k, v in k6.items() if isinstance(v, dict) and "err" in v),
+                   r["ms"], r["plain_ms"], r["bytes"], r["ops"])
+    k6_row["tpu_form"] = "XLA lax.while_loop (`_dda_cells` + folds), not pl.pallas_call"
+    k6_row["lanes"], k6_row["walking"], k6_row["twin_rounds"] = r["n"], r["walking"], r["work"]
+    for key in ("render_inverse", "random_tau", "random_inverse"):
+        if key in k6:
+            k6_row[key] = {f: k6[key][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "n",
+                                                   "walking", "work")}
+    k6_row["launches_media"] = {w: c["grid_walk.walk_cuda"] for w, c in media_launches.items()}
+    k6_row["one_pass"] = k6["pass"]
+    entries.append(k6_row)
     for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b
     n_bench = res["n"]

@@ -183,3 +183,27 @@ def _hash(path):
     from tungsten_tpu_torch.scene.load import load_scene
 
     return scene_hash(load_scene(path))
+
+
+def test_media_scene_renders_as_render_flat(tmp_path, numpy_bvh):
+    """The CLI renders a scene with media (small-media's fog: a homogeneous
+    camera medium with the davis transmittance): its HDR output equals
+    render_flat's image of the same scene and seed."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.renderer.render import render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    path = synth.write_scene(str(tmp_path / "fog"), "small-media", "fog")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["renderer"].update(output_file="fog.png", hdr_output_file="fog.pfm")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    port_cli([path, "--cpu"] + QUIET)
+    hdr = load_image(os.path.join(os.path.dirname(path), "fog.pfm"))
+    img = render_flat(flatten_scene(load_scene(path), torch.device("cpu")), seed=7)
+    assert hdr.shape == img.shape == (48, 64, 3)
+    check_image(hdr, img, "CLI media scene")
+    assert (img.reshape(-1, 3).mean(0) > 0.01).all()

@@ -8,8 +8,10 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
 
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
 K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1), K2
-(intersect_stream.cu) and K1 (gather_walk.cu: closest, any, mixed; bit for
-bit with its twin, and by the bars against brute force), and the first CUDA forms of K3, K3-fast, K4, K5 and
+(intersect_stream.cu), K1 (gather_walk.cu: closest, any, mixed; bit for
+bit with its twin, and by the bars against brute force) and K6
+(grid_walk.cu: the exact voxel DDA's optical depth and its inverse, on
+trilinear and nearest grids, bit for bit with its twin), and the first CUDA forms of K3, K3-fast, K4, K5 and
 K2, kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
 bvh2_walk_v1.cu, bvh_walk_v1.cu, intersect_stream_v1.cu).
 Bars: local slot (prim) agrees on >= 99.9%
@@ -473,3 +475,56 @@ def test_k1_queries_against_brute_force(cuda):
     both = same & (hb.prim >= 0)
     torch.testing.assert_close(hk.t[both], hb.t[both], rtol=1e-5, atol=1e-6)
     assert (occ == (hb.prim >= 0)).float().mean().item() >= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tau", "inverse"])
+@pytest.mark.parametrize("linear", [True, False])
+def test_k6_grid_walk_bit_equal_to_twin(cuda, mode, linear):
+    """K6 (grid_walk.cu) rounds every operation as its twin does: the
+    optical depth and the inverse's t equal bit for bit, INF lanes equal,
+    masked-out lanes 0 (tau) or INF; the launch counts move by one each; a
+    CUDA tensor goes to the kernel through grid_optical_depth, and a CPU
+    density with CUDA rays raises."""
+    from tungsten_tpu_torch.models.grids import grid as tg
+    from tungsten_tpu_torch.ops import grid_walk
+
+    rng = np.random.default_rng(13)
+    n = 8192
+    dens = rng.uniform(0.0, 2.0, (24, 20, 28)).astype(np.float32)
+    g = tg.DenseGrid.from_arrays(
+        {"density": dens, "emission": np.zeros((1, 1, 1, 3), np.float32),
+         "w2g": np.array([[20.0, 0, 0, 14.0], [0, 20.0, 0, 10.0], [0, 0, 20.0, 12.0]],
+                         np.float32), "g2w_scale": np.float32(0.05)},
+        {"dims": (28, 20, 24), "steps": 96, "linear": linear, "has_emission": False,
+         "exact": True}, cuda)
+    o = torch.tensor(rng.uniform(-1.2, 1.2, (n, 3)), dtype=torch.float32, device=cuda)
+    aim = torch.tensor(rng.uniform(-0.4, 0.4, (n, 3)), dtype=torch.float32, device=cuda)
+    d = aim - o  # most rays cross the grid, some from inside it
+    d[::97, 1] = 0.0  # lanes parallel to a grid plane
+    d = d / d.norm(dim=1, keepdim=True)
+    t0 = torch.zeros(n, device=cuda)
+    t1 = torch.tensor(rng.uniform(0.5, 3.0, n), dtype=torch.float32, device=cuda)
+    oq, dq, ta, tb = tg._walk_inputs(g, o, d, t0, t1)
+    mask = torch.arange(n, device=cuda) % 5 != 0
+    target = None
+    if mode == "inverse":
+        full = grid_walk.walk_twin(g.density, linear, oq, dq, ta, tb)
+        target = (full * torch.tensor(rng.uniform(0.1, 1.3, n), dtype=torch.float32,
+                                      device=cuda)).contiguous()
+    k0, w0 = grid_walk.walk_cuda.launches, grid_walk.walk_twin.launches
+    out = grid_walk.walk_cuda(g.density, linear, oq, dq, ta, tb, mode, target, mask)
+    torch.cuda.synchronize()
+    twin = grid_walk.walk_twin(g.density, linear, oq, dq, ta, tb, mode, target, mask)
+    assert grid_walk.walk_cuda.launches == k0 + 1 and grid_walk.walk_twin.launches == w0 + 1
+    assert torch.equal(out, twin), f"{(out != twin).sum().item()} lanes differ"
+    assert grid_walk.walk_twin.work["rounds"] > n
+    if mode == "tau":
+        assert (out[~mask] == 0).all() and (out[mask] > 0).float().mean() > 0.3
+    else:
+        assert (out[~mask] >= 1e30).all() and 0 < (out[mask] >= 1e30).sum() < mask.sum()
+    k1 = grid_walk.walk_cuda.launches
+    tg.grid_optical_depth(g, o, d, t0, t1)
+    assert grid_walk.walk_cuda.launches == k1 + 1
+    with pytest.raises(ValueError):
+        grid_walk.walk_cuda(g.density.cpu(), linear, oq, dq, ta, tb)

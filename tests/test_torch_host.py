@@ -30,6 +30,18 @@ def numpy_bvh(monkeypatch, tmp_path):
     monkeypatch.setattr(jbvh, "_CACHE_DIR", str(tmp_path / "bvh_cache"))
 
 
+def media_arrays(table):
+    """A medium table's fields as MediumTable.from_arrays takes them, read
+    by name from the JAX package's pytree (or any object with its fields)."""
+    from tungsten_tpu_torch.models.grids.grid import DenseGrid
+    from tungsten_tpu_torch.models.media.media import ARRAY_FIELDS, STATIC_FIELDS
+
+    grids = [({k: np.asarray(getattr(g, k)) for k in DenseGrid.FIELDS},
+              {k: getattr(g, k) for k in DenseGrid.STATICS}) for g in table.vox_grids]
+    return {"arrays": {k: np.asarray(getattr(table, k)) for k, _ in ARRAY_FIELDS},
+            "statics": {k: getattr(table, k) for k in STATIC_FIELDS}, "grids": grids}
+
+
 def jax_arrays(js):
     """The JAX FlatScene's arrays under the port's ARRAY_KEYS, None where a
     pack on the way is None (a pack the JAX flatten left out), and its env
@@ -43,6 +55,7 @@ def jax_arrays(js):
 
     out = {k: get(js, k) for k in ARRAY_KEYS}
     out["envs"] = [{k: get(e, k) for k in ENV_KEYS} for e in js.envs]
+    out["media"] = media_arrays(js.media)
     return out
 
 
@@ -284,7 +297,7 @@ def _edit_small(doc, what):
 NOW_PORTED = {"area light": 2, "no env": 0, "dielectric": 1, "textured roughness": 1,
               "hdr sky": 1, "analytic sphere": 2, "emissive cylinder": 2, "point light": 2,
               "emissive disk": 2, "cap light": 2, "two envs": 2, "unsampled env": 0,
-              "thinlens": 1, "aov": 1}
+              "thinlens": 1, "aov": 1, "media": 1}
 SURFACE_LIGHTS = ("area light", "analytic sphere", "emissive cylinder", "emissive disk")
 
 
@@ -299,7 +312,8 @@ def test_missing_features_raise(tmp_path, what):
     emissive cube beside the sky; a scene without an env light; a
     dielectric; a textured roughness; an .hdr env map; emissive analytic
     prims, point and cap lights, two envs, an unsampled env; a thinlens
-    camera; an AOV buffer) flatten, with the light rows they should have."""
+    camera; an AOV buffer; a medium) flatten, with the light rows they
+    should have."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene

@@ -229,8 +229,8 @@ def test_reference_means_files_match(cases, size):
 def test_wavefront_argument():
     """auto is regen (the port has no device mesh) unless a material has a
     forward lobe, and then lockstep (render.py:149); an unknown name
-    raises; trace_pass refuses what the lockstep port lacks, media, naming
-    them."""
+    raises; trace_pass dispatches a scene with media as any other: the
+    fast branch without forward lobes, the crossing-walk branch with them."""
     from tungsten_tpu_torch.integrators import path_tracer as pt
     from tungsten_tpu_torch.renderer import render
 
@@ -260,7 +260,15 @@ def test_wavefront_argument():
     assert calls == ["regen", "regen", "lockstep", "lockstep"]
     with pytest.raises(ValueError):
         render.render_flat(Scene(), wavefront="tiles")
-    bad = Scene()
-    bad.meta = type("M", (Meta,), {"has_media": True})()
-    with pytest.raises(NotImplementedError, match="media"):
-        pt.trace_pass(bad, (0, 0), None, None, None)
+    foggy = Scene()
+    foggy.meta = type("M", (Meta,), {"has_media": True})()
+    foggy_fwd = Scene()
+    foggy_fwd.meta = type("M", (Meta,), {"has_media": True, "has_forward": True})()
+    branches = []
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pt, "_trace_pass_fast", lambda *a: branches.append("fast"))
+    mp.setattr(pt, "_trace_pass_forward", lambda *a: branches.append("forward"))
+    pt.trace_pass(foggy, (0, 0), None, None, None)
+    pt.trace_pass(foggy_fwd, (0, 0), None, None, None)
+    mp.undo()
+    assert branches == ["fast", "forward"]

@@ -45,11 +45,15 @@ lights (the `cap` table) and point lights (the `point` table), every
 camera of the JAX package (pinhole, thinlens with a disk, blade, bitmap or
 constant aperture, cat-eye and focus pivot, equirectangular, cubemap; the
 flatten's camera section, flatten.py:948-1000) and the depth / normal /
-albedo output buffers (`meta.aovs`). The light rows come in the JAX
+albedo output buffers (`meta.aovs`), and the participating media
+(homogeneous, exponential, atmosphere and voxel; the medium table `media`,
+the per-triangle `tri_med_int` / `tri_med_ext` / `tri_med_override`
+permuted with the triangles and followed by the analytic prims' rows,
+`meta.has_media` and `meta.camera_medium`; flatten.py:324, 428-430,
+518-550, 600-616, 935-939, 1039-1041). The light rows come in the JAX
 flatten's order: the area and analytic emitters in primitive order, then the
-sampled envs, the sampled caps, the points. Everything else (skydomes,
-media, the fiber BSDFs, ...) raises NotImplementedError naming the missing
-piece.
+sampled envs, the sampled caps, the points. Everything else (skydomes, the
+fiber BSDFs, ...) raises NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from ..accel.bvh import build_bvh_best
 from ..io.meshio import compute_smooth_normals, load_mesh
 from ..math import transform as tf
 from ..models.bsdfs.dispatch import MaterialTable, build_gpack2, build_gpack3, pack_materials
+from ..models.media.media import MediumTable, pack_media_arrays
 from ..models.primitives import analytic, tessellate
 from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
 from ..ops.bvh import BvhPack, build_bvh_pack
@@ -95,6 +100,7 @@ CAMERA_KEYS = ("rot", "pos", "plane_dist", "aperture_size", "focus_dist", "ap_an
 ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
     "tri_ng", "tri_uv0", "tri_uv1", "tri_uv2", "tri_light",
+    "tri_med_int", "tri_med_ext", "tri_med_override",
     *(f"lights.{k}" for k, _ in LIGHT_FIELDS), *(f"lights.{k}" for k in LIGHT_STATICS),
     "materials.gpack2", "materials.gpack3", "materials.rough_kinds",
     "textures.tpack", "textures.data", "textures.data4",
@@ -111,7 +117,10 @@ ARRAY_KEYS = (
 # flatten left the pack out, or the scene has no analytic prims
 OPTIONAL = ("pbvh8", "gbvh", "pbvh3", "pbvh", "ana")
 # besides ARRAY_KEYS, arrays["envs"] lists every env light in primitive
-# order (the JAX FlatScene's `envs`), each a dict under ENV_KEYS
+# order (the JAX FlatScene's `envs`), each a dict under ENV_KEYS, and
+# arrays["media"] holds the medium table as MediumTable.from_arrays takes it
+# (models/media/media.py `pack_media_arrays`, or another table's fields
+# read by name into the same dict; absent: a scene without media)
 # None in a scene without bitmap textures, without a single-substrate
 # wrapper BSDF or with a mixed one (dispatch.build_gpack3), and without a
 # bitmap aperture
@@ -281,6 +290,13 @@ class FlatScene:
     tri_uv1: torch.Tensor
     tri_uv2: torch.Tensor
     tri_light: torch.Tensor  # (T,) int64 (-1 = not emissive)
+    # per triangle (and analytic prim row): the interior / exterior medium
+    # (-1 = vacuum) and whether the primitive overrides media
+    # (Primitive::overridesMedia)
+    tri_med_int: torch.Tensor  # (T,) int64
+    tri_med_ext: torch.Tensor  # (T,) int64
+    tri_med_override: torch.Tensor  # (T,) bool
+    media: MediumTable
     lights: LightTable
     materials: MaterialTable
     textures: TextureTable
@@ -302,15 +318,14 @@ class FlatScene:
 
 def _check_slice(doc: SceneDocument):
     """Raise NotImplementedError for every scene feature the port lacks:
-    media, skydome lights, and primitives other than mesh / quad / cube /
-    sphere / disk / cylinder and the infinite_sphere, infinite_sphere_cap
-    and point lights. BSDF types (dispatch.pack_materials), textures
-    (texture_from_spec) and image formats (io/imageio.py) are checked where
-    they are packed; every surface BSDF but the fibers, textured parameters,
-    .hdr images, every camera and filter and the depth / normal / albedo
-    output buffers pass."""
-    if doc.media:
-        raise NotImplementedError("participating media are not ported")
+    skydome lights, and primitives other than mesh / quad / cube / sphere /
+    disk / cylinder and the infinite_sphere, infinite_sphere_cap and point
+    lights. BSDF types (dispatch.pack_materials), textures
+    (texture_from_spec), image formats (io/imageio.py) and media
+    (media.pack_media_arrays: homogeneous, exponential, atmosphere and voxel
+    pass) are checked where they are packed; every surface BSDF but the
+    fibers, textured parameters, .hdr images, every camera and filter and
+    the depth / normal / albedo output buffers pass."""
     for prim in doc.primitives:
         ptype = prim.get("type", "mesh")
         if ptype == "skydome":
@@ -435,6 +450,7 @@ def flatten_arrays(doc: SceneDocument):
 
     # ---- geometry (flatten.py primitive loop: tessellated and analytic) ----
     pos_l, n_l, uv_l, idx_l, mat_l, prim_l = [], [], [], [], [], []
+    med_int_l, med_ext_l, med_ov_l = [], [], []  # per triangle (flatten.py:324)
     emissive_prims = []  # primitive indices of the area / analytic lights, in order
     prim_apx = {}  # primitive index -> approximateRadiance geometry
     prim_cone_cos = {}  # primitive index -> a disk's emission-cone cos
@@ -465,6 +481,8 @@ def flatten_arrays(doc: SceneDocument):
         if ptype in ANALYTIC:
             entry = analytic.extract_params(ptype, m, prim)
             entry["_mat"] = prim["_bsdf_index"]
+            entry["_med_int"] = prim.get("_int_medium", -1)
+            entry["_med_ext"] = prim.get("_ext_medium", -1)
             ana_prim_of[pi] = len(ana_entries)
             ana_entries.append(entry)
             if emissive:
@@ -494,6 +512,11 @@ def flatten_arrays(doc: SceneDocument):
         idx_l.append(soup.indices + vert_base)
         mat_l.append(np.full(len(soup.indices), prim["_bsdf_index"], np.int32))
         prim_l.append(np.full(len(soup.indices), pi, np.int32))
+        nt = len(soup.indices)
+        mi, me = prim.get("_int_medium", -1), prim.get("_ext_medium", -1)
+        med_int_l.append(np.full(nt, mi, np.int32))
+        med_ext_l.append(np.full(nt, me, np.int32))
+        med_ov_l.append(np.full(nt, mi >= 0 or me >= 0, bool))
         vert_base += len(wpos)
     if not idx_l:
         if not ana_entries:
@@ -506,12 +529,18 @@ def flatten_arrays(doc: SceneDocument):
         idx_l.append(np.arange(3, dtype=np.int32)[None, :])
         mat_l.append(np.zeros(1, np.int32))
         prim_l.append(np.full(1, -1, np.int32))
+        med_int_l.append(np.full(1, -1, np.int32))
+        med_ext_l.append(np.full(1, -1, np.int32))
+        med_ov_l.append(np.zeros(1, bool))
 
     all_pos = np.concatenate(pos_l)
     all_uv = np.concatenate(uv_l)
     indices = np.concatenate(idx_l)
     tri_mat = np.concatenate(mat_l)
     tri_prim = np.concatenate(prim_l)
+    tri_med_int = np.concatenate(med_int_l)
+    tri_med_ext = np.concatenate(med_ext_l)
+    tri_med_ov = np.concatenate(med_ov_l)
     p0, p1, p2 = (all_pos[indices[:, k]] for k in range(3))
     face_n = np.cross(p1 - p0, p2 - p0)
     face_area = 0.5 * np.linalg.norm(face_n, axis=-1)
@@ -545,10 +574,22 @@ def flatten_arrays(doc: SceneDocument):
     tri_mat = permute(tri_mat)
     tri_prim = permute(tri_prim)
     face_area = permute(face_area)
+    tri_med_int, tri_med_ext, tri_med_ov = (permute(a) for a in (tri_med_int, tri_med_ext,
+                                                                   tri_med_ov))
 
     # ---- materials, textures, lights (flatten.py:606-920, in its order, so
     # the texture ids come out the same) ----
     mats = pack_materials(doc.bsdfs, tex_builder)
+
+    def prim_origin(name):
+        """The transform origin of the named primitive (an atmosphere's
+        "pivot", AtmosphericMedium.cpp:63-70); None where none is named so."""
+        for p in doc.primitives:
+            if p.get("name") == name:
+                return tf.mat4_from_json(p.get("transform"))[:3, 3]
+        return None
+
+    media = pack_media_arrays(doc.media, resolve=doc.resolve_path, prim_origin=prim_origin)
 
     def emission_tex(prim, area):
         if "power" in prim:  # power * powerToRadianceFactor: 1 / (pi area)
@@ -718,6 +759,11 @@ def flatten_arrays(doc: SceneDocument):
             [tri_light, np.array([e.get("_light", -1) for e in ana_entries], np.int32)])
         tri_ng, n0, n1, n2 = (np.concatenate([x, z3]) for x in (tri_ng, n0, n1, n2))
         uv0, uv1, uv2 = (np.concatenate([x, z2]) for x in (uv0, uv1, uv2))
+        a_mi = np.array([e["_med_int"] for e in ana_entries], np.int32)
+        a_me = np.array([e["_med_ext"] for e in ana_entries], np.int32)
+        tri_med_int = np.concatenate([tri_med_int, a_mi])
+        tri_med_ext = np.concatenate([tri_med_ext, a_me])
+        tri_med_ov = np.concatenate([tri_med_ov, (a_mi >= 0) | (a_me >= 0)])
         packs.update({f"ana.{k}": v for k, v in ana.items()})
     shade_pack = np.concatenate(
         [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
@@ -725,7 +771,9 @@ def flatten_arrays(doc: SceneDocument):
     arrays = {
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
         "tri_ng": tri_ng, "tri_uv0": uv0, "tri_uv1": uv1, "tri_uv2": uv2,
-        "tri_light": tri_light, **{f"lights.{k}": v for k, v in lights.items()},
+        "tri_light": tri_light, "tri_med_int": tri_med_int, "tri_med_ext": tri_med_ext,
+        "tri_med_override": tri_med_ov, "media": media,
+        **{f"lights.{k}": v for k, v in lights.items()},
         "materials.gpack2": gpack2, "materials.gpack3": gpack3,
         "materials.rough_kinds": rough_kinds,
         "textures.tpack": tex["tpack"], "textures.data": tex["data"],
@@ -767,7 +815,9 @@ def flatten_arrays(doc: SceneDocument):
         low_order_scattering=bool(integ.get("low_order_scattering", True)),
         include_surfaces=bool(integ.get("include_surfaces", True)),
         enable_two_sided=bool(integ.get("enable_two_sided_shading", True)),
-        has_media=False, has_forward=bool(np.any(mats["lobes"] & 0x80)), camera_medium=-1,
+        has_media=len(doc.media) > 0, has_forward=bool(np.any(mats["lobes"] & 0x80)),
+        camera_medium=(int(doc.medium_names.get(cam.get("medium"), -1))
+                       if isinstance(cam.get("medium"), str) else -1),
         spp=int(doc.renderer.get("spp", 32)),
         spp_step=int(doc.renderer.get("spp_step", 16)),
         use_bvh=bool(doc.renderer.get("scene_bvh", True)),
@@ -803,6 +853,11 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         raise ValueError("from_arrays: pbvh3 shares pbvh8's leaves and cannot come without it")
     meta = SceneMeta(**{f.name: getattr(meta, f.name) for f in dataclasses.fields(SceneMeta)})
     envs = arrays.get("envs") or ()
+    media = arrays.get("media")
+    if media is None:
+        if meta.has_media:
+            raise KeyError("from_arrays: meta.has_media but no 'media' table")
+        media = pack_media_arrays([])
     if len(envs) != meta.n_envs:
         raise KeyError(f"from_arrays: {len(envs)} env lights under 'envs', meta.n_envs = "
                        f"{meta.n_envs}")
@@ -842,6 +897,11 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         shade_pack=t("shade_pack"),
         tri_ng=t("tri_ng"), tri_uv0=t("tri_uv0"), tri_uv1=t("tri_uv1"), tri_uv2=t("tri_uv2"),
         tri_light=torch.as_tensor(np.array(arrays["tri_light"], np.int64), device=device),
+        tri_med_int=torch.as_tensor(np.array(arrays["tri_med_int"], np.int64), device=device),
+        tri_med_ext=torch.as_tensor(np.array(arrays["tri_med_ext"], np.int64), device=device),
+        tri_med_override=torch.as_tensor(np.array(arrays["tri_med_override"], np.bool_),
+                                         device=device),
+        media=MediumTable.from_arrays(media, device),
         lights=LightTable.from_arrays(sub("lights"), device),
         materials=MaterialTable.from_arrays(arrays["materials.gpack2"],
                                             arrays["materials.rough_kinds"], device,

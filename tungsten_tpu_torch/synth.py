@@ -58,6 +58,28 @@ sky) through the other cameras, in four variants (`write_scene`'s
 Their outputs are PFM files (the LDR ones too at camera-synth's size: PFM
 needs neither PIL nor cv2), and small-camera's LDR outputs PNG.
 
+The two media sizes put participating media into the materialtest-like
+scene (floor, ball, cube, sky), lit also by a lamp quad facing down (an
+infinite homogeneous medium hides the sky: a ray to it never gets out), in
+four variants (`write_scene`'s `variant`):
+  * fog: the camera sits in a homogeneous fog with the davis
+    transmittance (alpha 2) and a Henyey-Greenstein phase (g = 0.6);
+  * cloud: a voxel medium in a box beside the ball, exact_linear: at
+    small-media a 16^3 dense cloud.npz with an emission grid, at media-synth
+    a 192^3 procedurally modulated blob written as a zip-compressed 5-4-3
+    cloud.vdb by this module's copy of tests/test_vdb.py's independent writer
+    (`write_vdb`), which the port's reader reads back. The box is an
+    index-matched smooth dielectric (ior 1): paths cross it unchanged, and
+    it has no forward lobe, so regen renders it (the null BSDF would end
+    every path at the box);
+  * haze: an exponential camera medium (its density falls with height, so
+    the sky shows through) and an absorption-only atmosphere with the
+    erlang transmittance inside an analytic sphere (ior-1 dielectric), its
+    center given by a `pivot` naming the sphere;
+  * forward: fog with forward lobes: the cube a transparency with a checker
+    alpha, a thinsheet bubble orb. Lockstep only (the forward branch and
+    its volume NEE).
+
 The two coat sizes and the two cut-out sizes build the materialtest-like
 scene with the remaining surfaces (every non-fiber type the interior sizes
 do not show), lit by the sky and one emissive quad facing down:
@@ -102,6 +124,9 @@ Sizes:
                       thinlens and bitmap 1000x563, equirectangular
                       1000x500, cubemap 1536x256 (256x256 faces)
   small-camera        the same at small's: 64x48, cubemap 96x16
+  media-synth         the media scene at materialtest-synth's scale
+                      (80,000-triangle ball, 1000x563, 32 spp, 64 bounces)
+  small-media         the same at small's (the CPU parity scene)
 
 Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size [variant]]
 """
@@ -110,7 +135,9 @@ from __future__ import annotations
 import copy
 import json
 import os
+import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -140,6 +167,11 @@ SIZES["small-lights"] = SIZES["small"]
 CAMERA = ("camera-synth", "small-camera")
 SIZES["camera-synth"] = SIZES["materialtest-synth"]
 SIZES["small-camera"] = SIZES["small"]
+MEDIA = ("media-synth", "small-media")
+SIZES["media-synth"] = SIZES["materialtest-synth"]
+SIZES["small-media"] = SIZES["small"]
+MEDIA_VARIANTS = ("fog", "cloud", "haze", "forward")
+CLOUD_RES = {"media-synth": 192, "small-media": 16}  # the cloud grid's n^3
 # variant -> (camera fields, filter, resolution of camera-synth, of small-camera)
 THINLENS = {"type": "thinlens", "aperture_size": 0.3, "cateye": 0.5, "focus_pivot": "ball",
             "aperture": {"type": "blade", "blades": 6}}
@@ -152,7 +184,7 @@ CAMERA_VARIANTS = {
 }
 AOV_VARIANTS = ("thinlens", "bitmap")  # the variants with output buffers
 ORB_SEGMENTS = {size: (24, 12) if size.startswith("small") else (96, 48)
-                for size in INTERIOR + tuple(SURFACES)}  # orb.obj
+                for size in INTERIOR + tuple(SURFACES) + MEDIA}  # orb.obj
 LAMP_SEGMENTS = (8, 4)  # lamp.obj: 2 * 8 * 4 = 64 triangles
 
 # the -analytic sizes' extra materials and prims
@@ -329,6 +361,334 @@ SURFACE_LIGHT = {"type": "quad", "bsdf": "lamp", "emission": [9.0, 8.0, 7.0],
                                "rotation": [180, 0, 0]}}
 
 
+# the media sizes: a lamp beside the sky, an index-matched boundary, and each
+# variant's media, prims and camera medium
+MEDIA_LAMP_BSDF = {"name": "lamp", "type": "lambert", "albedo": 0.5}
+MEDIA_LAMP = {"type": "quad", "bsdf": "lamp", "emission": [9.0, 8.0, 7.0],
+              "transform": {"position": [-0.6, 3.6, 0.5], "scale": 1.6, "rotation": [180, 0, 0]}}
+BOUNDARY_BSDF = {"name": "boundary", "type": "dielectric", "ior": 1.0}
+FOG = {"name": "fog", "type": "homogeneous", "sigma_a": 0.04, "sigma_s": [0.05, 0.055, 0.06],
+       "phase_function": {"type": "henyey_greenstein", "g": 0.6},
+       "transmittance": {"type": "davis", "alpha": 2.0}}
+CLOUD_BOX = {"position": [-1.9, 0.02, 1.0], "scale": 1.4}  # the grid's unit box -> world
+CLOUD = {"name": "cloud", "type": "voxel", "sigma_a": 0.3, "sigma_s": [3.0, 2.8, 2.6],
+         "phase_function": {"type": "isotropic"},
+         "grid": {"transform": CLOUD_BOX}}
+CLOUD_PRIM = {"type": "cube", "bsdf": "boundary", "int_medium": "cloud",
+              "transform": {"position": [-1.9, 0.72, 1.0], "scale": 1.42}}
+HAZE = {"name": "haze", "type": "exponential", "sigma_a": 0.02, "sigma_s": [0.12, 0.15, 0.2],
+        "falloff_scale": 0.8, "falloff_direction": [0, 1, 0], "unit_point": [0, 0, 0],
+        "phase_function": {"type": "rayleigh"},
+        "transmittance": {"type": "erlang", "rate": 1.5}}
+ATMOSPHERE = {"name": "atmo", "type": "atmosphere", "sigma_a": [0.9, 0.5, 0.15],
+              "sigma_s": 0.0, "radius": 0.8, "falloff_scale": 1.5, "pivot": "dome"}
+DOME_PRIM = {"type": "sphere", "name": "dome", "bsdf": "boundary", "int_medium": "atmo",
+             "ext_medium": "haze", "transform": {"position": [-1.8, 0.8, 1.2], "scale": 0.8}}
+FORWARD_BSDFS = [
+    {"name": "inner", "type": "transparency",
+     "alpha": {"type": "checker", "on_color": 1.0, "off_color": 0.15, "res_u": 3, "res_v": 3},
+     "base": {"type": "lambert", "albedo": [0.6, 0.3, 0.2]}},
+    {"name": "bubble", "type": "thinsheet", "ior": 1.33, "enable_interference": True,
+     "thickness": 0.8},
+]
+BUBBLE_PRIM = {"type": "mesh", "file": "orb.obj", "smooth": True, "bsdf": "bubble",
+               "transform": {"position": [-1.5, 0.75, 1.3], "scale": 0.6}}
+
+
+def _media_variant(doc: dict, size: str, variant: str) -> dict:
+    """The media scene's `variant` (MEDIA_VARIANTS) at `size`."""
+    doc["bsdfs"] += [copy.deepcopy(MEDIA_LAMP_BSDF), copy.deepcopy(BOUNDARY_BSDF)]
+    doc["primitives"][3:3] = [copy.deepcopy(MEDIA_LAMP)]  # before the env light
+    if variant in ("fog", "forward"):
+        doc["media"] = [copy.deepcopy(FOG)]
+        doc["camera"]["medium"] = "fog"
+    if variant == "forward":
+        doc["bsdfs"] = [b for b in doc["bsdfs"] if b["name"] != "inner"] + copy.deepcopy(
+            FORWARD_BSDFS)
+        doc["primitives"][3:3] = [copy.deepcopy(BUBBLE_PRIM)]
+    if variant == "cloud":
+        cloud = copy.deepcopy(CLOUD)
+        if size == "small-media":
+            cloud["grid"].update(type="dense", file="cloud.npz")
+        else:
+            cloud["grid"].update(type="vdb", file="cloud.vdb")
+        doc["media"] = [cloud]
+        doc["primitives"][3:3] = [copy.deepcopy(CLOUD_PRIM)]
+    if variant == "haze":
+        doc["media"] = [copy.deepcopy(HAZE), copy.deepcopy(ATMOSPHERE)]
+        doc["camera"]["medium"] = "haze"
+        doc["primitives"][3:3] = [copy.deepcopy(DOME_PRIM)]
+    return doc
+
+
+def cloud_density(n: int) -> np.ndarray:
+    """The cloud: an n^3 gaussian blob modulated by a product of sines, cut
+    to zero where it falls below 0.05 (the box's corners), peak ~1;
+    (nz, ny, nx) f32."""
+    c = ((np.arange(n, dtype=np.float32) + 0.5) / n - 0.5)
+    z, y, x = c[:, None, None], c[None, :, None], c[None, None, :]
+    base = np.exp(-(x * x + y * y + z * z) / (2.0 * 0.22 * 0.22))
+    mod = 1.0 + 0.45 * np.sin(11.0 * x) * np.sin(13.0 * y + 1.0) * np.sin(9.0 * z + 2.0)
+    return (np.clip(base * mod - 0.05, 0.0, None) / 0.95).astype(np.float32)
+
+
+def _write_cloud(out_dir: str, size: str):
+    """cloud.npz (density and an emission grid) at small-media, cloud.vdb
+    (density, zip-compressed) at media-synth."""
+    dens = cloud_density(CLOUD_RES[size])
+    if size == "small-media":
+        emission = dens[..., None] * np.array([0.8, 0.35, 0.1], np.float32)
+        np.savez(os.path.join(out_dir, "cloud.npz"), density=dens, emission=emission)
+    else:
+        write_vdb(os.path.join(out_dir, "cloud.vdb"),
+                  [{"name": "density", "type": "float", "dense": dens, "voxel_size": 0.01}])
+
+
+# ---------------------------------------------------------------------------
+# an OpenVDB writer: a copy of tests/test_vdb.py's independent writer, with
+# leaf blocks in place of its per-voxel dicts, so that a dense 192^3 grid
+# writes in seconds; a grid given by voxels writes the same bytes as the
+# test's writer (tests/test_torch_vdb.py checks)
+# ---------------------------------------------------------------------------
+
+VDB_MAGIC = 0x56444220
+VDB_ZIP, VDB_ACTIVE_MASK = 0x1, 0x2
+LEAF, INT4, INT5 = 8, 16, 32
+
+
+class _W:
+    def __init__(self):
+        self.parts = []
+
+    def raw(self, b):
+        self.parts.append(b)
+
+    def u32(self, v):
+        self.raw(struct.pack("<I", v))
+
+    def i32(self, v):
+        self.raw(struct.pack("<i", v))
+
+    def i64(self, v):
+        self.raw(struct.pack("<q", v))
+
+    def u64(self, v):
+        self.raw(struct.pack("<Q", v))
+
+    def i8(self, v):
+        self.raw(struct.pack("<b", v))
+
+    def f64(self, v):
+        self.raw(struct.pack("<d", v))
+
+    def boolean(self, v):
+        self.raw(b"\x01" if v else b"\x00")
+
+    def name(self, s):
+        b = s.encode()
+        self.u32(len(b))
+        self.raw(b)
+
+    def bytes(self):
+        return b"".join(self.parts)
+
+
+def _write_mask(w, bits):
+    """LSB-first little-endian words (NodeMask::save)."""
+    w.raw(np.packbits(bits.astype(np.uint8), bitorder="little").tobytes())
+
+
+def _write_values(w, vals, zipped, half):
+    """readData framing: [int64 nbytes | payload]; nbytes <= 0 = raw."""
+    dt = np.float16 if half else np.float32
+    raw = np.asarray(vals, np.float32).astype(dt).tobytes()
+    if zipped:
+        if len(raw) == 0:
+            w.i64(0)
+            return
+        z = zlib.compress(raw)
+        w.i64(len(z))
+        w.raw(z)
+    else:
+        w.raw(raw)
+
+
+def _write_compressed(w, dense, mask, zipped, half, ncomp):
+    """writeCompressedValues: the metadata code from the inactive values,
+    ONLY the active values stored for every code but NO_MASK_AND_ALL_VALS,
+    the selection NodeMask for the two-inactive-value codes; versions
+    before 222 store all values with no metadata."""
+    flat = dense.reshape(-1, ncomp)
+    if not getattr(w, "v222", True):
+        _write_values(w, flat, zipped, half)
+        return
+    inactive = flat[~mask]
+    uniq = np.unique(inactive, axis=0) if len(inactive) else np.zeros((0, ncomp))
+    if len(uniq) <= 1 and (len(uniq) == 0 or np.all(uniq[0] == 0.0)):
+        w.i8(0)  # NO_MASK_OR_INACTIVE_VALS: inactive == +background (0)
+    elif len(uniq) == 1:
+        w.i8(2)  # NO_MASK_AND_ONE_INACTIVE_VAL
+        _write_values(w, uniq[0:1], False, half)
+    else:
+        assert len(uniq) == 2, "writer supports at most two inactive values"
+        w.i8(5)  # MASK_AND_TWO_INACTIVE_VALS
+        _write_values(w, uniq[0:1], False, half)
+        _write_values(w, uniq[1:2], False, half)
+        sel = np.zeros(len(flat), bool)
+        sel[~mask] = np.all(flat[~mask] == uniq[1], axis=1)
+        _write_mask(w, sel)
+    _write_values(w, flat[mask], zipped, half)
+
+
+def _xyz_to_off(x, y, z, dim):
+    return (x * dim + y) * dim + z
+
+
+def _leaf_blocks(g, ncomp):
+    """{leaf origin: (active mask (512,), values (512, ncomp))} of a grid
+    given by "voxels" {(x, y, z): value}, or by "dense" (nz, ny, nx[, 3])
+    with its "origin" (a multiple of 8; every voxel active)."""
+    blocks = {}
+    if "dense" in g:
+        a = np.asarray(g["dense"], np.float32)
+        a = a[..., None] if a.ndim == 3 else a
+        ox, oy, oz = g.get("origin", (0, 0, 0))
+        assert ox % LEAF == 0 and oy % LEAF == 0 and oz % LEAF == 0
+        nz, ny, nx = a.shape[:3]
+        for lz in range(0, nz, LEAF):
+            for ly in range(0, ny, LEAF):
+                for lx in range(0, nx, LEAF):
+                    blk = np.zeros((LEAF, LEAF, LEAF, ncomp), np.float32)
+                    act = np.zeros((LEAF, LEAF, LEAF), bool)
+                    sub = a[lz:lz + LEAF, ly:ly + LEAF, lx:lx + LEAF]
+                    blk[:sub.shape[0], :sub.shape[1], :sub.shape[2]] = sub
+                    act[:sub.shape[0], :sub.shape[1], :sub.shape[2]] = True
+                    # leaf offsets are x-major / z-minor: (x * 8 + y) * 8 + z
+                    blocks[(ox + lx, oy + ly, oz + lz)] = (
+                        act.transpose(2, 1, 0).reshape(-1),
+                        blk.transpose(2, 1, 0, 3).reshape(-1, ncomp))
+        return blocks
+    for (vx, vy, vz), v in g["voxels"].items():
+        key = (vx // LEAF * LEAF, vy // LEAF * LEAF, vz // LEAF * LEAF)
+        if key not in blocks:
+            blocks[key] = (np.zeros(LEAF ** 3, bool), np.zeros((LEAF ** 3, ncomp), np.float32))
+        off = _xyz_to_off(vx - key[0], vy - key[1], vz - key[2], LEAF)
+        blocks[key][0][off] = True
+        blocks[key][1][off] = v
+    return blocks
+
+
+def _write_internal(w, dim, child_span, leaves, tiles, origin, child_writer,
+                    zipped, half, ncomp, leaf_order):
+    size = dim ** 3
+    child_mask = np.zeros(size, bool)
+    value_mask = np.zeros(size, bool)
+    vals = np.zeros((size, ncomp), np.float32)
+    kids = {}
+    for key, blk in leaves.items():
+        off = _xyz_to_off((key[0] - origin[0]) // child_span, (key[1] - origin[1]) // child_span,
+                          (key[2] - origin[2]) // child_span, dim)
+        child_mask[off] = True
+        kids.setdefault(off, {})[key] = blk
+    for (tx, ty, tz), span, v in tiles:
+        assert span == child_span, "tile must sit at this node's child level"
+        off = _xyz_to_off((tx - origin[0]) // child_span, (ty - origin[1]) // child_span,
+                          (tz - origin[2]) // child_span, dim)
+        assert not child_mask[off]
+        value_mask[off] = True
+        vals[off] = v
+    _write_mask(w, child_mask)
+    _write_mask(w, value_mask)
+    _write_compressed(w, vals, value_mask, zipped, half, ncomp)
+    for off in np.where(child_mask)[0]:
+        cx, cy, cz = off // (dim * dim), (off // dim) % dim, off % dim
+        corigin = (origin[0] + int(cx) * child_span, origin[1] + int(cy) * child_span,
+                   origin[2] + int(cz) * child_span)
+        child_writer(w, corigin, kids[off], zipped, half, ncomp, leaf_order)
+
+
+def _write_leaf_topology(w, origin, leaves, zipped, half, ncomp, leaf_order):
+    mask, buf = leaves[origin]
+    _write_mask(w, mask)
+    leaf_order.append((mask, buf))
+
+
+def _write_int4(w, origin, leaves, zipped, half, ncomp, leaf_order):
+    _write_internal(w, INT4, LEAF, leaves, [], origin, _write_leaf_topology,
+                    zipped, half, ncomp, leaf_order)
+
+
+def _write_int5(w, origin, leaves, tiles, zipped, half, ncomp, leaf_order):
+    _write_internal(w, INT5, INT4 * LEAF, leaves, tiles, origin, _write_int4,
+                    zipped, half, ncomp, leaf_order)
+
+
+def write_vdb(path, grids, version=224, zipped=True):
+    """Write a 5-4-3 OpenVDB archive. grids: dicts {name, type ("float" |
+    "vec3s"), half, voxels {(x, y, z): value} or dense (nz, ny, nx[, 3]) with
+    origin, tiles [((x, y, z), 128, value)], voxel_size}; zipped: zlib value
+    compression (or none)."""
+    w = _W()
+    w.u64(VDB_MAGIC)
+    w.u32(version)
+    w.u32(8)
+    w.u32(1)  # library version
+    w.boolean(True)  # has grid offsets
+    if version >= 222:  # per-grid compression: the header goes on to the uuid
+        w.raw(b"0123456789ab-cdef-0123-456789abcdef0")  # raw 36-char uuid
+    else:
+        w.boolean(zipped)
+        w.name("0123456789ab-cdef-0123-456789abcdef0")  # prefixed uuid
+    w.u32(0)  # empty file metadata
+    w.u32(len(grids))
+    for g in grids:
+        ncomp = 3 if g["type"] == "vec3s" else 1
+        half = g.get("half", False)
+        gw = _W()  # the grid payload, built out of line to learn its offsets
+        gw.v222 = version >= 222
+        if version >= 222:
+            gw.u32((VDB_ZIP if zipped else 0) | VDB_ACTIVE_MASK)
+        gw.u32(0)  # empty grid metadata
+        gw.name("UniformScaleMap")
+        vs = g.get("voxel_size", 1.0)
+        for val in [vs] * 6 + [1.0 / vs] * 3 + [1.0 / vs ** 2] * 3 + [0.5 / vs] * 3:
+            gw.f64(val)
+        gw.u32(1)  # tree buffer count
+        _write_values(gw, np.zeros((1, ncomp)), False, half)  # background
+        gw.u32(0)  # root tiles
+        roots = {}
+        for key, blk in _leaf_blocks(g, ncomp).items():
+            ro = tuple((c // 4096) * 4096 for c in key)
+            roots.setdefault(ro, ({}, []))[0][key] = blk
+        for (to_, span, v) in g.get("tiles", []):
+            ro = tuple((c // 4096) * 4096 for c in to_)
+            roots.setdefault(ro, ({}, []))[1].append((to_, span, v))
+        gw.u32(len(roots))
+        leaf_order = []
+        for ro in sorted(roots):
+            leaves, tiles = roots[ro]
+            for c in ro:
+                gw.i32(c)
+            _write_int5(gw, ro, leaves, tiles, zipped, half, ncomp, leaf_order)
+        topo_end = sum(len(p) for p in gw.parts)
+        for mask, buf in leaf_order:  # the leaf buffers, in DFS order
+            _write_mask(gw, mask)
+            _write_compressed(gw, buf, mask, zipped, half, ncomp)
+        payload = gw.bytes()
+        dw = _W()  # the descriptor (instance-parent variant) and its offsets
+        dw.name(g["name"])
+        dw.name(f"Tree_{g['type']}_5_4_3" + ("_HalfFloat" if half else ""))
+        dw.name("")  # no instance parent
+        gridpos = len(b"".join(w.parts)) + len(dw.bytes()) + 24
+        dw.i64(gridpos)
+        dw.i64(gridpos + topo_end)  # blockPos: the leaf buffers
+        dw.i64(gridpos + len(payload))  # endPos
+        w.raw(dw.bytes())
+        w.raw(payload)
+    with open(path, "wb") as f:
+        f.write(w.bytes())
+
+
 def _write_sphere_obj(path: str, nu: int, nv: int):
     """Unit UV sphere, 2 * nu * nv triangles, with normals and uvs."""
     us = np.linspace(0.0, 2.0 * np.pi, nu + 1)
@@ -462,17 +822,22 @@ def scene_dict(size: str, variant: str | None = None) -> dict:
             copy.deepcopy(SURFACE_LIGHT)]  # the cube's place, before the env light
     if size in CAMERA:
         doc = _camera_variant(doc, size, variant or "thinlens")
+    if size in MEDIA:
+        doc = _media_variant(doc, size, variant or "fog")
     return doc
 
 
 def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -> str:
     """Write the scene of `size` (a camera size's `variant`, thinlens by
-    default) into out_dir; returns the scene.json path."""
+    default; a media size's, fog by default) into out_dir; returns the
+    scene.json path."""
     if size not in SIZES:
         raise ValueError(f"unknown size {size!r}; one of {sorted(SIZES)}")
-    if variant is not None and (size not in CAMERA or variant not in CAMERA_VARIANTS):
-        raise ValueError(f"variant {variant!r}: only the camera sizes {CAMERA} have variants, "
-                         f"one of {sorted(CAMERA_VARIANTS)}")
+    if variant is not None and not ((size in CAMERA and variant in CAMERA_VARIANTS)
+                                    or (size in MEDIA and variant in MEDIA_VARIANTS)):
+        raise ValueError(f"variant {variant!r}: the camera sizes {CAMERA} have "
+                         f"{sorted(CAMERA_VARIANTS)}, the media sizes {MEDIA} "
+                         f"{list(MEDIA_VARIANTS)}")
     nu, nv, sw, sh = SIZES[size][:4]
     os.makedirs(out_dir, exist_ok=True)
     _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
@@ -486,6 +851,8 @@ def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -
         save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
     if size in CAMERA and variant == "bitmap":
         save_pfm(os.path.join(out_dir, "aperture.pfm"), _aperture_image())
+    if size in MEDIA and variant == "cloud":
+        _write_cloud(out_dir, size)
     path = os.path.join(out_dir, "scene.json")
     with open(path, "w") as f:
         json.dump(scene_dict(size, variant), f, indent=1)
