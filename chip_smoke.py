@@ -20,8 +20,7 @@ printing a result):
                 modes);
   3. kernel   - materialtest-synth flattened, with what its gather pack
                 (gbvh) costs the flatten: build_gather_pack timed on the
-                flatten's BVH build and on the numpy one (so also on
-                interior-synth in phase 8);
+                flatten's BVH build (so also on interior-synth in phase 8);
                 the BVH8 walk (K3) against its plain PyTorch twin at the
                 slice's shapes on the materialtest-synth pack (65,536 random
                 rays and the 2N = 1,126,000-lane mixed shadow + camera batch:
@@ -253,6 +252,26 @@ printing a result):
                 with two crossing walks a bounce (the volume NEE's and the
                 surface NEE's); each image finite and non-negative; wall,
                 Mpaths/s, iterations and launches of each.
+  13. bdpt    - the light tracer and BDPT: small-box's LT (4 spp), BDPT (4)
+                and BDPT pyramid (2; its 26 (s, t) images summing to the
+                render within 1e-5) and small-media fog's LT and BDPT
+                against tests/data/torch_port_bdpt_ref.json (numpy BVH
+                build), K3 and K3-fast launched, no twin; small-box's LT
+                rendered twice at one seed, bit for bit equal; box-synth
+                (materialtest-synth's ball and cube in the closed box, lit
+                by one ceiling quad) at 1000x563 through the CLI in process
+                (tungsten_tpu_torch.tools.tungsten.main) under light_tracer
+                (BOX_LT_SPP = 4), bidirectional_path_tracer (BOX_BDPT_SPP =
+                2; K = 16 vertices, the JAX cap, with its warning) and
+                path_tracer (regen, 32 spp), each with its launches reset
+                just before and read just after (K3 and K3-fast only), its
+                render's wall and Mpaths/s; on the pixels the path tracer
+                shows between 0.01 and 0.5 (tests/test_path_tracer.py:145)
+                LT's channel means within 6% of PT's, BDPT's median
+                per-pixel ratio to PT within 0.03 of 1 and its means within
+                5% (:148, :170-171); then one profile window of a single
+                BDPT pass of box-synth: its CUDA kernels and device-busy
+                share.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
 8; to make room for phase 9, phase 8's lockstep render from 32 to 16 (at 8
 its wavefront check failed, 5.94e-3 against the 5e-3 bar); phase 9's
@@ -260,13 +279,16 @@ lockstep renders run 4 spp (coat-synth's 32 kept by regen); to make room
 for phase 11, phase 10's lockstep render from 8 to 2; to make room for
 phase 12, phase 5b's from 8 to 4, phase 8's from 16 to 12, phase 11's
 adaptive passes from 8 to 4 and phase 9's coat-synth profile window from 64
-bounces to 8.
+bounces to 8; to make room for phase 13, the numpy-build timing of the gather
+pack (phases 3 and 8).
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
 renders beside as launches_interior, phase 9's three as
 launches_surfaces, phase 10's two as launches_lights, phase 11's as
-launches_camera and phase 12's as launches_media; phase 12's cloud regen
+launches_camera, phase 12's as launches_media and phase 13's box-synth
+light tracer and BDPT renders as launches_lt and launches_bdpt; phase 12's
+cloud regen
 render for K6, whose ms, plain ms and bound are on the largest tau launch
 of the cloud's 1-spp regen pass, the other K6 checks beside; K6 is an XLA
 lax.while_loop on the TPU, no pl.pallas_call, which its row's tpu_form
@@ -651,21 +673,16 @@ def numpy_bvh_build():
 
 def gbvh_cost(label, scene, flatten_s):
     """What the gather pack (gbvh, K1's) adds to a flatten: build_gather_pack
-    on the scene's triangles, timed on the flatten's BVH build and on the
-    numpy one (a host without native/libtungsten_native.so)."""
+    on the scene's triangles, timed on the flatten's BVH build (its time on
+    the numpy build, ~8 s a scene, went to make room for phase 13)."""
     from tungsten_tpu_torch.ops.gather_bvh import build_gather_pack
 
     tris = [x.cpu().numpy() for x in (scene.tris.v0, scene.tris.e1, scene.tris.e2)]
     t0 = time.time()
     build_gather_pack(*tris)
     native_s = time.time() - t0
-    with numpy_bvh_build():
-        t0 = time.time()
-        build_gather_pack(*tris)
-        numpy_s = time.time() - t0
     log(f"[{label}] gbvh: build_gather_pack {native_s:.3f} s of the load and flatten's "
-        f"{flatten_s:.3f} s (without it {flatten_s - native_s:.3f} s); {numpy_s:.3f} s on the "
-        f"numpy BVH build")
+        f"{flatten_s:.3f} s (without it {flatten_s - native_s:.3f} s)")
 
 
 def check_lockstep_launches(label, n_fast, n_exact, passes, max_bounces):
@@ -726,7 +743,7 @@ def tracer_calls():
         pt._shading_data, pt._trace_transparent = saved
 
 
-def profile_window(label, fn, card):
+def profile_window(label, fn, card, tag="9 profile", iterations=None):
     """fn() timed bare, then again under torch.profiler with CUDA activity
     only (host-side op records would slow the host-bound loop the window
     measures): the CUDA kernels launched per iteration (per `_shading_data`
@@ -734,7 +751,9 @@ def profile_window(label, fn, card):
     intervals over the window's wall, under the profiler and over the bare
     wall), and the five kernel names of most device time. The device events
     are read from the profiler's raw results: building its Python event tree
-    for ~10^6 kernels took minutes. Returns a dict of them."""
+    for ~10^6 kernels took minutes. `iterations`: what fn runs (a BDPT
+    pass: 1), where `_shading_data`'s calls do not count it. Returns a dict
+    of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -765,15 +784,15 @@ def profile_window(label, fn, card):
         if b > end:
             busy += b - max(a, end)
             end = b
-    iters = max(calls["shading"], 1)
+    iters = iterations or max(calls["shading"], 1)
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
-    out = {"iterations": calls["shading"], "wall_s": wall, "bare_wall_s": bare,
+    out = {"iterations": iterations or calls["shading"], "wall_s": wall, "bare_wall_s": bare,
            "device_busy_s": busy / 1e9, "busy_share": busy / 1e9 / wall,
            "busy_share_of_bare_wall": busy / 1e9 / bare, "kernels": kernels,
            "kernels_per_iteration": kernels / iters,
            "top5": [[k[:120], n, round(ns / 1e6, 4)] for k, (n, ns) in top],
            "read_s": time.perf_counter() - t0}
-    log(f"[9 profile] {label} on {card}: {json.dumps(out)}")
+    log(f"[{tag}] {label} on {card}: {json.dumps(out)}")
     check(bool(spans), f"{label}: the profiler saw the device's activity")
     return out
 
@@ -930,12 +949,13 @@ def lights_phase(work, dev, card):
 
 
 @contextlib.contextmanager
-def timed_renders():
-    """Times, while open, each render_buffers call that the CLI makes: a
-    list of (seconds, OutputBuffers), the device synchronised at the end."""
+def timed_renders(name="render_buffers"):
+    """Times, while open, each call the CLI makes of the render driver
+    `name` (render_buffers, render_light_traced, render_bdpt): a list of
+    (seconds, its result), the device synchronised at the end."""
     from tungsten_tpu_torch.renderer import render
 
-    out, saved = [], render.render_buffers
+    out, saved = [], getattr(render, name)
 
     def timed(*a, **k):
         t0 = time.time()
@@ -944,11 +964,11 @@ def timed_renders():
         out.append((time.time() - t0, bufs))
         return bufs
 
-    render.render_buffers = timed
+    setattr(render, name, timed)
     try:
         yield out
     finally:
-        render.render_buffers = saved
+        setattr(render, name, saved)
 
 
 def camera_phase(work, dev, card):
@@ -1516,6 +1536,132 @@ def media_phase(work, dev, card):
             f"{(np.abs(a - b) / np.abs(b)).max():.3e} ({MEDIA_LOCKSTEP_SPP} against {m.spp} spp)")
     k6["launches"] = launches["media-synth cloud regen"]["grid_walk.walk_cuda"]
     return k6, launches
+
+
+# phase 13's full-width renders of box-synth through the CLI: the light
+# tracer's and BDPT's spp (the path tracer, their reference, takes the
+# scene's 32), and the JAX tests' bars between them (tests/test_path_tracer.py:
+# 145-171): the pixels the path tracer shows between 0.01 and 0.5 (no
+# emitter, no filter edge of one), LT's means within 6% of PT's, BDPT's
+# median per-pixel ratio within 0.03 of 1 and its means within 5%
+BOX_LT_SPP, BOX_BDPT_SPP = 4, 2
+LT_PT_RTOL, BDPT_MEDIAN_ATOL, BDPT_PT_RTOL = 0.06, 0.03, 0.05
+
+
+def bdpt_phase(work, dev, card):
+    """Phase 13: the light tracer and BDPT. small-box's LT, BDPT and BDPT
+    pyramid renders and small-media fog's LT and BDPT against
+    tests/data/torch_port_bdpt_ref.json (numpy BVH build), the pyramid
+    summing to its render; small-box's LT twice at one seed, bit for bit;
+    box-synth at 1000x563 through the CLI (in process): light_tracer
+    (BOX_LT_SPP), bidirectional_path_tracer (BOX_BDPT_SPP) and path_tracer
+    (regen, the scene's 32 spp), each counting its launches, held to one
+    another by the JAX tests' bars; then one profile window of a single
+    BDPT pass of box-synth. Returns {render: counts()} of the box-synth
+    renders."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators.bdpt import BDPT_PASS_SEED, trace_bdpt_pass
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.renderer.render import (DEFAULT_SEED, _bdpt_lanes, render_bdpt,
+                                                    render_bdpt_pyramid, render_light_traced)
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.tools import tungsten as cli
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_bdpt_ref.json")) as f:
+        ref = json.load(f)
+    seed = ref["seed"]
+    with numpy_bvh_build():
+        small = {"small-box": flatten_scene(load_scene(synth.write_scene(
+                     os.path.join(work, "small-box-bdpt"), "small-box")), dev),
+                 "small-media-fog": flatten_scene(load_scene(synth.write_scene(
+                     os.path.join(work, "small-media-fog-bdpt"), "small-media", "fog")), dev)}
+    lt_first = None
+    for key, sc in small.items():
+        for name, want in ref["channel_means"][key].items():
+            label = f"{key} {name}"
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            if name == "lt":
+                img = render_light_traced(sc, seed=seed)
+            elif name == "bdpt":
+                img = render_bdpt(sc, seed=seed)
+            else:
+                img, stack = render_bdpt_pyramid(sc, spp=ref["pyramid_spp"], seed=seed)
+                err = float(np.abs(sum(stack.values()) - img).max())
+                check(len(stack) == 26 and err <= 1e-5, f"{label}: {len(stack)} (s, t) images "
+                      f"summing to the render (largest difference {err:.2e} <= 1e-5)")
+            dt = time.time() - t0
+            k3_only(label, counts())
+            check(np.isfinite(img).all() and (img >= 0).all(), f"{label}: image finite and "
+                  f"non-negative")
+            means = img.reshape(-1, 3).astype(np.float64).mean(0)
+            rel = np.abs(means - want) / np.abs(want)
+            check((rel <= MEAN_RTOL).all(), f"{label}: channel means {means.round(6).tolist()} "
+                  f"vs JAX {np.round(want, 6).tolist()} (rel {rel.max():.2e} <= {MEAN_RTOL}) "
+                  f"in {dt:.2f} s on {card}")
+            if key == "small-box" and name == "lt":
+                lt_first = img
+    again = render_light_traced(small["small-box"], seed=seed)
+    check(np.array_equal(again, lt_first), "small-box lt: rendered twice at one seed, bit for "
+          "bit equal")
+
+    launches, imgs = {}, {}
+    runs = (("light_tracer", BOX_LT_SPP, "render_light_traced"),
+            ("bidirectional_path_tracer", BOX_BDPT_SPP, "render_bdpt"),
+            ("path_tracer", None, "render_buffers"))
+    for variant, spp, fn in runs:
+        path = synth.write_scene(os.path.join(work, f"box-synth-{variant}"), "box-synth", variant)
+        out = os.path.dirname(path)
+        argv = [path, "-q", "-o", "box.png", "-e", "box.pfm"] + (["-s", str(spp)] if spp else [])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with timed_renders(fn) as timed:
+            cli.main(argv)
+        wall = time.time() - t0
+        c = launches[variant] = counts()
+        k3_only(f"box-synth {variant}", c)
+        img = imgs[variant] = load_image(os.path.join(out, "box.pfm"))
+        h, w = img.shape[:2]
+        spp = spp or synth.SIZES["box-synth"][5]
+        check((w, h) == synth.SIZES["box-synth"][4] and np.isfinite(img).all() and (img >= 0).all()
+              and os.path.exists(os.path.join(out, "box.png")),
+              f"box-synth {variant}: the CLI wrote box.png and a {w}x{h} box.pfm, finite and "
+              f"non-negative")
+        dt = timed[0][0]
+        log(f"[13 bdpt] box-synth {variant} through the CLI: {w}x{h} {spp} spp, render "
+            f"{dt:.2f} s ({w * h * spp / dt / 1e6:.4f} Mpaths/s), CLI call {wall:.2f} s on "
+            f"{card}; K3 {c['bvh8.walk_cuda']} launches, K3-fast {c['bvh8.walk_fast_cuda']}; "
+            f"channel means {img.reshape(-1, 3).astype(np.float64).mean(0).round(6).tolist()}")
+    pt = imgs["path_tracer"].astype(np.float64)
+    mask = (pt.max(-1) < 0.5) & (pt.max(-1) > 0.01)
+    m_pt = pt[mask].mean(0)
+    m_lt = imgs["light_tracer"][mask].astype(np.float64).mean(0)
+    bd = imgs["bidirectional_path_tracer"][mask].astype(np.float64)
+    rel_lt = np.abs(m_lt - m_pt) / m_pt
+    check((rel_lt <= LT_PT_RTOL).all(), f"box-synth: on {mask.sum()} pixels ({mask.mean():.4f}) "
+          f"LT's means {m_lt.round(6).tolist()} vs PT's {m_pt.round(6).tolist()} (rel "
+          f"{rel_lt.max():.3e} <= {LT_PT_RTOL})")
+    med = np.median(bd / np.maximum(pt[mask], 1e-9), axis=0)
+    rel_bd = np.abs(bd.mean(0) - m_pt) / m_pt
+    check((np.abs(med - 1.0) <= BDPT_MEDIAN_ATOL).all() and (rel_bd <= BDPT_PT_RTOL).all(),
+          f"box-synth: BDPT's median per-pixel ratio to PT {med.round(4).tolist()} (within "
+          f"{BDPT_MEDIAN_ATOL} of 1), its means {bd.mean(0).round(6).tolist()} (rel "
+          f"{rel_bd.max():.3e} <= {BDPT_PT_RTOL})")
+
+    scene = flatten_scene(load_scene(os.path.join(work, "box-synth-bidirectional_path_tracer",
+                                                  "scene.json")), dev)
+    lanes = _bdpt_lanes(scene.meta, dev)
+    prof = profile_window("box-synth: one BDPT pass (1000x563, K = "
+                          f"{min(scene.meta.max_bounces + 1, scene.meta.bdpt_max_vertices)})",
+                          lambda: trace_bdpt_pass(scene, (DEFAULT_SEED, BDPT_PASS_SEED), *lanes),
+                          card, tag="13 profile", iterations=1)
+    log(f"[13 bdpt] one BDPT pass of box-synth on {card}: {prof['kernels']} CUDA kernels, "
+        f"device busy {prof['busy_share_of_bare_wall']:.4f} of the bare wall "
+        f"{prof['bare_wall_s']:.3f} s")
+    return launches
 
 
 def main():
@@ -2087,6 +2233,7 @@ def main():
     light_launches = lights_phase(work, dev, card)
     camera_launches = camera_phase(work, dev, card)
     k6, media_launches = media_phase(work, dev, card)
+    bdpt_launches = bdpt_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -2110,6 +2257,8 @@ def main():
         row["launches_lights"] = {w: c[key] for w, c in light_launches.items()}
         row["launches_camera"] = {w: c[key] for w, c in camera_launches.items()}
         row["launches_media"] = {w: c[key] for w, c in media_launches.items()}
+        row["launches_lt"] = bdpt_launches["light_tracer"][key]
+        row["launches_bdpt"] = bdpt_launches["bidirectional_path_tracer"][key]
     # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
     # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
     k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",

@@ -6,8 +6,13 @@ the JAX package's (tools/tungsten.py), on the CPU.
     file), its HDR image and AOVs within the render bars of the JAX CLI's;
   * without `--cpu` it raises where there is no card (it never falls back
     to the CPU);
-  * an integrator other than path_tracer raises NotImplementedError naming
-    it; in a queue of scenes a failed scene is reported and the rest render;
+  * light_tracer and bidirectional_path_tracer (plain, and with its
+    image_pyramid: one <output>-s=S-t=T.png a technique) render through
+    `--cpu` and write the LDR and HDR files, the HDR image the render
+    function's of the same scene and seed;
+  * an integrator the port lacks (photon_map) raises NotImplementedError
+    naming it; in a queue of scenes a failed scene is reported and the rest
+    render;
   * `enable_resume_render` resumes from the state file (-r starts afresh),
     `checkpoint_interval` writes the checkpoint images, `--scale` scales the
     resolution; parse_duration reads s / m / h.
@@ -16,6 +21,7 @@ import importlib.util
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,11 +116,11 @@ def test_without_cpu_flag_it_needs_a_card(tmp_path):
 
 
 def test_other_integrators_raise_naming_themselves(tmp_path, capsys):
-    def light_tracer(doc):
-        doc["integrator"]["type"] = "light_tracer"
+    def photon_map(doc):
+        doc["integrator"]["type"] = "photon_map"
 
-    bad = _scene(tmp_path, "bad", edit=light_tracer)
-    with pytest.raises(NotImplementedError, match="'light_tracer'"):
+    bad = _scene(tmp_path, "bad", edit=photon_map)
+    with pytest.raises(NotImplementedError, match="'photon_map'"):
         port_cli([bad, "--cpu"] + QUIET)
     # in a queue the failure is reported and the next scene renders
     good = _scene(tmp_path, "good", variant="cubemap",
@@ -206,4 +212,43 @@ def test_media_scene_renders_as_render_flat(tmp_path, numpy_bvh):
     img = render_flat(flatten_scene(load_scene(path), torch.device("cpu")), seed=7)
     assert hdr.shape == img.shape == (48, 64, 3)
     check_image(hdr, img, "CLI media scene")
+    assert (img.reshape(-1, 3).mean(0) > 0.01).all()
+
+
+@pytest.mark.parametrize("variant", ["light_tracer", "bidirectional_path_tracer",
+                                     "bdpt_pyramid"])
+def test_light_tracer_and_bdpt_branches_write_their_files(tmp_path, variant):
+    """small-box under the light tracer and BDPT (with and without its
+    image pyramid) through `--cpu` at half resolution, 1 spp: the LDR and
+    HDR files (and the pyramid's 26 technique images), the HDR image equal
+    to the render function's of the same scene and seed."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.renderer import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    path = synth.write_scene(str(tmp_path / variant), "small-box", variant)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["renderer"].update(output_file="box.png", hdr_output_file="box.pfm")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    port_cli([path, "--cpu", "-s", "1", "--scale", "0.5"] + QUIET)
+    out = os.path.dirname(path)
+    files = sorted(f for f in os.listdir(out) if f.startswith("box"))
+    stack = [f"box-s={s}-t={t}.png" for s in range(7) for t in range(1, 8)
+             if (t == 1 and 2 <= s <= 6) or (t >= 2 and s + t <= 7)]
+    assert len(stack) == 26
+    assert files == sorted(["box.png", "box.pfm"] + (stack if variant == "bdpt_pyramid" else []))
+    hdr = load_image(os.path.join(out, "box.pfm"))
+    doc = load_scene(path)
+    doc.camera["resolution"] = [32, 24]
+    scene = flatten_scene(doc, torch.device("cpu"))
+    fn = {"light_tracer": render.render_light_traced,
+          "bidirectional_path_tracer": render.render_bdpt,
+          "bdpt_pyramid": lambda *a, **k: render.render_bdpt_pyramid(*a, **k)[0]}[variant]
+    img = fn(scene, spp=1, seed=7)
+    assert hdr.shape == img.shape == (24, 32, 3)
+    np.testing.assert_allclose(hdr, img, rtol=1e-6, atol=1e-7)
     assert (img.reshape(-1, 3).mean(0) > 0.01).all()

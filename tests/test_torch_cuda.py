@@ -528,3 +528,37 @@ def test_k6_grid_walk_bit_equal_to_twin(cuda, mode, linear):
     assert grid_walk.walk_cuda.launches == k1 + 1
     with pytest.raises(ValueError):
         grid_walk.walk_cuda(g.density.cpu(), linear, oq, dq, ta, tb)
+
+
+@pytest.mark.cuda
+def test_light_tracer_and_bdpt_on_the_card_match_reference(cuda, tmp_path):
+    """`small-box` (a closed box, one emissive quad) through the light
+    tracer and BDPT on the card, on the numpy BVH build, against the JAX
+    package's channel means in tests/data/torch_port_bdpt_ref.json within
+    5e-3; the walks go through K3 and K3-fast, no twin."""
+    import json
+    import os
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+    from tungsten_tpu_torch.renderer.render import render_bdpt, render_light_traced
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    with open(os.path.join(os.path.dirname(__file__), "data", "torch_port_bdpt_ref.json")) as f:
+        ref = json.load(f)
+    native, accel_bvh._NATIVE = accel_bvh._NATIVE, False
+    try:
+        scene = flatten_scene(load_scene(synth.write_scene(str(tmp_path), "small-box")), cuda)
+    finally:
+        accel_bvh._NATIVE = native
+    for name, render in (("lt", render_light_traced), ("bdpt", render_bdpt)):
+        k3, fast = bvh8.walk_cuda.launches, bvh8.walk_fast_cuda.launches
+        twins = bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches
+        img = render(scene, seed=ref["seed"])
+        assert bvh8.walk_cuda.launches > k3 and bvh8.walk_fast_cuda.launches > fast
+        assert bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches == twins
+        assert np.isfinite(img).all() and (img >= 0).all()
+        np.testing.assert_allclose(img.reshape(-1, 3).astype(np.float64).mean(0),
+                                   ref["channel_means"]["small-box"][name], rtol=5e-3,
+                                   err_msg=name)

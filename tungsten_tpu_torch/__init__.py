@@ -8,7 +8,9 @@ through the lockstep tracer's crossing walk, textured parameters, .hdr
 images, every light kind but the skydome, every camera and reconstruction
 filter, the depth / normal / albedo AOVs; the render driver with samples
 per pass, adaptive sampling, resume files and checkpoints, and its command
-line, tools/tungsten.py) with plain torch tensor code and
+line, tools/tungsten.py; participating media; the light tracer and the
+bidirectional path tracer with its image pyramid) with plain torch tensor
+code and
 hand-written CUDA kernels for the walks: the BVH8
 walk, exact and fast (ops/bvh8.py + csrc/bvh8_walk.cu, bvh8_walk_fast.cu),
 the gather walk (ops/gather_bvh.py + csrc/gather_walk.cu), the binary walk
@@ -19,8 +21,8 @@ benchmark (tools/bench_isect.py) times them all. It imports torch and numpy,
 never jax.
 
 Package layout mirrors tungsten_tpu/ module for module; what is not ported
-yet (media, the skydome, curves and the fibers, the integrators other than
-the path tracer) raises NotImplementedError naming the missing piece.
+yet (the skydome, curves and the fibers, photon mapping and the MLT
+integrators) raises NotImplementedError naming the missing piece.
 """
 import torch as _torch
 

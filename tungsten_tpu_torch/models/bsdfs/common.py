@@ -49,6 +49,10 @@ class Lobes:
     def has_forward(lobes):
         return (lobes & Lobes.FORWARD) != 0
 
+    @staticmethod
+    def is_forward(lobes):
+        return lobes == Lobes.FORWARD
+
 
 @dataclass
 class BsdfSample:

@@ -1,10 +1,10 @@
 """Analytic sphere / disk / cylinder primitives (torch).
 
-Port of tungsten_tpu/models/primitives/analytic.py but `sample_position`
-(lines 38-456, 527-598): the table, the closest analytic hit over all A
-prims as (A, N) tensor math, the geometric normal at a surface point, and
-the host-side parameter extraction. It is plain tensor code, as the JAX
-module is plain XLA; no kernel is involved.
+Port of tungsten_tpu/models/primitives/analytic.py (lines 38-598): the
+table, the closest analytic hit over all A prims as (A, N) tensor math, the
+geometric normal at a surface point, and the host-side parameter
+extraction. It is plain tensor code, as the JAX module is plain XLA; no
+kernel is involved.
 
 Identifier space: analytic prims occupy virtual ids [T, T+A) after the T
 real triangles; the flatten appends A rows to the shading table, and the
@@ -12,10 +12,10 @@ integrator overrides the normal and uv of those rows at the hit.
 
 `hit_geom` gives the geometric normal and uv at any hit (a triangle or an
 analytic prim), `occluded_analytic` the any-hit test the shadow rays run
-before the triangle walk. The direct sampling of analytic emitters
-(`sample_direct`, `direct_pdf`, lines 309-456) is ported; `sample_position`
-(line 458), which only `sample_emitter_position` reaches, waits for the
-light tracer.
+before the triangle walk. Analytic emitters are sampled from a point
+(`sample_direct`, `direct_pdf`) and by position (`sample_position`, the
+light tracer's and BDPT's emitter start, through
+`lights.sample_emitter_position`).
 """
 from __future__ import annotations
 
@@ -433,6 +433,68 @@ def direct_pdf(ana: AnalyticTable, k, p, hit_p, d):
     r_sq = torch.sum((hit_p - p) ** 2, -1)
     pdf_area = r_sq / torch.clamp(cos_t * ana.area[k], min=1e-30)
     return torch.where(ana.ptype[k] == SPHERE, pdf_sph, pdf_area)
+
+
+def sample_position(ana: AnalyticTable, k, u2, u1):
+    """Primitive::samplePosition of analytic prim k (N,), the emitter start
+    of the light tracer and BDPT (analytic.py:458-522): a uniform point on
+    the sphere (Sphere.cpp:146-160), the disk (Disk.cpp:151-164) or the
+    cylinder, a cap by its area share (Cylinder.cpp:152-173). Returns (p,
+    ng, uv, pdf = 1 / area); the caller applies the weight pi * area *
+    emission."""
+    k = torch.clamp(k, 0, max(ana.n - 1, 0)).long()
+    ptype = ana.ptype[k]
+    pos = ana.pos[k]
+    r = ana.radius[k]
+    ir = ana.inv_rot[k]
+    hh = ana.half_h[k]
+
+    # sphere: a uniform direction; uv = (xi.x + 0.5 wrapped, acos(2 xi.y - 1) / pi)
+    zs = u2[..., 1] * 2.0 - 1.0
+    rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
+    phi_s = u2[..., 0] * (2.0 * np.pi)
+    ln_s = torch.stack([torch.cos(phi_s) * rs, torch.sin(phi_s) * rs, zs], -1)
+    ng_s = torch.einsum("nji,nj->ni", ir, ln_s)
+    p_s = pos + ng_s * r[..., None]
+    u_wrap = torch.where(u2[..., 0] + 0.5 > 1.0, u2[..., 0] - 0.5, u2[..., 0] + 0.5)
+    uv_s = torch.stack([u_wrap, torch.acos(torch.clamp(zs, -1.0, 1.0)) * (1.0 / np.pi)], -1)
+
+    # disk: a uniform point; uv = (xi.x + 0.5 wrapped, sqrt(xi.y))
+    rt = torch.sqrt(torch.clamp(u2[..., 1], min=0.0)) * r
+    phi_d = u2[..., 0] * (2.0 * np.pi)
+    q_d = (pos + (rt * torch.cos(phi_d))[..., None] * ana.frame_b[k]
+           + (rt * torch.sin(phi_d))[..., None] * ana.frame_t[k])
+    uv_d = torch.stack([u_wrap, torch.sqrt(torch.clamp(u2[..., 1], min=0.0))], -1)
+
+    # cylinder: a cap by its area share, else the lateral surface
+    cap_area = 2.0 * np.pi * r * r
+    p_cap = torch.where(ana.capped[k], cap_area / torch.clamp(ana.area[k], min=1e-30), 0.0)
+    take_cap = u1 < p_cap
+    u1r = torch.where(take_cap, u1 / torch.clamp(p_cap, min=1e-9), 0.0)
+    sign = torch.where(u1r < 0.5, -1.0, 1.0)
+    cx = rt * torch.cos(phi_d)  # the disk branch's uniform disk point
+    cy = rt * torch.sin(phi_d)
+    zero = torch.zeros_like(hh)
+    pc_cap = torch.stack([cx, sign * hh, cy], -1)
+    n_cap = torch.stack([zero, sign, zero], -1)
+    uv_cap = torch.stack([cx / torch.clamp(r, min=1e-30) * 0.5 + 0.5,
+                          cy / torch.clamp(r, min=1e-30) * 0.5 + 0.5], -1)
+    phi_c = u2[..., 0] * (2.0 * np.pi)
+    zc = u2[..., 1] * 2.0 - 1.0
+    pc_lat = torch.stack([torch.cos(phi_c) * r, zc * hh, torch.sin(phi_c) * r], -1)
+    n_lat = torch.stack([torch.cos(phi_c), torch.zeros_like(zc), torch.sin(phi_c)], -1)
+    tc = take_cap[..., None]
+    p_c = pos + torch.einsum("nji,nj->ni", ir, torch.where(tc, pc_cap, pc_lat))
+    ng_c = torch.einsum("nji,nj->ni", ir, torch.where(tc, n_cap, n_lat))
+    uv_c = torch.where(tc, uv_cap, u2)
+
+    is_s, is_d = (ptype == SPHERE)[..., None], (ptype == DISK)[..., None]
+
+    def sel3(a, b, c):
+        return torch.where(is_s, a, torch.where(is_d, b, c))
+
+    return (sel3(p_s, q_d, p_c), sel3(ng_s, ana.axis[k], ng_c), sel3(uv_s, uv_d, uv_c),
+            1.0 / torch.clamp(ana.area[k], min=1e-30))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,7 @@
 """Light sampling on torch tensors: every light kind of the JAX flatten but
 the skydome.
 
-Port of tungsten_tpu/models/primitives/lights.py but `sample_emitter_position`
-(the light tracer's):
+Port of tungsten_tpu/models/primitives/lights.py:
  - area lights (emissive meshes, quads, cubes): area-weighted triangle pick
    by a strided CDF search, uniform barycentric point, one-sided,
    pdf = r^2 / (cos * total area) (TriangleMesh.cpp sampleDirect /
@@ -20,7 +19,12 @@ Port of tungsten_tpu/models/primitives/lights.py but `sample_emitter_position`
  - point lights (Point.cpp): dirac, pdf = r^2, no bsdf strategy;
  - the light choice by approximate received radiance (TraceBase::chooseLight)
    over the kinds quad, sphere, disk (with its cone gate), point, const and
-   none.
+   none;
+ - emitter position sampling for the light tracer and BDPT
+   (`sample_emitter_position`, Primitive::samplePosition): an area light's
+   area-weighted triangle and a uniform barycentric point, an analytic
+   emitter's uniform surface point; env, cap and point rows are invalid
+   there, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -509,3 +513,58 @@ def light_kinds(scene) -> tuple:
         else:
             out.append("area")
     return tuple(out)
+
+
+@dataclass
+class EmitterSample:
+    p: torch.Tensor  # (N, 3) position on the light
+    ng: torch.Tensor  # (N, 3)
+    uv: torch.Tensor  # (N, 2)
+    weight: torch.Tensor  # (N, 3) position weight = pi * area * emission
+    radiance: torch.Tensor  # (N, 3) emitted radiance
+    valid: torch.Tensor  # (N,) bool
+    tri: torch.Tensor  # (N,) sampled triangle, or the analytic virtual id T + k
+
+
+def sample_emitter_position(scene, li, u_tri, u2) -> EmitterSample:
+    """Primitive::samplePosition of light li (N,) (lights.py:544-569): an
+    area light's area-weighted triangle and a uniform barycentric point
+    (TriangleMesh.cpp / Quad.cpp), weight = pi * area * emission; an
+    analytic emitter's uniform surface point (`analytic.sample_position`),
+    its tri the virtual id T + k. Env, cap and point rows are invalid, yet
+    keep the triangle branch's point and weight (pi * their area, 1, times
+    their emission at the point's uv), which BDPT's s = 1 connections read
+    as the JAX package's do (ROADMAP §3)."""
+    es = _sample_emitter_position_tris(scene, li, u_tri, u2)
+    if scene.ana is not None:
+        lights = scene.lights
+        k = lights.ana_prim[li]
+        p_a, ng_a, uv_a, _ = analytic.sample_position(scene.ana, k, u2, u_tri)
+        rad_a = eval_texture(scene.textures, lights.tex[li], uv_a)
+        is_a = k >= 0
+        n_tris = scene.tris.v0.shape[0]
+        es = EmitterSample(
+            p=vo.where3(is_a, p_a, es.p), ng=vo.where3(is_a, ng_a, es.ng),
+            uv=torch.where(is_a[..., None], uv_a, es.uv),
+            weight=vo.where3(is_a, (math.pi * lights.area[li])[..., None] * rad_a, es.weight),
+            radiance=vo.where3(is_a, rad_a, es.radiance), valid=torch.where(is_a, True, es.valid),
+            tri=torch.where(is_a, n_tris + torch.clamp(k, min=0), es.tri))
+    return es
+
+
+def _sample_emitter_position_tris(scene, li, u_tri, u2) -> EmitterSample:
+    lights = scene.lights
+    count = lights.count[li]
+    k = searchsorted_strided(lights.cdf, lights.cdf_offset[li], u_tri, count + 1,
+                             max_len=lights.max_count + 1) - 1
+    k = torch.minimum(torch.clamp(k, min=0), torch.clamp(count - 1, min=0))
+    tri = lights.tri_idx[torch.clamp(lights.offset[li] + k, 0, lights.tri_idx.shape[0] - 1)]
+    lam = warps.uniform_triangle_uv(u2)  # barycentric weights of (p0, p1)
+    lx, ly = lam[..., 0:1], lam[..., 1:2]
+    q = scene.tris.v0[tri] + scene.tris.e1[tri] * ly + scene.tris.e2[tri] * (1.0 - lx - ly)
+    uv = (scene.tri_uv0[tri] * lx + scene.tri_uv1[tri] * ly
+          + scene.tri_uv2[tri] * (1.0 - lx - ly))
+    rad = eval_texture(scene.textures, lights.tex[li], uv)
+    return EmitterSample(p=q, ng=scene.tri_ng[tri], uv=uv,
+                         weight=(math.pi * lights.area[li])[..., None] * rad, radiance=rad,
+                         valid=~lights.is_env[li] & (count > 0), tri=tri)

@@ -2,7 +2,8 @@
 checkpoint / resume.
 
 Port of tungsten_tpu/renderer/render.py (render_buffers:102-215,
-_tile_error, _sample_pixels_by_tile, render_flat, render_scene) with its
+_tile_error, _sample_pixels_by_tile, render_flat, render_scene,
+render_light_traced, render_bdpt, render_bdpt_pyramid) with its
 `wavefront` argument: "regen" is the regenerating wavefront
 (trace_regen_batch, per-pixel sums from the device), "lockstep" the
 lockstep one (trace_batch, per-lane sums accumulated through the lane ->
@@ -172,6 +173,97 @@ def render_flat(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SE
     return render_buffers(scene, spp=spp, seed=seed, verbose=verbose,
                           samples_per_pass=samples_per_pass, passes_per_batch=passes_per_batch,
                           adaptive=adaptive, wavefront=wavefront).color()
+
+
+def render_light_traced(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SEED,
+                        verbose: bool = False, passes_per_batch: int = 8) -> np.ndarray:
+    """Light-traced render (render.py:277-319): spp passes of W*H light
+    paths each. The splat estimator has E[splat_j per path] = I_j, so the
+    image is the splat sum over the number of light paths."""
+    from ..integrators.light_tracer import trace_light_batch
+
+    meta = scene.meta
+    spp = spp if spp is not None else meta.spp
+    w, h = meta.res_x, meta.res_y
+    n = w * h
+    lane_ids = torch.arange(n, device=scene.shade_pack.device)
+    acc, done = None, 0
+    while done < spp:
+        nb = max(1, min(passes_per_batch, spp - done))
+        buf = trace_light_batch(scene, (seed & 0xFFFFFFFF, 0), lane_ids, done, n_passes=nb)
+        acc = buf if acc is None else acc + buf
+        done += nb
+        if verbose:
+            print(f"  lt spp {done}/{spp}")
+    return acc.cpu().numpy().reshape(h, w, 3) / (spp * float(n))
+
+
+def _bdpt_lanes(meta, dev):
+    """One lane a pixel in row-major order: (lane ids, px, py) (render.py:340-342)."""
+    w, h = meta.res_x, meta.res_y
+    px = torch.arange(w, device=dev).repeat(h)
+    py = torch.arange(h, device=dev).repeat_interleave(w)
+    return torch.arange(w * h, device=dev), px, py
+
+
+def render_bdpt(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SEED,
+                verbose: bool = False, passes_per_batch: int = 4) -> np.ndarray:
+    """BDPT render (render.py:322-364): the eye techniques accumulate per
+    pixel, the t = 1 techniques splat and are normalized per light path
+    (BidirectionalPathTracer.cpp:21-68): eye / spp + splat / (spp * W * H)."""
+    from ..integrators.bdpt import trace_bdpt_batch
+
+    meta = scene.meta
+    spp = spp if spp is not None else meta.spp
+    w, h = meta.res_x, meta.res_y
+    lane_ids, px, py = _bdpt_lanes(meta, scene.shade_pack.device)
+    eye_acc = splat_acc = None
+    done = 0
+    while done < spp:
+        nb = max(1, min(passes_per_batch, spp - done))
+        eye, splat = trace_bdpt_batch(scene, (seed & 0xFFFFFFFF, 0), lane_ids, px, py, done,
+                                      n_passes=nb)
+        eye_acc = eye if eye_acc is None else eye_acc + eye
+        splat_acc = splat if splat_acc is None else splat_acc + splat
+        done += nb
+        if verbose:
+            print(f"  bdpt spp {done}/{spp}")
+    img = eye_acc.cpu().numpy().reshape(h, w, 3) / spp
+    return img + splat_acc.cpu().numpy().reshape(h, w, 3) / (spp * float(w * h))
+
+
+def render_bdpt_pyramid(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SEED,
+                        verbose: bool = False):
+    """BDPT render with the per-technique (s, t) image stack (the
+    reference's ImagePyramid, ImagePyramid.cpp:20-40; render.py:367-409):
+    returns (image, {(s, t): (H, W, 3)}), each t = 1 image weighted
+    1 / (spp * W * H), the others 1 / spp, so that the stack sums to the
+    image. One pass a sample, under trace_bdpt_batch's pass seeds."""
+    from ..integrators.bdpt import BDPT_PASS_SEED, trace_bdpt_pass_pyramid
+
+    meta = scene.meta
+    spp = spp if spp is not None else meta.spp
+    w, h = meta.res_x, meta.res_y
+    n = w * h
+    lane_ids, px, py = _bdpt_lanes(meta, scene.shade_pack.device)
+    eye_acc = splat_acc = None
+    pyr_acc = {}
+    for it in range(spp):
+        eye, splat, pyr = trace_bdpt_pass_pyramid(
+            scene, (seed & 0xFFFFFFFF, BDPT_PASS_SEED + it), lane_ids, px, py)
+        eye_acc = eye if eye_acc is None else eye_acc + eye
+        splat_acc = splat if splat_acc is None else splat_acc + splat
+        for k, v in pyr.items():
+            pyr_acc[k] = v if k not in pyr_acc else pyr_acc[k] + v
+        if verbose:
+            print(f"  bdpt-pyramid spp {it + 1}/{spp}")
+    img = eye_acc.cpu().numpy().reshape(h, w, 3) / spp
+    img = img + splat_acc.cpu().numpy().reshape(h, w, 3) / (spp * float(n))
+    stack = {}
+    for (s, t), v in sorted(pyr_acc.items()):
+        weight = 1.0 / (spp * float(n)) if t == 1 else 1.0 / spp
+        stack[(s, t)] = v.cpu().numpy().reshape(h, w, 3) * weight
+    return img, stack
 
 
 def render_scene(doc_or_path, device, spp=None, seed=DEFAULT_SEED, verbose=False,

@@ -58,6 +58,7 @@ fiber BSDFs, ...) raises NotImplementedError naming the missing piece.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -314,6 +315,32 @@ class FlatScene:
     # every env light in primitive order (env is envs[-1], the escape winner;
     # the earlier ones are sampled through LightTable.env_slot)
     envs: tuple = ()
+
+
+# the BDPT subpath vertex cap where the scene sets no "bdpt_max_vertices":
+# the (s, t) families grow ~K^2/2 (flatten.py:275-280)
+BDPT_DEFAULT_CEIL = 16
+
+
+def _bdpt_cap(integ: dict) -> int:
+    """BDPT's subpath vertex cap (flatten.py:283-310): the integrator's
+    "bdpt_max_vertices", else max_bounces + 1 up to BDPT_DEFAULT_CEIL; the
+    reference never truncates a subpath (BidirectionalPathTracer.cpp:14-15),
+    so a BDPT or MLT scene cut by the ceiling gets the JAX package's
+    warning."""
+    want = int(integ.get("max_bounces", 64)) + 1
+    explicit = integ.get("bdpt_max_vertices")
+    if explicit is not None:
+        return int(explicit)
+    cap = min(want, BDPT_DEFAULT_CEIL)
+    if want > cap and integ.get("type") in ("bidirectional_path_tracer", "kelemen_mlt",
+                                            "multiplexed_mlt", "reversible_jump_mlt"):
+        warnings.warn(
+            f"BDPT subpath vertices capped at {cap} (< max_bounces+1 = "
+            f"{want}): transport beyond {cap - 1} bounces is truncated. "
+            "Set integrator 'bdpt_max_vertices' to raise the cap "
+            "(compile/sample cost grows ~K^2/2).", stacklevel=2)
+    return cap
 
 
 def _check_slice(doc: SceneDocument):
@@ -821,7 +848,7 @@ def flatten_arrays(doc: SceneDocument):
         spp=int(doc.renderer.get("spp", 32)),
         spp_step=int(doc.renderer.get("spp_step", 16)),
         use_bvh=bool(doc.renderer.get("scene_bvh", True)),
-        bdpt_max_vertices=int(integ.get("bdpt_max_vertices", min(max_b + 1, 16))),
+        bdpt_max_vertices=_bdpt_cap(integ),
         has_analytic=ana is not None,
         aovs=tuple((b.get("type"), b.get("output_file", ""), b.get("hdr_output_file", ""))
                    for b in doc.renderer.get("output_buffers", [])

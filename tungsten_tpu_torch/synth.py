@@ -17,10 +17,14 @@ returns the scene.json path. The scene has materialtest's features:
   * in the -area sizes only, two area lights beside the sky: an emissive
     quad facing down and an emissive triangle mesh (lamp.obj, a 64-triangle
     sphere), so the light choice weighs a quad, a mesh and the env;
-  * in the -box size the floor quad and the sky give way to a closed box
-    around the ball, the cube and the camera, lit by one emissive quad under
-    its ceiling: no env light, every path ends inside (a Cornell-box kind of
-    scene).
+  * in the box sizes (small-box, box-synth) the floor quad and the sky
+    give way to a closed box around the ball, the cube and the camera, lit
+    by one emissive quad under its ceiling: no env light, every path ends
+    inside (a Cornell-box kind of scene). Neither the light tracer nor BDPT
+    takes an env light, so these are the scenes on which they and the path
+    tracer must agree; a box size's `variant` names the scene's integrator
+    (path_tracer by default, light_tracer, bidirectional_path_tracer, or
+    bdpt_pyramid: BDPT with its image_pyramid).
 
 The two interior sizes build another scene with the interior cell's surfaces
 (BASELINE.json configs[1]: area lights, NEE/MIS, dielectric and plastic
@@ -108,6 +112,9 @@ Sizes:
   materialtest-area       materialtest-synth plus the two area lights
   small-area              small plus the two area lights
   small-box               small's ball and cube in the closed box
+  box-synth               materialtest-synth's ball and cube in the closed
+                          box (1000x563, 32 spp, 64 bounces: BDPT runs at
+                          its default cap of 16 vertices)
   interior-synth      the interior scene at materialtest-synth's scale: the
                       80,000-triangle ball, 9,216-triangle orbs, 512x256
                       sky, 1000x563, 32 spp, max_bounces 64
@@ -153,6 +160,9 @@ SIZES["small-analytic"] = SIZES["small"]
 SIZES["materialtest-area"] = SIZES["materialtest-synth"]
 SIZES["small-area"] = SIZES["small"]
 SIZES["small-box"] = SIZES["small"]
+SIZES["box-synth"] = SIZES["materialtest-synth"]
+BOX = ("box-synth", "small-box")
+BOX_VARIANTS = ("path_tracer", "light_tracer", "bidirectional_path_tracer", "bdpt_pyramid")
 SIZES["interior-synth"] = SIZES["materialtest-synth"]
 SIZES["small-interior"] = SIZES["small"]
 # the surface scenes: size -> its kind
@@ -809,9 +819,13 @@ def scene_dict(size: str, variant: str | None = None) -> dict:
         doc["primitives"][3:3] = copy.deepcopy(ANALYTIC_PRIMS)  # before the env light
     if size.endswith("-area"):
         doc["primitives"][3:3] = copy.deepcopy(AREA_LIGHTS)  # before the env light
-    if size.endswith("-box"):
+    if size in BOX:
         doc["bsdfs"].append(copy.deepcopy(BOX_BSDF))
         doc["primitives"] = doc["primitives"][1:3] + copy.deepcopy(BOX_PRIMS)
+        if variant == "bdpt_pyramid":
+            doc["integrator"].update(type="bidirectional_path_tracer", image_pyramid=True)
+        elif variant:
+            doc["integrator"]["type"] = variant
     if size in LIGHTS:
         doc["primitives"] = (doc["primitives"][:3] + copy.deepcopy(LIGHTS_BEFORE_SKY)
                              + doc["primitives"][3:] + copy.deepcopy(LIGHTS_AFTER_SKY))
@@ -829,15 +843,16 @@ def scene_dict(size: str, variant: str | None = None) -> dict:
 
 def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -> str:
     """Write the scene of `size` (a camera size's `variant`, thinlens by
-    default; a media size's, fog by default) into out_dir; returns the
-    scene.json path."""
+    default; a media size's, fog by default; a box size's integrator,
+    path_tracer by default) into out_dir; returns the scene.json path."""
     if size not in SIZES:
         raise ValueError(f"unknown size {size!r}; one of {sorted(SIZES)}")
     if variant is not None and not ((size in CAMERA and variant in CAMERA_VARIANTS)
-                                    or (size in MEDIA and variant in MEDIA_VARIANTS)):
+                                    or (size in MEDIA and variant in MEDIA_VARIANTS)
+                                    or (size in BOX and variant in BOX_VARIANTS)):
         raise ValueError(f"variant {variant!r}: the camera sizes {CAMERA} have "
                          f"{sorted(CAMERA_VARIANTS)}, the media sizes {MEDIA} "
-                         f"{list(MEDIA_VARIANTS)}")
+                         f"{list(MEDIA_VARIANTS)}, the box sizes {BOX} {list(BOX_VARIANTS)}")
     nu, nv, sw, sh = SIZES[size][:4]
     os.makedirs(out_dir, exist_ok=True)
     _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
@@ -847,7 +862,7 @@ def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -
         _write_sphere_obj(os.path.join(out_dir, "orb.obj"), *ORB_SEGMENTS[size])
     if size in INTERIOR:
         save_hdr(os.path.join(out_dir, "sky.hdr"), _sky(sw, sh))
-    elif not size.endswith("-box"):
+    elif size not in BOX:
         save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
     if size in CAMERA and variant == "bitmap":
         save_pfm(os.path.join(out_dir, "aperture.pfm"), _aperture_image())

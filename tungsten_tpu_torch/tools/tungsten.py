@@ -1,5 +1,6 @@
-"""The renderer's command line on the card: the path tracer branch of
-tools/tungsten.py (:20-131, 213-239), the analog of src/tungsten/tungsten.cpp.
+"""The renderer's command line on the card: the path tracer, light tracer
+and bidirectional path tracer branches of tools/tungsten.py (:20-131,
+185-239), the analog of src/tungsten/tungsten.cpp.
 
     python -m tungsten_tpu_torch.tools.tungsten scene.json [scene2.json ...] [options]
 
@@ -8,8 +9,11 @@ flags: spp / seed / resolution-scale overrides, adaptive sampling
 (`adaptive_sampling`), AOV output buffers, checkpoints (`checkpoint_interval`
 or -c) and resume (`enable_resume_render`, `resume_render_file`; -r starts
 afresh). It runs on the CUDA card, and raises where there is none; --cpu
-runs it on the CPU. Only the path_tracer integrator is ported: another
-integrator type raises NotImplementedError naming it. A failed scene is
+runs it on the CPU. The path_tracer, light_tracer and
+bidirectional_path_tracer integrators are ported (the last with its
+`image_pyramid`: one <output>-s=S-t=T.png a technique); another integrator
+type raises NotImplementedError naming it. The light tracer and BDPT write
+the LDR and HDR images only, as the JAX CLI does. A failed scene is
 reported and the queue goes on; with one scene the error is raised.
 """
 from __future__ import annotations
@@ -21,6 +25,9 @@ import time
 
 import numpy as np
 import torch
+
+
+PORTED = ("path_tracer", "light_tracer", "bidirectional_path_tracer")
 
 
 def parse_duration(v) -> float:
@@ -57,7 +64,8 @@ def main(argv=None):
     from ..io.imageio import save_image
     from ..models.cameras.tonemap import tonemap
     from ..renderer.framebuffer import scene_hash
-    from ..renderer.render import render_buffers
+    from ..renderer.render import (render_bdpt, render_bdpt_pyramid, render_buffers,
+                                   render_light_traced)
     from ..scene.flatten import flatten_scene
     from ..scene.load import load_scene
 
@@ -67,7 +75,7 @@ def main(argv=None):
             t0 = time.time()
             doc = load_scene(scene_path)
             itype = doc.integrator.get("type", "path_tracer")
-            if itype != "path_tracer":
+            if itype not in PORTED:
                 raise NotImplementedError(f"integrator {itype!r} is not ported")
             if args.scale != 1.0:
                 rx, ry = doc.camera.get("resolution", [1000, 563])
@@ -111,15 +119,41 @@ def main(argv=None):
                         save_image(outpath(hdr_file), img)
                 return out
 
-            bufs = render_buffers(
-                scene, spp=args.spp, seed=args.seed, verbose=not args.quiet,
-                samples_per_pass=args.samples_per_pass, passes_per_batch=args.passes_per_batch,
-                adaptive=bool(doc.renderer.get("adaptive_sampling", False)),
-                resume_file=resume_file, scene_hash_value=scene_hash(doc),
-                checkpoint_cb=(lambda b, p: write_outputs(b, "_checkpoint"))
-                if ckpt_interval > 0 else None,
-                checkpoint_interval=ckpt_interval)
-            out = write_outputs(bufs)
+            def ldr(hdr):
+                return np.clip(tonemap(meta.tonemap, torch.as_tensor(hdr)).numpy(), 0, 1)
+
+            def save_simple(hdr):
+                out = outpath(args.output or doc.renderer.get("output_file", "TungstenRender.png"))
+                save_image(out, ldr(hdr))
+                hdr_out = args.hdr_output or doc.renderer.get("hdr_output_file", "")
+                if hdr_out:
+                    save_image(outpath(hdr_out), np.asarray(hdr, np.float32))
+                return out
+
+            if itype == "bidirectional_path_tracer" and doc.integrator.get("image_pyramid"):
+                # the per-technique stack, <out>-s=%d-t=%d.png (ImagePyramid.cpp:36)
+                hdr, stack = render_bdpt_pyramid(scene, spp=args.spp, seed=args.seed,
+                                                 verbose=not args.quiet)
+                out = save_simple(hdr)
+                base = os.path.splitext(out)[0]
+                for (s, t), im in stack.items():
+                    save_image(f"{base}-s={s}-t={t}.png", ldr(im))
+            elif itype == "bidirectional_path_tracer":
+                out = save_simple(render_bdpt(scene, spp=args.spp, seed=args.seed,
+                                              verbose=not args.quiet))
+            elif itype == "light_tracer":
+                out = save_simple(render_light_traced(scene, spp=args.spp, seed=args.seed))
+            else:
+                bufs = render_buffers(
+                    scene, spp=args.spp, seed=args.seed, verbose=not args.quiet,
+                    samples_per_pass=args.samples_per_pass,
+                    passes_per_batch=args.passes_per_batch,
+                    adaptive=bool(doc.renderer.get("adaptive_sampling", False)),
+                    resume_file=resume_file, scene_hash_value=scene_hash(doc),
+                    checkpoint_cb=(lambda b, p: write_outputs(b, "_checkpoint"))
+                    if ckpt_interval > 0 else None,
+                    checkpoint_interval=ckpt_interval)
+                out = write_outputs(bufs)
             if not args.quiet:
                 print(f"  wrote {out} in {time.time() - t0:.1f}s")
         except Exception as e:  # the queue goes on; one scene re-raises
