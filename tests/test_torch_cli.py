@@ -10,7 +10,10 @@ the JAX package's (tools/tungsten.py), on the CPU.
     image_pyramid: one <output>-s=S-t=T.png a technique) render through
     `--cpu` and write the LDR and HDR files, the HDR image the render
     function's of the same scene and seed;
-  * an integrator the port lacks (photon_map) raises NotImplementedError
+  * photon_map and progressive_photon_map render small-box through `--cpu`
+    and write the LDR and HDR files, the HDR image within the render bars of
+    the JAX CLI's;
+  * an integrator the port lacks (kelemen_mlt) raises NotImplementedError
     naming it; in a queue of scenes a failed scene is reported and the rest
     render;
   * `enable_resume_render` resumes from the state file (-r starts afresh),
@@ -116,11 +119,11 @@ def test_without_cpu_flag_it_needs_a_card(tmp_path):
 
 
 def test_other_integrators_raise_naming_themselves(tmp_path, capsys):
-    def photon_map(doc):
-        doc["integrator"]["type"] = "photon_map"
+    def kelemen(doc):
+        doc["integrator"]["type"] = "kelemen_mlt"
 
-    bad = _scene(tmp_path, "bad", edit=photon_map)
-    with pytest.raises(NotImplementedError, match="'photon_map'"):
+    bad = _scene(tmp_path, "bad", edit=kelemen)
+    with pytest.raises(NotImplementedError, match="'kelemen_mlt'"):
         port_cli([bad, "--cpu"] + QUIET)
     # in a queue the failure is reported and the next scene renders
     good = _scene(tmp_path, "good", variant="cubemap",
@@ -252,3 +255,26 @@ def test_light_tracer_and_bdpt_branches_write_their_files(tmp_path, variant):
     assert hdr.shape == img.shape == (24, 32, 3)
     np.testing.assert_allclose(hdr, img, rtol=1e-6, atol=1e-7)
     assert (img.reshape(-1, 3).mean(0) > 0.01).all()
+
+
+@pytest.mark.parametrize("variant", ["photon_map", "progressive_photon_map"])
+def test_photon_map_branches_match_the_jax_cli(tmp_path, monkeypatch, numpy_bvh, variant):
+    """small-box under photon_map (the scene's kNN count) and
+    progressive_photon_map through `--cpu`, one iteration of the scene's
+    photon_count: the port's CLI writes what the JAX CLI writes, its HDR
+    image within the render bars of the JAX CLI's."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.io.imageio import load_image
+
+    path = synth.write_scene(str(tmp_path / variant), "small-box", variant)
+    for who, cli in (("port", lambda a: port_cli(a + ["--cpu"])),
+                     ("jax", lambda a: jax_cli(a + ["--cpu"], monkeypatch, tmp_path))):
+        (tmp_path / who).mkdir()
+        cli([path, "-s", "1", "-o", "box.png", "-e", "box.pfm", "-d", str(tmp_path / who)]
+            + QUIET)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax")) == [
+        "box.pfm", "box.png"]
+    hdr = load_image(str(tmp_path / "port" / "box.pfm"))
+    assert hdr.shape == (48, 64, 3) and (hdr.reshape(-1, 3).mean(0) > 0.05).all()
+    check_image(hdr, load_image(str(tmp_path / "jax" / "box.pfm")), f"CLI {variant}")
+

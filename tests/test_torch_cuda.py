@@ -11,7 +11,9 @@ K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1), K2
 (intersect_stream.cu), K1 (gather_walk.cu: closest, any, mixed; bit for
 bit with its twin, and by the bars against brute force) and K6
 (grid_walk.cu: the exact voxel DDA's optical depth and its inverse, on
-trilinear and nearest grids, bit for bit with its twin), and the first CUDA forms of K3, K3-fast, K4, K5 and
+trilinear and nearest grids, bit for bit with its twin), K7
+(photon_walk.cu: the photon-grid walk in its surface, kNN histogram,
+points and beams modes, bit for bit with its twin), and the first CUDA forms of K3, K3-fast, K4, K5 and
 K2, kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
 bvh2_walk_v1.cu, bvh_walk_v1.cu, intersect_stream_v1.cu).
 Bars: local slot (prim) agrees on >= 99.9%
@@ -562,3 +564,66 @@ def test_light_tracer_and_bdpt_on_the_card_match_reference(cuda, tmp_path):
         np.testing.assert_allclose(img.reshape(-1, 3).astype(np.float64).mean(0),
                                    ref["channel_means"]["small-box"][name], rtol=5e-3,
                                    err_msg=name)
+
+
+def _photon_case(dev, mode, n=4096, seed=9):
+    """A crowded photon grid (pack rows as build_photon_grid and
+    build_beam_grid lay them out) and lanes over it, on `dev`."""
+    from tungsten_tpu_torch.integrators.photon_map import build_beam_grid, build_photon_grid
+
+    rng = np.random.default_rng(seed)
+    m = 20000
+    centre = rng.integers(-4, 4, (16, 3)).astype(np.float32)
+    pos = (centre[rng.integers(0, 16, m)] + rng.random((m, 3)).astype(np.float32)) * 0.4
+    if mode == "beams":
+        bd = rng.normal(size=(m, 3)).astype(np.float32)
+        bd /= np.linalg.norm(bd, axis=-1, keepdims=True)
+        grid = build_beam_grid(*(torch.as_tensor(a, device=dev) for a in (
+            pos.astype(np.float32), bd.astype(np.float32),
+            rng.uniform(0.0, 2.0, m).astype(np.float32), rng.random((m, 3)).astype(np.float32),
+            np.zeros(m, np.int32), rng.random(m) < 0.9, rng.integers(1, 6, m).astype(np.int32))),
+            0.2)[:3]
+    else:
+        grid = build_photon_grid(*(torch.as_tensor(a, device=dev) for a in (
+            pos.astype(np.float32), rng.random((m, 3)).astype(np.float32),
+            rng.normal(size=(m, 3)).astype(np.float32), rng.random(m) < 0.9)),
+            0.4, bounce=torch.as_tensor(rng.integers(1, 6, m).astype(np.int32), device=dev))[:3]
+    o = (pos[rng.integers(0, m, n)] + rng.normal(0, 0.2, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lim = (rng.uniform(0.0, 4.0, n) if mode in ("points", "beams")
+           else np.full(n, 0.16 if mode == "hist" else 0.1)).astype(np.float32)
+    lanes = [torch.as_tensor(a, device=dev) for a in (
+        o, d.astype(np.float32), lim, rng.integers(1, 4, n).astype(np.int32), rng.random(n) < 0.9)]
+    if mode not in ("points", "beams"):
+        lanes[1] = None
+    return grid, lanes, 0.4, 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["surface", "hist", "points", "beams"])
+def test_k7_photon_walk_bit_equal_to_twin(cuda, mode):
+    """K7 (photon_walk.cu) rounds every operation as its twin does: the
+    pairs (lane, row) in (lane, round, offset, slot) order, their floats and
+    the kNN histogram equal the twin's bit for bit; `walk` sends CUDA lanes
+    to the kernel (two or three launches a call) and refuses CPU grids."""
+    from tungsten_tpu_torch.ops import photon_walk
+
+    grid, lanes, cell, r = _photon_case(cuda, mode)
+    args = (mode, *grid, *lanes, cell, r, 0, 6)
+    k0, w0 = photon_walk.walk_cuda.launches, photon_walk.walk_twin.launches
+    out = photon_walk.walk(*args)
+    torch.cuda.synchronize()
+    twin = photon_walk.walk_twin(*args)
+    work = photon_walk.walk_twin.work
+    assert photon_walk.walk_twin.launches == w0 + 1
+    assert photon_walk.walk_cuda.launches - k0 == {"hist": 1, "surface": 2}.get(mode, 3)
+    if mode == "hist":
+        assert torch.equal(out, twin) and int(twin.sum()) > 1000
+        return
+    assert work["pairs"] > 1000 and len(out) == len(twin)
+    for a, b in zip(out, twin):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+    with pytest.raises(ValueError):
+        photon_walk.walk_cuda(mode, grid[0].cpu(), *grid[1:], *lanes, cell, r, 0, 6)

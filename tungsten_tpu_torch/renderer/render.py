@@ -3,7 +3,7 @@ checkpoint / resume.
 
 Port of tungsten_tpu/renderer/render.py (render_buffers:102-215,
 _tile_error, _sample_pixels_by_tile, render_flat, render_scene,
-render_light_traced, render_bdpt, render_bdpt_pyramid) with its
+render_light_traced, render_bdpt, render_bdpt_pyramid, render_sppm) with its
 `wavefront` argument: "regen" is the regenerating wavefront
 (trace_regen_batch, per-pixel sums from the device), "lockstep" the
 lockstep one (trace_batch, per-lane sums accumulated through the lane ->
@@ -264,6 +264,106 @@ def render_bdpt_pyramid(scene: FlatScene, spp: int | None = None, seed: int = DE
         weight = 1.0 / (spp * float(n)) if t == 1 else 1.0 / spp
         stack[(s, t)] = v.cpu().numpy().reshape(h, w, 3) * weight
     return img, stack
+
+
+def _scene_diagonal(scene: FlatScene) -> float:
+    """The length of the triangles' bounding box diagonal: the JAX package's
+    root BVH box (render.py:450-451), which holds the triangles' corners."""
+    tris = scene.tris
+    corners = torch.cat([tris.v0, tris.v0 + tris.e1, tris.v0 + tris.e2])
+    ext = (corners.amax(0) - corners.amin(0)).cpu().numpy().astype(np.float32)
+    return float(np.linalg.norm(ext))
+
+
+def render_sppm(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SEED,
+                photons_per_iter: int = 1 << 18, initial_radius: float | None = None,
+                volume_radius: float | None = None, alpha: float = 0.3, verbose: bool = False,
+                volume_photon_type: str = "points", gather_count: int | None = None) -> np.ndarray:
+    """Stochastic progressive photon mapping (render.py:406-552): each
+    iteration one photon pass (seeds (seed, 0x30000 + it)), its hash grids
+    and one camera gather pass (seeds (seed, 0x40000 + it)); the radius
+    shrinks by gamma = (it + 1 + alpha) / (it + 2) an iteration
+    (ProgressivePhotonMapIntegrator.cpp:58-76): r^2 for the surfaces, r for
+    the beams and planes, cbrt(gamma) on r for the volume points.
+    initial_radius defaults to 5e-3 of the scene's diagonal, volume_radius
+    to 4 x initial_radius. volume_photon_type: points, beams, planes (the
+    0D plane estimator beside the single-scatter beams) or planes_1d
+    (PhotonMapSettings.hpp:16-23). gather_count: the kNN radius (the
+    gather_count-th nearest photon's, capped at the radius), None for the
+    fixed radius. The photons folded into their cell's first MAX_PER_CELL
+    rows (energy kept) are summed into render_sppm.last_overflow."""
+    from ..integrators.photon_map import (VOLUME_PHOTON_TYPES, build_beam_grid,
+                                          build_photon_grid, build_plane_list, gather_pass,
+                                          trace_photons)
+
+    if volume_photon_type not in VOLUME_PHOTON_TYPES:
+        raise ValueError(f"volume_photon_type {volume_photon_type!r}: one of "
+                         f"{VOLUME_PHOTON_TYPES}")
+    meta = scene.meta
+    iters = spp if spp is not None else meta.spp
+    w, h = meta.res_x, meta.res_y
+    n = w * h
+    dev = scene.shade_pack.device
+    px = torch.arange(w, device=dev).repeat(h)
+    py = torch.arange(h, device=dev).repeat_interleave(w)
+    lane_cam = torch.arange(n, device=dev)
+    lane_ph = torch.arange(photons_per_iter, device=dev)
+    diag = _scene_diagonal(scene)
+    if initial_radius is None:
+        initial_radius = diag * 5e-3
+    if volume_radius is None:
+        volume_radius = initial_radius * 4.0
+    r2 = initial_radius * initial_radius
+    r_vol = volume_radius
+    planes = volume_photon_type in ("planes", "planes_1d")
+    k_ph = min(meta.max_bounces, 6)
+    acc = None
+    ovf_total = 0
+    for it in range(iters):
+        surf, vol, beams, plane_recs = trace_photons(
+            scene, (seed & 0xFFFFFFFF, 0x30000 + it), lane_ph, k_max=k_ph, want_planes=planes)
+        radius = float(np.sqrt(r2))
+        pack, starts, counts, ovf = build_photon_grid(*surf[:4], radius, bounce=surf[4])
+        ovf_total += int(ovf)
+        vargs = {}
+        if vol is not None and volume_photon_type == "points":
+            vpack, vstarts, vcounts, ovf_v = build_photon_grid(*vol[:4], 2.0 * r_vol,
+                                                               bounce=vol[4])
+            ovf_total += int(ovf_v)
+            vargs = dict(vpack=vpack, vstarts=vstarts, vcounts=vcounts, v_radius=r_vol,
+                         scene_far=diag * 2.0)
+        elif beams is not None:
+            bpack, bstarts, bcounts, ovf_b, _ = build_beam_grid(*beams, r_vol)
+            ovf_total += int(ovf_b)
+            vargs = dict(bpack=bpack, bstarts=bstarts, bcounts=bcounts, b_radius=r_vol,
+                         scene_far=diag * 2.0)
+            if plane_recs is not None:
+                # beyond MAX_PLANES the table is thinned with power
+                # compensation (unbiased): nothing is lost to report
+                prows, pmask, _ = build_plane_list(*plane_recs, seed=it)
+                vargs.update(prows=prows, pmask=pmask)
+                if volume_photon_type == "planes_1d":
+                    vargs.update(p1d_radius=r_vol)
+        img = gather_pass(scene, (seed & 0xFFFFFFFF, 0x40000 + it), lane_cam, px, py, pack,
+                          starts, counts, radius, photons_per_iter, knn_count=gather_count,
+                          **vargs)
+        acc = img if acc is None else acc + img
+        gamma_it = (it + 1 + alpha) / (it + 2)
+        r2 = r2 * gamma_it
+        if volume_photon_type in ("beams", "planes", "planes_1d"):
+            r_vol = r_vol * gamma_it
+        else:
+            r_vol = r_vol * gamma_it ** (1.0 / 3.0)
+        if verbose:
+            print(f"  sppm iter {it + 1}/{iters} r={radius:.4f} r_vol={r_vol:.4f}")
+    if ovf_total and verbose:
+        print(f"  note: {ovf_total} photons beyond MAX_PER_CELL were folded into their cell's "
+              f"kept photons (energy-preserving compensation)")
+    render_sppm.last_overflow = int(ovf_total)
+    return acc.cpu().numpy().reshape(h, w, 3) / iters
+
+
+render_sppm.last_overflow = 0
 
 
 def render_scene(doc_or_path, device, spp=None, seed=DEFAULT_SEED, verbose=False,

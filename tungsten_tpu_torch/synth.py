@@ -23,8 +23,14 @@ returns the scene.json path. The scene has materialtest's features:
     inside (a Cornell-box kind of scene). Neither the light tracer nor BDPT
     takes an env light, so these are the scenes on which they and the path
     tracer must agree; a box size's `variant` names the scene's integrator
-    (path_tracer by default, light_tracer, bidirectional_path_tracer, or
-    bdpt_pyramid: BDPT with its image_pyramid).
+    (path_tracer by default, light_tracer, bidirectional_path_tracer,
+    bdpt_pyramid: BDPT with its image_pyramid, photon_map or
+    progressive_photon_map, with PHOTON_COUNT photons an iteration), and
+    may name kinds after it: "+caustic" makes the ball a smooth dielectric
+    (ior 1.5: caustics on the floor, and a camera chain through the glass),
+    "+fog" fills the box with FOG (the camera's medium and every prim's
+    outer and inner medium), "+fog+<type>" sets the volume photon type
+    (points, beams, planes, planes_1d).
 
 The two interior sizes build another scene with the interior cell's surfaces
 (BASELINE.json configs[1]: area lights, NEE/MIS, dielectric and plastic
@@ -148,6 +154,7 @@ import zlib
 
 import numpy as np
 
+from .integrators.photon_map import VOLUME_PHOTON_TYPES
 from .io.imageio import save_hdr, save_pfm
 
 SIZES = {
@@ -162,7 +169,16 @@ SIZES["small-area"] = SIZES["small"]
 SIZES["small-box"] = SIZES["small"]
 SIZES["box-synth"] = SIZES["materialtest-synth"]
 BOX = ("box-synth", "small-box")
-BOX_VARIANTS = ("path_tracer", "light_tracer", "bidirectional_path_tracer", "bdpt_pyramid")
+BOX_VARIANTS = ("path_tracer", "light_tracer", "bidirectional_path_tracer", "bdpt_pyramid",
+                "photon_map", "progressive_photon_map")
+# a box variant's kinds, after its integrator: "<integrator>+caustic",
+# "<integrator>+fog" and "<integrator>+fog+<volume photon type>"
+BOX_KINDS = ("caustic", "fog")
+PHOTON_COUNT = {"small-box": 1 << 14, "box-synth": 1 << 18}  # photons an SPPM iteration
+# photon_map's kNN count: small-box's photons are too few for the default
+# 20 to shrink any radius, 4 does
+GATHER_COUNT = {"small-box": 4, "box-synth": 20}
+CAUSTIC_BSDF = {"name": "ball", "type": "dielectric", "ior": 1.5}
 SIZES["interior-synth"] = SIZES["materialtest-synth"]
 SIZES["small-interior"] = SIZES["small"]
 # the surface scenes: size -> its kind
@@ -783,6 +799,19 @@ def _camera_variant(doc: dict, size: str, variant: str) -> dict:
     return doc
 
 
+def _box_variant(variant: str):
+    """A box variant's (integrator, kinds): "progressive_photon_map+fog+beams"
+    -> ("progressive_photon_map", ("fog", "beams")). Raises for an unknown
+    part, or a volume photon type without the fog."""
+    integ, *kinds = variant.split("+")
+    bad = [k for k in kinds if k not in BOX_KINDS + VOLUME_PHOTON_TYPES]
+    if (integ not in BOX_VARIANTS or bad
+            or (any(k in VOLUME_PHOTON_TYPES for k in kinds) and "fog" not in kinds)):
+        raise ValueError(f"box variant {variant!r}: an integrator of {list(BOX_VARIANTS)}, "
+                         f"then +caustic, +fog or +fog+<one of {list(VOLUME_PHOTON_TYPES)}>")
+    return integ, tuple(kinds)
+
+
 def scene_dict(size: str, variant: str | None = None) -> dict:
     if size in INTERIOR:
         return _interior_dict(size)
@@ -822,10 +851,26 @@ def scene_dict(size: str, variant: str | None = None) -> dict:
     if size in BOX:
         doc["bsdfs"].append(copy.deepcopy(BOX_BSDF))
         doc["primitives"] = doc["primitives"][1:3] + copy.deepcopy(BOX_PRIMS)
-        if variant == "bdpt_pyramid":
+        integ, kinds = _box_variant(variant or "path_tracer")
+        if integ == "bdpt_pyramid":
             doc["integrator"].update(type="bidirectional_path_tracer", image_pyramid=True)
-        elif variant:
-            doc["integrator"]["type"] = variant
+        else:
+            doc["integrator"]["type"] = integ
+        if integ in ("photon_map", "progressive_photon_map"):
+            doc["integrator"]["photon_count"] = PHOTON_COUNT[size]
+        if integ == "photon_map":
+            doc["integrator"]["gather_photon_count"] = GATHER_COUNT[size]
+        if "caustic" in kinds:
+            doc["bsdfs"] = [copy.deepcopy(CAUSTIC_BSDF) if b["name"] == "ball" else b
+                            for b in doc["bsdfs"]]
+        if "fog" in kinds:
+            doc["media"] = [copy.deepcopy(FOG)]
+            doc["camera"]["medium"] = "fog"
+            for prim in doc["primitives"]:
+                prim.update(ext_medium="fog", int_medium="fog")
+        vtype = [k for k in kinds if k in VOLUME_PHOTON_TYPES]
+        if vtype:
+            doc["integrator"]["volume_photon_type"] = vtype[0]
     if size in LIGHTS:
         doc["primitives"] = (doc["primitives"][:3] + copy.deepcopy(LIGHTS_BEFORE_SKY)
                              + doc["primitives"][3:] + copy.deepcopy(LIGHTS_AFTER_SKY))
@@ -847,9 +892,10 @@ def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -
     path_tracer by default) into out_dir; returns the scene.json path."""
     if size not in SIZES:
         raise ValueError(f"unknown size {size!r}; one of {sorted(SIZES)}")
-    if variant is not None and not ((size in CAMERA and variant in CAMERA_VARIANTS)
-                                    or (size in MEDIA and variant in MEDIA_VARIANTS)
-                                    or (size in BOX and variant in BOX_VARIANTS)):
+    if size in BOX and variant is not None:
+        _box_variant(variant)
+    elif variant is not None and not ((size in CAMERA and variant in CAMERA_VARIANTS)
+                                      or (size in MEDIA and variant in MEDIA_VARIANTS)):
         raise ValueError(f"variant {variant!r}: the camera sizes {CAMERA} have "
                          f"{sorted(CAMERA_VARIANTS)}, the media sizes {MEDIA} "
                          f"{list(MEDIA_VARIANTS)}, the box sizes {BOX} {list(BOX_VARIANTS)}")

@@ -1,6 +1,6 @@
-"""The renderer's command line on the card: the path tracer, light tracer
-and bidirectional path tracer branches of tools/tungsten.py (:20-131,
-185-239), the analog of src/tungsten/tungsten.cpp.
+"""The renderer's command line on the card: the path tracer, light tracer,
+bidirectional path tracer and photon map branches of tools/tungsten.py
+(:20-131, 171-239), the analog of src/tungsten/tungsten.cpp.
 
     python -m tungsten_tpu_torch.tools.tungsten scene.json [scene2.json ...] [options]
 
@@ -9,11 +9,14 @@ flags: spp / seed / resolution-scale overrides, adaptive sampling
 (`adaptive_sampling`), AOV output buffers, checkpoints (`checkpoint_interval`
 or -c) and resume (`enable_resume_render`, `resume_render_file`; -r starts
 afresh). It runs on the CUDA card, and raises where there is none; --cpu
-runs it on the CPU. The path_tracer, light_tracer and
-bidirectional_path_tracer integrators are ported (the last with its
-`image_pyramid`: one <output>-s=S-t=T.png a technique); another integrator
-type raises NotImplementedError naming it. The light tracer and BDPT write
-the LDR and HDR images only, as the JAX CLI does. A failed scene is
+runs it on the CPU. The path_tracer, light_tracer,
+bidirectional_path_tracer (with its `image_pyramid`: one
+<output>-s=S-t=T.png a technique), photon_map and progressive_photon_map
+integrators are ported; another integrator type raises
+NotImplementedError naming it. SPPM reads `photon_count` (at most 2^20),
+`alpha`, `volume_photon_type` and, for photon_map only, the kNN
+`gather_photon_count` (20 by default). The light tracer, BDPT and SPPM
+write the LDR and HDR images only, as the JAX CLI does. A failed scene is
 reported and the queue goes on; with one scene the error is raised.
 """
 from __future__ import annotations
@@ -27,7 +30,9 @@ import numpy as np
 import torch
 
 
-PORTED = ("path_tracer", "light_tracer", "bidirectional_path_tracer")
+PORTED = ("path_tracer", "light_tracer", "bidirectional_path_tracer", "photon_map",
+          "progressive_photon_map")
+PHOTON_CAP = 1 << 20  # photons an SPPM iteration at most (tools/tungsten.py:178)
 
 
 def parse_duration(v) -> float:
@@ -65,7 +70,7 @@ def main(argv=None):
     from ..models.cameras.tonemap import tonemap
     from ..renderer.framebuffer import scene_hash
     from ..renderer.render import (render_bdpt, render_bdpt_pyramid, render_buffers,
-                                   render_light_traced)
+                                   render_light_traced, render_sppm)
     from ..scene.flatten import flatten_scene
     from ..scene.load import load_scene
 
@@ -141,6 +146,19 @@ def main(argv=None):
             elif itype == "bidirectional_path_tracer":
                 out = save_simple(render_bdpt(scene, spp=args.spp, seed=args.seed,
                                               verbose=not args.quiet))
+            elif itype in ("photon_map", "progressive_photon_map"):
+                pm = doc.integrator
+                out = save_simple(render_sppm(
+                    scene, spp=args.spp, seed=args.seed,
+                    photons_per_iter=min(int(pm.get("photon_count", 1 << 18)), PHOTON_CAP),
+                    alpha=float(pm.get("alpha", 0.3)),
+                    volume_photon_type=pm.get("volume_photon_type", "points"),
+                    # photon_map gathers by count (kNN, gatherCount 20 by
+                    # default, PhotonMapSettings.hpp:43); progressive keeps
+                    # the radius schedule
+                    gather_count=(int(pm.get("gather_photon_count", 20))
+                                  if itype == "photon_map" else None),
+                    verbose=not args.quiet))
             elif itype == "light_tracer":
                 out = save_simple(render_light_traced(scene, spp=args.spp, seed=args.seed))
             else:
