@@ -124,7 +124,9 @@ printing a result):
                 and Mpaths/s of both;
   6. isect    - the intersector benchmark (tungsten_tpu_torch.tools.bench_isect)
                 at n = 131,072 on both ray kinds and the all-dead case, all
-                ten walks and the nine first forms (v1 walks; 57 timed rows;
+                ten walks and the nine first forms (v1 walks; 57 timed rows,
+                each kernel the median of 5 runs, each twin of
+                BENCH_TWIN_TRIALS = 1;
                 bvh8fast is the raw fast kernel, bvh8fastq the whole fast
                 query), with
                 every agreement >= 99.9% (K2 the brute-force reference of
@@ -133,7 +135,7 @@ printing a result):
                 and K3-fast against their v1 forms on the benchmark's coherent
                 and incoherent rays, in turns, and so K4 (ordered, skip,
                 any), K5 (both modes) and K2 against their first forms;
-  7. routes   - materialtest-analytic at 1000x563 and 32 spp through
+  7. routes   - materialtest-analytic at 1000x563 and ROUTE_SPP = 16 through
                 render_flat on four FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = None (K1), pbvh8 = gbvh =
                 pbvh3 = None (K5-v2) and pbvh8 = gbvh = pbvh3 = pbvh = None
@@ -152,9 +154,10 @@ printing a result):
                 against tests/data/torch_port_interior_ref.json (numpy BVH
                 build); interior-synth flattened, one regen pass (1 spp)
                 counting each BSDF type's hits (all seven new types hit),
-                then at 1000x563, 64 bounces through regen (32 spp) and
-                lockstep (10 spp) with the launch counts reset just before
-                and read just after each: K3 and K3-fast launch in both (regen's
+                then at 1000x563, CUT_BOUNCES = 8 bounces (cut from the
+                scene's 64) through regen (32 spp) and lockstep (10 spp)
+                with the launch counts reset just before and read just
+                after each: K3 and K3-fast launch in both (regen's
                 closest-hit walks also go through K3-fast), lockstep's
                 counts add up as in phase 5b, no other walk, twin or v1
                 kernel; each image finite and non-negative, the two
@@ -174,7 +177,8 @@ printing a result):
                 be hit) and once profiled,
                 printing the CUDA kernels per iteration, the device-busy share
                 and the five kernels of most device time; then coat-synth at
-                1000x563 through regen (32 spp) and lockstep (4 spp) and
+                1000x563, CUT_BOUNCES bounces, through regen (32 spp) and
+                lockstep (4 spp) and
                 cutout-synth through lockstep (3 spp; forward lobes: the
                 crossing-walk branch), each counting the BSDF types' hits
                 (every new type of the scene must be hit), the launch counts
@@ -190,10 +194,11 @@ printing a result):
                 sphere, a disk with a 30-degree cone and a cylinder, two
                 envs, two caps, a point light) through render_scene in both
                 wavefronts against tests/data/torch_port_lights_ref.json
-                (numpy BVH build); lights-synth at 1000x563 through regen
-                (32 spp) and lockstep (LIGHTS_LOCKSTEP_SPP = 2), each
-                counting the light rows NEE chose (count_light_choices:
-                every row, so every kind, chosen), the launch counts reset
+                (numpy BVH build); lights-synth at 1000x563, CUT_BOUNCES
+                bounces, through regen (32 spp) and lockstep
+                (LIGHTS_LOCKSTEP_SPP = 2), each counting the light rows
+                NEE chose (count_light_choices: every row, so every kind,
+                chosen), the launch counts reset
                 just before and read just after (K3 and K3-fast only;
                 lockstep's counts add up as in phase 5b), each image finite
                 and non-negative; the two wavefronts' channel means printed.
@@ -217,10 +222,11 @@ printing a result):
                 of a unit vector, depth > 0 there); resume: 16 spp saved, then
                 resumed to 32, equals the CLI's straight 32-spp state bit for
                 bit (sums, counts, halves, Welford state, AOV sums and
-                counts); an adaptive render (16 warm-up passes, then 4
-                adaptive lockstep passes): every count >= 16, the counts not
-                uniform, the whole budget spent, the image finite, K3-fast
-                launched; the equirectangular (1000x500) and cubemap
+                counts); an adaptive render at CUT_BOUNCES bounces (16
+                warm-up passes, then 4 adaptive lockstep passes): every
+                count >= 16, the counts not uniform, the whole budget
+                spent, the image finite, K3-fast launched; the
+                equirectangular (1000x500) and cubemap
                 (1536x256) variants at 16 spp through regen, each image
                 finite. Each render's launch counts reset just before and
                 read just after (K3 and K3-fast only); wall time and
@@ -238,13 +244,14 @@ printing a result):
                 5-4-3 .vdb by synth's writer) and flattened, the grid read
                 back bit for bit; K6 (grid_walk.cu) against its twin in both
                 modes, bit for bit (or within rtol 1e-6 on >= 99.9% of the
-                finite lanes, INF lanes equal), on 65,536 random rays
+                finite lanes, INF lanes equal), on K6_RAYS = 16,384 random rays
                 through the cloud and on the largest launch of each mode of
                 a 1-spp regen pass of the cloud (the render's own lanes), its
                 ms (median of 5 single-launch windows), the twin's, the
                 rounds the twin counts and the bound; that pass's K6 device
-                time against its wall; then media-synth at 1000x563, 64
-                bounces: fog, cloud and haze through regen (32 spp), fog and
+                time against its wall; then media-synth at 1000x563,
+                CUT_BOUNCES bounces: fog, cloud and haze through regen
+                (MEDIA_REGEN_SPP = 16), fog and
                 cloud through lockstep (MEDIA_LOCKSTEP_SPP), forward
                 through the crossing-walk branch (MEDIA_FORWARD_SPP), each
                 with its launches reset just before and read just after: K3
@@ -284,7 +291,7 @@ printing a result):
                 pixels PT shows in (0.02, 0.5), tests/test_path_tracer.py:
                 173-194); the caustic variant (a glass ball, 8) finite and
                 non-negative; the fog's four volume photon types
-                (SPPM_FOG_ITERS = 4), the median ratio of beams, planes and
+                (SPPM_FOG_ITERS = 2), the median ratio of beams, planes and
                 planes_1d to points within 10% of the JAX package's on
                 small-box fog at 2^18 photons (which misses the JAX
                 tests' 0.2 there: ROADMAP §3); K7
@@ -297,7 +304,29 @@ printing a result):
                 5e-3 with their overflow within 0.1%, and the fog types'
                 median ratios to points within 2% of the JAX package's at
                 the reference's photon count and at 2^18; then one
-                profile window of an SPPM iteration of box-synth.
+                profile window of an SPPM iteration of box-synth;
+  15. mlt     - the Metropolis integrators: box-synth at 1000x563 (64
+                bounces, K = 16 vertices; tables of 293 slots for the PT
+                chains, 157 for Kelemen-BDPT, 158 for MMLT and RJ-MLT)
+                through the four render functions, called directly with
+                spp 1, n_chains MLT_CHAINS and bootstrap_factor MLT_BOOT:
+                render_kelemen (path-traced chains), render_kelemen_bdpt,
+                render_mmlt and render_rjmlt (4 mutation steps at 2^17
+                chains, RJ-MLT's with 1 strategy step), each with its
+                launches reset just before and read just after (K3 and
+                K3-fast only), its wall, step count and mean step wall
+                (RJ-MLT's strategy steps apart, with their accept and
+                invertible fractions); each image finite and non-negative,
+                its per-channel mean on the pixels phase 13's PT image
+                shows above 0.01 within MLT_PT_ATOL of that image's
+                (tests/test_path_tracer.py:290-331); small-box through the
+                CLI in process at its defaults (4 spp, the render
+                functions' default chains and bootstrap rounds) under
+                kelemen_mlt, kelemen_mlt+pt, multiplexed_mlt and
+                reversible_jump_mlt, each image's channel means within
+                MLT_REF_RTOL of the JAX package's in
+                tests/data/torch_port_mlt_ref.json; then one profile
+                window of a single Kelemen-BDPT mutation step of box-synth.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
 8; to make room for phase 9, phase 8's lockstep render from 32 to 16 (at 8
 its wavefront check failed, 5.94e-3 against the 5e-3 bar); phase 9's
@@ -307,15 +336,23 @@ phase 12, phase 5b's from 8 to 4, phase 8's from 16 to 12, phase 11's
 adaptive passes from 8 to 4 and phase 9's coat-synth profile window from 64
 bounces to 8; to make room for phase 13, the numpy-build timing of the gather
 pack (phases 3 and 8); to make room for phase 14, phase 8's lockstep render
-from 12 spp to 10 and cutout-synth's (phase 9) from 4 to 3.
+from 12 spp to 10 and cutout-synth's (phase 9) from 4 to 3. With phase 15
+the script took 987 s on one H100 machine and over 1,200 s, its limit, on
+another, so the time went down by depth: phase 6's twins timed once, the
+full-width renders of phases 8, 9, 10 and 12 and phase 11's adaptive
+render at CUT_BOUNCES = 8 bounces, phase 7's routes and phase 12's regen
+renders at 16 spp (no check reads their noise), phase 12's K6 checks on
+16,384 random rays, phase 14's fog at 2 iterations, and phase 15's renders
+at 4 mutation steps after 2 bootstrap evaluations.
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
 renders beside as launches_interior, phase 9's three as
 launches_surfaces, phase 10's two as launches_lights, phase 11's as
 launches_camera, phase 12's as launches_media and phase 13's box-synth
-light tracer and BDPT renders as launches_lt and launches_bdpt and phase
-14's SPPM renders as launches_sppm; phase 14's
+light tracer and BDPT renders as launches_lt and launches_bdpt, phase
+14's SPPM renders as launches_sppm and phase 15's MLT renders as
+launches_mlt; phase 14's
 box-synth progressive_photon_map render for K7, with every SPPM render's
 K7 launches beside as launches_sppm, its ms, plain ms and bound on that
 render's first surface call and every checked call's under calls (K7 is
@@ -457,6 +494,9 @@ WAVEFRONT_RTOL = 5e-3
 # two wavefronts' means stood 6.19e-4 apart at 8 spp on an H100, against a
 # bar of 5e-3)
 AREA_LOCKSTEP_SPP = 4
+# phase 7's routes, cut from the scene's 32 spp for the script's time limit
+# (the routes trace the same paths: their images agree pixel by pixel)
+ROUTE_SPP = 16
 # the interior cell's BSDF types that phase 8 must see hit, JAX type ids
 INTERIOR_TYPES = {1: "null", 2: "mirror", 7: "dielectric", 8: "rough_dielectric",
                   9: "conductor", 10: "plastic", 11: "rough_plastic"}
@@ -496,6 +536,17 @@ LIGHTS_LOCKSTEP_SPP = 2
 CAMERA_RESUME_SPP = 16  # saved, then resumed to the scene's 32
 CAMERA_WARMUP_SPP, CAMERA_ADAPTIVE_PASSES = 16, 4  # passes cut from 8 for phase 12
 CAMERA_OTHER_SPP = 16  # equirectangular and cubemap
+# phase 6: the runs of each twin's median in the benchmark (its kernels
+# keep 5): at 5 the twins took ~50 s of the script on an H100 machine
+BENCH_TWIN_TRIALS = 1
+# phases 8-10 and 12 and phase 11's adaptive render: the depth of their
+# full-width renders, cut from the scenes' 64 bounces for the script's time
+# limit (at 64 the script took 987 s on one H100 machine and over 1,200 s
+# on another). A lockstep pass runs every bounce up to the cap while one
+# lane lives (interior-synth's 10 spp took 51 s at 64, 15 s at 16), and
+# regen's tail shortens with it; both wavefronts of a comparison take the
+# same cap, the profile windows' PROFILE_BOUNCES
+CUT_BOUNCES = 8
 # H100 SXM data sheet, dense rates: f32 FLOP/s outside the tensor cores, bf16
 # FLOP/s on them, HBM3 B/s
 F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
@@ -514,6 +565,12 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def cut_depth(scene, bounces=CUT_BOUNCES):
+    """The flattened scene with its max_bounces cut to `bounces`."""
+    return dataclasses.replace(scene, meta=dataclasses.replace(scene.meta,
+                                                               max_bounces=bounces))
 
 
 def check(cond, msg):
@@ -945,12 +1002,13 @@ def lights_phase(work, dev, card):
                           wavefront)
     t0 = time.time()
     sc = flatten_scene(load_scene(paths["lights-synth"]), dev)
-    m = sc.meta
     kinds = light_kinds(sc)
+    sc = cut_depth(sc)
+    m = sc.meta
     log(f"[10 lights] lights-synth flattened in {time.time() - t0:.1f} s: "
         f"{sc.tris.v0.shape[0]} triangles, {sc.ana.n} analytic prims, {m.n_lights} lights "
         f"{kinds}, envs {m.n_envs}, caps {m.n_caps} (escape {m.esc_caps}); "
-        f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
+        f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces} (cut depth)")
     means, launches = {}, {}
     for wavefront in ("regen", "lockstep"):
         spp = m.spp if wavefront == "regen" else LIGHTS_LOCKSTEP_SPP
@@ -1133,7 +1191,8 @@ def camera_phase(work, dev, card):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
-    bufs = render_buffers(scene, spp=spp_a, adaptive=True, passes_per_batch=CAMERA_WARMUP_SPP)
+    bufs = render_buffers(cut_depth(scene), spp=spp_a, adaptive=True,
+                          passes_per_batch=CAMERA_WARMUP_SPP)
     dt = time.time() - t0
     c = launches["thinlens adaptive"] = counts()
     k3_only("camera-synth thinlens adaptive", c)
@@ -1199,6 +1258,9 @@ def interior_phase(work, dev, card):
         f"BSDF types {[type_name(t) for t in scene.materials.present]}; "
         f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
     gbvh_cost("8 interior", scene, flatten_s)
+    scene = cut_depth(scene)
+    m = scene.meta
+    log(f"[8 interior] its full-width renders at max_bounces {m.max_bounces} (cut depth)")
     with count_bsdf_hits(dev) as hits:
         render_flat(scene, spp=1, seed=DEFAULT_SEED, wavefront="regen")
     log(f"[8 interior] BSDF hits of one regen pass (1 spp, {m.res_x * m.res_y} paths): "
@@ -1262,6 +1324,8 @@ def surfaces_phase(work, dev, card):
             f"{m.has_forward}, gpack3 {sc.materials.gpack3 is not None}; "
             f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces}")
     coat, cutout = scenes["coat-synth"], scenes["cutout-synth"]
+    scenes = {size: cut_depth(sc) for size, sc in scenes.items()}
+    log(f"[9 surfaces] their full-width renders at max_bounces {CUT_BOUNCES} (cut depth)")
     coat_short, short = (dataclasses.replace(sc, meta=dataclasses.replace(
         sc.meta, max_bounces=PROFILE_BOUNCES)) for sc in (coat, cutout))
     hits = {}
@@ -1324,12 +1388,14 @@ def surfaces_phase(work, dev, card):
     return launches, profiles
 
 
-# phase 12: the media-synth renders' spp (regen keeps the scene's 32)
+# phase 12: the media-synth renders' spp (regen's cut from the scene's 32
+# for the script's time limit: no check reads its noise)
+MEDIA_REGEN_SPP = 16
 MEDIA_LOCKSTEP_SPP = 1  # fog and cloud through lockstep
 MEDIA_FORWARD_SPP = 1  # forward through the crossing-walk branch
 MEDIA_RENDERS = (("fog", "regen"), ("cloud", "regen"), ("haze", "regen"), ("fog", "lockstep"),
                  ("cloud", "lockstep"), ("forward", "lockstep"))
-K6_RAYS = 65536
+K6_RAYS = 16384  # cut from 65,536 for the script's time limit (twins 7-8 s each)
 # K6's f32 operations, counted from csrc/grid_walk.cu's body on the linear
 # (trilinear) path, an add, sub, mul, divide, floor / ceil, min, max or
 # comparison counting one: a lane's set-up (per axis |dq|, its test, the
@@ -1435,7 +1501,7 @@ def media_phase(work, dev, card):
     wavefronts the JAX package runs them in against
     tests/data/torch_port_media_ref.json (numpy BVH build); media-synth
     written (the cloud a 192^3 zip-compressed .vdb) and flattened, the cloud
-    read back bit for bit; K6 against its twin on 65,536 random rays through
+    read back bit for bit; K6 against its twin on K6_RAYS random rays through
     the cloud and on the largest launch of each mode of a 1-spp regen pass
     of the cloud (which also gives K6's share of that pass's wall); then
     media-synth at 1000x563: fog, cloud and haze through regen (32 spp),
@@ -1539,10 +1605,11 @@ def media_phase(work, dev, card):
                                         g.density, True, args, card)
 
     launches, means = {}, {}
+    log(f"[12 media] the full-width renders at max_bounces {CUT_BOUNCES} (cut depth)")
     for variant, wavefront in MEDIA_RENDERS:
-        sc = scenes[variant]
+        sc = cut_depth(scenes[variant])
         m = sc.meta
-        spp = (m.spp if wavefront == "regen" else
+        spp = (MEDIA_REGEN_SPP if wavefront == "regen" else
                MEDIA_FORWARD_SPP if m.has_forward else MEDIA_LOCKSTEP_SPP)
         label = f"media-synth {variant} {wavefront}"
         torch.cuda.synchronize()
@@ -1570,15 +1637,17 @@ def media_phase(work, dev, card):
     for variant in ("fog", "cloud"):
         a, b = means[f"media-synth {variant} lockstep"], means[f"media-synth {variant} regen"]
         log(f"[12 media] media-synth {variant}: lockstep's channel means vs regen's, rel "
-            f"{(np.abs(a - b) / np.abs(b)).max():.3e} ({MEDIA_LOCKSTEP_SPP} against {m.spp} spp)")
+            f"{(np.abs(a - b) / np.abs(b)).max():.3e} ({MEDIA_LOCKSTEP_SPP} against "
+            f"{MEDIA_REGEN_SPP} spp)")
     k6["launches"] = launches["media-synth cloud regen"]["grid_walk.walk_cuda"]
     return k6, launches
 
 
 # phase 13's full-width renders of box-synth through the CLI: the light
 # tracer's and BDPT's spp (the path tracer, their reference, takes the
-# scene's 32), and the JAX tests' bars between them (tests/test_path_tracer.py:
-# 145-171): the pixels the path tracer shows between 0.01 and 0.5 (no
+# scene's 32: at 16 its mask of pixels moved BDPT's means 5.11e-2 from its
+# own, against the bar of 5e-2), and the JAX tests' bars between them
+# (tests/test_path_tracer.py:145-171): the pixels the path tracer shows between 0.01 and 0.5 (no
 # emitter, no filter edge of one), LT's means within 6% of PT's, BDPT's
 # median per-pixel ratio within 0.03 of 1 and its means within 5%
 BOX_LT_SPP, BOX_BDPT_SPP = 4, 2
@@ -1719,7 +1788,9 @@ def bdpt_phase(work, dev, card):
 # (planes_1d at one the farthest, 2.9-3.3% at two); a missing or doubled
 # share of the pairs would move them by tens of per cent.
 SPPM_ITERS = 8  # box-synth photon_map, progressive_photon_map, caustic
-SPPM_FOG_ITERS = 4  # box-synth fog, all four volume photon types
+# box-synth fog, all four volume photon types: cut from 4 for the script's
+# time limit (planes and planes_1d took 58 s of the script at 4)
+SPPM_FOG_ITERS = 2
 SPPM_PT_MEDIAN_ATOL, SPPM_FOG_RATIO_RTOL, SPPM_FOG_FULL_RTOL = 0.12, 0.02, 0.1
 # K7's operations, tallied from csrc/photon_walk.cu (an add, sub, mul,
 # divide, sqrt, abs, min, max, float-int conversion or comparison counts
@@ -1974,6 +2045,164 @@ def sppm_phase(work, dev, card, pt_img):
         f"device busy {prof['busy_share_of_bare_wall']:.4f} of the bare wall "
         f"{prof['bare_wall_s']:.3f} s")
     return launches["progressive_photon_map"], launches, k7
+
+
+# phase 15: the Metropolis integrators. The full-width renders take spp 1
+# at MLT_CHAINS chains, which is 4 mutation steps at 1000x563 (cut from 8
+# at 2^16 chains for the script's time limit), after
+# MLT_BOOT bootstrap evaluations: every step is one full evaluation of the
+# chains (a lockstep PT pass or a BDPT sample of up to 16 vertices), and
+# its kernel count does not depend on the number of chains. Their bar:
+# each image's per-channel mean over the pixels phase 13's PT image shows
+# above 0.01 within MLT_PT_ATOL of that image's (the JAX tests' bar for
+# Kelemen and RJ-MLT against PT, tests/test_path_tracer.py:290-331). The
+# small-box CLI renders run the chains on the card and the JAX package's
+# on the CPU: the chains part ways after a few decisions, and the image's
+# mean follows the bootstrap's luminance scale b, so their channel means
+# are held within MLT_REF_RTOL of the JAX package's.
+MLT_CHAINS = 1 << 17
+MLT_BOOT = 2  # cut from 4 with the steps
+MLT_PT_ATOL = 0.15
+MLT_REF_RTOL = 0.15
+
+
+@contextlib.contextmanager
+def mlt_steps_timed():
+    """While open, the wall (device synchronised) of every MLT step the
+    renders take, by kind: "step" (a Kelemen mutation, PT or BDPT chains)
+    and "strategy" (an RJ-MLT strategy step), and the arguments of the
+    first BDPT mutation step (for the profile window)."""
+    from tungsten_tpu_torch.integrators import kelemen, rjmlt
+
+    out = {"step": [], "strategy": [], "bdpt_args": None}
+    saved = {(kelemen, "_mlt_step_impl"): "step", (kelemen, "_mlt_step_bdpt_impl"): "step",
+             (rjmlt, "_rjmlt_strategy_step_impl"): "strategy"}
+    fns = {key: getattr(*key) for key in saved}
+
+    def wrap(key, kind):
+        def timed(*a, **k):
+            if key[1] == "_mlt_step_bdpt_impl" and out["bdpt_args"] is None:
+                out["bdpt_args"] = (a, k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fns[key](*a, **k)
+            torch.cuda.synchronize()
+            out[kind].append(time.perf_counter() - t0)
+            return res
+        return timed
+
+    for key, kind in saved.items():
+        setattr(*key, wrap(key, kind))
+    try:
+        yield out
+    finally:
+        for key, fn in fns.items():
+            setattr(*key, fn)
+
+
+def mlt_phase(work, dev, card, pt_img):
+    """Phase 15: the Metropolis integrators. box-synth at 1000x563 through
+    render_kelemen, render_kelemen_bdpt, render_mmlt and render_rjmlt (spp
+    1, MLT_CHAINS chains, MLT_BOOT bootstrap rounds), each held to phase
+    13's path-traced image `pt_img` by the JAX tests' bar; small-box through
+    the CLI's four MLT branches at its defaults against
+    tests/data/torch_port_mlt_ref.json; one profile window of a
+    Kelemen-BDPT step of box-synth. Returns {render: counts()} of the
+    box-synth renders and the CLI's."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators import kelemen, multiplexed, rjmlt
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.tools import tungsten as cli
+
+    t_phase = time.time()
+    scene = flatten_scene(load_scene(synth.write_scene(os.path.join(work, "box-synth-mlt"),
+                                                       "box-synth", "kelemen_mlt")), dev)
+    meta = scene.meta
+    k_max = min(meta.max_bounces + 1, meta.bdpt_max_vertices)
+    pt = pt_img.astype(np.float64)
+    mask = pt.max(-1) > 0.01
+    m_pt = pt[mask].mean(0)
+    launches, bdpt_args = {}, None
+    runs = (("kelemen_mlt+pt", kelemen.render_kelemen, kelemen._table_dims(meta)),
+            ("kelemen_mlt", kelemen.render_kelemen_bdpt, kelemen._table_dims_bdpt(meta, k_max)),
+            ("multiplexed_mlt", multiplexed.render_mmlt,
+             kelemen._table_dims_bdpt(meta, k_max, extra=2)),
+            ("reversible_jump_mlt", rjmlt.render_rjmlt,
+             kelemen._table_dims_bdpt(meta, k_max, extra=2)))
+    for name, render, dims in runs:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with mlt_steps_timed() as steps:
+            img = render(scene, spp=1, n_chains=MLT_CHAINS, bootstrap_factor=MLT_BOOT)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = launches[name] = counts()
+        k3_only(f"box-synth {name}", c)
+        bdpt_args = bdpt_args or steps["bdpt_args"]
+        check(img.shape == (meta.res_y, meta.res_x, 3) and np.isfinite(img).all()
+              and (img >= 0).all(), f"box-synth {name}: a {meta.res_x}x{meta.res_y} image, finite "
+              f"and non-negative")
+        m = img[mask].astype(np.float64).mean(0)
+        ratio = m / m_pt
+        check((np.abs(ratio - 1.0) <= MLT_PT_ATOL).all(),
+              f"box-synth {name}: channel means {m.round(6).tolist()} on {mask.sum()} pixels vs "
+              f"PT's {m_pt.round(6).tolist()} (ratio {ratio.round(4).tolist()}, within "
+              f"{MLT_PT_ATOL} of 1)")
+        n_step, n_strat = len(steps["step"]), len(steps["strategy"])
+        extra = ""
+        if name == "reversible_jump_mlt":
+            acc, inv, n = rjmlt.render_rjmlt.last_stats
+            check(n == n_strat and 0.0 < acc <= inv <= 1.0,
+                  f"box-synth {name}: {n} strategy steps, accept {acc:.4f}, invertible {inv:.4f}")
+            extra = (f", {n_strat} strategy steps of mean wall "
+                     f"{np.mean(steps['strategy']):.3f} s (accept {acc:.4f}, invertible "
+                     f"{inv:.4f})")
+        boot = wall - sum(steps["step"]) - sum(steps["strategy"])
+        log(f"[15 mlt] box-synth {name}: {meta.res_x}x{meta.res_y}, {MLT_CHAINS} chains, tables "
+            f"of {dims} slots, render {wall:.2f} s on {card}: {MLT_BOOT} bootstrap evaluations "
+            f"{boot:.2f} s, {n_step} mutation steps of mean wall {np.mean(steps['step']):.3f} s"
+            f"{extra}; K3 {c['bvh8.walk_cuda']} launches, K3-fast {c['bvh8.walk_fast_cuda']}; "
+            f"channel means {img.reshape(-1, 3).astype(np.float64).mean(0).round(6).tolist()}")
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_mlt_ref.json")) as f:
+        ref = json.load(f)
+    for variant, want in ref["channel_means"].items():
+        path = synth.write_scene(os.path.join(work, "small-box-" + variant.replace("+", "-")),
+                                 "small-box", variant)
+        out = os.path.dirname(path)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        cli.main([path, "-q", "-o", "mlt.png", "-e", "mlt.pfm", "--seed", str(ref["seed"])])
+        wall = time.time() - t0
+        c = launches[f"small-box {variant}"] = counts()
+        k3_only(f"small-box {variant} (CLI)", c)
+        img = load_image(os.path.join(out, "mlt.pfm"))
+        means = img.reshape(-1, 3).astype(np.float64).mean(0)
+        rel = np.abs(means - want) / np.abs(want)
+        check(img.shape == (48, 64, 3) and np.isfinite(img).all() and (img >= 0).all()
+              and os.path.exists(os.path.join(out, "mlt.png")) and (rel <= MLT_REF_RTOL).all(),
+              f"small-box {variant} through the CLI: mlt.png and a 64x48 mlt.pfm, finite and "
+              f"non-negative, channel means {means.round(6).tolist()} vs JAX "
+              f"{np.round(want, 6).tolist()} (rel {rel.max():.3e} <= {MLT_REF_RTOL}) in "
+              f"{wall:.2f} s on {card}")
+
+    check(bdpt_args is not None, "a Kelemen-BDPT step's arguments were kept for the profile")
+    a, k = bdpt_args
+    state = dict(a[1], splat=a[1]["splat"].clone())
+    prof = profile_window(f"box-synth: one Kelemen-BDPT mutation step ({MLT_CHAINS} chains, "
+                          f"K = {k_max})",
+                          lambda: kelemen.mlt_steps_bdpt(a[0], dict(state), a[2], a[3], 0, 1,
+                                                         *a[5:], **k),
+                          card, tag="15 profile", iterations=1)
+    log(f"[15 mlt] one Kelemen-BDPT mutation step of box-synth on {card}: {prof['kernels']} CUDA "
+        f"kernels, device busy {prof['busy_share_of_bare_wall']:.4f} of the bare wall "
+        f"{prof['bare_wall_s']:.3f} s")
+    log(f"[15 mlt] phase 15 took {time.time() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -2450,7 +2679,8 @@ def main():
     reset_counts()
     t0 = time.time()
     bench_kernels = bench_isect.KERNELS + bench_isect.V1_KERNELS
-    res = bench_isect.run(big_path, dev, n=131072, kernels=bench_kernels, trials=5)
+    res = bench_isect.run(big_path, dev, n=131072, kernels=bench_kernels, trials=5,
+                          twin_trials=BENCH_TWIN_TRIALS)
     bench_launches = counts()
     bench_isect.report(res)
     k2_work = res["times"][("coherent", "tri")]["work"]
@@ -2515,7 +2745,7 @@ def main():
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
-        img = render_flat(sc, spp=m.spp, seed=DEFAULT_SEED)
+        img = render_flat(sc, spp=ROUTE_SPP, seed=DEFAULT_SEED)
         dt = time.time() - t0
         c = counts()
         allowed = (key, "bvh8.walk_fast_cuda") if label == "K3" else (key,)
@@ -2524,8 +2754,8 @@ def main():
               f"every other walk and twin none {others}")
         check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all() and (img >= 0).all(),
               f"route {label}: image finite and non-negative")
-        log(f"[7 routes] {label}: {m.res_x}x{m.res_y} {m.spp} spp in {dt:.2f} s: "
-            f"{m.res_x * m.res_y * m.spp / dt / 1e6:.4f} Mpaths/s on {card}")
+        log(f"[7 routes] {label}: {m.res_x}x{m.res_y} {ROUTE_SPP} spp in {dt:.2f} s: "
+            f"{m.res_x * m.res_y * ROUTE_SPP / dt / 1e6:.4f} Mpaths/s on {card}")
         imgs[label], route_launches[label] = img, c[key]
     ref_img = imgs["K3"]
     ref_means = ref_img.reshape(-1, 3).astype(np.float64).mean(0)
@@ -2547,6 +2777,7 @@ def main():
     k6, media_launches = media_phase(work, dev, card)
     bdpt_launches, box_pt = bdpt_phase(work, dev, card)
     sppm_launches, sppm_all, k7 = sppm_phase(work, dev, card, box_pt)
+    mlt_launches = mlt_phase(work, dev, card, box_pt)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -2573,6 +2804,7 @@ def main():
         row["launches_lt"] = bdpt_launches["light_tracer"][key]
         row["launches_bdpt"] = bdpt_launches["bidirectional_path_tracer"][key]
         row["launches_sppm"] = {w: c[key] for w, c in sppm_all.items()}
+        row["launches_mlt"] = {w: c[key] for w, c in mlt_launches.items()}
     # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
     # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
     k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",

@@ -13,9 +13,17 @@ the JAX package's (tools/tungsten.py), on the CPU.
   * photon_map and progressive_photon_map render small-box through `--cpu`
     and write the LDR and HDR files, the HDR image within the render bars of
     the JAX CLI's;
-  * an integrator the port lacks (kelemen_mlt) raises NotImplementedError
-    naming it; in a queue of scenes a failed scene is reported and the rest
-    render;
+  * kelemen_mlt (bidirectional, and path-traced with "bidirectional":
+    false), multiplexed_mlt and reversible_jump_mlt render small-box
+    (max_bounces 3, at half resolution) through `--cpu` and write the LDR
+    and HDR files the JAX CLI writes, the HDR image within the render bars
+    of the JAX CLI's; both CLIs' render functions run with MLT_CHAINS chains
+    and MLT_BOOT bootstrap rounds, their defaults' 8,192-16,384 and 16 being
+    minutes on the CPU;
+  * an integrator type neither CLI names renders as the path tracer, as the
+    JAX CLI renders it; in a queue of scenes a scene that fails (a curves
+    primitive, which the port's flatten refuses) is reported and the rest
+    render, and a single failing scene raises;
   * `enable_resume_render` resumes from the state file (-r starts afresh),
     `checkpoint_interval` writes the checkpoint images, `--scale` scales the
     resolution; parse_duration reads s / m / h.
@@ -118,18 +126,34 @@ def test_without_cpu_flag_it_needs_a_card(tmp_path):
     assert not os.path.exists(os.path.join(os.path.dirname(path), "thinlens.pfm"))
 
 
-def test_other_integrators_raise_naming_themselves(tmp_path, capsys):
-    def kelemen(doc):
-        doc["integrator"]["type"] = "kelemen_mlt"
+def test_unknown_integrator_renders_as_the_jax_cli(tmp_path, monkeypatch, numpy_bvh):
+    """The JAX CLI's last branch: a type it does not name is path traced."""
+    from tungsten_tpu_torch.io.imageio import load_image
 
-    bad = _scene(tmp_path, "bad", edit=kelemen)
-    with pytest.raises(NotImplementedError, match="'kelemen_mlt'"):
+    path = _scene(tmp_path, variant="cubemap",
+                  edit=lambda d: d["integrator"].update(type="no_such_tracer"))
+    for who, cli in (("port", lambda a: port_cli(a + ["--cpu"])),
+                     ("jax", lambda a: jax_cli(a + ["--cpu"], monkeypatch, tmp_path))):
+        (tmp_path / who).mkdir()
+        cli([path, "-s", "2", "-d", str(tmp_path / who)] + QUIET)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
+    hdr = load_image(str(tmp_path / "port" / "cubemap.pfm"))
+    check_image(hdr, load_image(str(tmp_path / "jax" / "cubemap.pfm")), "CLI unknown integrator")
+
+
+def test_a_failing_scene_is_reported_and_the_queue_goes_on(tmp_path, capsys):
+    def curves(doc):
+        doc["primitives"].append({"type": "curves", "file": "hair.fiber", "bsdf": "floor"})
+
+    bad = _scene(tmp_path, "bad", edit=curves)
+    with pytest.raises(NotImplementedError, match="'curves'"):
         port_cli([bad, "--cpu"] + QUIET)
     # in a queue the failure is reported and the next scene renders
     good = _scene(tmp_path, "good", variant="cubemap",
                   edit=lambda d: d["renderer"].update(spp=1))
     port_cli([bad, good, "--cpu"] + QUIET)
-    assert "FAILED" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "FAILED" in err and "curves" in err
     assert os.path.exists(os.path.join(os.path.dirname(good), "cubemap.pfm"))
     assert not os.path.exists(os.path.join(os.path.dirname(bad), "thinlens.pfm"))
 
@@ -278,3 +302,46 @@ def test_photon_map_branches_match_the_jax_cli(tmp_path, monkeypatch, numpy_bvh,
     assert hdr.shape == (48, 64, 3) and (hdr.reshape(-1, 3).mean(0) > 0.05).all()
     check_image(hdr, load_image(str(tmp_path / "jax" / "box.pfm")), f"CLI {variant}")
 
+
+
+MLT_CHAINS, MLT_BOOT = 768, 2  # 1 spp at 32x24 is one step
+
+
+@pytest.mark.parametrize("variant", ["kelemen_mlt", "kelemen_mlt+pt", "multiplexed_mlt",
+                                     "reversible_jump_mlt"])
+def test_mlt_branches_match_the_jax_cli(tmp_path, monkeypatch, numpy_bvh, variant):
+    """small-box (max_bounces 3) under the Metropolis integrators through
+    `--cpu` at half resolution (reversible_jump_mlt at 4 spp: three Kelemen
+    steps and one strategy step), each CLI's render functions given
+    MLT_CHAINS chains and MLT_BOOT bootstrap rounds: the same files, the HDR
+    images within the render bars."""
+    import functools
+
+    from tungsten_tpu.integrators import kelemen as jk, multiplexed as jm, rjmlt as jr
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators import kelemen as tk, multiplexed as tm, rjmlt as tr
+    from tungsten_tpu_torch.io.imageio import load_image
+
+    for mod, names in ((jk, ("render_kelemen", "render_kelemen_bdpt")), (jm, ("render_mmlt",)),
+                       (jr, ("render_rjmlt",)), (tk, ("render_kelemen", "render_kelemen_bdpt")),
+                       (tm, ("render_mmlt",)), (tr, ("render_rjmlt",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, functools.partial(
+                getattr(mod, name), n_chains=MLT_CHAINS, bootstrap_factor=MLT_BOOT))
+    path = synth.write_scene(str(tmp_path / "box"), "small-box", variant)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["integrator"].update(max_bounces=3, large_step_probability=0.25)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    spp = "4" if variant == "reversible_jump_mlt" else "1"
+    for who, cli in (("port", lambda a: port_cli(a + ["--cpu"])),
+                     ("jax", lambda a: jax_cli(a + ["--cpu"], monkeypatch, tmp_path))):
+        (tmp_path / who).mkdir()
+        cli([path, "-s", spp, "--scale", "0.5", "-o", "box.png", "-e", "box.pfm", "-d",
+             str(tmp_path / who)] + QUIET)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax")) == [
+        "box.pfm", "box.png"]
+    hdr = load_image(str(tmp_path / "port" / "box.pfm"))
+    assert hdr.shape == (24, 32, 3) and (hdr.reshape(-1, 3).mean(0) > 0.05).all()
+    check_image(hdr, load_image(str(tmp_path / "jax" / "box.pfm")), f"CLI {variant}")

@@ -13,7 +13,9 @@ bit with its twin, and by the bars against brute force) and K6
 (grid_walk.cu: the exact voxel DDA's optical depth and its inverse, on
 trilinear and nearest grids, bit for bit with its twin), K7
 (photon_walk.cu: the photon-grid walk in its surface, kNN histogram,
-points and beams modes, bit for bit with its twin), and the first CUDA forms of K3, K3-fast, K4, K5 and
+points and beams modes, bit for bit with its twin), one Kelemen-BDPT MLT
+step through K3 and K3-fast against the CPU's twins per lane, and the first
+CUDA forms of K3, K3-fast, K4, K5 and
 K2, kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
 bvh2_walk_v1.cu, bvh_walk_v1.cu, intersect_stream_v1.cu).
 Bars: local slot (prim) agrees on >= 99.9%
@@ -564,6 +566,61 @@ def test_light_tracer_and_bdpt_on_the_card_match_reference(cuda, tmp_path):
         np.testing.assert_allclose(img.reshape(-1, 3).astype(np.float64).mean(0),
                                    ref["channel_means"]["small-box"][name], rtol=5e-3,
                                    err_msg=name)
+
+
+@pytest.mark.cuda
+def test_mlt_bdpt_step_on_the_card_matches_the_cpu_per_lane(cuda, tmp_path):
+    """One Kelemen-BDPT mutation step (`mlt_steps_bdpt`) of 2,048 chains of
+    `small-box` on the card (K3 and K3-fast) and on the CPU (their twins)
+    from one bootstrap state: the accept decisions equal wherever
+    |u - a| > 1e-4, and where they agree the new luminances and eye values
+    within rtol 1e-4 on >= 99.9% of the lanes."""
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+    from tungsten_tpu_torch.integrators import kelemen as tk
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    n, seed = 2048, (0xBA5EBA11, 0x60000)
+    native, accel_bvh._NATIVE = accel_bvh._NATIVE, False
+    try:
+        path = synth.write_scene(str(tmp_path), "small-box", "kelemen_mlt")
+        scenes = {d: flatten_scene(load_scene(path), torch.device(d)) for d in ("cpu", "cuda")}
+    finally:
+        accel_bvh._NATIVE = native
+    meta = scenes["cpu"].meta
+    dims = tk._table_dims_bdpt(meta, min(meta.max_bounces + 1, meta.bdpt_max_vertices))
+    state, b, _ = tk._bootstrap_kelemen_bdpt(scenes["cpu"], 0xBA5EBA11, seed, n, dims, 2)
+    state["splat"] = torch.zeros((meta.res_x * meta.res_y, 3))
+    out, lum_p = {}, {}
+    for d, scene in scenes.items():
+        st = {k: v.clone().to(d) for k, v in state.items()}
+        saved = tk._eval_bdpt
+
+        def ev(*a, **k):
+            res = saved(*a, **k)
+            lum_p[d] = res["lum"].cpu()
+            return res
+
+        k3 = bvh8.walk_cuda.launches
+        tk._eval_bdpt = ev
+        try:
+            out[d] = {k: v.cpu() for k, v in tk.mlt_steps_bdpt(
+                scene, st, torch.arange(n, device=d), seed, 0, 1, 0.1, b).items()}
+        finally:
+            tk._eval_bdpt = saved
+        assert (bvh8.walk_cuda.launches > k3) == (d == "cuda")
+    a = torch.clamp(lum_p["cpu"] / torch.clamp(state["lum"], min=1e-20), 0.0, 1.0)
+    u = tk._rand((n,), 0xBA5EBA11 ^ 0xDEADBEEF, seed[1], 3, "cpu")[0]
+    acc = {d: (o["table"] != state["table"]).reshape(n, -1).any(-1) for d, o in out.items()}
+    clear = (u - a).abs() > 1e-4
+    assert 0.05 < acc["cpu"].float().mean() < 1.0
+    assert (acc["cpu"] == acc["cuda"])[clear].all()
+    same = acc["cpu"] == acc["cuda"]
+    for key in ("lum", "eye"):
+        g, r = out["cuda"][key][same], out["cpu"][key][same]
+        close = torch.isclose(g, r, rtol=1e-4, atol=1e-5).reshape(len(g), -1).all(-1)
+        assert close.float().mean() >= BAR, f"{key}: {close.float().mean():.5f}"
 
 
 def _photon_case(dev, mode, n=4096, seed=9):

@@ -99,7 +99,7 @@ def test_sampler_create_camera_draws_exact(rng, strat):
     pix = _u32(rng, n)
     jsmp = js.Sampler.create(jnp.asarray(np.array([7, 9], np.uint32)), jnp.asarray(lane), None,
                              jnp.asarray(samp), jnp.asarray(pix), strat)
-    tsmp = ts.Sampler.create((7, 9), _t(lane), _t(samp), _t(pix), strat)
+    tsmp = ts.Sampler.create((7, 9), _t(lane), None, _t(samp), _t(pix), strat)
     for _ in range(2):
         uj, jsmp = jsmp.next_2d()
         ut, tsmp = tsmp.next_2d()

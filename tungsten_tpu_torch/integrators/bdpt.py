@@ -21,10 +21,11 @@ overrides of the family (`_mis_weight_static`), as in the JAX package.
 The subpath loop stops once no lane lives (one `.item()` a vertex), its
 sampler advanced as if it had run every step.
 
-Not carried: the MLT arguments of the JAX `_bdpt_sample` (the primary-sample
-`table` with `skip_dims`, the technique selector `sel`, `collect` and
-`return_verts`); the Kelemen and multiplexed slices add them where the
-sampler is created and where each family's contribution lands.
+The Metropolis integrators (kelemen.py, multiplexed.py, rjmlt.py) evaluate
+their chains through `_bdpt_sample`'s MLT arguments: the primary-sample
+`table` (after `skip_dims` slots of the render loop's own), the per-lane technique selector
+`sel`, `collect` (the t = 1 splats returned per lane instead of splatted)
+and `return_verts` (the two vertex stores, for RJ-MLT's path inversion).
 """
 from __future__ import annotations
 
@@ -113,6 +114,10 @@ class _Verts:
             old = arr[self.lanes, idx]
             mask = store.reshape(store.shape + (1,) * (old.dim() - 1))
             arr[self.lanes, idx] = torch.where(mask, val, old)
+
+    def tree(self):
+        """{field: (N, K, ...)} of every field."""
+        return {name: getattr(self, name) for name in _FIELDS}
 
     def at(self, scene, i):
         """Every field at static slot i, contiguous (the walks take its
@@ -354,11 +359,23 @@ def _camera_dir_pdf(scene: FlatScene, d):
     return inv_plane_area / cosz ** 3
 
 
-def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, pyramid=False):
-    """One BDPT sample per lane (bdpt.py:517-860, without the MLT
-    arguments). Returns (eye (N, 3), splat (W*H, 3)), and with `pyramid`
-    also {(s, t): the family's per-lane add (t >= 2) or splat buffer
-    (t = 1)}, the reference's ImagePyramid decomposition."""
+def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, table=None, skip_dims=1, sel=None,
+                 collect=False, return_verts=False, pyramid=False):
+    """One BDPT sample per lane (bdpt.py:517-860). Returns (eye (N, 3),
+    splat (W*H, 3)), and with `pyramid` also {(s, t): the family's per-lane
+    add (t >= 2) or splat buffer (t = 1)}, the reference's ImagePyramid
+    decomposition.
+
+    table: an MLT primary-sample table (N, D, 2); its first `skip_dims`
+      slots are the render loop's (the pixel, MMLT's technique selector).
+    sel: (s_sel (N,), v_sel (N,)): each lane keeps the one technique with
+      s light vertices of v in all (MultiplexedMltTracer.hpp:25-40),
+      unscaled by the technique count.
+    collect: returns {eye (N, 3), t1_val (N, S, 3), t1_pixf (N, S, 2),
+      t1_ok (N, S)}, S = k_max - 2 t = 1 splats (s = 2..k_max-1) in
+      light-tracer units (one zero entry where there is none); with
+      `return_verts` also the vertex stores "cv", "lv" ({field: (N, K,
+      ...)}) and their counts "n_cv", "n_lv"."""
     meta = scene.meta
     dev = px.device
     n = px.shape[0]
@@ -367,9 +384,15 @@ def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, pyramid=False):
     # capped by the scene's bdpt_max_vertices
     k_max = min(meta.max_bounces + 1, meta.bdpt_max_vertices)
     seed = (int(seed[0]) & MASK32, int(seed[1]) & MASK32)
-    sampler = Sampler.create(seed, lane_ids)
+    sampler = Sampler.create(seed, lane_ids, table)
+    if table is not None and skip_dims:
+        sampler = sampler.skip(skip_dims)
     ones = torch.ones((n,), dtype=torch.bool, device=dev)
     no_med = torch.full((n,), -1, dtype=torch.int64, device=dev)
+
+    def tech_mask(s, t):
+        """The lanes that keep technique (s, t)."""
+        return ones if sel is None else (sel[0] == s) & (sel[1] == s + t)
 
     # ---- the camera subpath ----
     u_cam, sampler = sampler.next_2d()
@@ -427,7 +450,8 @@ def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, pyramid=False):
         if media:
             over_c2 = over_c2 * cv.edge_med_bwd[:, t - 2]
         w = _mis_weight_static(cv, lv, 0, t, over_c1, over_c2, None, None)
-        add = torch.where((on_light & front)[..., None], C["throughput"] * le * w[..., None], 0.0)
+        add = torch.where((on_light & front & tech_mask(0, t))[..., None],
+                          C["throughput"] * le * w[..., None], 0.0)
         eye = eye + add
         if pyramid:
             pyr[(0, t)] = add
@@ -451,7 +475,7 @@ def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, pyramid=False):
                 fL, pLC_solid = _vertex_fg(scene, Lv, Lv["wi"], -dn)
                 fL = fL * _adjoint_factor(Lv, -dn)[..., None]
             contrib = C["throughput"] * fC * fL * Lv["throughput"] / dsq[..., None]
-            cand = exists & torch.any(contrib > 0.0, dim=-1)
+            cand = exists & torch.any(contrib > 0.0, dim=-1) & tech_mask(s, t)
             c_surf, l_surf = C["kind"] != V_MEDIUM, Lv["kind"] != V_MEDIUM
             med = None
             if media:
@@ -491,13 +515,14 @@ def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, pyramid=False):
                 pyr[(s, t)] = add
 
     # ---- t = 1: light-subpath vertices splat to the camera ----
+    t1 = []  # with collect: (value, pixel, visible) per s
     for s in range(2, k_max):
         Lv = lvs[s - 1]
         exists = (s <= n_lv) & ~Lv["dirac"] & (Lv["kind"] != V_INVALID)
         dc, distc, cam_w, pixel, vld = camera_sample_direct(scene.camera, meta, Lv["p"])
         fL, _ = _vertex_fg(scene, Lv, Lv["wi"], dc)
         fL = fL * _adjoint_factor(Lv, dc)[..., None]
-        cand = exists & vld & torch.any(fL > 0.0, dim=-1)
+        cand = exists & vld & torch.any(fL > 0.0, dim=-1) & tech_mask(s, 1)
         l_surf = Lv["kind"] != V_MEDIUM
         med = None
         if media:  # the splat walk leaves Lv toward the camera (LightPath.cpp:344)
@@ -519,12 +544,25 @@ def _bdpt_sample(scene: FlatScene, seed, lane_ids, px, py, pyramid=False):
         over_l2 = _over_l2(scene, lv, lvs, s, dc)
         w = _mis_weight_static(cv, lv, s, 1, None, None, over_l1, over_l2)
         value = value * w[..., None]
+        if collect:
+            t1.append((torch.where(torch.isfinite(value), value, 0.0), pixel, visible))
+            continue
         splat_filtered(splat, pixel, value, visible, meta.res_x, meta.res_y, meta.filter)
         if pyramid:
             pyr[(s, 1)] = splat_filtered(torch.zeros_like(splat), pixel, value, visible,
                                          meta.res_x, meta.res_y, meta.filter)
 
     eye = torch.where(torch.isfinite(eye), eye, 0.0)
+    if collect:
+        if not t1:
+            t1 = [(torch.zeros((n, 3), device=dev), torch.zeros((n, 2), device=dev),
+                   torch.zeros((n,), dtype=torch.bool, device=dev))]
+        out = dict(eye=eye, t1_val=torch.stack([v for v, _, _ in t1], dim=1),
+                   t1_pixf=torch.stack([p for _, p, _ in t1], dim=1),
+                   t1_ok=torch.stack([k for _, _, k in t1], dim=1))
+        if return_verts:
+            out.update(cv=cv.tree(), lv=lv.tree(), n_cv=n_cv, n_lv=n_lv)
+        return out
     splat = torch.where(torch.isfinite(splat), splat, 0.0)
     if pyramid:
         return eye, splat, pyr

@@ -440,7 +440,7 @@ def _regen(scene, s, seed, px_cycle, py_cycle, pix_cycle, pass_base, W, total, s
         pix_key = (_mul32(pyn, meta.res_x) + pxn) & MASK32
     else:
         samp_idx = pix_key = None
-    smp = Sampler.create(seed, lane_key, samp_idx, pix_key, strat)
+    smp = Sampler.create(seed, lane_key, samp_idx=samp_idx, pix_key=pix_key, strat=strat)
     u_cam, smp = smp.next_2d()
     u_lens, smp = smp.next_2d()
     if not strat:
@@ -913,11 +913,13 @@ def _strat_fields(meta, seed, lane_ids, px, py):
     return samp, pix
 
 
-def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
-    """One sample per lane, all lanes in lockstep (path_tracer.py:741-1097
-    for no sample table, no compaction). seed: (s0, s1) uint32
-    pair, the pass index folded into s1. Returns radiance (N, 3), and with
-    AOVs (radiance, {depth, normal, albedo}) at the lanes' own indices.
+def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py, table=None):
+    """One sample per lane, all lanes in lockstep (path_tracer.py:741-1097,
+    no compaction). seed: (s0, s1) uint32 pair, the pass index folded into
+    s1. table: an MLT primary-sample table (N, D, 2): stratification off,
+    slot 0 (the chain's pixel) skipped, no (0,2)-sequence AA
+    (path_tracer.py:741-760). Returns radiance (N, 3), and with AOVs
+    (radiance, {depth, normal, albedo}) at the lanes' own indices.
 
     Per bounce: the shadow rays take the any-hit walk, the [bsdf-strategy |
     continuation] rays one 2N-lane closest-hit walk."""
@@ -927,11 +929,13 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
     mats, texs = scene.materials, scene.textures
     seed = (int(seed[0]) & MASK32, int(seed[1]) & MASK32)
     samp_idx, pix_key = _strat_fields(meta, seed, lane_ids, px, py)
-    strat = samp_idx is not None
-    sampler = Sampler.create(seed, lane_ids, samp_idx, pix_key, strat)
+    strat = samp_idx is not None and table is None
+    sampler = Sampler.create(seed, lane_ids, table, samp_idx, pix_key, strat)
+    if table is not None:
+        sampler = sampler.skip(1)  # table slot 0 is the MLT pixel position
     u_cam, sampler = sampler.next_2d()
     u_lens, sampler = sampler.next_2d()
-    if not strat:
+    if table is None and not strat:
         # stratified (0,2)-sequence AA over passes
         u_cam = stratified_cam_2d(sampler.lane_id, seed[1])
     o, d, cam_w = camera_rays_w(scene.camera, meta, px, py, u_cam, u_lens)
@@ -957,7 +961,7 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py):
     bounce = 0
     while bounce < meta.max_bounces and bool(alive.any().item()):
         smp = Sampler(seed, sampler.lane_id, base_dim + bounce * DIMS_PER_BOUNCE,
-                      samp_idx, pix_key, strat).prefetch(8)
+                      samp_idx, pix_key, strat, table=table).prefetch(8)
         alive_in = alive
         did_hit = (hit.prim >= 0) & alive
 
@@ -1188,10 +1192,12 @@ def _volume_nee(scene: FlatScene, smp: Sampler, p, d_in, medium, ptype, g, gate)
     return (contrib_l + contrib_b) * choice_weight[..., None], smp
 
 
-def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
+def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py, table=None):
     """One sample per lane for scenes with forward lobes: trace_pass's slow
     branch without compaction (path_tracer.py:1803-2111); returns as
-    `_trace_pass_fast` does.
+    `_trace_pass_fast` does. table: an MLT primary-sample table, read by
+    the bounces' samplers only: the camera's draws hash as without one
+    and no slot is skipped (path_tracer.py:1813-1815, 1856-1859).
     Per bounce one closest-hit walk for the path, the medium interaction
     (with `_volume_nee` at the medium vertices, handleVolume), the
     transparency lottery (pass straight through a forward-lobed surface with
@@ -1205,7 +1211,7 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
     seed = (int(seed[0]) & MASK32, int(seed[1]) & MASK32)
     samp_idx, pix_key = _strat_fields(meta, seed, lane_ids, px, py)
     strat = samp_idx is not None
-    sampler = Sampler.create(seed, lane_ids, samp_idx, pix_key, strat)
+    sampler = Sampler.create(seed, lane_ids, samp_idx=samp_idx, pix_key=pix_key, strat=strat)
     u_cam, sampler = sampler.next_2d()  # no (0,2)-sequence AA on this branch
     u_lens, sampler = sampler.next_2d()
     o, d, cam_w = camera_rays_w(scene.camera, meta, px, py, u_cam, u_lens)
@@ -1232,7 +1238,7 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
     bounce = 0
     while bounce < meta.max_bounces and bool(alive.any().item()):
         smp = Sampler(seed, sampler.lane_id, base_dim + bounce * DIMS_PER_BOUNCE,
-                      samp_idx, pix_key, strat).prefetch(8)
+                      samp_idx, pix_key, strat, table=table).prefetch(8)
         hit = _intersect(scene, o, d, near, torch.where(alive, INF, 0.0))
         did_hit = (hit.prim >= 0) & alive
 
@@ -1354,15 +1360,16 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py):
     return rad if aov is None else (rad, _aux(aov))
 
 
-def trace_pass(scene: FlatScene, seed, lane_ids, px, py):
+def trace_pass(scene: FlatScene, seed, lane_ids, px, py, table=None):
     """Trace one sample for each lane; returns radiance (N, 3), and with
     AOVs (radiance, {depth, normal, albedo}). As the JAX package dispatches
     (path_tracer.py:1810): `_trace_pass_fast` without forward lobes, the
-    crossing-walk branch `_trace_pass_forward` with them."""
+    crossing-walk branch `_trace_pass_forward` with them. table: an
+    optional MLT primary-sample table (N, D, 2) (see Sampler)."""
     meta = scene.meta
     if meta.has_forward:
-        return _trace_pass_forward(scene, seed, lane_ids, px, py)
-    return _trace_pass_fast(scene, seed, lane_ids, px, py)
+        return _trace_pass_forward(scene, seed, lane_ids, px, py, table)
+    return _trace_pass_fast(scene, seed, lane_ids, px, py, table)
 
 
 def trace_batch(scene: FlatScene, seed, lane_base, px, py, pass_start: int, n_passes: int = 1):

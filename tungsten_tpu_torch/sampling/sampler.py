@@ -139,6 +139,10 @@ class Sampler:
     seed:     (s0, s1) python ints (uint32 each).
     lane_id:  (N,) int64 lane ids (uint32 values).
     dim:      python int or (N,) int64: next dimension to consume.
+    table:    optional (N, D, 2) float32 primary-sample table: draws read
+              table[:, dim] while dim < D and hash beyond it (the MLT chain
+              state: mutations edit the table, replay is exact); dim is
+              then a python int.
     samp_idx / pix_key: (N,) int64 per-pixel sample number and pixel id
               (stratified Sobol' mode only).
     pending:  second float of the last pair draw, awaiting next_1d().
@@ -147,10 +151,11 @@ class Sampler:
     """
 
     def __init__(self, seed, lane_id, dim, samp_idx=None, pix_key=None,
-                 strat=False, pending=None, win=None, stat_off=0):
+                 strat=False, pending=None, win=None, stat_off=0, table=None):
         self.seed = seed
         self.lane_id = lane_id
         self.dim = dim
+        self.table = table
         self.samp_idx = samp_idx
         self.pix_key = pix_key
         self.strat = bool(strat) and samp_idx is not None
@@ -159,17 +164,21 @@ class Sampler:
         self.stat_off = stat_off
 
     @staticmethod
-    def create(seed, lane_ids, samp_idx=None, pix_key=None, strat=False) -> "Sampler":
+    def create(seed, lane_ids, table=None, samp_idx=None, pix_key=None,
+               strat=False) -> "Sampler":
+        """A sampler at dim 0; stratification is off whenever a table is
+        given (sampler.py:204-212)."""
         if isinstance(seed, int):
             seed = (seed & MASK32, (seed >> 32) & MASK32)
         return Sampler((int(seed[0]) & MASK32, int(seed[1]) & MASK32),
-                       lane_ids.to(torch.int64) & MASK32, 0, samp_idx, pix_key, strat)
+                       lane_ids.to(torch.int64) & MASK32, 0, samp_idx, pix_key,
+                       strat and table is None, table=table)
 
     def _replace(self, **kw) -> "Sampler":
         args = dict(seed=self.seed, lane_id=self.lane_id, dim=self.dim,
                     samp_idx=self.samp_idx, pix_key=self.pix_key,
                     strat=self.strat, pending=self.pending, win=self.win,
-                    stat_off=self.stat_off)
+                    stat_off=self.stat_off, table=self.table)
         args.update(kw)
         return Sampler(**args)
 
@@ -178,7 +187,7 @@ class Sampler:
             d = _u32(self.dim, self.lane_id)
             r0, r1, _, _ = pcg4d(self.lane_id, d, _u32(self.seed[0], self.lane_id),
                                  _u32(self.seed[1], self.lane_id))
-            return _to_unit_float(r0), _to_unit_float(r1)
+            u0, u1 = _to_unit_float(r0), _to_unit_float(r1)
         else:
             S = SOBOL_LOW_BITS
             db = _u32(self.dim, self.pix_key)
@@ -204,6 +213,10 @@ class Sampler:
                              _to_unit_float(h0))
             u1 = torch.where(use_qmc, _to_unit_float(_reverse_bits32(_lk_hash(y, k2 ^ hi))),
                              _to_unit_float(h1))
+        if self.table is not None and self.dim < self.table.shape[1]:
+            # the table overrides both the window and the pair gather
+            # (sampler.py:280-286); dims past its end keep the draw above
+            u0, u1 = self.table[:, self.dim, 0], self.table[:, self.dim, 1]
         return u0, u1
 
     def next_1d(self) -> Tuple[torch.Tensor, "Sampler"]:

@@ -1,8 +1,8 @@
 """Sampling warps on torch tensors.
 
-Port of the forward warps of tungsten_tpu/sampling/warps.py that the slice
-calls (the inverse warps serve RJ-MLT and wait for it). Directions are in the
-local frame (+z = normal).
+Port of the warps of tungsten_tpu/sampling/warps.py that the port calls: the
+forward warps, and the inverse warps of RJ-MLT's path inversion
+(SampleWarp.hpp:17-146). Directions are in the local frame (+z = normal).
 """
 from __future__ import annotations
 
@@ -75,3 +75,48 @@ def gaussian_filter_sample(u0, u1, width=2.0, alpha=2.0):
         1.0 - u0 * (1.0 - math.exp(-alpha * width * width)), min=1e-7)) / alpha)
     phi = 2.0 * math.pi * u1
     return r * torch.cos(phi), r * torch.sin(phi)
+
+
+# ---- inverse warps (RJ-MLT path inversion, SampleWarp.hpp:17-146) ---------
+# Each invert_* is a right inverse of its forward warp: forward(invert(w))
+# gives w back up to rounding. `mu` is the free uniform of a degenerate
+# (measure-zero) input, as the reference's untracked1D().
+
+def invert_phi(w, mu=0.5):
+    """The azimuth of w as a [0, 1) uniform (SampleWarp::invertPhi)."""
+    degen = (w[..., 0] == 0.0) & (w[..., 1] == 0.0)
+    res = torch.where(degen, mu * INV_TWO_PI * (2.0 * math.pi),
+                      torch.atan2(w[..., 1], w[..., 0]) * INV_TWO_PI)
+    return torch.where(res < 0.0, res + 1.0, res)
+
+
+def invert_cosine_hemisphere(w, mu=0.5):
+    return torch.stack([invert_phi(w, mu), torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0)],
+                       dim=-1)
+
+
+def invert_uniform_hemisphere(w, mu=0.5):
+    return torch.stack([invert_phi(w, mu), w[..., 2]], dim=-1)
+
+
+def invert_uniform_sphere(w, mu=0.5):
+    return torch.stack([invert_phi(w, mu), (w[..., 2] + 1.0) * 0.5], dim=-1)
+
+
+def invert_uniform_disk(p, mu=0.5):
+    return torch.stack([invert_phi(p, mu), p[..., 0] ** 2 + p[..., 1] ** 2], dim=-1)
+
+
+def invert_uniform_spherical_cap(w, cos_theta_max, mu=0.5):
+    """(u2, ok): ok is False where w lies outside the cap."""
+    y = (w[..., 2] - cos_theta_max) / torch.clamp(
+        torch.as_tensor(1.0 - cos_theta_max, dtype=torch.float32), min=1e-20)
+    ok = (y >= 0.0) & (y < 1.0)
+    return torch.stack([invert_phi(w, mu), torch.clamp(y, 0.0, 1.0)], dim=-1), ok
+
+
+def invert_uniform_triangle_uv(bary):
+    """The inverse of uniform_triangle_uv: barycentric (a, b) -> u2."""
+    u1 = 1.0 - bary[..., 0]
+    ub = bary[..., 1] / torch.clamp(u1, min=1e-20)
+    return torch.stack([u1 * u1, torch.clamp(ub, 0.0, 1.0)], dim=-1)

@@ -25,8 +25,10 @@ returns the scene.json path. The scene has materialtest's features:
     tracer must agree; a box size's `variant` names the scene's integrator
     (path_tracer by default, light_tracer, bidirectional_path_tracer,
     bdpt_pyramid: BDPT with its image_pyramid, photon_map or
-    progressive_photon_map, with PHOTON_COUNT photons an iteration), and
-    may name kinds after it: "+caustic" makes the ball a smooth dielectric
+    progressive_photon_map, with PHOTON_COUNT photons an iteration,
+    kelemen_mlt, multiplexed_mlt, reversible_jump_mlt), and may name kinds
+    after it: "kelemen_mlt+pt" gives Kelemen MLT path-traced chains
+    ("bidirectional": false), "+caustic" makes the ball a smooth dielectric
     (ior 1.5: caustics on the floor, and a camera chain through the glass),
     "+fog" fills the box with FOG (the camera's medium and every prim's
     outer and inner medium), "+fog+<type>" sets the volume photon type
@@ -170,10 +172,12 @@ SIZES["small-box"] = SIZES["small"]
 SIZES["box-synth"] = SIZES["materialtest-synth"]
 BOX = ("box-synth", "small-box")
 BOX_VARIANTS = ("path_tracer", "light_tracer", "bidirectional_path_tracer", "bdpt_pyramid",
-                "photon_map", "progressive_photon_map")
+                "photon_map", "progressive_photon_map", "kelemen_mlt", "multiplexed_mlt",
+                "reversible_jump_mlt")
 # a box variant's kinds, after its integrator: "<integrator>+caustic",
-# "<integrator>+fog" and "<integrator>+fog+<volume photon type>"
-BOX_KINDS = ("caustic", "fog")
+# "<integrator>+fog", "<integrator>+fog+<volume photon type>" and
+# "kelemen_mlt+pt" (path-traced chains, "bidirectional": false)
+BOX_KINDS = ("caustic", "fog", "pt")
 PHOTON_COUNT = {"small-box": 1 << 14, "box-synth": 1 << 18}  # photons an SPPM iteration
 # photon_map's kNN count: small-box's photons are too few for the default
 # 20 to shrink any radius, 4 does
@@ -806,9 +810,11 @@ def _box_variant(variant: str):
     integ, *kinds = variant.split("+")
     bad = [k for k in kinds if k not in BOX_KINDS + VOLUME_PHOTON_TYPES]
     if (integ not in BOX_VARIANTS or bad
-            or (any(k in VOLUME_PHOTON_TYPES for k in kinds) and "fog" not in kinds)):
+            or (any(k in VOLUME_PHOTON_TYPES for k in kinds) and "fog" not in kinds)
+            or ("pt" in kinds and integ != "kelemen_mlt")):
         raise ValueError(f"box variant {variant!r}: an integrator of {list(BOX_VARIANTS)}, "
-                         f"then +caustic, +fog or +fog+<one of {list(VOLUME_PHOTON_TYPES)}>")
+                         f"then +caustic, +fog or +fog+<one of {list(VOLUME_PHOTON_TYPES)}>; "
+                         f"kelemen_mlt+pt")
     return integ, tuple(kinds)
 
 
@@ -860,6 +866,8 @@ def scene_dict(size: str, variant: str | None = None) -> dict:
             doc["integrator"]["photon_count"] = PHOTON_COUNT[size]
         if integ == "photon_map":
             doc["integrator"]["gather_photon_count"] = GATHER_COUNT[size]
+        if "pt" in kinds:
+            doc["integrator"]["bidirectional"] = False
         if "caustic" in kinds:
             doc["bsdfs"] = [copy.deepcopy(CAUSTIC_BSDF) if b["name"] == "ball" else b
                             for b in doc["bsdfs"]]

@@ -281,12 +281,13 @@ def load(scene_path, dev):
     return flatten_scene(doc, dev)
 
 
-def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
+def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5, twin_trials=None):
     """Time and check the walks; returns {"scene", "device", "n", "times":
     {(kind, kernel): {"ms", "twin_ms", "work"}}, "agree": {label: fraction}}.
     "ms" is None on the CPU, where only the twins run; "work" is the twin's
     count of box and triangle tests on the row's rays (for K2 and its first
-    form also `sub_box_work`'s)."""
+    form also `sub_box_work`'s). `twin_trials` (default `trials`): the runs
+    of each twin's median, which costs 10^2-10^3 times its kernel's."""
     kernels = parse_kernels(kernels)
     dev = dev or get_device("cuda")
     on_card = dev.type == "cuda"
@@ -303,7 +304,8 @@ def run(scene_path=None, dev=None, n=131072, kernels=KERNELS, trials=5):
             kernel, twin = walks(scene, name)
             row = out["times"][(kind, name)] = {
                 "ms": time_ms(kernel, rays, trials) if on_card else None,
-                "twin_ms": time_ms(twin, rays, trials), "work": dict(twin.func.work)}
+                "twin_ms": time_ms(twin, rays, twin_trials or trials),
+                "work": dict(twin.func.work)}
             if name in ("tri", "triv1"):  # what the kernel's sub-box cull leaves
                 row["work"].update(k2.sub_box_work(scene.ptris, *rays))
 

@@ -1,6 +1,5 @@
-"""The renderer's command line on the card: the path tracer, light tracer,
-bidirectional path tracer and photon map branches of tools/tungsten.py
-(:20-131, 171-239), the analog of src/tungsten/tungsten.cpp.
+"""The renderer's command line on the card: tools/tungsten.py (:20-239)
+with all eight integrators, the analog of src/tungsten/tungsten.cpp.
 
     python -m tungsten_tpu_torch.tools.tungsten scene.json [scene2.json ...] [options]
 
@@ -9,15 +8,18 @@ flags: spp / seed / resolution-scale overrides, adaptive sampling
 (`adaptive_sampling`), AOV output buffers, checkpoints (`checkpoint_interval`
 or -c) and resume (`enable_resume_render`, `resume_render_file`; -r starts
 afresh). It runs on the CUDA card, and raises where there is none; --cpu
-runs it on the CPU. The path_tracer, light_tracer,
+runs it on the CPU. The integrators: path_tracer (and any type not
+named below, as the JAX CLI's last branch), light_tracer,
 bidirectional_path_tracer (with its `image_pyramid`: one
-<output>-s=S-t=T.png a technique), photon_map and progressive_photon_map
-integrators are ported; another integrator type raises
-NotImplementedError naming it. SPPM reads `photon_count` (at most 2^20),
-`alpha`, `volume_photon_type` and, for photon_map only, the kNN
-`gather_photon_count` (20 by default). The light tracer, BDPT and SPPM
-write the LDR and HDR images only, as the JAX CLI does. A failed scene is
-reported and the queue goes on; with one scene the error is raised.
+<output>-s=S-t=T.png a technique), photon_map, progressive_photon_map,
+kelemen_mlt (bidirectional unless "bidirectional" is false),
+multiplexed_mlt and reversible_jump_mlt. SPPM reads `photon_count` (at most
+2^20), `alpha`, `volume_photon_type` and, for photon_map only, the kNN
+`gather_photon_count` (20 by default); the Metropolis integrators read
+`large_step_probability` (0.1 by default). Every integrator but the path
+tracer writes the LDR and HDR images only, as the JAX CLI does. A failed
+scene is reported and the queue goes on; with one scene the error is
+raised.
 """
 from __future__ import annotations
 
@@ -30,8 +32,6 @@ import numpy as np
 import torch
 
 
-PORTED = ("path_tracer", "light_tracer", "bidirectional_path_tracer", "photon_map",
-          "progressive_photon_map")
 PHOTON_CAP = 1 << 20  # photons an SPPM iteration at most (tools/tungsten.py:178)
 
 
@@ -71,6 +71,7 @@ def main(argv=None):
     from ..renderer.framebuffer import scene_hash
     from ..renderer.render import (render_bdpt, render_bdpt_pyramid, render_buffers,
                                    render_light_traced, render_sppm)
+    from ..integrators import kelemen, multiplexed, rjmlt
     from ..scene.flatten import flatten_scene
     from ..scene.load import load_scene
 
@@ -80,8 +81,6 @@ def main(argv=None):
             t0 = time.time()
             doc = load_scene(scene_path)
             itype = doc.integrator.get("type", "path_tracer")
-            if itype not in PORTED:
-                raise NotImplementedError(f"integrator {itype!r} is not ported")
             if args.scale != 1.0:
                 rx, ry = doc.camera.get("resolution", [1000, 563])
                 doc.camera["resolution"] = [max(1, int(rx * args.scale)),
@@ -135,7 +134,20 @@ def main(argv=None):
                     save_image(outpath(hdr_out), np.asarray(hdr, np.float32))
                 return out
 
-            if itype == "bidirectional_path_tracer" and doc.integrator.get("image_pyramid"):
+            mlt = {"multiplexed_mlt": multiplexed.render_mmlt,
+                   "reversible_jump_mlt": rjmlt.render_rjmlt}
+            if itype == "kelemen_mlt":
+                # the reference's default is the bidirectional variant
+                # (KelemenMltSettings "bidirectional": true)
+                mlt[itype] = (kelemen.render_kelemen_bdpt
+                              if doc.integrator.get("bidirectional", True)
+                              else kelemen.render_kelemen)
+            if itype in mlt:
+                out = save_simple(mlt[itype](
+                    scene, spp=args.spp, seed=args.seed,
+                    p_large=float(doc.integrator.get("large_step_probability", 0.1)),
+                    verbose=not args.quiet))
+            elif itype == "bidirectional_path_tracer" and doc.integrator.get("image_pyramid"):
                 # the per-technique stack, <out>-s=%d-t=%d.png (ImagePyramid.cpp:36)
                 hdr, stack = render_bdpt_pyramid(scene, spp=args.spp, seed=args.seed,
                                                  verbose=not args.quiet)
