@@ -135,7 +135,7 @@ printing a result):
                 and K3-fast against their v1 forms on the benchmark's coherent
                 and incoherent rays, in turns, and so K4 (ordered, skip,
                 any), K5 (both modes) and K2 against their first forms;
-  7. routes   - materialtest-analytic at 1000x563 and ROUTE_SPP = 16 through
+  7. routes   - materialtest-analytic at 1000x563 and ROUTE_SPP = 8 through
                 render_flat on four FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = None (K1), pbvh8 = gbvh =
                 pbvh3 = None (K5-v2) and pbvh8 = gbvh = pbvh3 = pbvh = None
@@ -155,7 +155,7 @@ printing a result):
                 build); interior-synth flattened, one regen pass (1 spp)
                 counting each BSDF type's hits (all seven new types hit),
                 then at 1000x563, CUT_BOUNCES = 8 bounces (cut from the
-                scene's 64) through regen (32 spp) and lockstep (10 spp)
+                scene's 64) through regen (FULL_REGEN_SPP = 16) and lockstep (10 spp)
                 with the launch counts reset just before and read just
                 after each: K3 and K3-fast launch in both (regen's
                 closest-hit walks also go through K3-fast), lockstep's
@@ -177,8 +177,8 @@ printing a result):
                 be hit) and once profiled,
                 printing the CUDA kernels per iteration, the device-busy share
                 and the five kernels of most device time; then coat-synth at
-                1000x563, CUT_BOUNCES bounces, through regen (32 spp) and
-                lockstep (4 spp) and
+                1000x563, CUT_BOUNCES bounces, through regen (FULL_REGEN_SPP)
+                and lockstep (4 spp) and
                 cutout-synth through lockstep (3 spp; forward lobes: the
                 crossing-walk branch), each counting the BSDF types' hits
                 (every new type of the scene must be hit), the launch counts
@@ -195,7 +195,7 @@ printing a result):
                 envs, two caps, a point light) through render_scene in both
                 wavefronts against tests/data/torch_port_lights_ref.json
                 (numpy BVH build); lights-synth at 1000x563, CUT_BOUNCES
-                bounces, through regen (32 spp) and lockstep
+                bounces, through regen (FULL_REGEN_SPP) and lockstep
                 (LIGHTS_LOCKSTEP_SPP = 2), each counting the light rows
                 NEE chose (count_light_choices: every row, so every kind,
                 chosen), the launch counts reset
@@ -251,7 +251,7 @@ printing a result):
                 rounds the twin counts and the bound; that pass's K6 device
                 time against its wall; then media-synth at 1000x563,
                 CUT_BOUNCES bounces: fog, cloud and haze through regen
-                (MEDIA_REGEN_SPP = 16), fog and
+                (MEDIA_REGEN_SPP = 8), fog and
                 cloud through lockstep (MEDIA_LOCKSTEP_SPP), forward
                 through the crossing-walk branch (MEDIA_FORWARD_SPP), each
                 with its launches reset just before and read just after: K3
@@ -325,8 +325,26 @@ printing a result):
                 kelemen_mlt, kelemen_mlt+pt, multiplexed_mlt and
                 reversible_jump_mlt, each image's channel means within
                 MLT_REF_RTOL of the JAX package's in
-                tests/data/torch_port_mlt_ref.json; then one profile
-                window of a single Kelemen-BDPT mutation step of box-synth.
+                tests/data/torch_port_mlt_ref.json.
+  16. fiber   - curves, the fiber BSDFs, the skydome, IES textures and
+                minecraft_map: small-hair (64 strands in three curves prims:
+                hair, lambertian_fiber, rough_wire; a skydome) and small-mc
+                (one chunk with a resource pack, an IES-profiled sphere, a
+                skydome) in both wavefronts against
+                tests/data/torch_port_fiber_ref.json (numpy BVH build);
+                hair-synth (materialtest-synth's ball and floor, 4,096
+                strands of 25 nodes: 669,826 triangles, none dropped by
+                max_tris) and mc-synth (8 x 8 chunks with the pack, the IES
+                sphere, the skydome) written and flattened, their triangle
+                counts and seconds; each rendered with regen at the scene's
+                32 spp and 64 bounces through render_flat, its launches
+                reset just before and read just after (K3 and K3-fast only)
+                and its BSDF hits counted (hair-synth: every fiber type
+                hit); mc-synth through the CLI in process, its channel means
+                within 5e-3 of render_flat's; hair-synth's lockstep
+                (FIBER_LOCKSTEP_SPP) against regen (FIBER_REGEN_SPP) at
+                CUT_BOUNCES, means within 5e-3; one profile window of a
+                hair-synth regen batch (1 pass, PROFILE_BOUNCES bounces).
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
 8; to make room for phase 9, phase 8's lockstep render from 32 to 16 (at 8
 its wavefront check failed, 5.94e-3 against the 5e-3 bar); phase 9's
@@ -343,7 +361,17 @@ full-width renders of phases 8, 9, 10 and 12 and phase 11's adaptive
 render at CUT_BOUNCES = 8 bounces, phase 7's routes and phase 12's regen
 renders at 16 spp (no check reads their noise), phase 12's K6 checks on
 16,384 random rays, phase 14's fog at 2 iterations, and phase 15's renders
-at 4 mutation steps after 2 bootstrap evaluations.
+at 4 mutation steps after 2 bootstrap evaluations. To make room for phase
+16, phase 13's path-traced reference renders its 32 spp all in regen
+(the scene's adaptive sampling off: 16 adaptive lockstep passes of 64
+bounces cost ~40 s), and phase 15's profile window of a Kelemen-BDPT step
+went (its ~243,000 kernels a step are phase 13's BDPT pass's, profiled);
+then, by spp, runs whose noise no check reads or whose check compares paths
+traced alike: phase 7's routes 16 -> 8 (ROUTE_SPP), phase 12's media regen
+16 -> 8 (MEDIA_REGEN_SPP), phase 11's equirectangular and cubemap 16 -> 8
+(CAMERA_OTHER_SPP), and the regen renders of phases 8-10 32 -> 16
+(FULL_REGEN_SPP; interior's and coat's held to lockstep at 5e-3, their
+means stood 7.05e-4 and 2.26e-3 apart at 32).
 Every render phase checks that no first CUDA form (v1 kernel) launched.
 The kernels line gives, per kernel: the launches of its main path (phase 5's
 render for K3, phase 5b's lockstep render for K3-fast, with phase 8's two
@@ -351,8 +379,9 @@ renders beside as launches_interior, phase 9's three as
 launches_surfaces, phase 10's two as launches_lights, phase 11's as
 launches_camera, phase 12's as launches_media and phase 13's box-synth
 light tracer and BDPT renders as launches_lt and launches_bdpt, phase
-14's SPPM renders as launches_sppm and phase 15's MLT renders as
-launches_mlt; phase 14's
+14's SPPM renders as launches_sppm, phase 15's MLT renders as
+launches_mlt and phase 16's renders as launches_fiber (hair-synth) and
+launches_mc (mc-synth); phase 14's
 box-synth progressive_photon_map render for K7, with every SPPM render's
 K7 launches beside as launches_sppm, its ms, plain ms and bound on that
 render's first surface call and every checked call's under calls (K7 is
@@ -494,14 +523,18 @@ WAVEFRONT_RTOL = 5e-3
 # two wavefronts' means stood 6.19e-4 apart at 8 spp on an H100, against a
 # bar of 5e-3)
 AREA_LOCKSTEP_SPP = 4
-# phase 7's routes, cut from the scene's 32 spp for the script's time limit
-# (the routes trace the same paths: their images agree pixel by pixel)
-ROUTE_SPP = 16
+# phase 7's routes, cut from the scene's 32 spp for the script's time limit,
+# to 16 and then 8 (the routes trace the same paths: their images agree pixel
+# by pixel)
+ROUTE_SPP = 8
+# phases 8-10's full-width regen renders, cut from the scenes' 32 spp for the
+# script's time limit (the module docstring)
+FULL_REGEN_SPP = 16
 # the interior cell's BSDF types that phase 8 must see hit, JAX type ids
 INTERIOR_TYPES = {1: "null", 2: "mirror", 7: "dielectric", 8: "rough_dielectric",
                   9: "conductor", 10: "plastic", 11: "rough_plastic"}
 # phase 8's lockstep render, cut from the scene's 32 spp to make room for
-# phase 9 (its regen render keeps 32; on an H100 the two wavefronts' means
+# phase 9 (its regen render kept 32; on an H100 the two wavefronts' means
 # stood 2.04e-3 apart at 16 spp, 2.2e-3 at 32, 5.94e-3 at 8: the bar is
 # 5e-3), from 16 to 12 to make room for phase 12, and from 12 to 10 for
 # phase 14 (2.19e-3 apart at 10)
@@ -510,8 +543,8 @@ INTERIOR_LOCKSTEP_SPP = 10
 SURFACE_TYPES = {"coat-synth": {4: "smooth_coat", 5: "oren_nayar", 6: "phong", 15: "mixed",
                                 16: "diffuse_transmission", 17: "rough_coat"},
                  "cutout-synth": {12: "thinsheet", 13: "transparency", 14: "forward"}}
-# phase 9's lockstep renders, 4 spp (coat-synth's regen render keeps the
-# scene's 32): at 8 spp the script took 469 s on an H100 machine, and a host
+# phase 9's lockstep renders, 4 spp (coat-synth's regen render kept the
+# scene's 32 until phase 16): at 8 spp the script took 469 s on an H100 machine, and a host
 # 1.3-1.6x slower (as one has measured) would pass the 600 s the script
 # keeps under; cutout-synth's from 4 to 3 for phase 14
 # (not 2 for cutout-synth: a thin sheet's interference reflectance 1 - T
@@ -525,8 +558,8 @@ SURFACE_LOCKSTEP_SPP = {"coat-synth": 4, "cutout-synth": 3}
 # script, ~27 s of them the profiler's own teardown of ~800,000 kernel
 # events; cut to make room for phase 12)
 PROFILE_BOUNCES = 8
-# phase 10's lockstep render of lights-synth (its regen render keeps the
-# scene's 32 spp), cut from 8 to 2 to make room for phase 11: the script
+# phase 10's lockstep render of lights-synth (its regen render kept the
+# scene's 32 spp until phase 16), cut from 8 to 2 to make room for phase 11: the script
 # took 593 s with phase 11 and 4 spp here on an H100 machine whose host
 # slowed down mid-run
 # (every kind is still chosen ~10^4 times; no BSDF of the scene has a
@@ -535,7 +568,7 @@ LIGHTS_LOCKSTEP_SPP = 2
 # phase 11: the camera-synth renders' spp (the CLI's takes the scene's 32)
 CAMERA_RESUME_SPP = 16  # saved, then resumed to the scene's 32
 CAMERA_WARMUP_SPP, CAMERA_ADAPTIVE_PASSES = 16, 4  # passes cut from 8 for phase 12
-CAMERA_OTHER_SPP = 16  # equirectangular and cubemap
+CAMERA_OTHER_SPP = 8  # equirectangular and cubemap (16 until phase 16)
 # phase 6: the runs of each twin's median in the benchmark (its kernels
 # keep 5): at 5 the twins took ~50 s of the script on an H100 machine
 BENCH_TWIN_TRIALS = 1
@@ -901,13 +934,16 @@ def k3_only(label, c):
           f"{c['bvh8.walk_fast_cuda']}, every other walk, twin and v1 kernel none {others}")
 
 
-def render_vs_ref(label, path, ref_file, dev, wavefront="auto"):
+def render_vs_ref(label, path, ref_file, dev, wavefront="auto", key=None):
     """render_scene of a small scene against the JAX package's channel
-    means; K3 and K3-fast must launch and no twin."""
+    means (the file's entry `key` where it holds several scenes); K3 and
+    K3-fast must launch and no twin."""
     from tungsten_tpu_torch.renderer.render import render_scene
 
     with open(os.path.join(REPO, "tests", "data", ref_file)) as f:
         ref = json.load(f)
+    if key is not None:
+        ref = ref[key]
     want = ref["channel_means"] if wavefront == "auto" else ref["channel_means"][wavefront]
     name = f"{ref['scene']} ({wavefront})"
     log(f"[{label}] render_scene of the {name} scene")
@@ -984,7 +1020,7 @@ def k1_phase(scene, sets, r2, latch, sub, hb, n_pix, card):
 def lights_phase(work, dev, card):
     """Phase 10: the lights. small-lights in both wavefronts against
     tests/data/torch_port_lights_ref.json (numpy BVH build); lights-synth at
-    full width through regen (its 32 spp) and lockstep (LIGHTS_LOCKSTEP_SPP),
+    full width through regen (FULL_REGEN_SPP) and lockstep (LIGHTS_LOCKSTEP_SPP),
     each counting the light rows NEE chose: every light kind must be chosen.
     Returns {render: counts()}."""
     from tungsten_tpu_torch import synth
@@ -1011,7 +1047,7 @@ def lights_phase(work, dev, card):
         f"{m.res_x}x{m.res_y}, {m.spp} spp, max_bounces {m.max_bounces} (cut depth)")
     means, launches = {}, {}
     for wavefront in ("regen", "lockstep"):
-        spp = m.spp if wavefront == "regen" else LIGHTS_LOCKSTEP_SPP
+        spp = FULL_REGEN_SPP if wavefront == "regen" else LIGHTS_LOCKSTEP_SPP
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
@@ -1039,7 +1075,7 @@ def lights_phase(work, dev, card):
             f"{means[wavefront].round(6).tolist()}")
     rel = np.abs(means["lockstep"] - means["regen"]) / np.abs(means["regen"])
     log(f"[10 lights] lights-synth: lockstep's channel means vs regen's, rel {rel.max():.3e} "
-        f"({LIGHTS_LOCKSTEP_SPP} against {m.spp} spp)")
+        f"({LIGHTS_LOCKSTEP_SPP} against {FULL_REGEN_SPP} spp)")
     return launches
 
 
@@ -1270,7 +1306,7 @@ def interior_phase(work, dev, card):
 
     means, launches = {}, {}
     for wavefront in ("regen", "lockstep"):
-        spp = m.spp if wavefront == "regen" else INTERIOR_LOCKSTEP_SPP
+        spp = FULL_REGEN_SPP if wavefront == "regen" else INTERIOR_LOCKSTEP_SPP
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
@@ -1357,7 +1393,7 @@ def surfaces_phase(work, dev, card):
                             ("cutout-synth", "lockstep")):
         sc = scenes[size]
         m = sc.meta
-        spp = m.spp if wavefront == "regen" else SURFACE_LOCKSTEP_SPP[size]
+        spp = FULL_REGEN_SPP if wavefront == "regen" else SURFACE_LOCKSTEP_SPP[size]
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
@@ -1389,8 +1425,8 @@ def surfaces_phase(work, dev, card):
 
 
 # phase 12: the media-synth renders' spp (regen's cut from the scene's 32
-# for the script's time limit: no check reads its noise)
-MEDIA_REGEN_SPP = 16
+# to 16, then 8, for the script's time limit: no check reads its noise)
+MEDIA_REGEN_SPP = 8
 MEDIA_LOCKSTEP_SPP = 1  # fog and cloud through lockstep
 MEDIA_FORWARD_SPP = 1  # forward through the crossing-walk branch
 MEDIA_RENDERS = (("fog", "regen"), ("cloud", "regen"), ("haze", "regen"), ("fog", "lockstep"),
@@ -1504,7 +1540,7 @@ def media_phase(work, dev, card):
     read back bit for bit; K6 against its twin on K6_RAYS random rays through
     the cloud and on the largest launch of each mode of a 1-spp regen pass
     of the cloud (which also gives K6's share of that pass's wall); then
-    media-synth at 1000x563: fog, cloud and haze through regen (32 spp),
+    media-synth at 1000x563: fog, cloud and haze through regen (MEDIA_REGEN_SPP),
     fog and cloud through lockstep (MEDIA_LOCKSTEP_SPP), forward through the
     crossing-walk branch (MEDIA_FORWARD_SPP), each counting its launches.
     Returns (K6's kernels-line fields, {render: counts()})."""
@@ -1719,6 +1755,12 @@ def bdpt_phase(work, dev, card):
             ("path_tracer", None, "render_buffers"))
     for variant, spp, fn in runs:
         path = synth.write_scene(os.path.join(work, f"box-synth-{variant}"), "box-synth", variant)
+        if variant == "path_tracer":  # the reference's 32 spp all in regen (module docstring)
+            with open(path) as f:
+                doc = json.load(f)
+            doc["renderer"]["adaptive_sampling"] = False
+            with open(path, "w") as f:
+                json.dump(doc, f)
         out = os.path.dirname(path)
         argv = [path, "-q", "-o", "box.png", "-e", "box.pfm"] + (["-s", str(spp)] if spp else [])
         torch.cuda.synchronize()
@@ -2070,19 +2112,16 @@ MLT_REF_RTOL = 0.15
 def mlt_steps_timed():
     """While open, the wall (device synchronised) of every MLT step the
     renders take, by kind: "step" (a Kelemen mutation, PT or BDPT chains)
-    and "strategy" (an RJ-MLT strategy step), and the arguments of the
-    first BDPT mutation step (for the profile window)."""
+    and "strategy" (an RJ-MLT strategy step)."""
     from tungsten_tpu_torch.integrators import kelemen, rjmlt
 
-    out = {"step": [], "strategy": [], "bdpt_args": None}
+    out = {"step": [], "strategy": []}
     saved = {(kelemen, "_mlt_step_impl"): "step", (kelemen, "_mlt_step_bdpt_impl"): "step",
              (rjmlt, "_rjmlt_strategy_step_impl"): "strategy"}
     fns = {key: getattr(*key) for key in saved}
 
     def wrap(key, kind):
         def timed(*a, **k):
-            if key[1] == "_mlt_step_bdpt_impl" and out["bdpt_args"] is None:
-                out["bdpt_args"] = (a, k)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = fns[key](*a, **k)
@@ -2106,8 +2145,7 @@ def mlt_phase(work, dev, card, pt_img):
     1, MLT_CHAINS chains, MLT_BOOT bootstrap rounds), each held to phase
     13's path-traced image `pt_img` by the JAX tests' bar; small-box through
     the CLI's four MLT branches at its defaults against
-    tests/data/torch_port_mlt_ref.json; one profile window of a
-    Kelemen-BDPT step of box-synth. Returns {render: counts()} of the
+    tests/data/torch_port_mlt_ref.json. Returns {render: counts()} of the
     box-synth renders and the CLI's."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.integrators import kelemen, multiplexed, rjmlt
@@ -2124,7 +2162,7 @@ def mlt_phase(work, dev, card, pt_img):
     pt = pt_img.astype(np.float64)
     mask = pt.max(-1) > 0.01
     m_pt = pt[mask].mean(0)
-    launches, bdpt_args = {}, None
+    launches = {}
     runs = (("kelemen_mlt+pt", kelemen.render_kelemen, kelemen._table_dims(meta)),
             ("kelemen_mlt", kelemen.render_kelemen_bdpt, kelemen._table_dims_bdpt(meta, k_max)),
             ("multiplexed_mlt", multiplexed.render_mmlt,
@@ -2141,7 +2179,6 @@ def mlt_phase(work, dev, card, pt_img):
         wall = time.time() - t0
         c = launches[name] = counts()
         k3_only(f"box-synth {name}", c)
-        bdpt_args = bdpt_args or steps["bdpt_args"]
         check(img.shape == (meta.res_y, meta.res_x, 3) and np.isfinite(img).all()
               and (img >= 0).all(), f"box-synth {name}: a {meta.res_x}x{meta.res_y} image, finite "
               f"and non-negative")
@@ -2190,18 +2227,154 @@ def mlt_phase(work, dev, card, pt_img):
               f"{np.round(want, 6).tolist()} (rel {rel.max():.3e} <= {MLT_REF_RTOL}) in "
               f"{wall:.2f} s on {card}")
 
-    check(bdpt_args is not None, "a Kelemen-BDPT step's arguments were kept for the profile")
-    a, k = bdpt_args
-    state = dict(a[1], splat=a[1]["splat"].clone())
-    prof = profile_window(f"box-synth: one Kelemen-BDPT mutation step ({MLT_CHAINS} chains, "
-                          f"K = {k_max})",
-                          lambda: kelemen.mlt_steps_bdpt(a[0], dict(state), a[2], a[3], 0, 1,
-                                                         *a[5:], **k),
-                          card, tag="15 profile", iterations=1)
-    log(f"[15 mlt] one Kelemen-BDPT mutation step of box-synth on {card}: {prof['kernels']} CUDA "
-        f"kernels, device busy {prof['busy_share_of_bare_wall']:.4f} of the bare wall "
-        f"{prof['bare_wall_s']:.3f} s")
     log(f"[15 mlt] phase 15 took {time.time() - t_phase:.1f} s")
+    return launches
+
+
+# phase 16: curves with the fiber BSDFs, the skydome, IES textures and
+# minecraft_map. hair-synth's geometry: materialtest-synth's ball and floor
+# and 4,096 strands of 24 segments, 3-sided tubes
+FIBER_TYPES = {18: "hair", 19: "lambertian_fiber", 20: "rough_wire"}
+HAIR_SYNTH_TRIS = 80000 + 2 + 4096 * 24 * 3 * 2
+# hair-synth regen against lockstep at CUT_BOUNCES: their spp (16 and 8 took
+# 4.7 and 7.5 s on an H100, their means 2.3e-4 apart)
+FIBER_REGEN_SPP = 8
+FIBER_LOCKSTEP_SPP = 4
+
+
+def fiber_phase(work, dev, card):
+    """Phase 16: small-hair and small-mc in both wavefronts against
+    tests/data/torch_port_fiber_ref.json (numpy BVH build); hair-synth and
+    mc-synth written and flattened (their triangle counts and seconds), each
+    rendered with regen at the scene's 32 spp and 64 bounces through
+    render_flat (every fiber type hit in hair-synth), mc-synth also through
+    the CLI (in process); hair-synth's regen against lockstep at
+    CUT_BOUNCES; one profile window of a hair-synth regen batch. Returns
+    {render: counts()} of the full-width renders."""
+    import warnings
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.integrators.path_tracer import count_bsdf_hits
+    from tungsten_tpu_torch.io.imageio import load_image
+    from tungsten_tpu_torch.models.bsdfs.dispatch import type_name
+    from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.tools import tungsten as cli
+
+    t_phase = time.time()
+    with numpy_bvh_build():
+        for size in ("small-hair", "small-mc"):
+            path = synth.write_scene(os.path.join(work, size), size)
+            for wavefront in ("regen", "lockstep"):
+                render_vs_ref("16 fiber", path, "torch_port_fiber_ref.json", dev, wavefront,
+                              key=size)
+
+    scenes, paths = {}, {}
+    for size in ("hair-synth", "mc-synth"):
+        t0 = time.time()
+        paths[size] = synth.write_scene(os.path.join(work, size), size)
+        write_s = time.time() - t0
+        t0 = time.time()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sc = scenes[size] = flatten_scene(load_scene(paths[size]), dev)
+        flatten_s = time.time() - t0
+        m = sc.meta
+        n_tris = sc.tris.v0.shape[0]
+        n_fiber = int((sc.tri_tan.norm(dim=-1) > 0.5).sum()) if m.has_fiber_tan else 0
+        log(f"[16 fiber] {size} written in {write_s:.1f} s, flattened in {flatten_s:.1f} s on "
+            f"{card}'s host: "
+            f"{n_tris} triangles ({n_fiber} on curves), {m.n_lights} lights "
+            f"{sc.lights.apx_kind}, BSDF types {[type_name(t) for t in sc.materials.present]}, "
+            f"{sc.textures.tpack.shape[0]} textures; {m.res_x}x{m.res_y}, {m.spp} spp, "
+            f"max_bounces {m.max_bounces}")
+        strided = [str(w.message) for w in caught if "max_tris" in str(w.message)]
+        if size == "hair-synth":
+            check(n_tris == HAIR_SYNTH_TRIS and n_fiber == HAIR_SYNTH_TRIS - 80002
+                  and not strided and m.has_fiber_tan,
+                  f"hair-synth: {n_tris} triangles, {n_fiber} of them on the 4,096 strands' "
+                  f"tubes, no strand dropped by max_tris")
+        else:
+            check(n_tris > 50000 and m.n_lights > 2 and not m.has_fiber_tan,
+                  f"mc-synth: {n_tris} triangles, the glowstone groups, the IES sphere and the "
+                  f"skydome in {m.n_lights} light rows")
+
+    launches, means = {}, {}
+    for size, sc in scenes.items():
+        m = sc.meta
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with count_bsdf_hits(dev) as hits:
+            img = render_flat(sc, seed=DEFAULT_SEED, wavefront="regen")
+        dt = time.time() - t0
+        c = launches[f"{size} regen"] = counts()
+        k3_only(f"{size} regen", c)
+        check(img.shape == (m.res_y, m.res_x, 3) and np.isfinite(img).all() and (img >= 0).all(),
+              f"{size} regen: {img.shape} image finite and non-negative")
+        means[size] = img.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[16 fiber] {size} regen: {m.res_x}x{m.res_y} {m.spp} spp, {m.max_bounces} bounces "
+            f"in {dt:.2f} s: {m.res_x * m.res_y * m.spp / dt / 1e6:.4f} Mpaths/s on {card}; K3 "
+            f"{c['bvh8.walk_cuda']} launches, K3-fast {c['bvh8.walk_fast_cuda']}; BSDF hits "
+            + json.dumps({type_name(t): n for t, n in sorted(hits.items())})
+            + f"; channel means {means[size].round(6).tolist()}")
+        if size == "hair-synth":
+            check(all(hits.get(t, 0) > 0 for t in FIBER_TYPES),
+                  f"hair-synth: camera paths hit each of {sorted(FIBER_TYPES.values())}")
+
+    path = paths["mc-synth"]
+    out = os.path.dirname(path)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    with timed_renders() as timed:
+        cli.main([path, "-q", "-o", "mc.png", "-e", "mc.pfm"])
+    wall = time.time() - t0
+    c = launches["mc-synth CLI"] = counts()
+    k3_only("mc-synth CLI", c)
+    img = load_image(os.path.join(out, "mc.pfm"))
+    h, w = img.shape[:2]
+    rel = np.abs(img.reshape(-1, 3).astype(np.float64).mean(0) - means["mc-synth"]) / np.abs(
+        means["mc-synth"])
+    check((w, h) == synth.SIZES["mc-synth"][4] and np.isfinite(img).all() and (img >= 0).all()
+          and os.path.exists(os.path.join(out, "mc.png")) and (rel <= MEAN_RTOL).all(),
+          f"mc-synth through the CLI: mc.png and a {w}x{h} mc.pfm, finite and non-negative, "
+          f"channel means within {rel.max():.2e} of render_flat's (<= {MEAN_RTOL})")
+    log(f"[16 fiber] mc-synth through the CLI: render {timed[0][0]:.2f} s, CLI call {wall:.2f} s "
+        f"on {card}; K3 {c['bvh8.walk_cuda']} launches, K3-fast {c['bvh8.walk_fast_cuda']}")
+
+    hair = cut_depth(scenes["hair-synth"])
+    m = hair.meta
+    fmeans = {}
+    for wavefront, spp in (("regen", FIBER_REGEN_SPP), ("lockstep", FIBER_LOCKSTEP_SPP)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        img = render_flat(hair, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
+        dt = time.time() - t0
+        c = launches[f"hair-synth {wavefront} {CUT_BOUNCES} bounces"] = counts()
+        k3_only(f"hair-synth {wavefront} at {CUT_BOUNCES} bounces", c)
+        if wavefront == "lockstep":
+            check_lockstep_launches("hair-synth lockstep", c["bvh8.walk_fast_cuda"],
+                                    c["bvh8.walk_cuda"], spp, m.max_bounces)
+        check(np.isfinite(img).all() and (img >= 0).all(), f"hair-synth {wavefront} at "
+              f"{CUT_BOUNCES} bounces: image finite and non-negative")
+        fmeans[wavefront] = img.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[16 fiber] hair-synth {wavefront}: {m.res_x}x{m.res_y} {spp} spp, {CUT_BOUNCES} "
+            f"bounces in {dt:.2f} s on {card}; channel means {fmeans[wavefront].round(6).tolist()}")
+    rel = np.abs(fmeans["lockstep"] - fmeans["regen"]) / np.abs(fmeans["regen"])
+    check((rel <= WAVEFRONT_RTOL).all(), f"hair-synth: lockstep channel means vs regen's at "
+          f"{CUT_BOUNCES} bounces (rel {rel.max():.2e} <= {WAVEFRONT_RTOL})")
+
+    short = cut_depth(scenes["hair-synth"], PROFILE_BOUNCES)
+    prof = profile_window(f"hair-synth, one regen batch of 1 pass of {PROFILE_BOUNCES} bounces",
+                          lambda: render_flat(short, spp=1, seed=DEFAULT_SEED, wavefront="regen"),
+                          card, tag="16 profile")
+    log(f"[16 fiber] one regen iteration of hair-synth on {card}: "
+        f"{prof['kernels_per_iteration']:.0f} CUDA kernels, device busy "
+        f"{prof['busy_share_of_bare_wall']:.4f} of the bare wall")
+    log(f"[16 fiber] phase 16 took {time.time() - t_phase:.1f} s on {card}")
     return launches
 
 
@@ -2778,6 +2951,7 @@ def main():
     bdpt_launches, box_pt = bdpt_phase(work, dev, card)
     sppm_launches, sppm_all, k7 = sppm_phase(work, dev, card, box_pt)
     mlt_launches = mlt_phase(work, dev, card, box_pt)
+    fiber_launches = fiber_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -2805,6 +2979,10 @@ def main():
         row["launches_bdpt"] = bdpt_launches["bidirectional_path_tracer"][key]
         row["launches_sppm"] = {w: c[key] for w, c in sppm_all.items()}
         row["launches_mlt"] = {w: c[key] for w, c in mlt_launches.items()}
+        row["launches_fiber"] = {w: c[key] for w, c in fiber_launches.items()
+                                 if w.startswith("hair-synth")}
+        row["launches_mc"] = {w: c[key] for w, c in fiber_launches.items()
+                              if w.startswith("mc-synth")}
     # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
     # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
     k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",

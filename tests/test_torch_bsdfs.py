@@ -308,10 +308,20 @@ def test_pdf_normalization(name):
 
 @pytest.mark.parametrize("bsdf", ["hair", "lambertian_fiber", "rough_wire", "velvet"])
 def test_unported_types_raise_naming_themselves(bsdf):
-    """The fibers (which need curves) and names no package knows raise at
-    pack time, naming the type; every other surface BSDF is ported."""
+    """A name no package knows raises at pack time, naming the type; the
+    fibers, which joined the port with the curves, pack under the JAX
+    package's type ids (18-20) with their lobes."""
+    from tungsten_tpu.models.bsdfs import dispatch as jd
+    from tungsten_tpu.models.textures import TextureBuilder as JTextureBuilder
     from tungsten_tpu_torch.models.bsdfs import dispatch as td
     from tungsten_tpu_torch.models.textures.textures import TextureBuilder
 
-    with pytest.raises(NotImplementedError, match=f"'{bsdf}' is not ported"):
-        td.pack_materials([{"type": bsdf}], TextureBuilder())
+    if bsdf == "velvet":
+        with pytest.raises(NotImplementedError, match=f"'{bsdf}' is not ported"):
+            td.pack_materials([{"type": bsdf}], TextureBuilder())
+        return
+    mine = td.pack_materials([{"type": bsdf}], TextureBuilder())
+    theirs = jd.pack_materials([{"type": bsdf}], JTextureBuilder())
+    np.testing.assert_array_equal(mine["gpack"], np.asarray(theirs.gpack))
+    np.testing.assert_array_equal(mine["lobes"], np.asarray(theirs.lobes))
+    assert td.type_name(int(mine["gpack"][0, td.N_PARAMS])) == bsdf

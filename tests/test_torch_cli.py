@@ -21,9 +21,14 @@ the JAX package's (tools/tungsten.py), on the CPU.
     and MLT_BOOT bootstrap rounds, their defaults' 8,192-16,384 and 16 being
     minutes on the CPU;
   * an integrator type neither CLI names renders as the path tracer, as the
-    JAX CLI renders it; in a queue of scenes a scene that fails (a curves
-    primitive, which the port's flatten refuses) is reported and the rest
-    render, and a single failing scene raises;
+    JAX CLI renders it; in a queue of scenes a scene that fails (a
+    primitive type neither package knows) is reported and the rest render,
+    and a single failing scene raises;
+  * small-hair (curves with the three fiber BSDFs under a skydome) and
+    small-mc (a minecraft_map with a resource pack, an IES-profiled sphere
+    and a skydome) render through `--cpu` at the default seed, their HDR
+    images' channel means within 2e-3 of the JAX package's renders in
+    tests/data/torch_port_fiber_ref.json;
   * `enable_resume_render` resumes from the state file (-r starts afresh),
     `checkpoint_interval` writes the checkpoint images, `--scale` scales the
     resolution; parse_duration reads s / m / h.
@@ -142,18 +147,18 @@ def test_unknown_integrator_renders_as_the_jax_cli(tmp_path, monkeypatch, numpy_
 
 
 def test_a_failing_scene_is_reported_and_the_queue_goes_on(tmp_path, capsys):
-    def curves(doc):
-        doc["primitives"].append({"type": "curves", "file": "hair.fiber", "bsdf": "floor"})
+    def unknown(doc):  # a primitive type neither package knows
+        doc["primitives"].append({"type": "bezier_patch", "bsdf": "floor"})
 
-    bad = _scene(tmp_path, "bad", edit=curves)
-    with pytest.raises(NotImplementedError, match="'curves'"):
+    bad = _scene(tmp_path, "bad", edit=unknown)
+    with pytest.raises(NotImplementedError, match="'bezier_patch'"):
         port_cli([bad, "--cpu"] + QUIET)
     # in a queue the failure is reported and the next scene renders
     good = _scene(tmp_path, "good", variant="cubemap",
                   edit=lambda d: d["renderer"].update(spp=1))
     port_cli([bad, good, "--cpu"] + QUIET)
     err = capsys.readouterr().err
-    assert "FAILED" in err and "curves" in err
+    assert "FAILED" in err and "bezier_patch" in err
     assert os.path.exists(os.path.join(os.path.dirname(good), "cubemap.pfm"))
     assert not os.path.exists(os.path.join(os.path.dirname(bad), "thinlens.pfm"))
 
@@ -345,3 +350,20 @@ def test_mlt_branches_match_the_jax_cli(tmp_path, monkeypatch, numpy_bvh, varian
     hdr = load_image(str(tmp_path / "port" / "box.pfm"))
     assert hdr.shape == (24, 32, 3) and (hdr.reshape(-1, 3).mean(0) > 0.05).all()
     check_image(hdr, load_image(str(tmp_path / "jax" / "box.pfm")), f"CLI {variant}")
+
+
+@pytest.mark.parametrize("size", ["small-hair", "small-mc"])
+def test_fiber_and_minecraft_scenes_render(tmp_path, numpy_bvh, size):
+    from test_torch_hair_render import REF
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.io.imageio import load_image
+
+    path = synth.write_scene(str(tmp_path / size), size)
+    out = os.path.dirname(path)
+    port_cli([path, "--cpu", "-q", "-o", "out.png", "-e", "out.pfm"])
+    assert os.path.exists(os.path.join(out, "out.png"))
+    hdr = load_image(os.path.join(out, "out.pfm"))
+    with open(REF) as f:
+        want = np.asarray(json.load(f)[size]["channel_means"]["regen"])
+    assert hdr.shape == (48, 64, 3) and np.isfinite(hdr).all() and (hdr >= 0).all()
+    np.testing.assert_allclose(hdr.reshape(-1, 3).mean(0), want, rtol=2e-3)

@@ -397,6 +397,42 @@ def test_small_interior_on_the_card_matches_reference(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", ["small-hair", "small-mc"])
+def test_fiber_and_minecraft_scenes_on_the_card_match_reference(cuda, tmp_path, size):
+    """`small-hair` (curves with the hair, lambertian_fiber and rough_wire
+    BCSDFs under a skydome) and `small-mc` (a minecraft_map with a resource
+    pack, an IES-profiled sphere and a skydome) rendered on the card in both
+    wavefronts, on the numpy BVH build, against the JAX package's channel
+    means in tests/data/torch_port_fiber_ref.json within 5e-3; the walks go
+    through K3 and K3-fast, no twin."""
+    import json
+    import os
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.accel import bvh as accel_bvh
+    from tungsten_tpu_torch.renderer.render import render_scene
+
+    with open(os.path.join(os.path.dirname(__file__), "data", "torch_port_fiber_ref.json")) as f:
+        ref = json.load(f)[size]
+    path = synth.write_scene(str(tmp_path), size)
+    native, accel_bvh._NATIVE = accel_bvh._NATIVE, False
+    try:
+        for wavefront in ("regen", "lockstep"):
+            k3, fast = bvh8.walk_cuda.launches, bvh8.walk_fast_cuda.launches
+            twins = bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches
+            hdr, _ = render_scene(path, torch.device("cuda"), seed=ref["seed"],
+                                  wavefront=wavefront)
+            assert bvh8.walk_cuda.launches > k3 and bvh8.walk_fast_cuda.launches > fast
+            assert bvh8.walk_twin.launches + bvh8.walk_fast_twin.launches == twins
+            assert np.isfinite(hdr).all() and (hdr >= 0).all()
+            means = hdr.reshape(-1, 3).astype(np.float64).mean(0)
+            np.testing.assert_allclose(means, ref["channel_means"][wavefront], rtol=5e-3,
+                                       err_msg=wavefront)
+    finally:
+        accel_bvh._NATIVE = native
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("size,ref_file", [("small-coat", "torch_port_coat_ref.json"),
                                            ("small-cutout", "torch_port_cutout_ref.json")])
 def test_surface_scenes_on_the_card_match_reference(cuda, tmp_path, size, ref_file):

@@ -260,7 +260,7 @@ def _edit_small(doc, what):
         prims.append({"type": "sphere", "bsdf": "inner", "emission": 5.0})
     elif what == "emissive cylinder":
         prims.append({"type": "cylinder", "bsdf": "inner", "power": 20.0})
-    elif what == "skydome":  # the skydome bake waits (ROADMAP)
+    elif what == "skydome":
         prims.append({"type": "skydome", "turbidity": 3, "intensity": 2})
     elif what == "area light":
         prims[2]["emission"] = 5.0
@@ -268,8 +268,12 @@ def _edit_small(doc, what):
         doc["media"] = [{"name": "fog", "type": "homogeneous"}]
     elif what == "thinlens":
         doc["camera"]["type"] = "thinlens"
-    elif what == "other bsdf":  # a fiber: hair, lambertian_fiber and rough_wire wait
+    elif what == "other bsdf":  # a fiber on the cube
         bsdfs[2] = {"name": "inner", "type": "hair"}
+    elif what == "unknown bsdf":
+        bsdfs[2] = {"name": "inner", "type": "velvet"}
+    elif what == "unknown primitive":
+        prims.append({"type": "bezier_patch", "bsdf": "inner"})
     elif what == "dielectric":
         bsdfs[2] = {"name": "inner", "type": "dielectric", "ior": 1.5}
     elif what == "textured roughness":
@@ -297,7 +301,7 @@ def _edit_small(doc, what):
 NOW_PORTED = {"area light": 2, "no env": 0, "dielectric": 1, "textured roughness": 1,
               "hdr sky": 1, "analytic sphere": 2, "emissive cylinder": 2, "point light": 2,
               "emissive disk": 2, "cap light": 2, "two envs": 2, "unsampled env": 0,
-              "thinlens": 1, "aov": 1, "media": 1}
+              "thinlens": 1, "aov": 1, "media": 1, "skydome": 2, "other bsdf": 1}
 SURFACE_LIGHTS = ("area light", "analytic sphere", "emissive cylinder", "emissive disk")
 
 
@@ -305,15 +309,17 @@ SURFACE_LIGHTS = ("area light", "analytic sphere", "emissive cylinder", "emissiv
                                   "other bsdf", "aov", "no env", "point light",
                                   "emissive disk", "cap light", "two envs", "unsampled env",
                                   "dielectric", "textured roughness", "hdr sky",
-                                  "emissive cylinder", "skydome"])
+                                  "emissive cylinder", "skydome", "unknown bsdf",
+                                  "unknown primitive"])
 def test_missing_features_raise(tmp_path, what):
-    """Every feature outside the port raises NotImplementedError naming it;
-    none is skipped silently. Those that have joined the port since (an
-    emissive cube beside the sky; a scene without an env light; a
-    dielectric; a textured roughness; an .hdr env map; emissive analytic
-    prims, point and cap lights, two envs, an unsampled env; a thinlens
-    camera; an AOV buffer; a medium) flatten, with the light rows they
-    should have."""
+    """Every feature outside the port (a BSDF or primitive type no package
+    knows) raises NotImplementedError naming it; none is skipped silently.
+    Those that have joined the port since (an emissive cube beside the sky;
+    a scene without an env light; a dielectric; a textured roughness; an
+    .hdr env map; emissive analytic prims, point and cap lights, two envs,
+    an unsampled env; a thinlens camera; an AOV buffer; a medium; a skydome
+    beside the sky; a fiber BSDF) flatten, with the light rows they should
+    have."""
     from tungsten_tpu_torch import synth
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
@@ -332,7 +338,8 @@ def test_missing_features_raise(tmp_path, what):
         assert scene.meta.n_lights == NOW_PORTED[what]
         assert scene.lights.has_surface == (what in SURFACE_LIGHTS)
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match={"unknown bsdf": "'velvet'",
+                                                  "unknown primitive": "'bezier_patch'"}[what]):
         flatten_scene(load_scene(path), torch.device("cpu"))
 
 

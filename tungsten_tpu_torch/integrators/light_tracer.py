@@ -198,7 +198,7 @@ def trace_light_pass(scene: FlatScene, seed, lane_ids):
         # the surface vertex: connect to the camera, continue adjointly
         p, ng, ns, uv, mat_id, _ = _shading_data(scene, hit, o, d)
         mat_pre = gather(mats, texs, mat_id, uv)
-        frame, wi = _local_frame(meta, ns, d, mat_pre[3])
+        frame, wi = _local_frame(scene, hit.prim, ns, d, mat_pre[3])
         _connect_to_camera(scene, buf, p, ng, frame, wi, mat_pre, uv, throughput, medium,
                            hit_surface, hit.prim)
 

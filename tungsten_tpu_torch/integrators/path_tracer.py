@@ -255,25 +255,40 @@ def _occluded_raw(scene: FlatScene, p, d, near, far):
     return blocked_a | _occluded_raw_tris(scene, p, d, near, torch.where(blocked_a, 0.0, far))
 
 
-def _shading_frame(ns, flip):
-    """Local shading frame (t, b, n) with the two-sided flip applied."""
+def _shading_frame(scene: FlatScene, tri, ns, flip):
+    """Local shading frame (t, b, n) with the two-sided flip applied.
+
+    On a fiber (curve) triangle the frame follows the reference's
+    Curves::tangentSpace convention (Curves.cpp:517-528; path_tracer.py
+    :1100-1121): b = the fiber tangent, t = b x n, n = t x b; the fiber
+    BCSDFs read sin(theta) = dir.y and measure phi in the (x, z) plane.
+    `tri`: the hit's row in FlatScene.tri_tan (clamped, as the JAX gather)."""
     t_ax, b_ax = vo.tangent_frame(ns)
     n_ax = ns
+    if scene.meta.has_fiber_tan:
+        tan = scene.tri_tan[torch.clamp(tri, 0, scene.tri_tan.shape[0] - 1)]
+        has = vo.length_sq(tan) > 1e-12
+        b2 = vo.normalize(tan, eps=1e-12)
+        t2 = vo.normalize(vo.cross(b2, ns), eps=1e-12)
+        n2 = vo.cross(t2, b2)
+        t_ax = vo.where3(has, t2, t_ax)
+        b_ax = vo.where3(has, b2, b_ax)
+        n_ax = vo.where3(has, n2, n_ax)
     t_ax = vo.where3(flip, -t_ax, t_ax)
     n_ax = vo.where3(flip, -n_ax, n_ax)
     return t_ax, b_ax, n_ax
 
 
-def _local_frame(meta, ns, d, lobes):
-    """(frame, wi): the shading frame, flipped where a backside hit meets a
-    non-transmissive material under two-sided shading
+def _local_frame(scene: FlatScene, prim, ns, d, lobes):
+    """(frame, wi): the shading frame of the hit `prim`, flipped where a
+    backside hit meets a non-transmissive material under two-sided shading
     (makeLocalScatterEvent, TraceBase.cpp:24-51), and -d in it."""
     hit_backside = vo.dot(ns, d) > 0.0
-    if meta.enable_two_sided:
+    if scene.meta.enable_two_sided:
         flip = hit_backside & ~Lobes.is_transmissive(lobes)
     else:
         flip = torch.zeros_like(hit_backside)
-    frame = _shading_frame(ns, flip)
+    frame = _shading_frame(scene, torch.clamp(prim, min=0), ns, flip)
     return frame, vo.to_local(*frame, -d)
 
 
@@ -591,7 +606,7 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
         if _HIT_COUNTS is not None:
             _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
-        frame, wi = _local_frame(meta, ns, d, lobes)
+        frame, wi = _local_frame(scene, hit.prim, ns, d, lobes)
 
         # ---- hit an emitter: MIS against the previous vertex's light strategy ----
         if scene.lights.has_surface:
@@ -1000,7 +1015,7 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py, table=None):
         if _HIT_COUNTS is not None:
             _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
-        frame, wi = _local_frame(meta, ns, d, lobes)
+        frame, wi = _local_frame(scene, hit.prim, ns, d, lobes)
 
         emission, e_hit = _add_hit_emission(scene, emission, throughput, hit_surface_lane, d, ng,
                                             uv, light_id, was_specular, bounce)
@@ -1289,7 +1304,7 @@ def _trace_pass_forward(scene: FlatScene, seed, lane_ids, px, py, table=None):
         if _HIT_COUNTS is not None:
             _count_hits(hit_surface_lane, mat_pre[1])
         lobes = mat_pre[3]
-        frame, wi = _local_frame(meta, ns, d, lobes)
+        frame, wi = _local_frame(scene, hit.prim, ns, d, lobes)
 
         # ---- the transparency lottery ----
         u_fwd, smp = smp.next_1d()

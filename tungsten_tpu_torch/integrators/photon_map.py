@@ -226,7 +226,7 @@ def trace_photons(scene: FlatScene, seed, lane_ids, k_max=6, want_planes=False):
         p, ng, ns, uv, mat_id, _ = _shading_data(scene, hit, o, d)
         mat_pre = gather(mats, texs, mat_id, uv)
         lobes = mat_pre[3]
-        frame, wi_l = _local_frame(meta, ns, d, lobes)
+        frame, wi_l = _local_frame(scene, hit.prim, ns, d, lobes)
         # a photon at the non-pure-specular hits
         deposit = did_hit & ~Lobes.is_pure_specular(lobes) & (lobes != 0)
         rec["pos"][:, k] = torch.where(deposit[..., None], p, 0.0)
@@ -798,7 +798,7 @@ def gather_pass(scene: FlatScene, seed, lane_ids, px, py, pack, starts, counts, 
         p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
         mat_pre = gather(mats, texs, mat_id, uv)
         lobes = mat_pre[3]
-        frame, wi_l = _local_frame(meta, ns, d, lobes)
+        frame, wi_l = _local_frame(scene, hit.prim, ns, d, lobes)
         if scene.lights.has_surface:
             geo_front = vo.dot(d, ng) < 0.0
             e_hit = eval_texture(texs, scene.lights.tex[torch.clamp(light_id, min=0)], uv,

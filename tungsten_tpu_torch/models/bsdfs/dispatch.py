@@ -1,13 +1,16 @@
 """Material table + batched masked BSDF dispatch on torch tensors.
 
-Port of tungsten_tpu/models/bsdfs/dispatch.py for every surface BSDF of the
-JAX package but the fibers: lambert, null, mirror, rough_conductor,
-smooth_coat, oren_nayar, phong, dielectric, rough_dielectric, conductor,
-plastic, rough_plastic, thinsheet, transparency, forward, mixed,
-diffuse_transmission and rough_coat. Type ids are the JAX package's
-(`_MODULES` order, dispatch.py:42-47), so packed material rows are
-interchangeable. hair, lambertian_fiber, rough_wire (which need curves) and
-unknown names raise NotImplementedError, naming the type.
+Port of tungsten_tpu/models/bsdfs/dispatch.py for every BSDF of the JAX
+package: lambert, null, mirror, rough_conductor, smooth_coat, oren_nayar,
+phong, dielectric, rough_dielectric, conductor, plastic, rough_plastic,
+thinsheet, transparency, forward, mixed, diffuse_transmission, rough_coat
+and the fibers hair, lambertian_fiber and rough_wire. Type ids are the JAX
+package's (`_MODULES` order, dispatch.py:42-47), so packed material rows are
+interchangeable. Unknown names raise NotImplementedError, naming the type.
+The fibers read their local frame with the fiber tangent on y (the
+tracers' `_shading_frame` builds it from FlatScene.tri_tan); hair's
+azimuthal tables are precomputed per hair material at pack time and ride in
+`MaterialTable.hair_tables` / `hair_cdf` / `hair_sums`.
 
 The hot loop reads one packed row per lane (`gpack2`, 28 floats):
 [params(16) | type | albedo tex id | lobes | albedo texture header (9)].
@@ -43,9 +46,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import (conductor, dielectric, diffuse_transmission, forward, lambert, mirror, mixed,
-               null, oren_nayar, phong, plastic, rough_coat, rough_conductor, rough_dielectric,
-               rough_plastic, smooth_coat, thinsheet, transparency)
+from . import (conductor, dielectric, diffuse_transmission, forward, hair, lambert,
+               lambertian_fiber, mirror, mixed, null, oren_nayar, phong, plastic, rough_coat,
+               rough_conductor, rough_dielectric, rough_plastic, rough_wire, smooth_coat,
+               thinsheet, transparency)
 from .common import BsdfSample
 from ..textures.textures import eval_texture, texture_from_spec
 
@@ -56,9 +60,11 @@ ROW = N_PARAMS + 12  # a gpack2 row; a gpack3 row is two of them
 _MODULES = {0: lambert, 1: null, 2: mirror, 3: rough_conductor, 4: smooth_coat,
             5: oren_nayar, 6: phong, 7: dielectric, 8: rough_dielectric, 9: conductor,
             10: plastic, 11: rough_plastic, 12: thinsheet, 13: transparency, 14: forward,
-            15: mixed, 16: diffuse_transmission, 17: rough_coat}
+            15: mixed, 16: diffuse_transmission, 17: rough_coat, 18: hair,
+            19: lambertian_fiber, 20: rough_wire}
 _IDS = {m.NAME: i for i, m in _MODULES.items()}
-N_TYPES = 21  # the JAX package's type-id space (len(_MODULES) there)
+N_TYPES = len(_MODULES)  # the JAX package's type-id space
+HAIR_KEYS = ("hair_tables", "hair_cdf", "hair_sums")  # MaterialTable's hair arrays
 # the references a wrapper-on-wrapper check reads (dispatch.py:168; a
 # transparency's base is left to lobes_for's depth check)
 SUB_KEYS = ("_substrate_index", "_bsdf0_index", "_bsdf1_index")
@@ -88,17 +94,30 @@ class MaterialTable:
     # the substrate rows of the lanes' own materials, decoded, stashed by a
     # tracer for the nested calls (dataclasses.replace; None: gather by index)
     sub_pre: Optional[tuple] = None
+    # hair's azimuthal tables, one slab per hair material (hair.py
+    # precompute_azimuthal), None without hair: (H, 3, 64, 64, 3) N_p,
+    # (H, 3, 64, 65) row CDFs, (H, 3, 64) row sums
+    hair_tables: Optional[torch.Tensor] = None
+    hair_cdf: Optional[torch.Tensor] = None
+    hair_sums: Optional[torch.Tensor] = None
 
     @staticmethod
-    def from_arrays(gpack2, rough_kinds, device, gpack3=None) -> "MaterialTable":
+    def from_arrays(gpack2, rough_kinds, device, gpack3=None, hair=None) -> "MaterialTable":
+        """`hair`: {HAIR_KEYS: numpy} where a hair material is present."""
         g = np.array(gpack2, np.float32)
+        present = tuple(sorted({int(t) for t in g[:, N_PARAMS]}))
+        hair = {k: v for k, v in (hair or {}).items() if v is not None}
+        if _IDS["hair"] in present and sorted(hair) != sorted(HAIR_KEYS):
+            raise KeyError(f"from_arrays: a hair material needs {HAIR_KEYS}, given {sorted(hair)}")
         return MaterialTable(
             gpack2=torch.as_tensor(g, device=device),
-            present=tuple(sorted({int(t) for t in g[:, N_PARAMS]})),
+            present=present,
             albedo_kinds=tuple(sorted({int(t) for t in g[:, -1]})),
             rough_kinds=tuple(sorted(int(t) for t in np.asarray(rough_kinds).ravel())),
             gpack3=None if gpack3 is None else torch.as_tensor(
                 np.array(gpack3, np.float32), device=device),
+            **{k: torch.as_tensor(np.array(v, np.float32), device=device)
+               for k, v in hair.items()},
         )
 
 
@@ -109,12 +128,41 @@ def _module(spec):
     return _IDS[tname], _MODULES[_IDS[tname]]
 
 
+def _hair_pre_pass(bsdf_specs: List[dict]) -> dict:
+    """Each hair spec's azimuthal tables (dispatch.py:114-139): the melanin
+    mixture (or an explicit sigma_a) -> sigma_a (HairBcsdf.cpp:433-440:
+    lerp from eumelanin to pheomelanin by melanin_ratio), beta_r from the
+    roughness; the spec gets `_hair_index`, `_beta_r` and `_scale_rad`, which
+    hair.pack reads. Returns {HAIR_KEYS: stacked numpy} or {} without hair."""
+    slabs = []
+    for b in bsdf_specs:
+        if b.get("type") != "hair":
+            continue
+        if "sigma_a" in b:
+            sa = b["sigma_a"]
+            sigma = np.asarray(sa if isinstance(sa, list) else [sa] * 3, np.float64)
+        else:
+            c = float(b.get("melanin_concentration", 0.25))
+            ratio = float(b.get("melanin_ratio", 0.5))
+            eu = np.array([0.419, 0.697, 1.37])
+            ph = np.array([0.187, 0.4, 1.05])
+            sigma = c * ((1.0 - ratio) * eu + ratio * ph)
+        beta_r = max(np.pi / 2 * float(b.get("roughness", 0.1)), 0.04)
+        b.update(_hair_index=len(slabs), _beta_r=beta_r,
+                 _scale_rad=float(np.deg2rad(float(b.get("scale_angle", 2.0)))))
+        slabs.append(hair.precompute_azimuthal(sigma, beta_r))
+    return {k: np.stack(v) for k, v in zip(HAIR_KEYS, zip(*slabs))} if slabs else {}
+
+
 def pack_materials(bsdf_specs: List[dict], tex_builder) -> dict:
     """bsdf specs (nested references resolved to indices by load.py) ->
     numpy {"gpack": (M, 18) [params | type | albedo tex], "lobes": (M,),
-    "sub_of": (M,) the substrate of a single-substrate wrapper, else -1}, as
-    dispatch.py pack_materials packs them. Roughness textures land in
+    "sub_of": (M,) the substrate of a single-substrate wrapper, else -1,
+    "hair": {HAIR_KEYS: stacked tables} ({} without hair)}, as dispatch.py
+    pack_materials packs them. Roughness textures land in
     tex_builder.rough_ids."""
+    bsdf_specs = [dict(b) for b in bsdf_specs]
+    hair_arrays = _hair_pre_pass(bsdf_specs)
     n = len(bsdf_specs)
 
     def lobes_of(i, depth=0):
@@ -146,7 +194,7 @@ def pack_materials(bsdf_specs: List[dict], tex_builder) -> dict:
         [np.stack(params), np.asarray(types, np.float32)[:, None],
          np.asarray(albedo, np.float32)[:, None]], axis=1).astype(np.float32)
     return {"gpack": gpack, "lobes": np.asarray(lobes, np.int32),
-            "sub_of": np.asarray(subs, np.int32)}
+            "sub_of": np.asarray(subs, np.int32), "hair": hair_arrays}
 
 
 def build_gpack2(packed: dict, tpack: np.ndarray) -> np.ndarray:

@@ -1,9 +1,11 @@
 """Texture table: host-side assembly + batched evaluation on torch tensors.
 
-Port of tungsten_tpu/models/textures/textures.py for the constant, checker,
-bitmap, disk and blade types. The host side is the same numpy code (same
-ids, same packed rows), so tables built here equal the JAX package's; IES
-textures raise NotImplementedError.
+Port of tungsten_tpu/models/textures/textures.py: the constant, checker,
+bitmap (wrapped, or clamped as an IES profile's), disk and blade types, the
+IES profiles baked to a clamped bitmap (ies.py) and the `_prebuilt`
+entries the resource packs of a minecraft_map register. The host side is
+the same numpy code (same ids, same packed rows), so tables built here equal
+the JAX package's.
 """
 from __future__ import annotations
 
@@ -85,10 +87,9 @@ class TextureBuilder:
         p[7] = res_v
         return self._push(TEX_CHECKER, p)
 
-    def add_bitmap(self, img: np.ndarray, path_key=None) -> int:
-        """A repeat-wrapped bitmap (the clamped kind serves IES, not ported;
-        eval_texture still reads clamped rows of a carried-across table)."""
-        key = ("bitmap", path_key, False, 1.0)
+    def add_bitmap(self, img: np.ndarray, path_key=None, clamp=False) -> int:
+        """A bitmap, repeat-wrapped or (an IES profile's) clamped at its edges."""
+        key = ("bitmap", path_key, clamp, 1.0)
         if path_key is not None and key in self._cache:
             return self._cache[key]
         img = np.asarray(img, np.float32)
@@ -99,9 +100,10 @@ class TextureBuilder:
         p[0] = self._blob_off
         p[1] = w
         p[2] = h
+        p[3] = 1.0 if clamp else 0.0
         p[4] = 1.0  # scale
         self.blobs.append(img.reshape(-1, 3))
-        self._blob_meta.append((h, w))
+        self._blob_meta.append((h, w, clamp))
         self._blob_off += h * w
         idx = self._push(TEX_BITMAP, p)
         if path_key is not None:
@@ -167,10 +169,14 @@ class TextureBuilder:
         data4 = None
         if self.blobs and data.shape[0] <= _TEX4_MAX:
             packs = []
-            for img, (h, w) in zip(self.blobs, self._blob_meta):
+            for img, (h, w, clamp) in zip(self.blobs, self._blob_meta):
                 t = img.reshape(h, w, 3)
-                iu1 = (np.arange(w) + 1) % w
-                iv1 = (np.arange(h) + 1) % h
+                if clamp:
+                    iu1 = np.minimum(np.arange(w) + 1, w - 1)
+                    iv1 = np.minimum(np.arange(h) + 1, h - 1)
+                else:
+                    iu1 = (np.arange(w) + 1) % w
+                    iv1 = (np.arange(h) + 1) % h
                 packs.append(np.concatenate(
                     [t, t[:, iu1], t[iv1], t[iv1][:, iu1]], axis=-1).reshape(-1, 12))
             data4 = np.concatenate(packs, axis=0)
@@ -287,17 +293,24 @@ def eval_texture(table: TextureTable, tex_id, uv, may=None, pre=None):
 
 
 def texture_from_spec(spec, tex_builder: TextureBuilder, resolve_path=None) -> int:
-    """JSON texture value -> table id (constant, checker, bitmap, disk,
-    blade)."""
+    """JSON texture value -> table id (TextureFactory.cpp dispatch: scalar /
+    rgb constants, strings = bitmap or .ies paths, dicts by "type")."""
     if isinstance(spec, str):
         from ...io.imageio import load_image
 
         if spec.lower().endswith(".ies"):
-            raise NotImplementedError("IES textures are not ported")
+            from .ies import bake_ies_file
+
+            img = bake_ies_file(resolve_path(spec) if resolve_path else spec)
+            return tex_builder.add_bitmap(img, path_key=spec, clamp=True)
         img = load_image(resolve_path(spec) if resolve_path else spec)
         return tex_builder.add_bitmap(img, path_key=spec)
     if isinstance(spec, dict):
         t = spec.get("type")
+        if t == "_prebuilt":
+            # a texture already registered with this builder (the resource
+            # pack entries of a minecraft_map, mc_resources.py)
+            return int(spec["id"])
         if t == "checker":
             return tex_builder.add_checker(
                 spec.get("on_color", 0.8), spec.get("off_color", 0.2),
@@ -316,5 +329,12 @@ def texture_from_spec(spec, tex_builder: TextureBuilder, resolve_path=None) -> i
         if t == "blade":
             return tex_builder.add_blade(spec.get("blades", 6), spec.get("angle", 0.593412),
                                          spec.get("value", 1.0))
+        if t == "ies":
+            from .ies import bake_ies_file
+
+            f = spec["file"]
+            img = bake_ies_file(resolve_path(f) if resolve_path else f,
+                                resolution=int(spec.get("resolution", 256)))
+            return tex_builder.add_bitmap(img, path_key=f, clamp=True)
         raise NotImplementedError(f"texture type {t!r} is not ported")
     return tex_builder.add_constant(spec)

@@ -27,11 +27,10 @@ SOBOL_DIMS = 1024
 # per-pixel Sobol index bits kept exact (sampler.py SOBOL_LOW_BITS)
 SOBOL_LOW_BITS = 8
 
-# the Sobol' direction numbers are data of the JAX package, read by path
-_SOBOL_NPZ = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..",
-    "tungsten_tpu", "sampling", "data", "sobol_matrices.npz",
-)
+# the Sobol' direction numbers: the port's own byte copy of the JAX
+# package's table (tests/test_torch_data.py holds the two equal)
+_SOBOL_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                          "sobol_matrices.npz")
 
 
 def _mul32(a, b):

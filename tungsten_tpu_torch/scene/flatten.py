@@ -32,15 +32,23 @@ so the JAX package's flattened scene can be carried across as numpy arrays
 and both packages render the very same tables. Each BVH pack and the
 analytic table is taken all-or-none (OPTIONAL).
 
-The port supports mesh / quad / cube geometry and analytic sphere / disk /
+The port supports mesh / quad / cube geometry, curves (.hair and .fiber
+strands tessellated into tubes, tessellate.curve_tubes, with their fiber
+tangents in `tri_tan` and `meta.has_fiber_tan`; flatten.py:464-476,
+512-517, 563-603), minecraft_map worlds (NBT / Anvil regions, the exposed
+block faces as quads, the built-in palette or resource packs, each
+emissive (block type, face) group a light row under a pseudo primitive id
+from 1,000,000 up; flatten.py:386-437) and analytic sphere / disk /
 cylinder prims, each emissive or not (a disk's emission cone included),
-every surface BSDF of models/bsdfs/dispatch.py (all but the fibers, the
+every BSDF of models/bsdfs/dispatch.py (the fibers with hair's tables, the
 wrappers with their `gpack3` substrate rows; roughness, ratio, alpha and
 thickness scalar or textured; `meta.has_forward` set where a material has a
 forward lobe), constant / checker / bitmap textures from PFM, .hdr (or, with
-cv2, .exr) and LDR images, the lights of the JAX flatten but the skydome:
-area lights, any number of infinite_sphere lights (sampled or not; `envs`
-in primitive order, `env` the last, the escape winner), infinite_sphere_cap
+cv2, .exr) and LDR images, IES profiles, every light of the JAX flatten:
+area lights, any number of infinite_sphere and skydome lights (sampled or
+not; `envs` in primitive order, `env` the last, the escape winner; a
+skydome is its Hosek-Wilkie bake, sky.py, with the identity rotation:
+flatten.py:707-745), infinite_sphere_cap
 lights (the `cap` table) and point lights (the `point` table), every
 camera of the JAX package (pinhole, thinlens with a disk, blade, bitmap or
 constant aperture, cat-eye and focus pivot, equirectangular, cubemap; the
@@ -52,8 +60,8 @@ permuted with the triangles and followed by the analytic prims' rows,
 `meta.has_media` and `meta.camera_medium`; flatten.py:324, 428-430,
 518-550, 600-616, 935-939, 1039-1041). The light rows come in the JAX
 flatten's order: the area and analytic emitters in primitive order, then the
-sampled envs, the sampled caps, the points. Everything else (skydomes, the
-fiber BSDFs, ...) raises NotImplementedError naming the missing piece.
+sampled envs, the sampled caps, the points. An unknown primitive, BSDF or
+texture type raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -65,11 +73,14 @@ import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh_best
+from ..io.curveio import load_curves
 from ..io.meshio import compute_smooth_normals, load_mesh
 from ..math import transform as tf
-from ..models.bsdfs.dispatch import MaterialTable, build_gpack2, build_gpack3, pack_materials
+from ..models.bsdfs.dispatch import (HAIR_KEYS, MaterialTable, build_gpack2, build_gpack3,
+                                     pack_materials)
 from ..models.media.media import MediumTable, pack_media_arrays
 from ..models.primitives import analytic, tessellate
+from ..models.primitives.sky import bake_skydome
 from ..models.textures.textures import TextureBuilder, TextureTable, texture_from_spec
 from ..ops.bvh import BvhPack, build_bvh_pack
 from ..ops.bvh2 import Bvh3Pack, build_bvh_pack3
@@ -100,10 +111,11 @@ CAMERA_KEYS = ("rot", "pos", "plane_dist", "aperture_size", "focus_dist", "ap_an
 
 ARRAY_KEYS = (
     "tris.v0", "tris.e1", "tris.e2", "shade_pack",
-    "tri_ng", "tri_uv0", "tri_uv1", "tri_uv2", "tri_light",
+    "tri_ng", "tri_uv0", "tri_uv1", "tri_uv2", "tri_light", "tri_tan",
     "tri_med_int", "tri_med_ext", "tri_med_override",
     *(f"lights.{k}" for k, _ in LIGHT_FIELDS), *(f"lights.{k}" for k in LIGHT_STATICS),
     "materials.gpack2", "materials.gpack3", "materials.rough_kinds",
+    *(f"materials.{k}" for k in HAIR_KEYS),
     "textures.tpack", "textures.data", "textures.data4",
     *(f"env.{k}" for k in ENV_KEYS),
     "cap.dir", "cap.cos_angle", "cap.radiance", "point.pos", "point.intensity",
@@ -123,15 +135,20 @@ OPTIONAL = ("pbvh8", "gbvh", "pbvh3", "pbvh", "ana")
 # (models/media/media.py `pack_media_arrays`, or another table's fields
 # read by name into the same dict; absent: a scene without media)
 # None in a scene without bitmap textures, without a single-substrate
-# wrapper BSDF or with a mixed one (dispatch.build_gpack3), and without a
-# bitmap aperture
+# wrapper BSDF or with a mixed one (dispatch.build_gpack3), without a
+# bitmap aperture, and without a hair material
 NULLABLE = ("textures.data4", "materials.gpack3", "camera.ap_dist.alias_pack",
-            "camera.ap_dist.joint_pdf", "camera.ap_dist.shape")
+            "camera.ap_dist.joint_pdf", "camera.ap_dist.shape",
+            *(f"materials.{k}" for k in HAIR_KEYS))
 
 _TESSELLATED = {"quad": tessellate.quad, "cube": tessellate.cube}
+# the first pseudo primitive id of a minecraft_map's (block type, face)
+# groups (flatten.py:427): ids the light rows tell apart from scene prims
+MC_PSEUDO_PRIM = 1_000_000
 ANALYTIC = ("sphere", "disk", "cylinder")  # flatten.py's analytic branch
 APX_KINDS = ("quad", "sphere", "disk", "point", "const", "none")
-LIGHT_PRIMS = ("infinite_sphere", "infinite_sphere_cap", "point")
+LIGHT_PRIMS = ("infinite_sphere", "skydome", "infinite_sphere_cap", "point")
+PRIMITIVES = ("mesh", "quad", "cube", "curves", "minecraft_map") + ANALYTIC + LIGHT_PRIMS
 
 
 @dataclass
@@ -291,6 +308,9 @@ class FlatScene:
     tri_uv1: torch.Tensor
     tri_uv2: torch.Tensor
     tri_light: torch.Tensor  # (T,) int64 (-1 = not emissive)
+    # (T, 3) fiber tangent of a curve triangle (zero elsewhere); (1, 3)
+    # zeros without curves (read where meta.has_fiber_tan)
+    tri_tan: torch.Tensor
     # per triangle (and analytic prim row): the interior / exterior medium
     # (-1 = vacuum) and whether the primitive overrides media
     # (Primitive::overridesMedia)
@@ -344,20 +364,15 @@ def _bdpt_cap(integ: dict) -> int:
 
 
 def _check_slice(doc: SceneDocument):
-    """Raise NotImplementedError for every scene feature the port lacks:
-    skydome lights, and primitives other than mesh / quad / cube / sphere /
-    disk / cylinder and the infinite_sphere, infinite_sphere_cap and point
-    lights. BSDF types (dispatch.pack_materials), textures
-    (texture_from_spec), image formats (io/imageio.py) and media
-    (media.pack_media_arrays: homogeneous, exponential, atmosphere and voxel
-    pass) are checked where they are packed; every surface BSDF but the
-    fibers, textured parameters, .hdr images, every camera and filter and
-    the depth / normal / albedo output buffers pass."""
+    """Raise NotImplementedError for a primitive type the JAX flatten does
+    not know either (flatten.py:495): every one of PRIMITIVES passes. BSDF
+    types (dispatch.pack_materials: unknown names, wrappers nested in
+    wrappers), textures (texture_from_spec: unknown types), image formats
+    (io/imageio.py: .exr without cv2) and media (media.pack_media_arrays:
+    unknown types and transmittances) are checked where they are packed."""
     for prim in doc.primitives:
         ptype = prim.get("type", "mesh")
-        if ptype == "skydome":
-            raise NotImplementedError("'skydome' lights are not ported")
-        if ptype not in ("mesh", "quad", "cube") + ANALYTIC + LIGHT_PRIMS:
+        if ptype not in PRIMITIVES:
             raise NotImplementedError(f"primitive type '{ptype}' is not ported")
 
 
@@ -470,28 +485,86 @@ def _camera_arrays(doc: SceneDocument, cam_m: np.ndarray) -> tuple:
     return arrays, kind, blades
 
 
+def _minecraft_groups(doc, prim, m, tex_builder):
+    """A minecraft_map primitive (flatten.py:386-437): the world's exposed
+    block faces as quads (minecraft.load_minecraft_map), materials from the
+    resource packs where the prim names some ("resource_packs":
+    mc_resources.block_materials_pack, which registers their textures with
+    tex_builder, before any BSDF's) or the built-in palette. Returns (the
+    block BSDF specs, [(world positions, uvs, triangles, spec index,
+    emission or None)]): one group of triangles per material, its vertices
+    compacted."""
+    from ..models.primitives import minecraft as mc
+
+    packs = prim.get("resource_packs", [])
+    if isinstance(packs, str):
+        packs = [packs]
+    pos, indices, fids, pk, fax, fsg, quv = mc.load_minecraft_map(
+        doc.resolve_path(prim["map_path"]), with_faces=True)
+    if packs:
+        from ..models.primitives.mc_resources import ResourcePack, block_materials_pack
+
+        rp = ResourcePack([doc.resolve_path(p) for p in packs])
+        specs, mat_of_face, emis = block_materials_pack(pk, fax, fsg, rp, tex_builder)
+    else:
+        specs, mat_of_face, emis = mc.block_materials(fids)
+    wpos = tf.transform_point(m, pos).astype(np.float32)
+    groups = []
+    for j, e in enumerate(emis):
+        sel = mat_of_face == j
+        if np.any(sel):
+            used, inv = np.unique(indices[sel], return_inverse=True)
+            groups.append((wpos[used], quv[used], inv.reshape(-1, 3).astype(np.int32), j, e))
+    return specs, groups
+
+
 def flatten_arrays(doc: SceneDocument):
     """Host build: SceneDocument -> ({ARRAY_KEYS: numpy}, SceneMeta)."""
     _check_slice(doc)
     tex_builder = TextureBuilder()
 
     # ---- geometry (flatten.py primitive loop: tessellated and analytic) ----
+    bsdfs = list(doc.bsdfs)  # and a minecraft_map's block materials after them
     pos_l, n_l, uv_l, idx_l, mat_l, prim_l = [], [], [], [], [], []
+    tan_l = []  # per prim: world fiber tangents (curves) or None
     med_int_l, med_ext_l, med_ov_l = [], [], []  # per triangle (flatten.py:324)
     emissive_prims = []  # primitive indices of the area / analytic lights, in order
     prim_apx = {}  # primitive index -> approximateRadiance geometry
     prim_cone_cos = {}  # primitive index -> a disk's emission-cone cos
     env_specs, cap_specs, point_specs = [], [], []  # in primitive order
+    extra_prims = {}  # pseudo primitive id -> a minecraft_map group's {"emission"}
     ana_entries = []  # analytic prims in primitive order (virtual ids T + k)
     ana_prim_of = {}  # primitive index -> analytic index
     vert_base = 0
+
+    def add(wpos, wn, wt, uv, tris, mat, prim_id, mi=-1, me=-1):
+        """One primitive's (or group's) vertices and triangles: world
+        positions, normals and fiber tangents (or None), uvs, its triangles'
+        local vertex indices, material, primitive id and media."""
+        nonlocal vert_base
+        nt = len(tris)
+        pos_l.append(wpos)
+        n_l.append(wn)
+        tan_l.append(wt)
+        uv_l.append(uv)
+        idx_l.append(tris + vert_base)
+        mat_l.append(np.full(nt, mat, np.int32))
+        prim_l.append(np.full(nt, prim_id, np.int32))
+        med_int_l.append(np.full(nt, mi, np.int32))
+        med_ext_l.append(np.full(nt, me, np.int32))
+        med_ov_l.append(np.full(nt, mi >= 0 or me >= 0, bool))
+        vert_base += len(wpos)
+
     for pi, prim in enumerate(doc.primitives):
         ptype = prim.get("type", "mesh")
         m = tf.mat4_from_json(prim.get("transform"))
         emissive = "emission" in prim or "power" in prim
         if ptype == "infinite_sphere":
             if emissive:
-                env_specs.append((prim, m, pi))
+                env_specs.append((prim, m, pi, False))
+            continue
+        if ptype == "skydome":
+            env_specs.append((prim, m, pi, True))
             continue
         if ptype == "point":
             point_specs.append((prim, m))
@@ -505,6 +578,18 @@ def flatten_arrays(doc: SceneDocument):
             ca = float(prim.get("cone_angle", 90.0))
             if ca < 90.0:
                 prim_cone_cos[pi] = float(np.cos(np.deg2rad(ca)))
+        if ptype == "minecraft_map":
+            # each group a light row where it emits, under a pseudo
+            # primitive id; the block materials go after the scene's
+            specs, groups = _minecraft_groups(doc, prim, m, tex_builder)
+            for wpos, uv, tris, j, e in groups:
+                pseudo = MC_PSEUDO_PRIM + len(extra_prims)
+                add(wpos, None, None, uv, tris, len(bsdfs) + j, pseudo)
+                extra_prims[pseudo] = {} if e is None else {"emission": e}
+                if e is not None:
+                    emissive_prims.append(pseudo)
+            bsdfs.extend(specs)
+            continue
         if ptype in ANALYTIC:
             entry = analytic.extract_params(ptype, m, prim)
             entry["_mat"] = prim["_bsdf_index"]
@@ -522,43 +607,37 @@ def flatten_arrays(doc: SceneDocument):
                 compute_smooth_normals(mesh)
             soup = tessellate.TriSoup(pos=mesh.pos, normal=mesh.normal if smooth else None,
                                       uv=mesh.uv, indices=mesh.indices)
+        elif ptype == "curves":
+            ends, cnodes = load_curves(doc.resolve_path(prim["file"]))
+            if prim.get("curve_thickness") is not None:
+                cnodes = cnodes.copy()
+                cnodes[:, 3] = float(prim["curve_thickness"])
+            soup = tessellate.curve_tubes(ends, cnodes, taper=bool(prim.get("curve_taper", False)),
+                                          subsample=float(prim.get("subsample", 1.0)))
         else:
             soup = _TESSELLATED[ptype]()
         if emissive:
             emissive_prims.append(pi)
         wpos = tf.transform_point(m, soup.pos).astype(np.float32)
+        wn = None
         if soup.normal is not None:
             wn = tf.transform_normal(m, soup.normal)
             lens = np.linalg.norm(wn, axis=-1, keepdims=True)
             wn = np.where(lens > 1e-20, wn / np.maximum(lens, 1e-20), 0.0).astype(np.float32)
-        else:
-            wn = None
-        pos_l.append(wpos)
-        n_l.append(wn)
-        uv_l.append(soup.uv.astype(np.float32))
-        idx_l.append(soup.indices + vert_base)
-        mat_l.append(np.full(len(soup.indices), prim["_bsdf_index"], np.int32))
-        prim_l.append(np.full(len(soup.indices), pi, np.int32))
-        nt = len(soup.indices)
-        mi, me = prim.get("_int_medium", -1), prim.get("_ext_medium", -1)
-        med_int_l.append(np.full(nt, mi, np.int32))
-        med_ext_l.append(np.full(nt, me, np.int32))
-        med_ov_l.append(np.full(nt, mi >= 0 or me >= 0, bool))
-        vert_base += len(wpos)
+        wt = None
+        if soup.tangent is not None:  # flatten.py:512-517
+            wt = tf.transform_vector(m, soup.tangent)
+            lt = np.linalg.norm(wt, axis=-1, keepdims=True)
+            wt = (wt / np.maximum(lt, 1e-20)).astype(np.float32)
+        add(wpos, wn, wt, soup.uv.astype(np.float32), soup.indices, prim["_bsdf_index"], pi,
+            prim.get("_int_medium", -1), prim.get("_ext_medium", -1))
     if not idx_l:
         if not ana_entries:
             raise ValueError("scene has no finite geometry")
         # all-analytic scene: one degenerate far-away triangle keeps the
         # triangle tables and packs well-formed (never hit)
-        pos_l.append(np.full((3, 3), 2.0e37, np.float32))
-        n_l.append(None)
-        uv_l.append(np.zeros((3, 2), np.float32))
-        idx_l.append(np.arange(3, dtype=np.int32)[None, :])
-        mat_l.append(np.zeros(1, np.int32))
-        prim_l.append(np.full(1, -1, np.int32))
-        med_int_l.append(np.full(1, -1, np.int32))
-        med_ext_l.append(np.full(1, -1, np.int32))
-        med_ov_l.append(np.zeros(1, bool))
+        add(np.full((3, 3), 2.0e37, np.float32), None, None, np.zeros((3, 2), np.float32),
+            np.arange(3, dtype=np.int32)[None, :], 0, -1)
 
     all_pos = np.concatenate(pos_l)
     all_uv = np.concatenate(uv_l)
@@ -576,11 +655,16 @@ def flatten_arrays(doc: SceneDocument):
 
     # shading normals: vertex normals where present, face normal otherwise
     all_n = np.zeros_like(all_pos)
+    all_tan = np.zeros_like(all_pos)
+    has_fiber_tan = any(wt is not None for wt in tan_l)
     off = 0
-    for wpos, wn in zip(pos_l, n_l):
+    for wpos, wn, wt in zip(pos_l, n_l, tan_l):
         if wn is not None:
             all_n[off: off + len(wpos)] = wn
+        if wt is not None:
+            all_tan[off: off + len(wpos)] = wt
         off += len(wpos)
+    tri_tan = all_tan[indices[:, 0]]  # the fiber tangent, constant per triangle
     n0, n1, n2 = (all_n[indices[:, k]] for k in range(3))
     missing = (np.linalg.norm(n0, axis=-1) < 0.5)[:, None]
     n0 = np.where(missing, tri_ng, n0)
@@ -603,10 +687,11 @@ def flatten_arrays(doc: SceneDocument):
     face_area = permute(face_area)
     tri_med_int, tri_med_ext, tri_med_ov = (permute(a) for a in (tri_med_int, tri_med_ext,
                                                                    tri_med_ov))
+    tri_tan = permute(tri_tan) if has_fiber_tan else np.zeros((1, 3), np.float32)
 
     # ---- materials, textures, lights (flatten.py:606-920, in its order, so
     # the texture ids come out the same) ----
-    mats = pack_materials(doc.bsdfs, tex_builder)
+    mats = pack_materials(bsdfs, tex_builder)
 
     def prim_origin(name):
         """The transform origin of the named primitive (an atmosphere's
@@ -632,7 +717,7 @@ def flatten_arrays(doc: SceneDocument):
     rows = []  # one dict per light row (_light_row's fields)
     tri_idx_list, cdf_list = [], []
     for pi in emissive_prims:
-        prim = doc.primitives[pi]
+        prim = extra_prims[pi] if pi in extra_prims else doc.primitives[pi]
         if pi in ana_prim_of:
             k = ana_prim_of[pi]
             total = float(ana_entries[k]["area"])
@@ -661,13 +746,26 @@ def flatten_arrays(doc: SceneDocument):
     # env's black texture comes first, as flatten.py's _default_env adds it
     default_tex = tex_builder.add_constant([0.0, 0.0, 0.0])
     envs, env_const, env_light_idx = [], [], []
-    for slot, (prim, m, _) in enumerate(env_specs):
+    for slot, (prim, m, env_pi, is_sky) in enumerate(env_specs):
         rot = m[:3, :3].astype(np.float64)
         rot = rot / np.maximum(np.linalg.norm(rot, axis=0, keepdims=True), 1e-30)
-        etex = emission_tex(prim, 1.0)
-        is_const = not isinstance(prim.get("emission"), str)
-        weights = (np.ones((1, 1), np.float32) if is_const
-                   else _env_weights(tex_builder.image(etex)))
+        if is_sky:  # the bake of Skydome::prepareForRender (Skydome.cpp:292-318)
+            img = bake_skydome(rot @ np.array([0.0, 1.0, 0.0]),
+                               turbidity=float(prim.get("turbidity", 3.0)),
+                               intensity=float(prim.get("intensity", 2.0)),
+                               temperature=float(prim.get("temperature", 5777.0)),
+                               gamma_scale=float(prim.get("gamma_scale", 1.0)))
+            etex = tex_builder.add_bitmap(img, path_key=f"__skydome_{env_pi}")
+            # the sun carries the orientation; the skydome's uv mapping
+            # ignores the prim transform (Skydome.cpp:37-41)
+            rot = np.eye(3)
+            is_const = False
+            weights = _env_weights(img)
+        else:
+            etex = emission_tex(prim, 1.0)
+            is_const = not isinstance(prim.get("emission"), str)
+            weights = (np.ones((1, 1), np.float32) if is_const
+                       else _env_weights(tex_builder.image(etex)))
         dist = Distribution2D.build_arrays(weights)
         envs.append({"rot": rot.astype(np.float32), "inv_rot": rot.T.astype(np.float32),
                      "tex": np.int32(etex), "dist.alias_pack": dist["alias_pack"],
@@ -791,6 +889,8 @@ def flatten_arrays(doc: SceneDocument):
         tri_med_int = np.concatenate([tri_med_int, a_mi])
         tri_med_ext = np.concatenate([tri_med_ext, a_me])
         tri_med_ov = np.concatenate([tri_med_ov, (a_mi >= 0) | (a_me >= 0)])
+        if has_fiber_tan:
+            tri_tan = np.concatenate([tri_tan, z3])
         packs.update({f"ana.{k}": v for k, v in ana.items()})
     shade_pack = np.concatenate(
         [tri_ng, n0, n1, n2, uv0, uv1, uv2, np.asarray(tri_mat, np.float32)[:, None],
@@ -798,11 +898,13 @@ def flatten_arrays(doc: SceneDocument):
     arrays = {
         "tris.v0": p0, "tris.e1": e1, "tris.e2": e2, "shade_pack": shade_pack,
         "tri_ng": tri_ng, "tri_uv0": uv0, "tri_uv1": uv1, "tri_uv2": uv2,
-        "tri_light": tri_light, "tri_med_int": tri_med_int, "tri_med_ext": tri_med_ext,
+        "tri_light": tri_light, "tri_tan": tri_tan,
+        "tri_med_int": tri_med_int, "tri_med_ext": tri_med_ext,
         "tri_med_override": tri_med_ov, "media": media,
         **{f"lights.{k}": v for k, v in lights.items()},
         "materials.gpack2": gpack2, "materials.gpack3": gpack3,
         "materials.rough_kinds": rough_kinds,
+        **{f"materials.{k}": mats["hair"].get(k) for k in HAIR_KEYS},
         "textures.tpack": tex["tpack"], "textures.data": tex["data"],
         "textures.data4": tex["data4"],
         **{f"env.{k}": v for k, v in (envs[-1] if envs else _default_env(default_tex)).items()},
@@ -849,6 +951,7 @@ def flatten_arrays(doc: SceneDocument):
         spp_step=int(doc.renderer.get("spp_step", 16)),
         use_bvh=bool(doc.renderer.get("scene_bvh", True)),
         bdpt_max_vertices=_bdpt_cap(integ),
+        has_fiber_tan=has_fiber_tan,
         has_analytic=ana is not None,
         aovs=tuple((b.get("type"), b.get("output_file", ""), b.get("hdr_output_file", ""))
                    for b in doc.renderer.get("output_buffers", [])
@@ -924,15 +1027,16 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
         shade_pack=t("shade_pack"),
         tri_ng=t("tri_ng"), tri_uv0=t("tri_uv0"), tri_uv1=t("tri_uv1"), tri_uv2=t("tri_uv2"),
         tri_light=torch.as_tensor(np.array(arrays["tri_light"], np.int64), device=device),
+        tri_tan=t("tri_tan"),
         tri_med_int=torch.as_tensor(np.array(arrays["tri_med_int"], np.int64), device=device),
         tri_med_ext=torch.as_tensor(np.array(arrays["tri_med_ext"], np.int64), device=device),
         tri_med_override=torch.as_tensor(np.array(arrays["tri_med_override"], np.bool_),
                                          device=device),
         media=MediumTable.from_arrays(media, device),
         lights=LightTable.from_arrays(sub("lights"), device),
-        materials=MaterialTable.from_arrays(arrays["materials.gpack2"],
-                                            arrays["materials.rough_kinds"], device,
-                                            arrays.get("materials.gpack3")),
+        materials=MaterialTable.from_arrays(
+            arrays["materials.gpack2"], arrays["materials.rough_kinds"], device,
+            arrays.get("materials.gpack3"), {k: arrays.get(f"materials.{k}") for k in HAIR_KEYS}),
         textures=textures,
         env=env_light(sub("env")),
         camera=CameraParams(

@@ -92,6 +92,28 @@ four variants (`write_scene`'s `variant`):
     alpha, a thinsheet bubble orb. Lockstep only (the forward branch and
     its volume NEE).
 
+The two hair sizes put curves on the materialtest-like scene's ball and
+floor, lit by a skydome alone (turbidity 3, the sun 30 degrees up): a
+.hair file (cyHair) written in code with curly strands of 25 nodes rooted
+on the ball's upper half, their radius tapering from root to tip, split
+over three curves prims, each its own file: the middle half of the strands
+(by the root's x) with the hair BCSDF (melanin 1.3, roughness 0.3), the
+left quarter lambertian_fiber, the right quarter rough_wire (Au, roughness
+0.2). hair-synth: 4,096 strands of radius 0.003 at the root and 0.0015 at
+the tip, 4,096 x 24 x 3 x 2 = 589,824 triangles under the curves' max_tris
+of 2^20, so none is dropped; small-hair: 64 strands ten times as thick.
+
+The two minecraft sizes render a minecraft_map world written in code with
+the port's Anvil writer: a heightfield terrain of stone, dirt and grass
+with glowstone lamps on it (mc-synth: 8 x 8 chunks, 128 x 128 columns, 64
+blocks high, 12 lamps; small-mc: one chunk, 16 blocks high, 2 lamps),
+textured by a resource pack written in code (pack/: models with a parent
+chain and '#var' references, blockstates, a mapping.json with masks, 16x16
+PNG textures, the grass's top tinted, and an emitters.json that makes
+glowstone emit), an analytic sphere whose emission is an IES profile
+written in code (lamp.ies), and a skydome. Their renderer block turns
+adaptive sampling off, so the CLI renders every pass in regen.
+
 The two coat sizes and the two cut-out sizes build the materialtest-like
 scene with the remaining surfaces (every non-fiber type the interior sizes
 do not show), lit by the sky and one emissive quad facing down:
@@ -142,6 +164,14 @@ Sizes:
   media-synth         the media scene at materialtest-synth's scale
                       (80,000-triangle ball, 1000x563, 32 spp, 64 bounces)
   small-media         the same at small's (the CPU parity scene)
+  hair-synth          the hair scene at materialtest-synth's scale
+                      (80,000-triangle ball, 4,096 strands, 1000x563,
+                      32 spp, 64 bounces)
+  small-hair          the same at small's (64 strands, 64x48, 4 spp, 6
+                      bounces)
+  mc-synth            the minecraft scene: 8 x 8 chunks, 1000x563, 32 spp,
+                      64 bounces
+  small-mc            the same with one chunk at small's render size
 
 Usage: python -m tungsten_tpu_torch.synth OUT_DIR [size [variant]]
 """
@@ -202,6 +232,32 @@ SIZES["media-synth"] = SIZES["materialtest-synth"]
 SIZES["small-media"] = SIZES["small"]
 MEDIA_VARIANTS = ("fog", "cloud", "haze", "forward")
 CLOUD_RES = {"media-synth": 192, "small-media": 16}  # the cloud grid's n^3
+FIBER = ("hair-synth", "small-hair")
+MINECRAFT = ("mc-synth", "small-mc")
+for _big, _small in (FIBER, MINECRAFT):
+    SIZES[_big], SIZES[_small] = SIZES["materialtest-synth"], SIZES["small"]
+STRANDS = {"hair-synth": 4096, "small-hair": 64}
+STRAND_NODES = 25
+STRAND_RADIUS = {"hair-synth": (0.003, 0.0015), "small-hair": (0.03, 0.015)}  # root, tip
+# (file, bsdf, share of the strands by the root's x: left quarter, middle
+# half, right quarter)
+FIBER_FILES = (("fiber.hair", "fiber", 0.25), ("hair.hair", "hair", 0.75),
+               ("wire.hair", "wire", 1.0))
+FIBER_BSDFS = [
+    {"name": "hair", "type": "hair", "melanin_concentration": 1.3, "melanin_ratio": 0.5,
+     "roughness": 0.3},
+    {"name": "fiber", "type": "lambertian_fiber", "albedo": [0.85, 0.8, 0.7]},
+    {"name": "wire", "type": "rough_wire", "material": "Au", "roughness": 0.2},
+]
+# the sun 30 degrees up (the skydome's sun is its transform's +y)
+SKYDOME = {"type": "skydome", "turbidity": 3.0, "intensity": 2.0, "temperature": 5777.0,
+           "transform": {"rotation": [60, 30, 0]}}
+# minecraft sizes: (chunks a side, world height, glowstone lamps, camera
+# position, look_at, the IES sphere's position and scale)
+MC_WORLD = {"mc-synth": (8, 64, 12, [64.0, 60.0, -40.0], [64.0, 40.0, 64.0],
+                         [64.0, 58.0, 64.0], 4.0),
+            "small-mc": (1, 16, 2, [8.0, 13.0, -10.0], [8.0, 8.0, 8.0], [8.0, 12.0, 9.0], 1.5)}
+MC_IDS = {"stone": 1, "grass": 2, "dirt": 3, "glowstone": 89}  # legacy block ids
 # variant -> (camera fields, filter, resolution of camera-synth, of small-camera)
 THINLENS = {"type": "thinlens", "aperture_size": 0.3, "cateye": 0.5, "focus_pivot": "ball",
             "aperture": {"type": "blade", "blades": 6}}
@@ -719,6 +775,219 @@ def write_vdb(path, grids, version=224, zipped=True):
         f.write(w.bytes())
 
 
+def write_hair(path: str, pts: np.ndarray, thickness: np.ndarray):
+    """A cyHair .hair file (CurveIO.cpp loadHair): strands of equal node
+    count, pts (n, m, 3), per-node thickness (n, m): the segments, points
+    and thickness arrays (descriptor 0x1 | 0x2 | 0x4)."""
+    n, m = thickness.shape
+    hdr = (b"HAIR" + struct.pack("<IIII", n, n * m, 0x1 | 0x2 | 0x4, m - 1)
+           + struct.pack("<ff", float(thickness.mean()), 1.0) + struct.pack("<fff", 1, 1, 1)
+           + b"\0" * 88)
+    with open(path, "wb") as f:
+        f.write(hdr + np.full(n, m - 1, "<u2").tobytes() + np.asarray(pts, "<f4").tobytes()
+                + np.asarray(thickness, "<f4").tobytes())
+
+
+def strands(size: str, seed: int = 7):
+    """(pts (n, 25, 3), radius (n, 25)): curly strands rooted on the upper
+    half of the unit ball at (0, 1, 0), growing along the normal with a
+    helical curl and a droop, each 0.35-0.5 long."""
+    n, m = STRANDS[size], STRAND_NODES
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(0.1, 0.95, n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    r = np.sqrt(1.0 - y * y)
+    nrm = np.stack([r * np.cos(phi), y, r * np.sin(phi)], axis=-1)
+    t = np.cross(nrm, [0.0, 1.0, 0.0])
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    b = np.cross(nrm, t)
+    s = np.linspace(0.0, 1.0, m)[None, :, None]
+    length = rng.uniform(0.35, 0.5, n)[:, None, None]
+    curl = rng.uniform(0.02, 0.04, n)[:, None, None]
+    ang = (rng.uniform(0.0, 2.0 * np.pi, n)[:, None]
+           + 2.0 * np.pi * rng.uniform(2.0, 3.0, n)[:, None] * s[..., 0])[..., None]
+    pts = (np.array([0.0, 1.0, 0.0]) + nrm[:, None] * (1.0 + length * s)
+           + curl * s * (np.cos(ang) * t[:, None] + np.sin(ang) * b[:, None])
+           - np.array([0.0, 0.15, 0.0]) * length * s * s)
+    root, tip = STRAND_RADIUS[size]
+    radius = np.broadcast_to(root + (tip - root) * s[..., 0], (n, m))
+    return pts.astype(np.float32), radius.astype(np.float32)
+
+
+def _write_strands(out_dir: str, size: str):
+    """The three .hair files of FIBER_FILES, split by the root's x."""
+    pts, radius = strands(size)
+    rank = np.argsort(np.argsort(pts[:, 0, 0], kind="stable"), kind="stable") / len(pts)
+    lo = 0.0
+    for name, _, hi in FIBER_FILES:
+        sel = (rank >= lo) & (rank < hi)
+        write_hair(os.path.join(out_dir, name), pts[sel], 2.0 * radius[sel])
+        lo = hi
+
+
+def _fiber_dict(doc: dict) -> dict:
+    """The materialtest-like floor and ball, the three curves prims and the
+    skydome."""
+    doc["bsdfs"] = doc["bsdfs"][:2] + copy.deepcopy(FIBER_BSDFS)
+    doc["primitives"] = doc["primitives"][:2] + [
+        {"type": "curves", "file": name, "mode": "bcsdf_cylinder", "bsdf": bsdf}
+        for name, bsdf, _ in FIBER_FILES] + [copy.deepcopy(SKYDOME)]
+    return doc
+
+
+def heightfield(size: str) -> np.ndarray:
+    """The terrain's column heights (nz, nx) in blocks, 3 to 3/4 of the
+    world's height."""
+    chunks, height = MC_WORLD[size][:2]
+    n = 16 * chunks
+    z, x = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    f = 2.0 * np.pi / max(n, 32)
+    h = (0.45 + 0.14 * np.sin(1.3 * f * x + 0.4) * np.cos(0.9 * f * z)
+         + 0.08 * np.sin(3.1 * f * (x + z)) + 0.04 * np.cos(5.3 * f * x - 2.7 * f * z))
+    return np.clip(np.round(h * height), 3, 3 * height // 4).astype(np.int64)
+
+
+def world_blocks(size: str, seed: int = 11) -> np.ndarray:
+    """The world's legacy block ids (height, nz, nx) [y, z, x]: stone under
+    three layers of dirt under grass, glowstone lamps one block above the
+    grass."""
+    chunks, height, lamps = MC_WORLD[size][:3]
+    h = heightfield(size)
+    y = np.arange(height)[:, None, None]
+    ids = np.where(y < h - 4, MC_IDS["stone"], np.where(y < h - 1, MC_IDS["dirt"], MC_IDS["grass"]))
+    ids = np.where(y < h, ids, 0).astype(np.uint8)
+    rng = np.random.default_rng(seed)
+    n = 16 * chunks
+    for z, x in rng.integers(1, n - 1, (lamps, 2)):
+        ids[h[z, x], z, x] = MC_IDS["glowstone"]
+    return ids
+
+
+def _chunk_nbt(column: np.ndarray) -> bytes:
+    """One chunk (height, 16, 16) [y, z, x] -> its NBT, a section for each
+    16 blocks of height that holds a block (MapLoader.hpp:35-78)."""
+    from .io.nbt import TAG_BYTE_ARRAY, TAG_COMPOUND, TAG_INT, TAG_LIST, NbtTag, write_nbt
+
+    secs = [NbtTag("", TAG_COMPOUND, {
+        "Y": NbtTag("Y", TAG_INT, cy),
+        "Blocks": NbtTag("Blocks", TAG_BYTE_ARRAY,
+                         column[16 * cy: 16 * cy + 16].reshape(4096).astype(np.int8))})
+        for cy in range(column.shape[0] // 16) if column[16 * cy: 16 * cy + 16].any()]
+    return write_nbt(NbtTag("", TAG_COMPOUND, {"Level": NbtTag("Level", TAG_COMPOUND, {
+        "Sections": NbtTag("Sections", TAG_LIST, secs)})}))
+
+
+def _write_world(out_dir: str, size: str):
+    """world/region/r.0.0.mca through the port's Anvil writer."""
+    from .io.anvil import write_region
+
+    ids = world_blocks(size)
+    chunks = MC_WORLD[size][0]
+    region = os.path.join(out_dir, "world", "region")
+    os.makedirs(region, exist_ok=True)
+    write_region(os.path.join(region, "r.0.0.mca"), {
+        (cx, cz): _chunk_nbt(ids[:, 16 * cz: 16 * cz + 16, 16 * cx: 16 * cx + 16])
+        for cz in range(chunks) for cx in range(chunks)})
+
+
+def _block_texture(rng, base, spread, rows=None):
+    """A 16x16 texture: `base` rgb with seeded per-texel noise; `rows`:
+    (count, rgb) paints the top rows."""
+    img = np.clip(np.asarray(base) * (1.0 + spread * rng.standard_normal((16, 16, 1))), 0, 1)
+    if rows:
+        img[: rows[0]] = rows[1]
+    return img.astype(np.float32)
+
+
+def write_pack(root: str, seed: int = 5):
+    """A resource pack in the shape of tests/test_minecraft.py's _tiny_pack:
+    block/cube with elements, cube_all and cube_bottom_top by parent chain
+    and '#var' references, a grass model of its own whose top face is
+    tinted, blockstates (glowstone's a list), mapping.json with masks,
+    16x16 PNGs, and emitters.json making glowstone emit."""
+    from .io.imageio import save_image
+
+    mdir = os.path.join(root, "assets/minecraft/models/block")
+    sdir = os.path.join(root, "assets/minecraft/blockstates")
+    tdir = os.path.join(root, "assets/minecraft/textures/blocks")
+    for d in (mdir, sdir, tdir):
+        os.makedirs(d, exist_ok=True)
+    faces = ("down", "up", "north", "south", "west", "east")
+    box = {"from": [0, 0, 0], "to": [16, 16, 16]}
+    models = {
+        "cube": {"elements": [{**box, "faces": {f: {"texture": "#" + f} for f in faces}}]},
+        "cube_all": {"parent": "block/cube", "textures": {f: "#all" for f in faces}},
+        "cube_bottom_top": {"parent": "block/cube", "textures": {
+            "up": "#top", "down": "#bottom", **{f: "#side" for f in faces[2:]}}},
+        "stone": {"parent": "block/cube_all", "textures": {"all": "blocks/stone"}},
+        "dirt": {"parent": "minecraft:block/cube_all", "textures": {"all": "blocks/dirt"}},
+        "glowstone": {"parent": "block/cube_all", "textures": {"all": "blocks/glowstone"}},
+        "grass": {"textures": {"top": "blocks/grass_top", "side": "blocks/grass_side",
+                               "bottom": "blocks/dirt"},
+                  "elements": [{**box, "faces": {
+                      "up": {"texture": "#top", "tintindex": 0}, "down": {"texture": "#bottom"},
+                      **{f: {"texture": "#side"} for f in faces[2:]}}}]},
+    }
+    for name, model in models.items():
+        with open(os.path.join(mdir, name + ".json"), "w") as f:
+            json.dump(model, f)
+    for name in ("stone", "dirt", "grass"):
+        with open(os.path.join(sdir, name + ".json"), "w") as f:
+            json.dump({"variants": {"normal": {"model": "block/" + name}}}, f)
+    with open(os.path.join(sdir, "glowstone.json"), "w") as f:
+        json.dump({"variants": {"normal": [{"model": "block/glowstone"}]}}, f)
+    rng = np.random.default_rng(seed)
+    dirt = [0.45, 0.32, 0.22]
+    for name, img in (("stone", _block_texture(rng, [0.5, 0.5, 0.52], 0.15)),
+                      ("dirt", _block_texture(rng, dirt, 0.2)),
+                      ("grass_top", _block_texture(rng, [0.75, 0.75, 0.75], 0.12)),
+                      ("grass_side", _block_texture(rng, dirt, 0.2, (3, [0.3, 0.55, 0.2]))),
+                      ("glowstone", _block_texture(rng, [0.95, 0.8, 0.5], 0.1))):
+        save_image(os.path.join(tdir, name + ".png"), img)
+    with open(os.path.join(root, "mapping.json"), "w") as f:
+        json.dump([{"id": MC_IDS["stone"], "data": 0, "mask": 0, "blockstate": "stone"},
+                   {"id": MC_IDS["grass"], "data": 0, "mask": 12, "blockstate": "grass"},
+                   {"id": MC_IDS["dirt"], "data": 0, "mask": 0, "blockstate": "dirt"},
+                   {"id": MC_IDS["glowstone"], "data": 0, "mask": 0,
+                    "blockstate": "glowstone"}], f)
+    with open(os.path.join(root, "emitters.json"), "w") as f:
+        json.dump([{"texture": "blocks/glowstone", "primary_scale": 12.0}], f)
+
+
+def ies_profile() -> str:
+    """An LM-63 type-C profile with horizontal angles 0-90 (expanded by
+    symmetry to the full circle): a forward-throwing cosine lobe whose
+    strength varies with the horizontal angle."""
+    vert = np.arange(0.0, 181.0, 10.0)
+    horz = np.array([0.0, 30.0, 60.0, 90.0])
+    cd = (np.clip(np.cos(np.deg2rad(vert)), 0.0, None)[None, :] ** 1.5 * 800.0
+          * (1.0 - 0.4 * np.sin(np.deg2rad(horz))[:, None]) + 40.0)
+    lines = ["IESNA:LM-63-2002", "[TEST] synthesized", "TILT=NONE",
+             f"1 1000 1 {len(vert)} {len(horz)} 1 1 0.1 0.1 0.1", "1 1 100",
+             " ".join(f"{v:.1f}" for v in vert), " ".join(f"{h:.1f}" for h in horz)]
+    lines += [" ".join(f"{c:.3f}" for c in row) for row in cd]
+    return "\n".join(lines) + "\n"
+
+
+def _minecraft_dict(size: str) -> dict:
+    res, spp, max_b = SIZES[size][4:]
+    cam, look, lamp, lamp_scale = MC_WORLD[size][3:]
+    return {
+        "bsdfs": [{"name": "lamp", "type": "lambert", "albedo": 0.8}],
+        "primitives": [
+            {"type": "minecraft_map", "map_path": "world", "resource_packs": ["pack"]},
+            {"type": "sphere", "bsdf": "lamp", "emission": "lamp.ies",
+             "transform": {"position": lamp, "scale": lamp_scale, "rotation": [180, 0, 0]}},
+            copy.deepcopy(SKYDOME),
+        ],
+        "camera": {"type": "pinhole", "tonemap": "filmic", "fov": 60, "resolution": list(res),
+                   "transform": {"position": cam, "look_at": look, "up": [0, 1, 0]}},
+        "integrator": {"type": "path_tracer", "max_bounces": max_b},
+        # the CLI renders every pass in regen, as render_flat does
+        "renderer": {"spp": spp, "spp_step": spp, "adaptive_sampling": False},
+    }
+
+
 def _write_sphere_obj(path: str, nu: int, nv: int):
     """Unit UV sphere, 2 * nu * nv triangles, with normals and uvs."""
     us = np.linspace(0.0, 2.0 * np.pi, nu + 1)
@@ -821,6 +1090,8 @@ def _box_variant(variant: str):
 def scene_dict(size: str, variant: str | None = None) -> dict:
     if size in INTERIOR:
         return _interior_dict(size)
+    if size in MINECRAFT:
+        return _minecraft_dict(size)
     nu, nv, sw, sh, res, spp, max_b = SIZES[size]
     doc = {
         "bsdfs": [
@@ -891,6 +1162,8 @@ def scene_dict(size: str, variant: str | None = None) -> dict:
         doc = _camera_variant(doc, size, variant or "thinlens")
     if size in MEDIA:
         doc = _media_variant(doc, size, variant or "fog")
+    if size in FIBER:
+        doc = _fiber_dict(doc)
     return doc
 
 
@@ -909,14 +1182,22 @@ def write_scene(out_dir: str, size: str = "small", variant: str | None = None) -
                          f"{list(MEDIA_VARIANTS)}, the box sizes {BOX} {list(BOX_VARIANTS)}")
     nu, nv, sw, sh = SIZES[size][:4]
     os.makedirs(out_dir, exist_ok=True)
-    _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
+    if size in MINECRAFT:
+        _write_world(out_dir, size)
+        write_pack(os.path.join(out_dir, "pack"))
+        with open(os.path.join(out_dir, "lamp.ies"), "w") as f:
+            f.write(ies_profile())
+    else:
+        _write_sphere_obj(os.path.join(out_dir, "ball.obj"), nu, nv)
+    if size in FIBER:
+        _write_strands(out_dir, size)
     if size.endswith("-area"):
         _write_sphere_obj(os.path.join(out_dir, "lamp.obj"), *LAMP_SEGMENTS)
     if size in ORB_SEGMENTS:
         _write_sphere_obj(os.path.join(out_dir, "orb.obj"), *ORB_SEGMENTS[size])
     if size in INTERIOR:
         save_hdr(os.path.join(out_dir, "sky.hdr"), _sky(sw, sh))
-    elif size not in BOX:
+    elif size not in BOX + FIBER + MINECRAFT:
         save_pfm(os.path.join(out_dir, "sky.pfm"), _sky(sw, sh))
     if size in CAMERA and variant == "bitmap":
         save_pfm(os.path.join(out_dir, "aperture.pfm"), _aperture_image())
