@@ -345,6 +345,27 @@ printing a result):
                 (FIBER_LOCKSTEP_SPP) against regen (FIBER_REGEN_SPP) at
                 CUT_BOUNCES, means within 5e-3; one profile window of a
                 hair-synth regen batch (1 pass, PROFILE_BOUNCES bounces).
+  17. mesh    - the sharded renders (parallel/mesh.py), NFOR and the render
+                server, on box-synth at 1000x563 and CUT_BOUNCES: the
+                unsharded renders first (lockstep PT 2 spp, LT 2, BDPT 1,
+                progressive_photon_map 2 iterations of 2^18 photons,
+                Kelemen PT chains over 2^18 chains: 2 steps after one
+                bootstrap evaluation); render_flat over a one-rank nccl
+                group in this process, bit for bit with the lockstep
+                render; two spawned gloo ranks on this card (their
+                collectives staged through the host, each rank with a
+                deadline) render the five again, PT bit for bit, the others
+                within tests/test_multichip.py's bars (MESH_BARS), each
+                rank's launches reset just before and read just after every
+                render (K3 and K3-fast, and K7 for SPPM; no twin); NFOR
+                (utils/nfor.py, float64) of an 8-spp regen render with the
+                albedo, normal and depth AOVs set in code, through
+                nfor_inputs() on the card, timed, its peak memory, its
+                channel means within 5% of its input's; the same at 128x72
+                on the card against the CPU within rtol 1e-6; the render
+                server (tools/tungsten_server.py) on an ephemeral localhost
+                port rendering box-synth at 4 spp: /status reaches
+                totalSpp, /render is a 1000x563 PNG, /log says finished.
 To make room for phase 8, phase 5b's lockstep render was cut from 32 spp to
 8; to make room for phase 9, phase 8's lockstep render from 32 to 16 (at 8
 its wavefront check failed, 5.94e-3 against the 5e-3 bar); phase 9's
@@ -380,10 +401,13 @@ launches_surfaces, phase 10's two as launches_lights, phase 11's as
 launches_camera, phase 12's as launches_media and phase 13's box-synth
 light tracer and BDPT renders as launches_lt and launches_bdpt, phase
 14's SPPM renders as launches_sppm, phase 15's MLT renders as
-launches_mlt and phase 16's renders as launches_fiber (hair-synth) and
-launches_mc (mc-synth); phase 14's
+launches_mlt, phase 16's renders as launches_fiber (hair-synth) and
+launches_mc (mc-synth) and phase 17's mesh and server renders, per rank,
+as launches_mesh; phase 14's
 box-synth progressive_photon_map render for K7, with every SPPM render's
-K7 launches beside as launches_sppm, its ms, plain ms and bound on that
+K7 launches beside as launches_sppm (and phase 17's sharded
+progressive_photon_map's per rank as launches_mesh), its ms, plain ms and
+bound on that
 render's first surface call and every checked call's under calls (K7 is
 XLA loops on the TPU, no pl.pallas_call: its tpu_form; its bound counts
 the twin's candidate rows at 14 / 17 / 42 / 96 f32 operations (surface,
@@ -1213,7 +1237,8 @@ def camera_phase(work, dev, card):
     launches["thinlens resume (regen)"] = counts()
     k3_only("camera-synth thinlens resume", launches["thinlens resume (regen)"])
     saved = OutputBuffers(w, h, aovs=tuple(straight.aovs))
-    check(saved.load_state(state, sh) == {"next_pass": spp}, "CLI: its state file loads")
+    check(saved.load_state(state, sh) == {"next_pass": spp, "res": [w, h]},
+          "CLI: its state file loads (next_pass, and res for the denoiser)")
     arrays = ("sum", "count", "sum_a", "sum_b", "count_a", "count_b", "mean", "m2", "aov_count")
     same = {k: bool(np.array_equal(getattr(resumed, k), getattr(saved, k))) for k in arrays}
     same.update({f"{g} {k}": bool(np.array_equal(getattr(resumed, g)[k], getattr(saved, g)[k]))
@@ -2242,6 +2267,31 @@ FIBER_REGEN_SPP = 8
 FIBER_LOCKSTEP_SPP = 4
 
 
+def digest_cost(scene, card):
+    """What parallel/mesh.py's replicate pays to hash hair-synth, the largest
+    synth scene: the first digest (every tensor to the host and through
+    SHA-256) and the one kept on the scene object."""
+    from tungsten_tpu_torch.parallel.mesh import _tree_map, scene_digest
+
+    t0 = time.time()
+    d = scene_digest(scene)
+    first = time.time() - t0
+    t0 = time.time()
+    check(scene_digest(scene) is d, "hair-synth: the scene digest is kept on the scene")
+    kept = time.time() - t0
+    n_bytes = 0
+
+    def count(t):
+        nonlocal n_bytes
+        n_bytes += t.numel() * t.element_size()
+        return t
+
+    _tree_map(count, scene)
+    log(f"[16 fiber] hair-synth: replicate's scene digest over {n_bytes / 2**20:.1f} MiB of "
+        f"tensors {first:.3f} s the first time, {kept * 1e6:.1f} us once kept on the scene "
+        f"(host clock, {card})")
+
+
 def fiber_phase(work, dev, card):
     """Phase 16: small-hair and small-mc in both wavefronts against
     tests/data/torch_port_fiber_ref.json (numpy BVH build); hair-synth and
@@ -2295,6 +2345,7 @@ def fiber_phase(work, dev, card):
                   and not strided and m.has_fiber_tan,
                   f"hair-synth: {n_tris} triangles, {n_fiber} of them on the 4,096 strands' "
                   f"tubes, no strand dropped by max_tris")
+            digest_cost(sc, card)
         else:
             check(n_tris > 50000 and m.n_lights > 2 and not m.has_fiber_tan,
                   f"mc-synth: {n_tris} triangles, the glowstone groups, the IES sphere and the "
@@ -2376,6 +2427,296 @@ def fiber_phase(work, dev, card):
         f"{prof['busy_share_of_bare_wall']:.4f} of the bare wall")
     log(f"[16 fiber] phase 16 took {time.time() - t_phase:.1f} s on {card}")
     return launches
+
+
+
+# phase 17: the sharded renders (parallel/mesh.py), NFOR on the card and the
+# render server, on box-synth at 1000x563. The mesh renders run at
+# CUT_BOUNCES; PT 2 spp, LT 2, BDPT 1, progressive_photon_map 2 iterations
+# of the scene's 2^18 photons, Kelemen PT chains at 1 spp over 2^18 chains
+# (2 mutation steps, one bootstrap evaluation)
+MESH_PT_SPP, MESH_LT_SPP, MESH_BDPT_SPP, MESH_SPPM_ITERS = 2, 2, 1, 2
+MESH_CHAINS, MESH_BOOT = 1 << 18, 1
+MESH_BARS = {"lt": (1e-5, 1e-6), "bdpt": (1e-5, 1e-6), "ppm": (1e-4, 1e-5),
+             "kelemen": (1e-4, 1e-5)}  # rtol, atol (tests/test_multichip.py)
+RANK_DEADLINE = 300.0  # seconds for a rank's renders, its collectives' timeout
+NFOR_SPP = 8  # the full-width regen render NFOR denoises (2 batches of 4)
+NFOR_SMALL = (128, 72)  # the card-against-CPU check's resolution
+NFOR_CPU_RTOL = 1e-6
+NFOR_MEAN_RTOL = 0.05  # the denoised image's channel means against the input's
+SERVER_SPP = 4
+
+
+def mesh_renders(cfg, mesh):
+    """Phase 17's renders of the scene at cfg["path"], cut to CUT_BOUNCES,
+    on cfg["device"] (sharded over mesh, or not where it is None): {name:
+    (image, wall s, counts())}."""
+    from tungsten_tpu_torch.integrators.kelemen import render_kelemen
+    from tungsten_tpu_torch.renderer.render import (render_bdpt, render_flat,
+                                                    render_light_traced, render_sppm)
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    dev = torch.device(cfg["device"])
+    scene = cut_depth(flatten_scene(load_scene(cfg["path"]), dev))
+    calls = (
+        ("pt", lambda: render_flat(scene, spp=MESH_PT_SPP, mesh=mesh,
+                                   wavefront="auto" if mesh is not None else "lockstep")),
+        ("lt", lambda: render_light_traced(scene, spp=MESH_LT_SPP, seed=9, mesh=mesh)),
+        ("bdpt", lambda: render_bdpt(scene, spp=MESH_BDPT_SPP, seed=11, mesh=mesh)),
+        ("ppm", lambda: render_sppm(scene, spp=MESH_SPPM_ITERS, seed=13,
+                                    photons_per_iter=cfg["photons"], mesh=mesh)),
+        ("kelemen", lambda: render_kelemen(scene, spp=1, seed=17, n_chains=cfg["chains"],
+                                           bootstrap_factor=MESH_BOOT, mesh=mesh)))
+    out = {}
+    for name, fn in calls:
+        sync(dev)
+        reset_counts()
+        t0 = time.time()
+        img = fn()
+        sync(dev)
+        out[name] = (img, time.time() - t0, counts())
+    return out
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_rank(mesh, cfg):
+    """One of phase 17's gloo ranks (a spawned process): its sharded
+    renders; rank 0 returns the images, every rank their digests, walls and
+    launch counts."""
+    import hashlib
+
+    from tungsten_tpu_torch.parallel.mesh import rank
+
+    out = mesh_renders(cfg, mesh)
+    return {name: (img if rank(mesh) == 0 else None, hashlib.sha256(img.tobytes()).hexdigest(),
+                   dt, c) for name, (img, dt, c) in out.items()}
+
+
+def run_ranks(world, cfg):
+    """Spawn `world` gloo ranks of mesh_rank on cfg["device"]'s type; their
+    results {rank: ...} within RANK_DEADLINE (every collective's timeout)
+    and a minute, or RuntimeError with a failed rank's traceback. Every
+    rank is stopped before this returns."""
+    from tungsten_tpu_torch.parallel.mesh import join_ranks, start_ranks
+
+    ranks = start_ranks(mesh_rank, world, (cfg,), backend="gloo", timeout=RANK_DEADLINE,
+                        device_type=torch.device(cfg["device"]).type)
+    return join_ranks(ranks, time.time() + RANK_DEADLINE + 60.0)
+
+
+def mesh_counts(label, name, c):
+    """The launch checks of one phase-17 render's counts c."""
+    if name == "ppm":
+        sppm_only(label, c)
+    else:
+        k3_only(label, c)
+
+
+def aov_scene(scene):
+    """The scene with the albedo, normal and depth AOVs set in code."""
+    return dataclasses.replace(scene, meta=dataclasses.replace(
+        scene.meta, aovs=tuple((k, "", "") for k in ("albedo", "normal", "depth"))))
+
+
+def nfor_on(inputs, dev):
+    """nfor of OutputBuffers.nfor_inputs() on dev: (H, W, 3) float64 there."""
+    from tungsten_tpu_torch.utils.nfor import nfor
+
+    a, b, var, feats = inputs
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)  # noqa: E731
+    return nfor(t(a), t(b), t(var), [{k: t(v) for k, v in f.items()} for f in feats])
+
+
+def mesh_phase(work, dev, card):
+    """Phase 17: box-synth at 1000x563. (1) a one-rank nccl group in this
+    process: render_flat(mesh=...) at MESH_PT_SPP and CUT_BOUNCES equals the
+    unsharded lockstep render bit for bit; (2) two spawned gloo ranks, both
+    on this card: PT (auto: lockstep under a mesh) bit for bit against (1)'s
+    image, LT, BDPT, progressive_photon_map and Kelemen PT chains each
+    within MESH_BARS of the unsharded render of the same call, every rank
+    with its deadline, K3 / K3-fast / K7 launched in each rank and no twin;
+    (3) NFOR on the card: a NFOR_SPP regen render with the albedo, normal
+    and depth AOVs set in code, through nfor_inputs() into nfor, timed, its
+    peak memory; the same at NFOR_SMALL on the card and on the CPU, within
+    NFOR_CPU_RTOL; (4) the render server on an ephemeral localhost port
+    renders box-synth at SERVER_SPP: /status reaches totalSpp, /render is a
+    1000x563 PNG. Returns {render: counts()} of the renders that ran on the
+    card through a mesh, per rank."""
+    import torch.distributed as dist
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.parallel.mesh import free_port, make_mesh
+    from tungsten_tpu_torch.renderer.render import render_buffers, render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.tools import tungsten_server
+
+    t_phase = time.time()
+    path = synth.write_scene(os.path.join(work, "mesh"), "box-synth")
+    cfg = {"path": path, "device": str(dev), "photons": synth.PHOTON_COUNT["box-synth"],
+           "chains": MESH_CHAINS}
+    launches = {}
+
+    # (1) the unsharded renders, then a one-rank nccl mesh
+    single = mesh_renders(cfg, None)
+    for name, (img, dt, c) in single.items():
+        mesh_counts(f"box-synth {name} (one process)", name, c)
+        log(f"[17 mesh] box-synth {name} unsharded: {img.shape[1]}x{img.shape[0]} in {dt:.2f} s "
+            f"on {card}; K3 {c['bvh8.walk_cuda']}, K3-fast {c['bvh8.walk_fast_cuda']}, K7 "
+            f"{c['photon_walk.walk_cuda']} launches")
+    scene = cut_depth(flatten_scene(load_scene(path), dev))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(dev.type)
+        sync(dev)
+        reset_counts()
+        t0 = time.time()
+        img = render_flat(scene, spp=MESH_PT_SPP, mesh=mesh)
+        sync(dev)
+        dt = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+    c = launches["pt nccl (rank 0 of 1)"] = counts()
+    k3_only("box-synth PT over a one-rank nccl mesh", c)
+    pt_ref = single["pt"][0]
+    check(np.array_equal(img, pt_ref) and np.isfinite(img).all() and img.max() > 0,
+          f"box-synth PT over a one-rank nccl mesh ({MESH_PT_SPP} spp, {CUT_BOUNCES} bounces, "
+          f"{dt:.2f} s) equals the unsharded lockstep render bit for bit")
+
+    # (2) two gloo ranks on this card
+    t0 = time.time()
+    ranks = run_ranks(2, cfg)
+    log(f"[17 mesh] two gloo ranks on {card}: spawned, rendered and joined in "
+        f"{time.time() - t0:.1f} s")
+    for name, (ref, dt1, _) in single.items():
+        img = ranks[0][name][0]
+        check(all(ranks[r][name][1] == ranks[0][name][1] for r in ranks),
+              f"box-synth {name}: both ranks return the same image")
+        if name == "pt":
+            check(np.array_equal(img, pt_ref), f"box-synth PT over two gloo ranks equals the "
+                  f"unsharded lockstep render bit for bit")
+        else:
+            rtol, atol = MESH_BARS[name]
+            close = np.abs(img - ref) <= atol + rtol * np.abs(ref)
+            check(close.all(), f"box-synth {name} over two gloo ranks: within rtol {rtol} atol "
+                  f"{atol} of the unsharded render (max abs diff {np.abs(img - ref).max():.3g}, "
+                  f"{(~close).sum()} values outside)")
+        for r, res in ranks.items():
+            c = launches[f"{name} gloo (rank {r} of 2)"] = res[name][3]
+            mesh_counts(f"box-synth {name}, gloo rank {r} of 2", name, c)
+        walls = [ranks[r][name][2] for r in sorted(ranks)]
+        keys = ("bvh8.walk_cuda", "bvh8.walk_fast_cuda", "photon_walk.walk_cuda")
+        log(f"[17 mesh] box-synth {name}: two gloo ranks on one card {walls[0]:.2f} / "
+            f"{walls[1]:.2f} s against {dt1:.2f} s unsharded on {card}; launches K3 / K3-fast "
+            f"/ K7 by rank: " + ", ".join(" / ".join(str(ranks[r][name][3][k]) for k in keys)
+                                          for r in sorted(ranks)))
+
+    # (3) NFOR on the card, at full width and against the CPU at NFOR_SMALL
+    full = aov_scene(cut_depth(flatten_scene(load_scene(path), dev)))
+    t0 = time.time()
+    bufs = render_buffers(full, spp=NFOR_SPP, passes_per_batch=NFOR_SPP // 2, wavefront="regen")
+    render_s = time.time() - t0
+    inputs = bufs.nfor_inputs()
+    sync(dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.time()
+    den = nfor_on(inputs, dev)
+    sync(dev)
+    nfor_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    den = den.cpu().numpy()
+    noisy = 0.5 * (inputs[0] + inputs[1])
+    m_in = noisy.reshape(-1, 3).astype(np.float64).mean(0)
+    m_out = den.reshape(-1, 3).mean(0)
+    rel = np.abs(m_out - m_in) / np.abs(m_in)
+    check(den.shape == noisy.shape == (full.meta.res_y, full.meta.res_x, 3)
+          and np.isfinite(den).all() and (rel <= NFOR_MEAN_RTOL).all(),
+          f"NFOR of box-synth {full.meta.res_x}x{full.meta.res_y} ({NFOR_SPP} spp regen, "
+          f"{len(inputs[3])} features): finite, channel means {m_out.round(6).tolist()} within "
+          f"{rel.max():.2e} of the input's (<= {NFOR_MEAN_RTOL})")
+    log(f"[17 nfor] box-synth {full.meta.res_x}x{full.meta.res_y}: render {render_s:.2f} s, "
+        f"nfor (float64) {nfor_s:.2f} s on {card}, peak memory {peak / 2**30:.2f} GiB above "
+        f"the {base / 2**30:.2f} GiB held before")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["camera"]["resolution"] = list(NFOR_SMALL)
+    small_path = os.path.join(os.path.dirname(path), "scene_small.json")
+    with open(small_path, "w") as f:
+        json.dump(doc, f)
+    small = aov_scene(cut_depth(flatten_scene(load_scene(small_path), dev)))
+    inputs = render_buffers(small, spp=NFOR_SPP, passes_per_batch=NFOR_SPP // 2,
+                            wavefront="regen").nfor_inputs()
+    t0 = time.time()
+    on_card = nfor_on(inputs, dev).cpu().numpy()
+    card_s = time.time() - t0
+    t0 = time.time()
+    on_cpu = nfor_on(inputs, torch.device("cpu")).numpy()
+    cpu_s = time.time() - t0
+    err = np.abs(on_card - on_cpu) / np.maximum(np.abs(on_cpu), 1e-300)
+    check(np.isfinite(on_cpu).all() and bool(np.allclose(on_card, on_cpu, rtol=NFOR_CPU_RTOL,
+                                                         atol=0)),
+          f"NFOR of box-synth {NFOR_SMALL[0]}x{NFOR_SMALL[1]}: the card ({card_s:.2f} s) "
+          f"against the CPU ({cpu_s:.2f} s), largest relative difference {err.max():.3g} "
+          f"(<= {NFOR_CPU_RTOL})")
+
+    # (4) the render server on the card
+    sync(dev)
+    reset_counts()
+    t0 = time.time()
+    srv = tungsten_server.RenderServer([path], dev, spp=SERVER_SPP, host="127.0.0.1", port=0,
+                                       checkpoint_interval=0.5).start()
+    try:
+        while True:  # "idle" with 0 of 0 spp also before the worker starts
+            st = json.loads(http_get(srv.port, "/status")[2])
+            if st["state"] == "idle" and st["currentSpp"] == st["totalSpp"] == SERVER_SPP:
+                break
+            if "FAILED" in http_get(srv.port, "/log")[2].decode():
+                raise AssertionError("server: " + http_get(srv.port, "/log")[2].decode())
+            if time.time() - t0 > RANK_DEADLINE:
+                raise AssertionError(f"server: no finished render within {RANK_DEADLINE} s: {st}")
+            time.sleep(0.2)
+        wall = time.time() - t0
+        _, ctype, png = http_get(srv.port, "/render")
+        log_text = http_get(srv.port, "/log")[2].decode()
+    finally:
+        srv.shutdown()
+    c = launches["server (regen)"] = counts()
+    k3_only("the server's box-synth render", c)
+    size = png_size(png)
+    check(st["totalSpp"] == SERVER_SPP and ctype == "image/png"
+          and size == (scene.meta.res_x, scene.meta.res_y)
+          and f"finished {path}" in log_text and "FAILED" not in log_text,
+          f"server on port {srv.port}: /status reached {st['currentSpp']} of "
+          f"{st['totalSpp']} spp in {wall:.2f} s, /render a {size[0]}x{size[1]} PNG, /log "
+          f"says finished")
+    log(f"[17 mesh] phase 17 took {time.time() - t_phase:.1f} s on {card}")
+    return launches
+
+
+def http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def png_size(data):
+    """(width, height) from a PNG's IHDR chunk."""
+    import struct
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError("not a PNG")
+    return struct.unpack(">II", data[16:24])
 
 
 def main():
@@ -2952,6 +3293,7 @@ def main():
     sppm_launches, sppm_all, k7 = sppm_phase(work, dev, card, box_pt)
     mlt_launches = mlt_phase(work, dev, card, box_pt)
     fiber_launches = fiber_phase(work, dev, card)
+    mesh_launches = mesh_phase(work, dev, card)
 
     def entry(name, source, replaces, n_launch, err, t_ms, t_plain, n_bytes, ops, bf16_ops=0):
         b_ms, b_by = bound(n_bytes, ops, bf16_ops)
@@ -2983,6 +3325,7 @@ def main():
                                  if w.startswith("hair-synth")}
         row["launches_mc"] = {w: c[key] for w, c in fiber_launches.items()
                               if w.startswith("mc-synth")}
+        row["launches_mesh"] = {w: c[key] for w, c in mesh_launches.items()}
     # K1: XLA gathers on the TPU, no pl.pallas_call; its launches from the
     # phase-7 K1 route render, its times and bound on the 2N batch (phase 3e)
     k1_row = entry("gather_walk", "tungsten_tpu_torch/csrc/gather_walk.cu",
@@ -3023,6 +3366,8 @@ def main():
     k7_row["calls"] = {label: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "work")} for label, v in k7.items()}
     k7_row["launches_sppm"] = {w: c["photon_walk.walk_cuda"] for w, c in sppm_all.items()}
+    k7_row["launches_mesh"] = {w: c["photon_walk.walk_cuda"] for w, c in mesh_launches.items()
+                               if w.startswith("ppm")}
     entries.append(k7_row)
     for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b

@@ -14,7 +14,9 @@ bit with its twin, and by the bars against brute force) and K6
 trilinear and nearest grids, bit for bit with its twin), K7
 (photon_walk.cu: the photon-grid walk in its surface, kNN histogram,
 points and beams modes, bit for bit with its twin), one Kelemen-BDPT MLT
-step through K3 and K3-fast against the CPU's twins per lane, and the first
+step through K3 and K3-fast against the CPU's twins per lane, a render over
+a one-rank nccl mesh bit for bit against the unsharded one, the float64
+NFOR on the card against the CPU (rtol 1e-6), and the first
 CUDA forms of K3, K3-fast, K4, K5 and
 K2, kept for comparison (bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
 bvh2_walk_v1.cu, bvh_walk_v1.cu, intersect_stream_v1.cu).
@@ -720,3 +722,55 @@ def test_k7_photon_walk_bit_equal_to_twin(cuda, mode):
                            b.view(torch.int32) if b.is_floating_point() else b)
     with pytest.raises(ValueError):
         photon_walk.walk_cuda(mode, grid[0].cpu(), *grid[1:], *lanes, cell, r, 0, 6)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_render_equals_unsharded(cuda, tmp_path):
+    """render_flat over a one-rank nccl mesh on the card (parallel/mesh.py)
+    equals the unsharded lockstep render bit for bit: the same global lanes,
+    gathered in rank order."""
+    import torch.distributed as dist
+
+    from tungsten_tpu_torch import synth
+    from tungsten_tpu_torch.parallel.mesh import make_mesh
+    from tungsten_tpu_torch.renderer.render import render_flat
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.load import load_scene
+
+    scene = flatten_scene(load_scene(synth.write_scene(str(tmp_path), "small")), cuda)
+    ref = render_flat(scene, spp=2, wavefront="lockstep")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        img = render_flat(scene, spp=2, mesh=make_mesh("cuda"))
+    finally:
+        dist.destroy_process_group()
+    assert np.isfinite(img).all() and img.max() > 0.0
+    assert np.array_equal(img, ref)
+
+
+@pytest.mark.cuda
+def test_nfor_on_the_card_matches_the_cpu(cuda):
+    """The full NFOR (utils/nfor.py, float64) on the card against the CPU on
+    the same seeded inputs (a piecewise-smooth image whose edge the albedo
+    carries, with noise), within rtol 1e-6: the same arithmetic, summed and
+    solved in other orders."""
+    from tungsten_tpu_torch.utils.nfor import nfor
+
+    rng = np.random.default_rng(3)
+    h, w = 48, 64
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    left = (xx < w // 2).astype(np.float64)
+    albedo = np.stack([0.2 + 0.6 * left, 0.7 - 0.5 * left, np.full((h, w), 0.4)], -1)
+    gt = albedo * (0.5 + 0.45 * np.sin(xx / 17.0) * np.cos(yy / 13.0))[..., None]
+    a, b = (gt + rng.normal(0.0, 0.25, gt.shape) for _ in range(2))
+    feats = [{"buffer_a": albedo + rng.normal(0, 0.02, albedo.shape),
+              "buffer_b": albedo + rng.normal(0, 0.02, albedo.shape),
+              "variance": np.full(albedo.shape, 2e-4)}]
+    var = np.full(gt.shape, 0.25 ** 2 / 2)
+    on_card = nfor(*(torch.as_tensor(x, device=cuda) for x in (a, b, var)),
+                   [{k: torch.as_tensor(v, device=cuda) for k, v in f.items()} for f in feats])
+    assert on_card.device.type == "cuda" and on_card.dtype == torch.float64
+    ref = nfor(a, b, var, feats)
+    assert np.isfinite(ref.numpy()).all()
+    np.testing.assert_allclose(on_card.cpu().numpy(), ref.numpy(), rtol=1e-6, atol=0)

@@ -1,28 +1,24 @@
 """tungsten_tpu_torch: the PyTorch + CUDA port of tungsten_tpu.
 
-Counterpart of tungsten_tpu/__init__.py. The JAX package stays the
-reference; this package runs its path tracer (scene load -> flatten ->
-regenerating or lockstep wavefront path tracer -> framebuffer; every surface
-BSDF but the fibers, the wrappers over one level of nesting, forward lobes
-through the lockstep tracer's crossing walk, textured parameters, .hdr
-images, every light kind but the skydome, every camera and reconstruction
-filter, the depth / normal / albedo AOVs; the render driver with samples
-per pass, adaptive sampling, resume files and checkpoints, and its command
-line, tools/tungsten.py; participating media; the light tracer and the
-bidirectional path tracer with its image pyramid) with plain torch tensor
-code and
-hand-written CUDA kernels for the walks: the BVH8
-walk, exact and fast (ops/bvh8.py + csrc/bvh8_walk.cu, bvh8_walk_fast.cu),
-the gather walk (ops/gather_bvh.py + csrc/gather_walk.cu), the binary walk
-(ops/bvh2.py + csrc/bvh2_walk.cu), the packet walk (ops/bvh.py +
-csrc/bvh_walk.cu) and the streaming brute force (ops/intersect_stream.py +
-csrc/intersect_stream.cu). The intersector
-benchmark (tools/bench_isect.py) times them all. It imports torch and numpy,
-never jax.
-
-Package layout mirrors tungsten_tpu/ module for module; what is not ported
-yet (the skydome, curves and the fibers, photon mapping and the MLT
-integrators) raises NotImplementedError naming the missing piece.
+Counterpart of tungsten_tpu/__init__.py, module for module. The JAX package
+stays the reference; this package does everything it does: scene load ->
+flatten -> the eight integrators (the regenerating and lockstep path
+tracers, the light tracer, BDPT, photon mapping and SPPM, Kelemen,
+multiplexed and reversible-jump MLT) -> the framebuffer, with every
+surface, light, camera, filter, medium and geometry type, the render
+driver and its command line (tools/tungsten.py), the sharded renders over
+torch.distributed (parallel/mesh.py), the NFOR denoiser and the image
+metrics (utils/), and the denoiser, hdrmanip, render-server and obj2json
+tools. It runs in plain torch tensor code with hand-written CUDA kernels
+for the walks: the BVH8 walk, exact and fast (ops/bvh8.py +
+csrc/bvh8_walk.cu, bvh8_walk_fast.cu), the gather walk (ops/gather_bvh.py
++ csrc/gather_walk.cu), the binary walk (ops/bvh2.py + csrc/bvh2_walk.cu),
+the packet walk (ops/bvh.py + csrc/bvh_walk.cu), the streaming brute force
+(ops/intersect_stream.py + csrc/intersect_stream.cu), the voxel DDA
+(ops/grid_walk.py + csrc/grid_walk.cu) and the photon-grid walk
+(ops/photon_walk.py + csrc/photon_walk.cu). The intersector benchmark
+(tools/bench_isect.py) times the walks. It imports torch and numpy, never
+jax.
 """
 import torch as _torch
 

@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel import mesh as pm
 from ..sampling.sampler import MASK32, _to_unit_float, pcg4d
 from ..scene.flatten import FlatScene
 from .light_tracer import splat_filtered
@@ -60,11 +61,14 @@ def _luminance(rgb):
     return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
 
 
-def _rand(shape, seed0, seed1, salt, device):
+def _rand(shape, seed0, seed1, salt, device, row0=0):
     """Two uniform grids of `shape` for the render loop's own decisions: PCG4D
-    of (flat index, salt, seed0, seed1), all uint32 (kelemen.py:41-49)."""
+    of (flat index, salt, seed0, seed1), all uint32 (kelemen.py:41-49).
+    row0: the global row of the grid's first row, where it is one rank's
+    block of a sharded grid (its flat indices start at row0 * row size)."""
     n = int(np.prod(shape))
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    row = int(np.prod(shape[1:]))
+    i = torch.arange(row0 * row, row0 * row + n, dtype=torch.int64, device=device)
 
     def word(v):
         return torch.full((n,), int(v) & MASK32, dtype=torch.int64, device=device)
@@ -134,25 +138,31 @@ def _splat_chain(buf, ev, weight, res_x, res_y, filter_name="tent"):
                           filter_name=filter_name)
 
 
-def _proposals(table, seed, step_idx, p_large):
+def _row0(lane_ids):
+    """The global index of a block's first chain (0 for an empty block)."""
+    return int(lane_ids[0]) if lane_ids.shape[0] else 0
+
+
+def _proposals(table, seed, step_idx, p_large, row0=0):
     """The step's proposals and its uniforms: a large step (fresh
     uniforms) with probability p_large, else the small step; returns
-    (proposal, s0) with s0 the render loop's seed word."""
+    (proposal, s0) with s0 the render loop's seed word. row0: the global
+    index of the first chain (a sharded block's)."""
     n, dims, _ = table.shape
     dev = table.device
     s0 = int(seed[0]) ^ _DECORRELATE
     salt = int(step_idx) * 4
-    u_large, _ = _rand((n,), s0, seed[1], salt + 0, dev)
-    ud0, ud1 = _rand((n, dims), s0, seed[1], salt + 1, dev)
-    um0, um1 = _rand((n, dims), s0, seed[1], salt + 2, dev)
+    u_large, _ = _rand((n,), s0, seed[1], salt + 0, dev, row0)
+    ud0, ud1 = _rand((n, dims), s0, seed[1], salt + 1, dev, row0)
+    um0, um1 = _rand((n, dims), s0, seed[1], salt + 2, dev, row0)
     fresh = torch.stack([ud0, um0], dim=-1)  # reused as the fresh uniforms
     small = _mutate_small(table, fresh, torch.stack([ud1, um1], dim=-1))
     large = u_large < p_large
     return torch.where(large[:, None, None], fresh, small), s0
 
 
-def _accept(n, s0, seed, step_idx, a, dev):
-    u_acc, _ = _rand((n,), s0, seed[1], int(step_idx) * 4 + 3, dev)
+def _accept(n, s0, seed, step_idx, a, dev, row0=0):
+    u_acc, _ = _rand((n,), s0, seed[1], int(step_idx) * 4 + 3, dev, row0)
     return u_acc < a
 
 
@@ -162,7 +172,8 @@ def _mlt_step_impl(scene: FlatScene, state, lane_ids, seed, step_idx, p_large, b
     place."""
     meta = scene.meta
     table = state["table"]
-    proposal, s0 = _proposals(table, seed, step_idx, p_large)
+    row0 = _row0(lane_ids)
+    proposal, s0 = _proposals(table, seed, step_idx, p_large, row0)
     rad_p, pix_p = _eval(scene, proposal, lane_ids, seed)
     lum_p = _luminance(rad_p)
     lum = state["lum"]
@@ -175,7 +186,7 @@ def _mlt_step_impl(scene: FlatScene, state, lane_ids, seed, step_idx, p_large, b
                    meta.res_y, filter_name=meta.filter)
     splat_filtered(buf, pix_p, rad_p * w_prop[:, None], lum_p > 0, meta.res_x, meta.res_y,
                    filter_name=meta.filter)
-    accept = _accept(table.shape[0], s0, seed, step_idx, a, table.device)
+    accept = _accept(table.shape[0], s0, seed, step_idx, a, table.device, row0)
     return dict(table=torch.where(accept[:, None, None], proposal, table),
                 rad=torch.where(accept[:, None], rad_p, state["rad"]),
                 lum=torch.where(accept, lum_p, lum),
@@ -242,7 +253,8 @@ def _mlt_step_bdpt_impl(scene: FlatScene, state, lane_ids, seed, step_idx, p_lar
     (MMLT): the technique s is read from table slot 1 and the contribution
     scaled by the length's technique count (MultiplexedMltTracer.cpp:52-54)."""
     table = state["table"]
-    proposal, s0 = _proposals(table, seed, step_idx, p_large)
+    row0 = _row0(lane_ids)
+    proposal, s0 = _proposals(table, seed, step_idx, p_large, row0)
     sel = None
     if v_sel is not None:
         sel = (_select_technique(proposal[:, 1, 0], v_sel), v_sel)
@@ -251,7 +263,7 @@ def _mlt_step_bdpt_impl(scene: FlatScene, state, lane_ids, seed, step_idx, p_lar
         ev_p = _scale_ev(ev_p, _ntech_lanes(v_sel))
     a = torch.clamp(ev_p["lum"] / torch.clamp(state["lum"], min=1e-20), 0.0, 1.0)
     buf = _splat_pair(scene.meta, state, ev_p, a, bw)
-    accept = _accept(table.shape[0], s0, seed, step_idx, a, table.device)
+    accept = _accept(table.shape[0], s0, seed, step_idx, a, table.device, row0)
     return _ev_accept(state, ev_p, accept, table, proposal, buf)
 
 
@@ -315,6 +327,19 @@ def _resume(resume_file, scene_hash_value, state, verbose, dev):
     return state, {}, 0
 
 
+def _finish(mesh, state, n_chains, it, resume_file, scene_hash_value, extras=None):
+    """The state after the last step, its splat buffer whole: under a mesh
+    the buffer is summed over the ranks (and, to be saved, the chain blocks
+    gathered); the state is saved to resume_file (by rank 0 alone)."""
+    if resume_file:
+        state = pm.gather_chain_state(mesh, state, n_chains)
+        if pm.rank(mesh) == 0:
+            save_mlt_state(resume_file, scene_hash_value, state, it, extras=extras)
+        pm.barrier(mesh)
+        return state
+    return dict(state, splat=pm.all_reduce_sum(mesh, state["splat"]))
+
+
 def _bootstrap_kelemen_bdpt(scene: FlatScene, seed, seed_arr, n_chains, dims, bootstrap_factor):
     """The bidirectional bootstrap: (state without its splat, b, the pool's
     luminances) or None for a black scene."""
@@ -335,12 +360,16 @@ def _bootstrap_kelemen_bdpt(scene: FlatScene, seed, seed_arr, n_chains, dims, bo
 
 
 def render_kelemen_bdpt(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 << 13,
-                        p_large=0.1, bootstrap_factor=16, verbose=False, resume_file=None,
-                        scene_hash_value=""):
+                        p_large=0.1, bootstrap_factor=16, verbose=False, mesh=None,
+                        resume_file=None, scene_hash_value=""):
     """Bidirectional PSSMLT (the reference's default "bidirectional": true):
     each primary-sample vector drives one camera and one light subpath and
     their whole (s, t) connection set, accepted on the splat set's total
-    luminance (kelemen.py:215-292). Total mutations = spp * W * H."""
+    luminance (kelemen.py:215-292). Total mutations = spp * W * H. mesh:
+    every rank runs the whole bootstrap (so every rank selects the same
+    chains), then mutates its block of the chains; the splat buffer is
+    summed once, at the end."""
+    scene = pm.replicate(mesh, scene)
     meta = scene.meta
     spp = spp if spp is not None else meta.spp
     w, h = meta.res_x, meta.res_y
@@ -356,12 +385,13 @@ def render_kelemen_bdpt(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 
     state = dict(state, splat=torch.zeros((w * h, 3), device=dev))
     steps = max(1, spp * w * h // n_chains)
     state, _, it = _resume(resume_file, scene_hash_value, state, verbose, dev)
+    state = pm.shard_chain_state(mesh, state, n_chains)
+    lane_ids = pm.shard_lanes(mesh, lane_ids)
     state, it = _run_steps(
         "mlt-bdpt", lambda st, i, k: mlt_steps_bdpt(scene, st, lane_ids, seed_arr, i, k,
                                                     p_large, b),
         state, it, steps, BDPT_CHUNK, verbose)
-    if resume_file:
-        save_mlt_state(resume_file, scene_hash_value, state, it)
+    state = _finish(mesh, state, n_chains, it, resume_file, scene_hash_value)
     return _result(state, steps * n_chains, w, h)
 
 
@@ -385,9 +415,11 @@ def _bootstrap_kelemen(scene: FlatScene, seed, seed_arr, n_chains, dims, bootstr
 
 
 def render_kelemen(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 << 14, p_large=0.1,
-                   bootstrap_factor=16, verbose=False, resume_file=None, scene_hash_value=""):
+                   bootstrap_factor=16, verbose=False, mesh=None, resume_file=None,
+                   scene_hash_value=""):
     """PSSMLT over path-traced chains (kelemen.py:295-379). Total mutations
-    = spp * W * H."""
+    = spp * W * H. mesh: as render_kelemen_bdpt's."""
+    scene = pm.replicate(mesh, scene)
     meta = scene.meta
     spp = spp if spp is not None else meta.spp
     w, h = meta.res_x, meta.res_y
@@ -402,11 +434,12 @@ def render_kelemen(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 << 14
     state = dict(state, splat=torch.zeros((w * h, 3), device=dev))
     steps = max(1, spp * w * h // n_chains)
     state, _, it = _resume(resume_file, scene_hash_value, state, verbose, dev)
+    state = pm.shard_chain_state(mesh, state, n_chains)
+    lane_ids = pm.shard_lanes(mesh, lane_ids)
     state, it = _run_steps(
         "mlt", lambda st, i, k: mlt_steps(scene, st, lane_ids, seed_arr, i, k, p_large, b),
         state, it, steps, PT_CHUNK, verbose)
-    if resume_file:
-        save_mlt_state(resume_file, scene_hash_value, state, it)
+    state = _finish(mesh, state, n_chains, it, resume_file, scene_hash_value)
     return _result(state, steps * n_chains, w, h)
 
 

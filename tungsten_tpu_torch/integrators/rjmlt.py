@@ -33,10 +33,11 @@ from __future__ import annotations
 import torch
 
 from ..math import vecops as vo
+from ..parallel import mesh as pm
 from ..sampling import warps
 from ..scene.flatten import FlatScene
 from .bdpt import V_SURFACE, _bdpt_sample
-from .kelemen import (_chain_pixels, _luminance, _ntech_lanes, _pixel_f, _rand, _scale_ev,
+from .kelemen import (_chain_pixels, _luminance, _ntech_lanes, _pixel_f, _rand, _row0, _scale_ev,
                       _select_technique, _splat_pair, _ev_accept, mlt_steps_bdpt)
 
 STRATEGY_EVERY = 4  # every 4th mutation is a strategy perturbation
@@ -267,8 +268,9 @@ def _rjmlt_strategy_step_impl(scene: FlatScene, state, lane_ids, seed, step_idx,
     table = state["table"]
     n, dev = table.shape[0], table.device
     s0 = int(seed[0]) ^ _STRATEGY_SALT
-    u_s, u_mu0 = _rand((n,), s0, seed[1], int(step_idx) * 4 + 0, dev)
-    u_mu1, u_mu2 = _rand((n,), s0, seed[1], int(step_idx) * 4 + 1, dev)
+    row0 = _row0(lane_ids)
+    u_s, u_mu0 = _rand((n,), s0, seed[1], int(step_idx) * 4 + 0, dev, row0)
+    u_mu1, u_mu2 = _rand((n,), s0, seed[1], int(step_idx) * 4 + 1, dev, row0)
     s_cur = _select_technique(table[:, 1, 0], v_sel)
     s_new = _select_technique(u_s, v_sel)
 
@@ -305,7 +307,7 @@ def _rjmlt_strategy_step_impl(scene: FlatScene, state, lane_ids, seed, step_idx,
     a = torch.where(inv_ok, torch.clamp(ev_p["lum"] / torch.clamp(state["lum"], min=1e-20),
                                         0.0, 1.0), 0.0)
     buf = _splat_pair(meta, state, ev_p, a, bw)
-    u_acc, _ = _rand((n,), s0, seed[1], int(step_idx) * 4 + 3, dev)
+    u_acc, _ = _rand((n,), s0, seed[1], int(step_idx) * 4 + 3, dev, row0)
     accept = u_acc < a
     out = _ev_accept(state, ev_p, accept, table, proposal, buf)
     out.update(accept_frac=accept.float().mean(), invert_frac=inv_ok.float().mean())
@@ -323,12 +325,15 @@ def rjmlt_strategy_step(scene: FlatScene, state, lane_ids, seed, step_idx, bw, v
 
 
 def render_rjmlt(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 << 13, p_large=0.1,
-                 bootstrap_factor=16, verbose=False, resume_file=None, scene_hash_value=""):
+                 bootstrap_factor=16, verbose=False, mesh=None, resume_file=None,
+                 scene_hash_value=""):
     """RJ-MLT render (rjmlt.py:441-511): MMLT's chain populations, every
     STRATEGY_EVERY-th mutation a reversible-jump strategy perturbation. The
     bootstrap, per-length budgets and normalization are MMLT's
     (MultiplexedMltIntegrator.cpp:92-94). The strategy steps' mean accept
-    and invertible fractions land in render_rjmlt.last_stats."""
+    and invertible fractions land in render_rjmlt.last_stats. mesh: as
+    multiplexed.render_mmlt's; the fractions are taken over every rank's
+    chains."""
     from .multiplexed import _render_chains
 
     hist = []
@@ -343,6 +348,9 @@ def render_rjmlt(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 << 13, 
             if it < steps:
                 state, stats = rjmlt_strategy_step(scene, state, lane_ids, seed_arr,
                                                    STRATEGY_STEP0 + it, bw, v_sel, k_max, 2)
+                if mesh is not None:  # the block's fractions to every chain's
+                    stats = tuple(pm.all_reduce_sum(mesh, f * lane_ids.shape[0]) / n_chains
+                                  for f in stats)
                 hist.append(stats)
                 it += 1
             if verbose:
@@ -350,7 +358,7 @@ def render_rjmlt(scene: FlatScene, spp=None, seed=0xBA5EBA11, n_chains=1 << 13, 
         return state, it
 
     img = _render_chains(scene, spp, seed, 0x71000, n_chains, bootstrap_factor, resume_file,
-                         scene_hash_value, verbose, run)
+                         scene_hash_value, verbose, run, mesh)
     acc = float(sum(float(a) for a, _ in hist) / len(hist)) if hist else float("nan")
     inv = float(sum(float(i) for _, i in hist) / len(hist)) if hist else float("nan")
     render_rjmlt.last_stats = (acc, inv, len(hist))
