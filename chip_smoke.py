@@ -8,17 +8,18 @@ printing a result):
   1. device   - the card's name and power limit;
   2. build    - the host's BVH builder (native/, portable flags) is built
                 beside the kernels where it is absent; nvcc builds the
-                thirteen kernel sources (csrc/bvh8_walk.cu,
+                fifteen kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
                 bvh2_walk.cu, bvh2_walk_v1.cu, bvh_walk.cu, bvh_walk_v1.cu,
                 intersect_stream.cu, intersect_stream_v1.cu, gather_walk.cu,
-                grid_walk.cu, photon_walk.cu)
+                grid_walk.cu, grid_walk_v1.cu, photon_walk.cu,
+                photon_walk_v1.cu)
                 into build/, one nvcc per source, all at once, and prints
                 what ptxas said of the two BVH8 kernels, K4, K5, K2, K1, K6
-                and K7
+                and K7 and their first forms
                 (registers, shared memory, stack, spills) and their resident
                 blocks a multiprocessor (K4's kernel in each of its three
-                modes);
+                modes, K7's walk in each of its four);
   3. kernel   - materialtest-synth flattened, with what its gather pack
                 (gbvh) costs the flatten: build_gather_pack timed on the
                 flatten's BVH build (so also on interior-synth in phase 8);
@@ -242,13 +243,14 @@ printing a result):
                 and K3-fast launched, K6 in the cloud's renders only, no
                 twin; media-synth written (the cloud a 192^3 blob as a zip
                 5-4-3 .vdb by synth's writer) and flattened, the grid read
-                back bit for bit; K6 (grid_walk.cu) against its twin in both
-                modes, bit for bit (or within rtol 1e-6 on >= 99.9% of the
-                finite lanes, INF lanes equal), on K6_RAYS = 16,384 random rays
+                back bit for bit; K6 (grid_walk.cu) against its twin and
+                its first form (grid_walk_v1.cu) in both modes, bit for
+                bit, on K6_RAYS = 16,384 random rays
                 through the cloud and on the largest launch of each mode of
                 a 1-spp regen pass of the cloud (the render's own lanes), its
                 ms (median of 5 single-launch windows), the twin's, the
-                rounds the twin counts and the bound; that pass's K6 device
+                rounds the twin counts and the bound, v1 and the new form
+                timed in turns (v1, new, new, v1); that pass's K6 device
                 time against its wall; then media-synth at 1000x563,
                 CUT_BOUNCES bounces: fog, cloud and haze through regen
                 (MEDIA_REGEN_SPP = 8), fog and
@@ -295,10 +297,12 @@ printing a result):
                 planes_1d to points within 10% of the JAX package's on
                 small-box fog at 2^18 photons (which misses the JAX
                 tests' 0.2 there: ROADMAP §3); K7
-                against its twin bit for bit on the first call of each
+                against its twin and its first form (photon_walk_v1.cu)
+                bit for bit on the first call of each
                 mode in those renders (surface fixed and kNN with its
                 histogram, points, beams), timed (median of 5 event
-                windows; the twin one call) with its bound; small-box,
+                windows; the twin one call) with its bound, v1 and the new
+                form in turns; small-box,
                 its caustic and its fog (four types) against
                 tests/data/torch_port_sppm_ref.json (numpy BVH build) to
                 5e-3 with their overflow within 0.1%, and the fog types'
@@ -647,8 +651,9 @@ def counted():
     from tungsten_tpu_torch.ops import (bvh, bvh2, bvh8, gather_bvh, grid_walk, intersect_stream,
                                         photon_walk)
 
-    return (photon_walk.walk_cuda, photon_walk.walk_twin, grid_walk.walk_cuda, grid_walk.walk_twin,
-            bvh8.walk_cuda, bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
+    return (photon_walk.walk_cuda, photon_walk.walk_twin, photon_walk.walk_cuda_v1,
+            grid_walk.walk_cuda, grid_walk.walk_twin, grid_walk.walk_cuda_v1, bvh8.walk_cuda,
+            bvh8.walk_twin, bvh8.walk_fast_cuda, bvh8.walk_fast_twin,
             bvh8.walk_cuda_v1, bvh8.walk_fast_cuda_v1, bvh2.walk3_cuda, bvh2.walk3_twin,
             bvh2.walk3_cuda_v1,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, bvh.walk_packet_cuda_v1,
@@ -1491,15 +1496,16 @@ def k6_bound(work, n, walking, inverse, grid_bytes, masked):
 
 
 def k6_check(label, density, linear, args, card):
-    """K6 against its twin on one launch's inputs (oq, dq, ta, tb, mode,
-    target, mask): bit for bit, or within rtol 1e-6 on >= 99.9% of the
-    finite lanes with the INF lanes equal; the kernel's ms (median of 5
-    single-launch windows), the twin's ms (one run, host clock around it and
-    a synchronise), the twin's rounds and the bound. Returns a dict."""
+    """K6 against its twin and its first form on one launch's inputs (oq,
+    dq, ta, tb, mode, target, mask): bit for bit; the kernel's ms (median
+    of 5 single-launch windows), the twin's ms (one run, host clock around
+    it and a synchronise), v1 and the new form in turns, the twin's rounds
+    and the bound. Returns a dict."""
     from tungsten_tpu_torch.ops import grid_walk
 
     oq, dq, ta, tb, mode, target, mask = args
     out = grid_walk.walk_cuda(density, linear, oq, dq, ta, tb, mode, target, mask)
+    first = grid_walk.walk_cuda_v1(density, linear, oq, dq, ta, tb, mode, target, mask)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     twin = grid_walk.walk_twin(density, linear, oq, dq, ta, tb, mode, target, mask)
@@ -1508,22 +1514,25 @@ def k6_check(label, density, linear, args, card):
     work = dict(grid_walk.walk_twin.work)
     fin = (out < 1e30) & (twin < 1e30)
     err = float((out[fin] - twin[fin]).abs().max()) if bool(fin.any()) else 0.0
-    bits = bool(torch.equal(out, twin))
-    close = (torch.isclose(out[fin], twin[fin], rtol=1e-6, atol=0.0).float().mean().item()
-             if bool(fin.any()) else 1.0)
     walking = int(mask.sum()) if mask is not None else oq.shape[0]
-    check(bits or (bool(torch.equal(out >= 1e30, twin >= 1e30)) and close >= BAR),
+    check(same_bits((out,), (twin,)) and same_bits((out,), (first,)),
           f"K6 {label} ({mode}, {oq.shape[0]} lanes, {walking} walking, {work['rounds']} "
-          f"rounds, {work['bisect']} bisection rounds): kernel == twin bit for bit: {bits}; "
-          f"within rtol 1e-6 on {close:.6f}, INF lanes equal, max |diff| {err:.3e}")
+          f"rounds, {work['bisect']} bisection rounds): kernel == twin == v1 bit for bit "
+          f"(twin: {int((out != twin).sum())} lanes differ, v1: {int((out != first).sum())})")
     ms = median_ms(lambda: grid_walk.walk_cuda(density, linear, oq, dq, ta, tb, mode, target,
                                                mask))
+    v1_ms, new_ms = turns(f"K6 {label} {mode}", lambda: grid_walk.walk_cuda_v1(
+        density, linear, oq, dq, ta, tb, mode, target, mask), lambda: grid_walk.walk_cuda(
+        density, linear, oq, dq, ta, tb, mode, target, mask), card)
     b_ms, b_by, n_bytes, ops = k6_bound(work, oq.shape[0], walking, mode == "inverse",
                                         nbytes(density), mask is not None)
     log(f"  K6 {label} {mode} on {card}: kernel {ms:.4f} ms, twin {twin_ms:.1f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}: {n_bytes} bytes, {ops} f32 operations)")
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes} bytes, {ops} f32 operations); in turns v1 "
+        f"{v1_ms:.4f}, new {new_ms:.4f}: the new kernel at {b_ms / new_ms:.4f} of its bound, "
+        f"v1 at {b_ms / v1_ms:.4f}")
     return dict(ms=ms, plain_ms=twin_ms, err=err, work=work, bound_ms=b_ms, bound_by=b_by,
-                bytes=n_bytes, ops=ops, n=oq.shape[0], walking=walking, mode=mode)
+                bytes=n_bytes, ops=ops, n=oq.shape[0], walking=walking, mode=mode,
+                v1_ms=v1_ms, turn_ms=new_ms)
 
 
 @contextlib.contextmanager
@@ -1627,6 +1636,11 @@ def media_phase(work, dev, card):
           f"cloud: the {res}^3 grid read back from cloud.vdb bit for bit, exact_linear, "
           f"{g.density.numel() * 4 / 2**20:.1f} MiB on the card")
 
+    from tungsten_tpu_torch.ops import _build, grid_walk
+
+    for name in ("grid_walk", "grid_walk_v1"):
+        log(f"[12 media] {name}.cu, ptxas -v:\n{_build.ptxas_report(name)}")
+    v1_before = grid_walk.walk_cuda_v1.launches
     # K6 on random rays through the cloud's box, both modes
     gen = np.random.default_rng(12)
     box = synth.CLOUD_BOX
@@ -1664,6 +1678,7 @@ def media_phase(work, dev, card):
     for mode, (walking, args) in sorted(rec["largest"].items()):
         k6[f"render_{mode}"] = k6_check(f"cloud render lanes ({walking} of {args[0].shape[0]})",
                                         g.density, True, args, card)
+    k6["v1_launches"] = grid_walk.walk_cuda_v1.launches - v1_before
 
     launches, means = {}, {}
     log(f"[12 media] the full-width renders at max_bounces {CUT_BOUNCES} (cut depth)")
@@ -1923,35 +1938,45 @@ def k7_bound(mode, args, work, binned=0):
 
 
 def k7_check(label, mode, args, card):
-    """K7 against its twin on a recorded call, bit for bit (pairs, floats
-    or histogram); the kernel's ms (median of 5 event windows), the twin's
-    (one call), the twin's work and the bound (k7_bound)."""
+    """K7 against its twin and its first form on a recorded call, bit for
+    bit (pairs, floats or histogram); the kernel's ms (median of 5 event
+    windows), the twin's (one call), v1 and the new form in turns, the
+    twin's work and the bound (k7_bound)."""
     from tungsten_tpu_torch.ops import photon_walk
 
     out = photon_walk.walk_cuda(mode, *args)
+    first = photon_walk.walk_cuda_v1(mode, *args)
     torch.cuda.synchronize()
+    as_tuple = (lambda x: (x,)) if mode == "hist" else tuple
+    same_v1 = same_bits(as_tuple(out), as_tuple(first))
+    del first  # the beams call's pairs take gigabytes: one copy less
     t0 = time.perf_counter()
     twin = photon_walk.walk_twin(mode, *args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3  # one call, host clock: the twin is slow
     work = dict(photon_walk.walk_twin.work)
     binned = int(twin.sum()) if mode == "hist" else 0
-    if mode == "hist":
-        out, twin = (out,), (twin,)
+    out, twin = as_tuple(out), as_tuple(twin)
     err = max([float((a - b).abs().max()) for a, b in zip(out, twin)
                if a.is_floating_point() and a.numel()] + [0.0])
-    check(same_bits(out, twin), f"K7 {mode} ({label}): kernel and twin equal bit for bit, "
-          f"{work['pairs']} pairs of {work['tests']} candidate rows, {work['lanes']} lanes, "
-          f"{work['rounds']} rounds")
+    same_twin = same_bits(out, twin)
+    check(same_twin and same_v1,
+          f"K7 {mode} ({label}): kernel, twin and v1 equal bit for bit (twin {same_twin}, "
+          f"v1 {same_v1}), {work['pairs']} pairs of {work['tests']} candidate rows, "
+          f"{work['lanes']} lanes, {work['rounds']} rounds")
+    del out, twin
     ms = median_ms(lambda: photon_walk.walk_cuda(mode, *args))
+    v1_ms, new_ms = turns(f"K7 {mode} ({label})", lambda: photon_walk.walk_cuda_v1(mode, *args),
+                          lambda: photon_walk.walk_cuda(mode, *args), card)
     n_bytes, ops = k7_bound(mode, args, work, binned)
     b_ms, b_by = bound(n_bytes, ops)
     log(f"[14 k7] {mode} ({label}) on {card}: {work['pairs']} pairs, kernel {ms:.4f} ms "
         f"(median of 5), twin {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}; "
         f"{n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} G f32 ops): the kernel at {b_ms / ms:.4f} "
-        f"of its bound")
+        f"of its bound; in turns v1 {v1_ms:.4f}, new {new_ms:.4f} ms ({v1_ms / new_ms:.2f}x; "
+        f"v1 at {b_ms / v1_ms:.4f} of the bound)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "ops": ops, "err": err, "work": work}
+            "ops": ops, "err": err, "work": work, "v1_ms": v1_ms, "turn_ms": new_ms}
 
 
 def sppm_only(label, c):
@@ -2051,7 +2076,13 @@ def sppm_phase(work, dev, card, pt_img):
               f"small-box fog at {full['photons']} photons (rel {rel.max():.2e} <= "
               f"{SPPM_FOG_FULL_RTOL})")
 
+    from tungsten_tpu_torch.ops import _build, photon_walk
+
+    for name in ("photon_walk", "photon_walk_v1"):
+        log(f"[14 k7] {name}.cu, ptxas -v:\n{_build.ptxas_report(name)}")
+    v1_before = photon_walk.walk_cuda_v1.launches
     k7 = {label: k7_check(label, mode, args, card) for label, (mode, args) in kept.items()}
+    k7_v1_launches = photon_walk.walk_cuda_v1.launches - v1_before
     kept.clear()
 
     seed, spp = ref["seed"], ref["spp"]
@@ -2111,6 +2142,7 @@ def sppm_phase(work, dev, card, pt_img):
     log(f"[14 sppm] one SPPM iteration of box-synth on {card}: {prof['kernels']} CUDA kernels, "
         f"device busy {prof['busy_share_of_bare_wall']:.4f} of the bare wall "
         f"{prof['bare_wall_s']:.3f} s")
+    k7["v1_launches"] = k7_v1_launches
     return launches["progressive_photon_map"], launches, k7
 
 
@@ -2724,7 +2756,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
     from tungsten_tpu_torch import device
     from tungsten_tpu_torch import synth
-    from tungsten_tpu_torch.ops import _build, bvh, bvh2, bvh8, intersect_stream
+    from tungsten_tpu_torch.ops import _build, bvh, bvh2, bvh8, intersect_stream, photon_walk
     from tungsten_tpu_torch.ops.intersect import INF, intersect_brute
     from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
     from tungsten_tpu_torch.scene.flatten import flatten_scene
@@ -2739,7 +2771,8 @@ def main():
     t0 = time.time()
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
                "bvh2_walk_v1", "bvh_walk", "bvh_walk_v1", "intersect_stream",
-               "intersect_stream_v1", "gather_walk", "grid_walk", "photon_walk")
+               "intersect_stream_v1", "gather_walk", "grid_walk", "grid_walk_v1", "photon_walk",
+               "photon_walk_v1")
     native = build_native_bvh()
     _build.build(*sources)
     for name in sources:
@@ -2748,7 +2781,7 @@ def main():
         f"in parallel)")
     native()
     for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream", "gather_walk",
-                 "grid_walk", "photon_walk"):
+                 "grid_walk", "grid_walk_v1", "photon_walk_v1"):
         occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
         occ.restype = ctypes.c_int
         log(f"[2 build] {name}: {occ()} resident blocks of 128 threads a multiprocessor; "
@@ -2757,6 +2790,11 @@ def main():
     occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
     log(f"[2 build] bvh2_walk: {occ(0)} (ordered) / {occ(1)} (skip) / {occ(2)} (any) resident "
         f"blocks of 128 threads a multiprocessor; ptxas -v:\n{_build.ptxas_report('bvh2_walk')}")
+    occ = _build.load_library("photon_walk").photon_walk_blocks_per_sm
+    occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
+    per_mode = " / ".join(f"{occ(m)} ({k})" for k, m in photon_walk.MODES.items())
+    log(f"[2 build] photon_walk: {per_mode} resident blocks of 128 threads a multiprocessor; "
+        f"ptxas -v:\n{_build.ptxas_report('photon_walk')}")
 
     work = os.path.join(REPO, "build", "chip_smoke")  # scenes are written here
     big_path = synth.write_scene(os.path.join(work, "mt"), "materialtest-synth")
@@ -3345,30 +3383,50 @@ def main():
                    r["ms"], r["plain_ms"], r["bytes"], r["ops"])
     k6_row["tpu_form"] = "XLA lax.while_loop (`_dda_cells` + folds), not pl.pallas_call"
     k6_row["lanes"], k6_row["walking"], k6_row["twin_rounds"] = r["n"], r["walking"], r["work"]
+    k6_row["v1_ms"], k6_row["turn_ms"] = r["v1_ms"], r["turn_ms"]
     for key in ("render_inverse", "random_tau", "random_inverse"):
         if key in k6:
             k6_row[key] = {f: k6[key][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "n",
-                                                   "walking", "work")}
+                                                   "walking", "work", "v1_ms", "turn_ms")}
     k6_row["launches_media"] = {w: c["grid_walk.walk_cuda"] for w, c in media_launches.items()}
     k6_row["one_pass"] = k6["pass"]
     entries.append(k6_row)
+    # K6's first form: the launches of phase 12's checks, its times in turns
+    # on the same launches (the render's largest tau launch first)
+    k6_v1 = entry("grid_walk_v1", "tungsten_tpu_torch/csrc/grid_walk_v1.cu",
+                  "tungsten_tpu/models/grids/grid.py:156", k6["v1_launches"], k6_row["max_abs_err"],
+                  r["v1_ms"], r["plain_ms"], r["bytes"], r["ops"])
+    k6_v1.update({key: {f: k6[key][f] for f in ("v1_ms", "bound_ms")} for key in (
+        "render_inverse", "random_tau", "random_inverse") if key in k6})
+    entries.append(k6_v1)
     # K7: XLA loops on the TPU, no pl.pallas_call; its launches from the
     # box-synth progressive_photon_map render, its times and bound on that
     # render's first surface call, each checked call's beside
+    k7_calls = {label: v for label, v in k7.items() if isinstance(v, dict)}
     r = k7["surface (progressive_photon_map)"]
     k7_row = entry("photon_walk", "tungsten_tpu_torch/csrc/photon_walk.cu",
                    "tungsten_tpu/integrators/photon_map.py:1255", sppm_launches[
-                       "photon_walk.walk_cuda"], max(v["err"] for v in k7.values()), r["ms"],
-                   r["plain_ms"], r["bytes"], r["ops"])
+                       "photon_walk.walk_cuda"], max(v["err"] for v in k7_calls.values()),
+                   r["ms"], r["plain_ms"], r["bytes"], r["ops"])
     k7_row["tpu_form"] = ("XLA loops (`cell_body` / `hist_body` :1221-1280, the DDAs of "
                           "`_volume_beam_gather` :966 and `_beam1d_gather` :482), not "
                           "pl.pallas_call")
-    k7_row["calls"] = {label: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "work")} for label, v in k7.items()}
+    k7_row["v1_ms"], k7_row["turn_ms"] = r["v1_ms"], r["turn_ms"]
+    k7_row["calls"] = {label: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "work",
+                                                 "v1_ms", "turn_ms")}
+                       for label, v in k7_calls.items()}
     k7_row["launches_sppm"] = {w: c["photon_walk.walk_cuda"] for w, c in sppm_all.items()}
     k7_row["launches_mesh"] = {w: c["photon_walk.walk_cuda"] for w, c in mesh_launches.items()
                                if w.startswith("ppm")}
     entries.append(k7_row)
+    # K7's first form: the launches of phase 14's checks, its times in turns
+    # on the same calls (progressive_photon_map's first surface call first)
+    k7_v1 = entry("photon_walk_v1", "tungsten_tpu_torch/csrc/photon_walk_v1.cu",
+                  "tungsten_tpu/integrators/photon_map.py:1255", k7["v1_launches"],
+                  k7_row["max_abs_err"], r["v1_ms"], r["plain_ms"], r["bytes"], r["ops"])
+    k7_v1["calls"] = {label: {f: v[f] for f in ("v1_ms", "bound_ms")}
+                      for label, v in k7_calls.items()}
+    entries.append(k7_v1)
     for row, b2b in zip(entries, (ms_b2b, fast_ms_b2b)):
         row["back_to_back_ms"] = b2b
     n_bench = res["n"]

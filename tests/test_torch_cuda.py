@@ -11,9 +11,10 @@ K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1), K2
 (intersect_stream.cu), K1 (gather_walk.cu: closest, any, mixed; bit for
 bit with its twin, and by the bars against brute force) and K6
 (grid_walk.cu: the exact voxel DDA's optical depth and its inverse, on
-trilinear and nearest grids, bit for bit with its twin), K7
-(photon_walk.cu: the photon-grid walk in its surface, kNN histogram,
-points and beams modes, bit for bit with its twin), one Kelemen-BDPT MLT
+trilinear and nearest grids, bit for bit with its twin and its first CUDA
+form grid_walk_v1.cu), K7 (photon_walk.cu: the photon-grid walk in its
+surface, kNN histogram, points and beams modes, bit for bit with its twin
+and its first CUDA form photon_walk_v1.cu), one Kelemen-BDPT MLT
 step through K3 and K3-fast against the CPU's twins per lane, a render over
 a one-rank nccl mesh bit for bit against the unsharded one, the float64
 NFOR on the card against the CPU (rtol 1e-6), and the first
@@ -524,10 +525,14 @@ def test_k1_queries_against_brute_force(cuda):
 @pytest.mark.parametrize("linear", [True, False])
 def test_k6_grid_walk_bit_equal_to_twin(cuda, mode, linear):
     """K6 (grid_walk.cu) rounds every operation as its twin does: the
-    optical depth and the inverse's t equal bit for bit, INF lanes equal,
-    masked-out lanes 0 (tau) or INF; the launch counts move by one each; a
-    CUDA tensor goes to the kernel through grid_optical_depth, and a CPU
-    density with CUDA rays raises."""
+    optical depth and the inverse's t equal the twin's and the first CUDA
+    form's (grid_walk_v1.cu) bit for bit, INF lanes equal, masked-out lanes
+    0 (tau) or INF; on the nearest grid a lane walks past the 4,096-round
+    backstop and one with a NaN span walks to it; a call with every lane
+    masked out gives the twin's result; the launch counts move by two (the
+    list and the walk), one (v1) and one (the twin); a CUDA tensor goes to
+    the kernel through grid_optical_depth, and a CPU density with CUDA rays
+    raises."""
     from tungsten_tpu_torch.models.grids import grid as tg
     from tungsten_tpu_torch.ops import grid_walk
 
@@ -548,26 +553,43 @@ def test_k6_grid_walk_bit_equal_to_twin(cuda, mode, linear):
     t0 = torch.zeros(n, device=cuda)
     t1 = torch.tensor(rng.uniform(0.5, 3.0, n), dtype=torch.float32, device=cuda)
     oq, dq, ta, tb = tg._walk_inputs(g, o, d, t0, t1)
+    if not linear:  # 5,000 unit cells along x, and a NaN span
+        oq[1], dq[1], ta[1], tb[1] = (torch.tensor([0.25, 5.0, 5.0], device=cuda),
+                                      torch.tensor([1.0, 0.0, 0.0], device=cuda), 0.0, 5000.0)
+        tb[2] = float("nan")
     mask = torch.arange(n, device=cuda) % 5 != 0
     target = None
     if mode == "inverse":
         full = grid_walk.walk_twin(g.density, linear, oq, dq, ta, tb)
         target = (full * torch.tensor(rng.uniform(0.1, 1.3, n), dtype=torch.float32,
                                       device=cuda)).contiguous()
-    k0, w0 = grid_walk.walk_cuda.launches, grid_walk.walk_twin.launches
+        target[1] = 1e30
+    k0, v0, w0 = (grid_walk.walk_cuda.launches, grid_walk.walk_cuda_v1.launches,
+                  grid_walk.walk_twin.launches)
     out = grid_walk.walk_cuda(g.density, linear, oq, dq, ta, tb, mode, target, mask)
+    first = grid_walk.walk_cuda_v1(g.density, linear, oq, dq, ta, tb, mode, target, mask)
     torch.cuda.synchronize()
     twin = grid_walk.walk_twin(g.density, linear, oq, dq, ta, tb, mode, target, mask)
-    assert grid_walk.walk_cuda.launches == k0 + 1 and grid_walk.walk_twin.launches == w0 + 1
-    assert torch.equal(out, twin), f"{(out != twin).sum().item()} lanes differ"
+    assert (grid_walk.walk_cuda.launches, grid_walk.walk_cuda_v1.launches,
+            grid_walk.walk_twin.launches) == (k0 + 2, v0 + 1, w0 + 1)
+    assert torch.equal(out.view(torch.int32), twin.view(torch.int32)), \
+        f"{(out != twin).sum().item()} lanes differ from the twin"
+    assert torch.equal(out.view(torch.int32), first.view(torch.int32)), \
+        f"{(out != first).sum().item()} lanes differ from v1"
     assert grid_walk.walk_twin.work["rounds"] > n
+    assert (grid_walk.walk_twin.work["longest"] == grid_walk.MAX_ROUNDS) == (not linear)
     if mode == "tau":
         assert (out[~mask] == 0).all() and (out[mask] > 0).float().mean() > 0.3
+        assert linear or (out[1] > 0 and out[2] == 0)
     else:
         assert (out[~mask] >= 1e30).all() and 0 < (out[mask] >= 1e30).sum() < mask.sum()
+        assert out[1] >= 1e30
+    off = torch.zeros_like(mask)
+    assert torch.equal(grid_walk.walk_cuda(g.density, linear, oq, dq, ta, tb, mode, target, off),
+                       grid_walk.walk_twin(g.density, linear, oq, dq, ta, tb, mode, target, off))
     k1 = grid_walk.walk_cuda.launches
     tg.grid_optical_depth(g, o, d, t0, t1)
-    assert grid_walk.walk_cuda.launches == k1 + 1
+    assert grid_walk.walk_cuda.launches == k1 + 2
     with pytest.raises(ValueError):
         grid_walk.walk_cuda(g.density.cpu(), linear, oq, dq, ta, tb)
 
@@ -695,31 +717,66 @@ def _photon_case(dev, mode, n=4096, seed=9):
     return grid, lanes, 0.4, 0.2
 
 
+def _same_pairs(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                    y.view(torch.int32) if y.is_floating_point() else y) for x, y in zip(a, b))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["surface", "hist", "points", "beams"])
 def test_k7_photon_walk_bit_equal_to_twin(cuda, mode):
     """K7 (photon_walk.cu) rounds every operation as its twin does: the
     pairs (lane, row) in (lane, round, offset, slot) order, their floats and
-    the kNN histogram equal the twin's bit for bit; `walk` sends CUDA lanes
-    to the kernel (two or three launches a call) and refuses CPU grids."""
+    the kNN histogram equal the twin's and the first CUDA form's
+    (photon_walk_v1.cu) bit for bit; `walk` sends CUDA lanes to the kernel
+    (the walk, the copy after it but for hist, the rounds pass before it
+    for points and beams: one to three launches, one more where the staged
+    pages ran out and the walk ran again); with the pages sized too small
+    the walk runs again and gives the same pairs; in the volume modes a
+    lane with an endless segment takes every lane to the 96-round
+    backstop; a call with every lane masked out gives the twin's empty
+    result; CPU grids are refused."""
     from tungsten_tpu_torch.ops import photon_walk
 
     grid, lanes, cell, r = _photon_case(cuda, mode)
     args = (mode, *grid, *lanes, cell, r, 0, 6)
-    k0, w0 = photon_walk.walk_cuda.launches, photon_walk.walk_twin.launches
+    k0, r0, w0 = (photon_walk.walk_cuda.launches, photon_walk.walk_cuda.relaunches,
+                  photon_walk.walk_twin.launches)
     out = photon_walk.walk(*args)
+    first = photon_walk.walk_cuda_v1(*args)
     torch.cuda.synchronize()
     twin = photon_walk.walk_twin(*args)
     work = photon_walk.walk_twin.work
     assert photon_walk.walk_twin.launches == w0 + 1
-    assert photon_walk.walk_cuda.launches - k0 == {"hist": 1, "surface": 2}.get(mode, 3)
+    assert photon_walk.walk_cuda.launches - k0 == ({"hist": 1, "surface": 2}.get(mode, 3)
+                                                   + photon_walk.walk_cuda.relaunches - r0)
+    assert _same_pairs(out, twin) and _same_pairs(first, twin)
     if mode == "hist":
-        assert torch.equal(out, twin) and int(twin.sum()) > 1000
-        return
-    assert work["pairs"] > 1000 and len(out) == len(twin)
-    for a, b in zip(out, twin):
-        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
-                           b.view(torch.int32) if b.is_floating_point() else b)
+        assert int(twin.sum()) > 1000
+    else:
+        assert work["pairs"] > 1000 and len(out) == len(twin)
+        hint = photon_walk.pages_hint[mode]
+        photon_walk.pages_hint[mode] = 0.0  # one page: the walk runs twice
+        r1 = photon_walk.walk_cuda.relaunches
+        assert _same_pairs(photon_walk.walk_cuda(*args), twin)
+        assert photon_walk.walk_cuda.relaunches == r1 + 1
+        assert photon_walk.pages_hint[mode] == hint
+    if mode in ("points", "beams"):
+        lim, walks = lanes[2].clone(), lanes[4].clone()
+        lim[7], walks[7] = 1e30, True
+        lanes_b = [*lanes[:2], lim, lanes[3], walks]
+        args_b = (mode, *grid, *lanes_b, cell, r, 0, 6)
+        twin_b = photon_walk.walk_twin(*args_b)
+        assert photon_walk.walk_twin.work["rounds"] == photon_walk.MAX_VOL_STEPS
+        assert _same_pairs(photon_walk.walk_cuda(*args_b), twin_b)
+        assert _same_pairs(photon_walk.walk_cuda_v1(*args_b), twin_b)
+    off = (mode, *grid, *lanes[:4], torch.zeros_like(lanes[4]), cell, r, 0, 6)
+    empty, empty_twin = photon_walk.walk_cuda(*off), photon_walk.walk_twin(*off)
+    assert _same_pairs(empty, empty_twin)
+    assert int(empty.sum()) == 0 if mode == "hist" else empty[0].numel() == 0
     with pytest.raises(ValueError):
         photon_walk.walk_cuda(mode, grid[0].cpu(), *grid[1:], *lanes, cell, r, 0, 6)
 

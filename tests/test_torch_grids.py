@@ -262,3 +262,71 @@ def test_exact_dda_linear_ramp_machine_exact(tmp_path):
                                           torch.full((64,), 10.0), torch.full((64,), 0.35))
     tau_back = tg.grid_optical_depth(g, _t(o), _t(d), torch.zeros(64), t_inv).numpy()
     assert np.allclose(tau_back, 0.35, atol=2e-5)
+
+
+def _ahead_case(backstop, n=512, seed=21):
+    """A small density grid and rays in its coordinates: most cross it,
+    some start inside, some parallel to a grid plane; a masked fifth; one
+    lane with an empty span; with `backstop`, one with a NaN span (it walks
+    to the backstop without a live round) and one walking 5,000 unit cells
+    (past the 4,096-round backstop)."""
+    rng = np.random.default_rng(seed)
+    dens = torch.as_tensor(rng.uniform(0.0, 2.0, (12, 10, 14)).astype(np.float32))
+    oq = torch.as_tensor(rng.uniform(-4.0, 18.0, (n, 3)).astype(np.float32))
+    aim = torch.as_tensor(rng.uniform(2.0, 10.0, (n, 3)).astype(np.float32))
+    dq = aim - oq
+    dq[::37, 2] = 0.0
+    dq = dq / dq.norm(dim=1, keepdim=True)
+    ta = torch.zeros(n)
+    tb = torch.as_tensor(rng.uniform(1.0, 30.0, n).astype(np.float32))
+    tb[2] = 0.0
+    if backstop:
+        oq[1], dq[1], tb[1] = torch.tensor([0.25, 5.0, 5.0]), torch.tensor([1.0, 0, 0]), 5000.0
+        tb[3] = float("nan")
+    mask = torch.arange(n) % 5 != 4
+    return dens, oq, dq, ta, tb, mask
+
+
+@pytest.mark.parametrize("mode", ["tau", "inverse"])
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nearest"])
+def test_walk_ahead_equals_the_twin(mode, linear):
+    """K6's new schedule (walk_ahead: the walking lanes listed, the
+    boundaries GROUP rounds ahead, the step's live segments at once, the
+    fold in round order, the inverse's first crossing, the bisection's
+    tree of midpoints) equals walk_twin bit for bit, at GROUP rounds and
+    BISECT_DEPTH levels a step and at 5 rounds and 3 levels: the masked and
+    empty lanes' 0 or INF, the NaN lane, the lane cut at the 4,096-round
+    backstop (on the nearest grid: the twin's 4,096 rounds of trilinear
+    sampling take half a minute); a call with every lane masked gives the
+    twin's result."""
+    dens, oq, dq, ta, tb, mask = _ahead_case(backstop=not linear)
+    target = None
+    if mode == "inverse":
+        full = grid_walk.walk_twin(dens, linear, oq, dq, ta, tb)
+        target = full * torch.as_tensor(np.random.default_rng(2).uniform(0.1, 1.3, len(full)),
+                                        dtype=torch.float32)
+        target[1] = 1e30  # never reached where lane 1 walks to the backstop: INF
+    want = grid_walk.walk_twin(dens, linear, oq, dq, ta, tb, mode, target, mask)
+    assert (grid_walk.walk_twin.work["longest"] == grid_walk.MAX_ROUNDS) == (not linear)
+    for ahead, depth in ((grid_walk.GROUP, grid_walk.BISECT_DEPTH), (5, 3)):
+        got = grid_walk.walk_ahead(dens, linear, oq, dq, ta, tb, mode, target, mask, ahead,
+                                   depth)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    off = torch.zeros_like(mask)
+    assert torch.equal(grid_walk.walk_ahead(dens, linear, oq, dq, ta, tb, mode, target, off),
+                       grid_walk.walk_twin(dens, linear, oq, dq, ta, tb, mode, target, off))
+    if mode == "tau":
+        assert (want[~mask] == 0).all() and want[2] == 0 and (want[mask] > 0).float().mean() > 0.5
+        assert linear or (want[1] > 0 and want[3] == 0)
+    else:
+        assert (want[~mask] >= 1e30).all() and want[1] >= 1e30 and want[2] >= 1e30
+        assert 0 < int((want[mask] < 1e30).sum()) < int(mask.sum())
+
+
+def test_walking_lanes_keeps_the_lanes_that_walk():
+    """The list pass's set: masked, with tb <= ta not true (NaN walks)."""
+    ta = torch.tensor([0.0, 1.0, 2.0, 0.0, 0.0, 0.0])
+    tb = torch.tensor([1.0, 1.0, 1.0, float("nan"), 2.0, 3.0])
+    mask = torch.tensor([True, True, True, True, False, True])
+    assert grid_walk.walking_lanes(ta, tb, mask).tolist() == [0, 3, 5]
+    assert grid_walk.walking_lanes(ta, tb).tolist() == [0, 3, 4, 5]

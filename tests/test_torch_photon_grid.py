@@ -268,3 +268,99 @@ def test_walk_twin_chunks_change_nothing(mode, monkeypatch):
     assert work["tests"] > 10_000 and work["pairs"] > 0 and work["rounds"] > 1
     assert photon_walk.walk_twin.work == work
     assert all(torch.equal(a, b) for a, b in zip(whole, runs))
+
+
+def _volume_case(mode, seed=8, n=300):
+    """walk_twin's arguments on crowded photons (beams: stations built from
+    the same rows), as test_walk_twin_chunks_change_nothing lays them out."""
+    from tungsten_tpu_torch.integrators.photon_map import build_photon_grid
+
+    pos, power, wi, valid, bounce = crowded_photons(3000, 6, cells=12, size=0.4)
+    pack, starts, counts, _ = build_photon_grid(
+        *(torch.as_tensor(x) for x in (pos, power, wi, valid)), 0.4,
+        bounce=torch.as_tensor(bounce))
+    if mode == "beams":
+        d = torch.nn.functional.normalize(pack[:, 6:9], dim=-1)
+        pack = torch.cat([pack[:, 0:3], d, torch.full_like(pack[:, :1], 0.5), pack[:, 3:6],
+                          pack[:, 9:10], torch.zeros_like(pack[:, :1]),
+                          torch.full_like(pack[:, :1], 0.1)], 1)
+    gen = np.random.default_rng(seed)
+    o = torch.as_tensor((pos[gen.integers(0, len(pos), n)]
+                         + gen.normal(0, 0.2, (n, 3))).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.as_tensor(gen.normal(size=(n, 3)).astype(np.float32)), dim=-1)
+    if mode == "surface":
+        return (mode, pack, starts, counts, o, None, torch.full((n,), 0.09),
+                torch.ones(n, dtype=torch.int32), torch.as_tensor(gen.random(n) < 0.8), 0.4,
+                0.0, 0, 9)
+    seg = torch.as_tensor(gen.uniform(0, 3, n), dtype=torch.float32)
+    return (mode, pack, starts, counts, o, d, seg, torch.ones(n, dtype=torch.int32),
+            torch.as_tensor(gen.random(n) < 0.9), 0.8, 0.4, 0, 9)
+
+
+@pytest.mark.parametrize("mode", ["surface", "points", "beams"])
+def test_pages_to_pairs_restores_the_twins_order(mode, monkeypatch):
+    """The kernel's staging, emulated from the twin's pairs: each lane's
+    pairs cut into pages (PAGE = 8 here, so that lanes span pages), the
+    pages numbered in a shuffled order as the walk's threads would take
+    them, their unused slots garbage; pages_to_pairs (the copy pass in
+    plain PyTorch) gives back the twin's (lane, round, offset, slot) order
+    and floats bit for bit."""
+    from tungsten_tpu_torch.ops import photon_walk
+
+    monkeypatch.setattr(photon_walk, "PAGE", 8)
+    page = photon_walk.PAGE
+    args = _volume_case(mode)
+    want = photon_walk.walk_twin(*args)
+    n = args[4].shape[0]
+    lane = want[0]
+    lane_total = torch.bincount(lane, minlength=n).to(torch.int32)
+    first = torch.cumsum(lane_total.long(), 0) - lane_total.long()
+    within = torch.arange(lane.shape[0]) - first[lane]
+    keys = torch.unique(lane * 1_000_000 + within // page)  # (lane, page of the lane)
+    assert int((lane_total > page).sum()) > 20
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(keys.shape[0]))
+    page_lane = torch.empty(keys.shape[0], dtype=torch.int32)
+    page_idx = torch.empty(keys.shape[0], dtype=torch.int32)
+    page_lane[perm] = (keys // 1_000_000).to(torch.int32)
+    page_idx[perm] = (keys % 1_000_000).to(torch.int32)
+    slot = (perm[torch.searchsorted(keys, lane * 1_000_000 + within // page)] * page
+            + within % page)
+    staged = []
+    for x in want[1:]:
+        stg = torch.full((keys.shape[0] * page,), -7, dtype=torch.int32 if not
+                         x.is_floating_point() else x.dtype)
+        stg[slot] = x.to(stg.dtype)
+        staged.append(stg)
+    got = photon_walk.pages_to_pairs(page_lane, page_idx, lane_total, *staged)
+    assert len(got) == len(want) and want[0].shape[0] > 500
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                           w.view(torch.int32) if w.is_floating_point() else w)
+
+
+@pytest.mark.parametrize("cell", [0.8, 0.4, 0.0137, 3.7])
+def test_cell_bounds_decide_the_foot_cell_exactly(cell):
+    """The points walk's foot-in-cell test: least_at_least(c) <= x <
+    least_at_least(c + 1) equals floor(x / cell) == c (the twin's
+    division) for every float within 3 ulps of either bound and for random
+    floats, across cells of both signs."""
+    from tungsten_tpu_torch.ops import photon_walk
+
+    gen = np.random.default_rng(5)
+    c = torch.as_tensor(gen.integers(-20_000, 20_000, 2000), dtype=torch.int32)
+    lo, hi = photon_walk.least_at_least(c, cell), photon_walk.least_at_least(c + 1, cell)
+    inf = torch.full_like(lo, float("inf"))
+    xs = [torch.as_tensor(gen.uniform(-20_000 * cell, 20_000 * cell, 2000), dtype=torch.float32)]
+    for bound in (lo, hi):
+        below, above = bound, bound
+        xs.append(bound)
+        for _ in range(3):
+            below, above = torch.nextafter(below, -inf), torch.nextafter(above, inf)
+            xs += [below, above]
+    size = photon_walk._f32(cell, c.device)
+    for x in xs:
+        want = photon_walk.cell_of(x, size) == c
+        assert torch.equal((x >= lo) & (x < hi), want)
+    assert int((photon_walk.cell_of(lo, size) == c).sum()) == 2000

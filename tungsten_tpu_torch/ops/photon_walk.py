@@ -12,7 +12,7 @@ N x 32 candidates. Eager PyTorch would spend some 80 launches on each of
 loops are one kernel here, and the physics runs afterwards in PyTorch on
 the accepted pairs only (integrators/photon_map.py).
 
-Modes (per lane, one thread a lane in csrc/photon_walk.cu):
+Modes (per lane):
 
   * "surface": the gather point gp's cell floor(gp / cell), its 27
     neighbours (dx, dy, dz in -1, 0, 1, dz fastest), of each hash cell the
@@ -40,17 +40,29 @@ it, and a lane's estimate depends on how far the other lanes walk (a
 caveat of the reference that the port reproduces).
 
 Lanes outside `mask` are skipped: the JAX masks zero them (not gathered,
-not in a medium, dead). The kernel emits the accepted (lane, row) pairs in
+not in a medium, dead). The walk emits the accepted (lane, row) pairs in
 (lane, round, offset, slot) order, with two floats a pair: nothing
-(surface), t* and |p - foot|^2 (points), t and 1 / sin (beams); a count
-pass, an exclusive scan and a fill pass, so that the pairs repeat bit for
-bit run to run. Every product and sum is rounded on its own in the twin's
-order, so the kernel equals `walk_twin` bit for bit: pairs, floats and
-histogram.
+(surface), t* and |p - foot|^2 (points), t and 1 / sin (beams). Every
+product and sum is rounded on its own in the twin's order, so the kernel
+equals `walk_twin` bit for bit: pairs, floats and histogram.
+
+`walk_cuda` launches csrc/photon_walk.cu: for points and beams a rounds
+pass (then the global count, one sync); then the walk, a thread a masked
+lane (neighbouring lanes test the same rows together), every candidate
+tested once, each lane's accepted pairs staged in its own pages of PAGE
+pairs taken from a counter, each page marked with its lane and its place
+among the lane's pages; then (one sync for the total) the copy of the
+pages into lane order (`pages_to_pairs` is that copy in plain PyTorch).
+The pages are sized ahead from the last call's pages a lane
+(`pages_hint`); where the walk needs more it counts them without writing,
+and is launched once more with the exact number (`walk_cuda.relaunches`).
+The first CUDA form, `walk_cuda_v1` (csrc/photon_walk_v1.cu: one thread a
+lane, a count pass, a scan and a fill pass that walk every lane twice), is
+kept for measurement; no render calls it.
 
 `walk` picks by the device of the lanes (CUDA: the kernel or an error,
 never the twin; CPU: the twin). Each keeps a `.launches` count (the
-kernel's: its launches, two or three a call; the twin's: its calls), and
+kernel's: its launches, one to three a call; the twin's: its calls), and
 the twin `.work` of its last call: "rounds" (the global round count),
 "tests" (candidate rows tested), "pairs" and "lanes" (the walking lanes),
 from which the kernel's bound is counted.
@@ -72,6 +84,12 @@ MODES = {"surface": 0, "hist": 1, "points": 2, "beams": 3}
 ROW_WIDTH = {"surface": 10, "hist": 10, "points": 10, "beams": 13}
 MASK32 = 0xFFFFFFFF
 CANDIDATE_CHUNK = 1 << 24  # the twin's candidate rows at once
+PAGE = 64  # the pairs a staging page holds (csrc/photon_walk.cu kPage)
+# the pages a lane the walk's staging is sized for, before a mode's first
+# call (then the last call's, with a quarter more); box-synth's first calls
+# at 2^18 photons accept about 80 (surface), 320 (points) and 680 (beams)
+# pairs a lane (chip_smoke.py phase 14)
+pages_hint = {"surface": 2.0, "points": 6.0, "beams": 12.0}
 OFFSETS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
 _I32_LO, _I32_HI = -2147483648.0, 2147483520.0  # the f32 values that fit int32
 
@@ -92,6 +110,29 @@ def cell_of(x, size):
     so that the division is IEEE on the card too (a Python scalar there
     becomes a product with its reciprocal)."""
     return torch.clamp(torch.floor(x / size), _I32_LO, _I32_HI).to(torch.int32)
+
+
+def least_at_least(c, cell):
+    """The least f32 x with x / cell (IEEE, rounded) >= c, for int32 c
+    (|c| < 2^22) and a positive cell: the plain version of the kernel's
+    per-round cell bounds, with which floor(x / cell) == c is exactly
+    least_at_least(c) <= x < least_at_least(c + 1), x / cell rounded being
+    monotone in x."""
+    cf = c.to(torch.float32)
+    size = _f32(cell, c.device)
+    inf = torch.full_like(cf, float("inf"))
+    x = cf * size
+    while True:  # down while the float below still divides to >= c
+        below = torch.nextafter(x, -inf)
+        down = (x / size >= cf) & (below / size >= cf)
+        if not bool(down.any()):
+            break
+        x = torch.where(down, below, x)
+    while True:  # up until it does
+        up = ~(x / size >= cf)
+        if not bool(up.any()):
+            return x
+        x = torch.where(up, torch.nextafter(x, inf), x)
 
 
 def _f32(v, dev):
@@ -267,39 +308,29 @@ walk_twin.launches = 0
 walk_twin.work = {"rounds": 0, "tests": 0, "pairs": 0, "lanes": 0}
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """photon_walk(mode, phase, pack, row_w, starts, counts, o, d, lim, bounce,
-    mask, n, cell, r, min_b, max_b, rounds, offsets, count_out, lane_out,
-    row_out, a_out, b_out, stream) of csrc/photon_walk.cu."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.load_library("photon_walk").photon_walk
-    fn.restype = i
-    fn.argtypes = [i, i, p, i, p, p, p, p, p, p, p, i, f, f, i, i, i, p, p, p, p, p, p, p]
-    return fn
+def pages_to_pairs(page_lane, page_idx, lane_total, row, a=None, b=None):
+    """The copy pass in plain PyTorch: staged pairs (row[, a, b]) in pages
+    of PAGE slots, page p holding pairs page_idx[p] * PAGE on of lane
+    page_lane[p] (as many as the lane has), put into lane order: the lane's
+    first pair (an exclusive scan of lane_total) plus the pair's place in
+    the lane. Returns (lane, row[, a, b]), lane and row int64."""
+    dev = row.device
+    total = lane_total.to(torch.int64)
+    first = torch.cumsum(total, 0) - total
+    slot = torch.arange(PAGE, device=dev)
+    pl = page_lane.to(torch.int64)
+    off = page_idx.to(torch.int64) * PAGE
+    used = slot[None, :] < torch.clamp(total[pl] - off, max=PAGE)[:, None]
+    dst = (first[pl] + off)[:, None] + slot[None, :]
+    src = torch.arange(pl.shape[0], device=dev)[:, None] * PAGE + slot[None, :]
+    order = torch.empty(int(total.sum()), dtype=torch.int64, device=dev)
+    order[dst[used]] = src[used]
+    lane = torch.repeat_interleave(torch.arange(total.shape[0], device=dev), total)
+    return (lane, row.to(torch.int64)[order]) + tuple(x[order] for x in (a, b) if x is not None)
 
 
-def _launch(mode, phase, pack, starts, counts, o, d, lim, bounce, mask, cell, r, min_b, max_b,
-            rounds=0, offsets=None, count_out=None, lane_out=None, row_out=None, a_out=None,
-            b_out=None):
-    p = _build.ptr
-    err = _kernel_fn()(MODES[mode], phase, p(pack), pack.shape[1], p(starts), p(counts), p(o),
-                       p(d), p(lim), p(bounce), p(mask), o.shape[0], float(cell), float(r),
-                       int(min_b), int(max_b), int(rounds), p(offsets), p(count_out),
-                       p(lane_out), p(row_out), p(a_out), p(b_out), _build.stream_of(o))
-    if err != 0:
-        raise RuntimeError(f"photon_walk launch failed: CUDA error {err}")
-    walk_cuda.launches += 1
-
-
-def walk_cuda(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, min_b=0,
-              max_b=64):
-    """Launch csrc/photon_walk.cu on the current stream: for points and
-    beams a rounds pass (then the global count, one sync), then a count
-    pass, an exclusive scan (one sync for the total) and a fill pass; for
-    hist one pass. Returns as walk_twin."""
+def _check_inputs(mode, pack, starts, counts, o, d, lim, bounce, mask):
     n = o.shape[0]
-    dev = o.device
     w = ROW_WIDTH[mode]
     _build.check_cuda("pack", pack, torch.float32, like=o)
     if pack.dim() != 2 or pack.shape[1] != w:
@@ -307,26 +338,150 @@ def walk_cuda(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, 
     _build.check_cuda("starts", starts, torch.int32, (GRID_SIZE,), like=o)
     _build.check_cuda("counts", counts, torch.int32, (GRID_SIZE,), like=o)
     _build.check_cuda("o", o, torch.float32, (n, 3))
-    volume = mode in ("points", "beams")
-    if volume:
+    if mode in ("points", "beams"):
         _build.check_cuda("d", d, torch.float32, (n, 3), like=o)
     _build.check_cuda("lim", lim, torch.float32, (n,), like=o)
     _build.check_cuda("bounce", bounce, torch.int32, (n,), like=o)
     lane_mask = mask.to(torch.uint8).contiguous()
     _build.check_cuda("mask", lane_mask, torch.uint8, (n,), like=o)
+    return lane_mask
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    """photon_walk_rounds, photon_walk and photon_walk_copy of
+    csrc/photon_walk.cu."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _build.load_library("photon_walk")
+    rounds, walk_fn, copy = lib.photon_walk_rounds, lib.photon_walk, lib.photon_walk_copy
+    rounds.argtypes = [p, p, p, p, i, f, p, p]
+    walk_fn.argtypes = [i, p, i, p, p, p, p, p, p, p, i, f, f, i, i, i, p, p, p, p, i, p, p, p,
+                        p]
+    copy.argtypes = [i] + [p] * 11
+    for fn in (rounds, walk_fn, copy):
+        fn.restype = i
+    return rounds, walk_fn, copy
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"photon_walk {what} launch failed: CUDA error {err}")
+    walk_cuda.launches += 1
+
+
+def walk_cuda(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, min_b=0,
+              max_b=64):
+    """Launch csrc/photon_walk.cu on the current stream: for points and
+    beams the rounds pass (then the global count, one sync), the walk, and
+    for all but hist the copy into lane order (after one sync for the
+    total; the walk once more first where its pages ran out). Returns as
+    walk_twin."""
+    lane_mask = _check_inputs(mode, pack, starts, counts, o, d, lim, bounce, mask)
+    n, dev = o.shape[0], o.device
+    volume = mode in ("points", "beams")
+    p = _build.ptr
+    rounds_fn, walk_fn, copy_fn = _kernel_fns()
+    stream = _build.stream_of(o)
+    ctr = torch.zeros((2,), dtype=torch.int32, device=dev)  # rounds, pages
+    rounds = 0
+    if volume and n:
+        _raise_on(rounds_fn(p(o), p(d), p(lim), p(lane_mask), n, float(cell), p(ctr), stream),
+                  "rounds")
+        rounds = int(ctr[0])
+    hist = (torch.zeros((n, N_BINS), dtype=torch.int32, device=dev) if mode == "hist"
+            else None)
+    lane_total = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    def run(cap):
+        stg_row = torch.empty((0 if volume else cap * PAGE,), dtype=torch.int32, device=dev)
+        stg = torch.empty((cap * PAGE * 4 if volume else 0,), dtype=torch.float32, device=dev)
+        table = torch.empty((2, cap), dtype=torch.int32, device=dev)
+        if n:
+            _raise_on(walk_fn(MODES[mode], p(pack), pack.shape[1], p(starts), p(counts), p(o),
+                              p(d if volume else None), p(lim), p(bounce), p(lane_mask), n,
+                              float(cell), float(r), int(min_b), int(max_b), rounds, p(ctr),
+                              p(lane_total), p(table[0]), p(table[1]), cap, p(stg_row), p(stg),
+                              p(hist), stream), "walk")
+        return stg_row, stg, table
+
+    if mode == "hist":
+        run(0)
+        return hist
+    cap = int(pages_hint[mode] * 1.25 * n) + 1
+    stg_row, stg, table = run(cap)
+    ends = torch.cumsum(lane_total, 0, dtype=torch.int64)
+    total, pages = (torch.stack([ends[-1], ctr[1].to(torch.int64)]).tolist() if n
+                    else (0, 0))
+    if pages > cap:  # the pages ran out: the walk again, with the exact number
+        walk_cuda.relaunches += 1
+        ctr[1] = 0
+        stg_row, stg, table = run(pages)
+    if pages:
+        pages_hint[mode] = pages / n
+    lane = torch.empty((total,), dtype=torch.int64, device=dev)
+    row = torch.empty((total,), dtype=torch.int64, device=dev)
+    a = torch.empty((total,), dtype=torch.float32, device=dev) if volume else None
+    b = torch.empty((total,), dtype=torch.float32, device=dev) if volume else None
+    if total:
+        _raise_on(copy_fn(pages, p(table[0]), p(table[1]), p(lane_total), p(ends), p(stg_row),
+                          p(stg), p(lane), p(row), p(a), p(b), stream), "copy")
+    return (lane, row, a, b) if volume else (lane, row)
+
+
+walk_cuda.launches = 0
+walk_cuda.relaunches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn_v1():
+    """photon_walk_v1(mode, phase, pack, row_w, starts, counts, o, d, lim,
+    bounce, mask, n, cell, r, min_b, max_b, rounds, offsets, count_out,
+    lane_out, row_out, a_out, b_out, stream) of csrc/photon_walk_v1.cu."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.load_library("photon_walk_v1").photon_walk_v1
+    fn.restype = i
+    fn.argtypes = [i, i, p, i, p, p, p, p, p, p, p, i, f, f, i, i, i, p, p, p, p, p, p, p]
+    return fn
+
+
+def _launch_v1(mode, phase, pack, starts, counts, o, d, lim, bounce, mask, cell, r, min_b,
+               max_b, rounds=0, offsets=None, count_out=None, lane_out=None, row_out=None,
+               a_out=None, b_out=None):
+    p = _build.ptr
+    err = _kernel_fn_v1()(MODES[mode], phase, p(pack), pack.shape[1], p(starts), p(counts),
+                          p(o), p(d), p(lim), p(bounce), p(mask), o.shape[0], float(cell),
+                          float(r), int(min_b), int(max_b), int(rounds), p(offsets),
+                          p(count_out), p(lane_out), p(row_out), p(a_out), p(b_out),
+                          _build.stream_of(o))
+    if err != 0:
+        raise RuntimeError(f"photon_walk_v1 launch failed: CUDA error {err}")
+    walk_cuda_v1.launches += 1
+
+
+def walk_cuda_v1(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, min_b=0,
+                 max_b=64):
+    """Launch the first CUDA form, csrc/photon_walk_v1.cu, on the current
+    stream: for points and beams a rounds pass (then the global count, one
+    sync), then a count pass, an exclusive scan (one sync for the total)
+    and a fill pass; for hist one pass. Returns as walk_twin. For
+    measurement only: no render calls it."""
+    lane_mask = _check_inputs(mode, pack, starts, counts, o, d, lim, bounce, mask)
+    n = o.shape[0]
+    dev = o.device
+    volume = mode in ("points", "beams")
     args = (pack, starts, counts, o, d if volume else None, lim, bounce, lane_mask, cell, r,
             min_b, max_b)
     if mode == "hist":
         hist = torch.zeros((n, N_BINS), dtype=torch.int32, device=dev)
-        _launch(mode, 1, *args, count_out=hist)
+        _launch_v1(mode, 1, *args, count_out=hist)
         return hist
     rounds = 0
     if volume:
         own = torch.zeros((n,), dtype=torch.int32, device=dev)
-        _launch(mode, 0, *args, count_out=own)
+        _launch_v1(mode, 0, *args, count_out=own)
         rounds = int(own.max()) if n else 0
     per_lane = torch.zeros((n,), dtype=torch.int32, device=dev)
-    _launch(mode, 1, *args, rounds=rounds, count_out=per_lane)
+    _launch_v1(mode, 1, *args, rounds=rounds, count_out=per_lane)
     ends = torch.cumsum(per_lane.to(torch.int64), 0)
     total = int(ends[-1]) if n else 0
     offsets = (ends - per_lane).contiguous()
@@ -335,14 +490,14 @@ def walk_cuda(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, 
     a = torch.empty((total,), dtype=torch.float32, device=dev) if volume else None
     b = torch.empty((total,), dtype=torch.float32, device=dev) if volume else None
     if total:
-        _launch(mode, 2, *args, rounds=rounds, offsets=offsets, lane_out=lane, row_out=row,
-                a_out=a, b_out=b)
+        _launch_v1(mode, 2, *args, rounds=rounds, offsets=offsets, lane_out=lane, row_out=row,
+                   a_out=a, b_out=b)
     if not volume:
         return lane.to(torch.int64), row.to(torch.int64)
     return lane.to(torch.int64), row.to(torch.int64), a, b
 
 
-walk_cuda.launches = 0
+walk_cuda_v1.launches = 0
 
 
 def walk(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, min_b=0, max_b=64):
