@@ -8,12 +8,12 @@ printing a result):
   1. device   - the card's name and power limit;
   2. build    - the host's BVH builder (native/, portable flags) is built
                 beside the kernels where it is absent; nvcc builds the
-                fifteen kernel sources (csrc/bvh8_walk.cu,
+                sixteen kernel sources (csrc/bvh8_walk.cu,
                 bvh8_walk_fast.cu, bvh8_walk_v1.cu, bvh8_walk_fast_v1.cu,
                 bvh2_walk.cu, bvh2_walk_v1.cu, bvh_walk.cu, bvh_walk_v1.cu,
                 intersect_stream.cu, intersect_stream_v1.cu, gather_walk.cu,
-                grid_walk.cu, grid_walk_v1.cu, photon_walk.cu,
-                photon_walk_v1.cu)
+                gather_walk_v1.cu, grid_walk.cu, grid_walk_v1.cu,
+                photon_walk.cu, photon_walk_v1.cu)
                 into build/, one nvcc per source, all at once, and prints
                 what ptxas said of the two BVH8 kernels, K4, K5, K2, K1, K6
                 and K7 and their first forms
@@ -90,14 +90,17 @@ printing a result):
                 fast kernel and the repair launch against v1 are timed in
                 turns;
   3e. K1     - the gather walk (gather_walk.cu) on the materialtest-synth
-                gbvh pack: against its twin bit for bit in t, prim, u and v
-                in closest, latched and mixed mode on the 65,536 random rays,
+                gbvh pack: against its twin and its first form
+                (gather_walk_v1.cu) bit for bit in t, prim, u and v in
+                closest, latched and mixed mode on the 65,536 random rays,
                 the 563,000 camera rays and the 2N batch; its query against
                 brute force on the 8,192 rays (prim); against exact K3 on the
                 2N batch (prim on the closest-hit lanes, occlusion on the
-                latched ones, the lanes that differ printed); K3 and K1 at
-                2N in turns (K3, K1, K1, K3); the twin's node and leaf
-                rounds, for the bound;
+                latched ones, the lanes that differ printed); at 2N mixed K3
+                and K1 in turns (K3, K1, K1, K3), v1 and K1 in turns, each
+                10 launches back to back; the twin's node, leaf and staged-
+                row rounds (for the bound, the bytes its staging saves); the
+                seconds phase 3 took;
   4. small    - the `small` scene through render_scene, its per-channel
                 means against the JAX package's (tests/data/...json);
   4b. analytic - `small-analytic` (three analytic prims) the same way,
@@ -135,7 +138,8 @@ printing a result):
                 just before and read just after; then K3 closest, K3 latched
                 and K3-fast against their v1 forms on the benchmark's coherent
                 and incoherent rays, in turns, and so K4 (ordered, skip,
-                any), K5 (both modes) and K2 against their first forms;
+                any), K5 (both modes), K2 and K1 (closest, latched) against
+                their first forms;
   7. routes   - materialtest-analytic at 1000x563 and ROUTE_SPP = 8 through
                 render_flat on four FlatScenes of one flatten: all packs
                 (the render walks K3), pbvh8 = None (K1), pbvh8 = gbvh =
@@ -429,8 +433,12 @@ K4 in its three modes, K5, K2 and the first forms),
 and the kernel's and twin's ms and the kernel's bound on the rays of those
 launches: the 2N batch for K3, K3-fast, K1, K5-v2 and K2 (K1's ms the mean
 of its turns against exact K3, whose time is beside as exact_k3_ms, with
-the twin's rounds as twin_rounds; K1 is XLA gathers on the TPU, no
-pl.pallas_call, which its row's tpu_form says; K5-v2's and K2's ms
+the twin's rounds as twin_rounds, its and v1's time in their own turns as
+turn_ms and v1_ms, 10 launches back to back as back_to_back_ms; the bytes
+its staging and its rounds' row reads would move are estimates, printed in
+phase 3e's log and not in the row; the gather_walk_v1 row takes its
+launches from phase 3e's checks and its ms from those turns; K1 is XLA
+gathers on the TPU, no pl.pallas_call, which its row's tpu_form says; K5-v2's and K2's ms
 the mean of their turns against their first forms; the benchmark's coherent
 time beside as bench_ms, the first form's 2N time as v1_ms), the benchmark's
 coherent rays for K4, K5-v1 and the first forms (their 2N time and bound
@@ -658,7 +666,8 @@ def counted():
             bvh2.walk3_cuda_v1,
             bvh.walk_packet_cuda, bvh.walk_packet_twin, bvh.walk_packet_cuda_v1,
             intersect_stream.stream_cuda, intersect_stream.stream_twin,
-            intersect_stream.stream_cuda_v1, gather_bvh.walk_cuda, gather_bvh.walk_twin)
+            intersect_stream.stream_cuda_v1, gather_bvh.walk_cuda, gather_bvh.walk_twin,
+            gather_bvh.walk_cuda_v1)
 
 
 def reset_counts():
@@ -994,28 +1003,37 @@ def render_vs_ref(label, path, ref_file, dev, wavefront="auto", key=None):
 def k1_phase(scene, sets, r2, latch, sub, hb, n_pix, card):
     """Phase 3e: K1 (gather_walk.cu) on the materialtest-synth gbvh pack.
     `sets` are phase 3's (label, rays, mixed latch mask): the random rays,
-    the camera rays and the 2N batch. Returns the K1 row's numbers."""
+    the camera rays and the 2N batch. K1 equals its twin and its first form
+    (gather_walk_v1.cu) bit for bit on each set in the three modes; its
+    query holds the brute-force and exact-K3 bars; at 2N mixed K3 and K1,
+    then v1 and K1, are timed in turns. Returns the K1 rows' numbers."""
     from tungsten_tpu_torch.ops import bvh8, gather_bvh
 
     gp, pack = scene.gbvh, scene.pbvh8
     log(f"[3e K1] the gather walk on materialtest-synth: {gp.n_rows} rows of {gather_bvh.ROW} "
-        f"floats, depth {gp.depth} (bitstack {gp.depth + 2} of {gather_bvh.MAX_LEVELS} levels)")
+        f"floats, {gp.n_nodes} nodes, depth {gp.depth} (a lane's bitstack holds at most "
+        f"{gp.depth} of the kernel's {gather_bvh.MAX_LEVELS} levels), rows [0, {gp.top}) staged "
+        f"in shared memory")
     reset_counts()
     for label, rr, lanes in sets:
         for mode, lat in (("closest", None), ("latched", True), ("mixed", lanes)):
             out = gather_bvh.walk_cuda(gp, *rr, lat)
+            first = gather_bvh.walk_cuda_v1(gp, *rr, lat)
             torch.cuda.synchronize()
             t0 = time.time()
             twin = gather_bvh.walk_twin(gp, *rr, lat)
             torch.cuda.synchronize()
-            check(same_bits(out, twin), f"K1 {label} {mode}: t, prim, u and v equal the twin's "
-                  f"bit for bit (prim agree {agree(out[1], twin[1]):.6f}, hits "
-                  f"{(out[1] >= 0).float().mean().item():.4f}; twin {time.time() - t0:.1f} s, "
-                  f"{gather_bvh.walk_twin.work})")
+            check(same_bits(out, twin) and same_bits(out, first),
+                  f"K1 {label} {mode}: t, prim, u and v equal the twin's and v1's bit for bit "
+                  f"(prim agree {agree(out[1], twin[1]):.6f} / {agree(out[1], first[1]):.6f}, "
+                  f"hits {(out[1] >= 0).float().mean().item():.4f}; twin "
+                  f"{time.time() - t0:.1f} s, {gather_bvh.walk_twin.work})")
     c = counts()
-    check(c["gather_bvh.walk_cuda"] == c["gather_bvh.walk_twin"] == 3 * len(sets),
-          f"K1 and its twin launched {c['gather_bvh.walk_cuda']} / {c['gather_bvh.walk_twin']} "
-          f"times")
+    n_checks = 3 * len(sets)
+    check(c["gather_bvh.walk_cuda"] == c["gather_bvh.walk_twin"] ==
+          c["gather_bvh.walk_cuda_v1"] == n_checks,
+          f"K1, its twin and v1 launched {c['gather_bvh.walk_cuda']} / "
+          f"{c['gather_bvh.walk_twin']} / {c['gather_bvh.walk_cuda_v1']} times")
     hk = gather_bvh.intersect_bvh_gather(gp, *sub)
     check(agree(hk.prim, hb.prim) >= BAR, f"K1 8192 rays: query vs brute force prim agree "
           f"{agree(hk.prim, hb.prim):.6f} (>= {BAR})")
@@ -1032,18 +1050,58 @@ def k1_phase(scene, sets, r2, latch, sub, hb, n_pix, card):
     check(occ.float().mean().item() >= K4_K3_BAR, f"K1 vs K3's latch, 2N latched lanes: "
           f"occlusion agree {occ.float().mean().item():.6f} (>= {K4_K3_BAR}); "
           f"{int((~occ).sum())} lanes differ")
-    k3_ms, k1_ms = turns("K3 vs K1 2N mixed", lambda: bvh8.walk_cuda(pack, *r2, latch),
-                         lambda: gather_bvh.walk_cuda(gp, *r2, latch), card, ("K3", "K1"))
+
+    def k1():
+        return gather_bvh.walk_cuda(gp, *r2, latch)
+
+    def k1_v1():
+        return gather_bvh.walk_cuda_v1(gp, *r2, latch)
+
+    k3_ms, k1_ms = turns("K3 vs K1 2N mixed", lambda: bvh8.walk_cuda(pack, *r2, latch), k1,
+                         card, ("K3", "K1"))
+    v1_ms, turn_ms = turns("K1 2N mixed", k1_v1, k1, card)
+    b2b_ms, v1_b2b_ms = cuda_ms(k1, reps=10), cuda_ms(k1_v1, reps=10)
     twin_out = gather_bvh.walk_twin(gp, *r2, latch)
     work = dict(gather_bvh.walk_twin.work)
     plain_ms = cuda_ms(lambda: gather_bvh.walk_twin(gp, *r2, latch), reps=1)
     k1_bytes = nbytes(*r2, latch, gp.rows) + 16 * r2[0].shape[0]  # t, prim, u, v out
-    k1_ops = work["node"] * 8 * OPS["box"] + work["leaf"] * 8 * OPS["mt"]
+    # the rounds the function needs: a pruned pop's re-run changes nothing
+    k1_ops = ((work["node"] - work["prune_node"]) * 8 * OPS["box"]
+              + (work["leaf"] - work["prune_leaf"]) * 8 * OPS["mt"])
     err = (twin_out[0] - h1.t).abs()[(h1.prim >= 0) & closest].max().item()
-    log(f"[3e K1] 2N={2 * n_pix} mixed on {card}: K1 {k1_ms:.3f} ms, exact K3 {k3_ms:.3f} ms, "
-        f"twin {plain_ms:.3f} ms; twin rounds {work}")
+    resident = k1_resident_blocks(gather_bvh.TOP_ROWS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # estimates, not measured: the staging's reads (the persistent grid's
+    # blocks, 14 pieces a row) and the rows the rounds read (224 bytes a
+    # node, 320 a leaf; pruned re-runs read nothing, the staged rows come
+    # from shared memory), at most: lanes of a warp that load the same
+    # address in one instruction share the load
+    staged = sms * resident * gp.top * 14 * 16
+    read_node = work["node"] - work["prune_node"] - work["top"]
+    round_bytes = read_node * 224 + (work["leaf"] - work["prune_leaf"]) * 320
+    top_share = work["top"] / (work["node"] + work["leaf"] - work["prune_node"]
+                               - work["prune_leaf"])
+    log(f"[3e K1] 2N={2 * n_pix} mixed on {card}: K1 {k1_ms:.4f} ms against exact K3 "
+        f"{k3_ms:.4f} ms; in turns v1 {v1_ms:.4f}, K1 {turn_ms:.4f} ({v1_ms / turn_ms:.2f}x); "
+        f"10 back to back: K1 {b2b_ms:.4f}, v1 {v1_b2b_ms:.4f} ms ({v1_b2b_ms / b2b_ms:.2f}x); "
+        f"twin {plain_ms:.3f} ms; twin rounds {work} ({top_share:.3f} of the rounds that read "
+        f"a row on the {gp.top} staged rows); estimates: staging {staged} bytes a call "
+        f"({resident} blocks of 128 a multiprocessor), the rounds' row reads at most "
+        f"{round_bytes} bytes from L1 / L2 ({work['top'] * 224} more from shared memory); the "
+        f"bound's bytes {k1_bytes}, its operations {k1_ops}")
     return dict(ms=k1_ms, k3_ms=k3_ms, plain_ms=plain_ms, bytes=k1_bytes, ops=k1_ops,
-                err=err, work=work)
+                err=err, work=work, v1_ms=v1_ms, turn_ms=turn_ms, b2b_ms=b2b_ms,
+                v1_b2b_ms=v1_b2b_ms, v1_launches=c["gather_bvh.walk_cuda_v1"])
+
+
+def k1_resident_blocks(top):
+    """K1's resident blocks of 128 threads a multiprocessor with `top` rows
+    staged (the persistent grid's blocks a multiprocessor)."""
+    from tungsten_tpu_torch.ops import _build
+
+    occ = _build.load_library("gather_walk").gather_walk_blocks_per_sm
+    occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
+    return occ(top)
 
 
 def lights_phase(work, dev, card):
@@ -2756,7 +2814,8 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
     from tungsten_tpu_torch import device
     from tungsten_tpu_torch import synth
-    from tungsten_tpu_torch.ops import _build, bvh, bvh2, bvh8, intersect_stream, photon_walk
+    from tungsten_tpu_torch.ops import (_build, bvh, bvh2, bvh8, gather_bvh, intersect_stream,
+                                        photon_walk)
     from tungsten_tpu_torch.ops.intersect import INF, intersect_brute
     from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
     from tungsten_tpu_torch.scene.flatten import flatten_scene
@@ -2771,8 +2830,8 @@ def main():
     t0 = time.time()
     sources = ("bvh8_walk", "bvh8_walk_fast", "bvh8_walk_v1", "bvh8_walk_fast_v1", "bvh2_walk",
                "bvh2_walk_v1", "bvh_walk", "bvh_walk_v1", "intersect_stream",
-               "intersect_stream_v1", "gather_walk", "grid_walk", "grid_walk_v1", "photon_walk",
-               "photon_walk_v1")
+               "intersect_stream_v1", "gather_walk", "gather_walk_v1", "grid_walk",
+               "grid_walk_v1", "photon_walk", "photon_walk_v1")
     native = build_native_bvh()
     _build.build(*sources)
     for name in sources:
@@ -2780,7 +2839,7 @@ def main():
     log(f"[2 build] {', '.join(sources)} built in {time.time() - t0:.2f} s (nvcc, sm_90a, "
         f"in parallel)")
     native()
-    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream", "gather_walk",
+    for name in ("bvh8_walk", "bvh8_walk_fast", "bvh_walk", "intersect_stream", "gather_walk_v1",
                  "grid_walk", "grid_walk_v1", "photon_walk_v1"):
         occ = getattr(_build.load_library(name), f"{name}_blocks_per_sm")
         occ.restype = ctypes.c_int
@@ -2790,6 +2849,9 @@ def main():
     occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
     log(f"[2 build] bvh2_walk: {occ(0)} (ordered) / {occ(1)} (skip) / {occ(2)} (any) resident "
         f"blocks of 128 threads a multiprocessor; ptxas -v:\n{_build.ptxas_report('bvh2_walk')}")
+    log(f"[2 build] gather_walk: {k1_resident_blocks(gather_bvh.TOP_ROWS)} resident blocks of "
+        f"128 threads a multiprocessor (with its {gather_bvh.TOP_ROWS} staged rows); ptxas -v:\n"
+        f"{_build.ptxas_report('gather_walk')}")
     occ = _build.load_library("photon_walk").photon_walk_blocks_per_sm
     occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
     per_mode = " / ".join(f"{occ(m)} ({k})" for k, m in photon_walk.MODES.items())
@@ -2797,6 +2859,7 @@ def main():
         f"ptxas -v:\n{_build.ptxas_report('photon_walk')}")
 
     work = os.path.join(REPO, "build", "chip_smoke")  # scenes are written here
+    phase3_t0 = time.time()
     big_path = synth.write_scene(os.path.join(work, "mt"), "materialtest-synth")
     t0 = time.time()
     scene = flatten_scene(load_scene(big_path), dev)
@@ -3159,6 +3222,7 @@ def main():
                          pack.tri_planes_hi, pack.tri_planes_lo) + 8 * o2.shape[0])
 
     k1 = k1_phase(scene, v1_cases, r2, latch, sub, hb, n_pix, card)
+    log(f"[3 kernel] phase 3 (3 to 3e) took {time.time() - phase3_t0:.1f} s")
 
     # small renders against the JAX package's means
     with numpy_bvh_build():
@@ -3275,6 +3339,10 @@ def main():
               lambda: bvh.walk_packet_cuda(bpv, *br, prune=False), card)
         turns(f"K2 {ray_kind} 131072", lambda: intersect_stream.stream_cuda_v1(bpt, *br),
               lambda: intersect_stream.stream_cuda(bpt, *br), card)
+        for label, lat in (("closest", None), ("latched", True)):
+            turns(f"K1 {label} {ray_kind} 131072",
+                  lambda: gather_bvh.walk_cuda_v1(bscene.gbvh, *br, lat),
+                  lambda: gather_bvh.walk_cuda(bscene.gbvh, *br, lat), card)
 
     # the render's three intersector routes on one flattened scene
     ana_path = synth.write_scene(os.path.join(work, "mta"), "materialtest-analytic")
@@ -3371,7 +3439,16 @@ def main():
                    k1["ms"], k1["plain_ms"], k1["bytes"], k1["ops"])
     k1_row["tpu_form"] = "XLA gathers (`_phase`), not pl.pallas_call"
     k1_row["exact_k3_ms"], k1_row["twin_rounds"] = k1["k3_ms"], k1["work"]
+    k1_row["v1_ms"], k1_row["turn_ms"] = k1["v1_ms"], k1["turn_ms"]
+    k1_row["back_to_back_ms"] = k1["b2b_ms"]
     entries.append(k1_row)
+    # K1's first form: the launches of phase 3e's checks, its time in turns
+    # with the new form on the 2N batch
+    k1_v1 = entry("gather_walk_v1", "tungsten_tpu_torch/csrc/gather_walk_v1.cu",
+                  "tungsten_tpu/ops/gather_bvh.py:216", k1["v1_launches"], k1["err"],
+                  k1["v1_ms"], k1["plain_ms"], k1["bytes"], k1["ops"])
+    k1_v1["back_to_back_ms"] = k1["v1_b2b_ms"]
+    entries.append(k1_v1)
     # K6: XLA lax.while_loop on the TPU, no pl.pallas_call; its launches from
     # the media-synth cloud regen render, its times and bound on the largest
     # tau launch of the cloud's 1-spp regen pass (the render's own lanes),

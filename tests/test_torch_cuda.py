@@ -9,7 +9,10 @@ has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
 Kernels: K3 (bvh8_walk.cu: closest, any, mixed), K3-fast (bvh8_walk_fast.cu),
 K4 (bvh2_walk.cu: ordered, skip, any), K5 (bvh_walk.cu: v2 and v1), K2
 (intersect_stream.cu), K1 (gather_walk.cu: closest, any, mixed; bit for
-bit with its twin, and by the bars against brute force) and K6
+bit with its twin and its first CUDA form gather_walk_v1.cu, on packs of
+2 rows and of 8 levels, 0, 1 and odd lane counts, dead lanes and
+directions with zero, subnormal and infinite components; by the bars
+against brute force) and K6
 (grid_walk.cu: the exact voxel DDA's optical depth and its inverse, on
 trilinear and nearest grids, bit for bit with its twin and its first CUDA
 form grid_walk_v1.cu), K7 (photon_walk.cu: the photon-grid walk in its
@@ -55,6 +58,8 @@ and its first form by the same bars, and against K3's latch by occlusion on
 >= 99.99% of rays (the two walks reach different first leaves, so their
 slots differ).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -479,24 +484,126 @@ def _k1_case(dev):
     return packs, pack, rays
 
 
+def _k1_three(pack, rays, latch):
+    """K1, its twin and its first form on the same rays; the launch counts
+    move by one each (none where there are no lanes)."""
+    n = rays[0].shape[0]
+    k0, t0, v0 = (gather_bvh.walk_cuda.launches, gather_bvh.walk_twin.launches,
+                  gather_bvh.walk_cuda_v1.launches)
+    out = gather_bvh.walk_cuda(pack, *rays, latch)
+    first = gather_bvh.walk_cuda_v1(pack, *rays, latch)
+    torch.cuda.synchronize()
+    twin = gather_bvh.walk_twin(pack, *rays, latch)
+    assert (gather_bvh.walk_cuda.launches - k0, gather_bvh.walk_cuda_v1.launches - v0,
+            gather_bvh.walk_twin.launches - t0) == (int(n > 0), int(n > 0), 1)
+    return out, first, twin
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
 def test_k1_kernel_bit_equal_to_twin(cuda, mode):
     """K1 (gather_walk.cu) rounds every operation as its twin does: t, prim,
-    u and v equal bit for bit, in closest, latched and mixed mode; dead
-    lanes miss; the launch counts move by one each."""
+    u and v equal the twin's and the first form's (gather_walk_v1.cu) bit
+    for bit, in closest, latched and mixed mode; dead lanes miss."""
     _, pack, (o, d, tn, tf) = _k1_case(cuda)
     latch = {"closest": None, "any": True,
              "mixed": torch.arange(o.shape[0], device=cuda) % 2 == 0}[mode]
-    k0, t0 = gather_bvh.walk_cuda.launches, gather_bvh.walk_twin.launches
-    out = gather_bvh.walk_cuda(pack, o, d, tn, tf, latch)
-    torch.cuda.synchronize()
-    twin = gather_bvh.walk_twin(pack, o, d, tn, tf, latch)
-    assert gather_bvh.walk_cuda.launches == k0 + 1 and gather_bvh.walk_twin.launches == t0 + 1
+    out, first, twin = _k1_three(pack, (o, d, tn, tf), latch)
     assert _same_bits(out, twin), f"{mode}: prim agrees on {(out[1] == twin[1]).float().mean()}"
+    assert _same_bits(out, first), (f"{mode}: v1 prim agrees on "
+                                    f"{(out[1] == first[1]).float().mean()}")
     hit = (out[1] >= 0).float().mean().item()
     assert 0.1 < hit < 0.9
     assert bool((out[1][tf <= tn] == -1).all())
+
+
+def _k1_small_rays(dev, scene, n, seed):
+    """n rays at a scene: half aimed at its triangles, a tenth dead."""
+    v0, e1, e2 = scene
+    rng = np.random.default_rng(seed)
+    lo, hi = v0.min(0) - 1.0, v0.max(0) + 1.0
+    o = rng.uniform(lo, hi, (n, 3))
+    k = rng.integers(0, len(v0), n)
+    d = np.where(np.arange(n)[:, None] % 2 == 0, v0[k] + 0.3 * e1[k] + 0.3 * e2[k] - o,
+                 rng.normal(size=(n, 3)))
+    d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+    tfar = np.full(n, 3.0e38)
+    tfar[5::10] = 0.0
+    return [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            for a in (o, d, np.full(n, 1e-4), tfar)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 129, 4097])
+@pytest.mark.parametrize("size", ["2 rows", "8 levels"])
+def test_k1_small_and_deep_packs(cuda, size, n):
+    """K1, its twin and its first form bit for bit on a pack smaller than the
+    staged rows (8 triangles: one node row, one leaf row) and on one of 8
+    levels (a chain of clusters at doubling distances), at 0, 1 and lane
+    counts that are no multiple of a block or a warp, in the three modes."""
+    if size == "2 rows":
+        rng = np.random.default_rng(3)
+        v0 = rng.uniform(-1, 1, (8, 3)).astype(np.float32)
+        e1, e2 = (rng.normal(0, 0.5, (8, 3)).astype(np.float32) for _ in range(2))
+    else:
+        xs = np.repeat(2.0 ** np.arange(45), 9).astype(np.float32)
+        v0 = np.stack([xs, np.zeros_like(xs), np.arange(len(xs)) % 9 * 0.1], 1)
+        e1 = np.tile(np.float32([0.05, 0.0, 0.0]), (len(xs), 1)) * xs[:, None]
+        e2 = np.tile(np.float32([0.0, 0.05, 0.0]), (len(xs), 1)) * xs[:, None]
+        v0, e1, e2 = (np.asarray(a, np.float32) for a in (v0, e1, e2))
+    pack = gather_bvh.GatherBvhPack.from_arrays(gather_bvh.build_gather_pack(v0, e1, e2), cuda)
+    if size == "2 rows":
+        assert (pack.n_rows, pack.n_nodes, pack.top) == (2, 1, 1)
+    else:
+        assert pack.depth >= 8
+    rays = _k1_small_rays(cuda, (v0, e1, e2), n, seed=n)
+    for latch in (None, True, torch.arange(n, device=cuda) % 3 == 0):
+        out, first, twin = _k1_three(pack, rays, latch)
+        assert _same_bits(out, twin) and _same_bits(out, first)
+        assert all(x.shape == (n,) for x in out)
+    if n > 100:
+        assert bool((out[1] >= 0).any()) and bool((out[1][rays[3] <= rays[2]] == -1).all())
+
+
+@pytest.mark.cuda
+def test_k1_special_directions(cuda):
+    """Directions with zero, subnormal and infinite components (1 / d is
+    1e30, infinite or zero) and origins far away or infinite: K1 equals its
+    twin and its first form bit for bit in the three modes."""
+    packs, pack, _ = _k1_case(cuda)
+    v0 = packs["tri_soa"][0].cpu().numpy()
+    rng = np.random.default_rng(11)
+    m = 4096
+    o = rng.uniform(v0.min(0) - 0.5, v0.max(0) + 0.5, (m, 3)).astype(np.float32)
+    d = rng.normal(size=(m, 3)).astype(np.float32)
+    special = np.float32([0.0, -0.0, 1e-40, -1e-40, 1e-38, np.inf, -np.inf, 1e30])
+    d = np.where(rng.random((m, 3)) < 0.3, special[rng.integers(0, 8, (m, 3))], d)
+    o[::7] *= np.float32(1e30)
+    o[3::11, 0] = np.inf
+    rays = [torch.as_tensor(a, device=cuda) for a in
+            (o, np.asarray(d, np.float32), np.full(m, 1e-4, np.float32),
+             np.full(m, 3.0e38, np.float32))]
+    for latch in (None, True, torch.arange(m, device=cuda) % 2 == 0):
+        out, first, twin = _k1_three(pack, rays, latch)
+        assert _same_bits(out, twin) and _same_bits(out, first)
+    assert bool((out[1] >= 0).any())
+
+
+@pytest.mark.cuda
+def test_k1_refuses_a_bad_pack(cuda):
+    """A pack whose node count does not split its rows is refused on the
+    card (no launch, no twin), as are CPU tensors."""
+    _, pack, (o, d, tn, tf) = _k1_case(cuda)
+    k0, t0 = gather_bvh.walk_cuda.launches, gather_bvh.walk_twin.launches
+    for bad in (dataclasses.replace(pack, n_nodes=0),
+                dataclasses.replace(pack, n_nodes=pack.n_rows)):
+        with pytest.raises(ValueError, match="nodes"):
+            gather_bvh.walk_cuda(bad, o, d, tn, tf)
+        with pytest.raises(ValueError, match="nodes"):
+            gather_bvh.walk(bad, o, d, tn, tf)
+    with pytest.raises(ValueError):
+        gather_bvh.walk_cuda(pack, *(x.cpu() for x in (o, d, tn, tf)))
+    assert (gather_bvh.walk_cuda.launches, gather_bvh.walk_twin.launches) == (k0, t0)
 
 
 @pytest.mark.cuda

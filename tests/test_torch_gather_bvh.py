@@ -20,6 +20,15 @@ on the JAX package's pack carried across through `GatherBvhPack.from_arrays`:
     multiply-adds: a numpy leaf test reproduces each bit for bit;
   * the refusal of a tree deeper than the kernel's bitstack, and of a leaf
     size other than the row's 8 slots;
+  * both builds number node rows first: `from_arrays` records n_nodes (the
+    rows whose flag is 0), on which the kernel tells a leaf by its id, and
+    refuses a pack whose rows are not nodes first or whose ids are not whole
+    numbers; the kernel sources' constants are the module's;
+  * a scalar walk in numpy float32, written from `_phase` apart from the
+    twin, gives the twin's t, prim, u and v bit for bit and its counts of
+    node and leaf rounds, of the rounds that re-run a row after a pruned
+    pop ("prune_node", "prune_leaf") and of the other staged-row rounds
+    ("top");
   * the render's dispatch takes K1 where pbvh8 is absent: `small` with
     pbvh8 = None against the JAX package's render (2e-3 relative on the
     channel means, >= 98% of pixels within 1e-3 + 1e-3 |ref|).
@@ -27,6 +36,8 @@ on the JAX package's pack carried across through `GatherBvhPack.from_arrays`:
 The CUDA kernel is held against the twin bit for bit in test_torch_cuda.py.
 """
 import dataclasses
+import os
+import re
 
 import numpy as np
 import pytest
@@ -283,6 +294,183 @@ def test_depth_is_checked():
     bad = dict(arrays, rows=arrays["rows"][:, :-1])
     with pytest.raises(ValueError):
         gather_bvh.GatherBvhPack.from_arrays(bad, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("n_tris", [8, 200, 700])
+def test_from_arrays_records_n_nodes(n_tris):
+    """Both packages number their node rows first: n_nodes is the count of
+    rows whose flag is 0, on the JAX pack carried across and on the port's
+    own build, and the kernel stages min(TOP_ROWS, n_nodes) of them."""
+    v0, e1, e2 = _scene(n_tris + 1, n_tris)
+    jp, pack = _packs(v0, e1, e2)
+    flags = np.asarray(jp.rows)[gather_bvh.COL_FLAG]
+    assert pack.n_nodes == int((flags == 0.0).sum()) > 0
+    assert (flags[:pack.n_nodes] == 0.0).all() and (flags[pack.n_nodes:] == 1.0).all()
+    mine = gather_bvh.GatherBvhPack.from_arrays(gather_bvh.build_gather_pack(v0, e1, e2),
+                                                torch.device("cpu"))
+    assert mine.n_nodes == pack.n_nodes
+    assert pack.top == min(gather_bvh.TOP_ROWS, pack.n_nodes)
+
+
+def test_from_arrays_refuses_packs_not_nodes_first():
+    """A pack whose rows were permuted so that a leaf comes before a node is
+    refused, and so is one with a child or prim id that is not a whole
+    number: the kernel knows a leaf by its id and keeps ids as floats."""
+    v0, e1, e2 = _scene(8, 200)
+    arrays = gather_bvh.build_gather_pack(v0, e1, e2)
+    gather_bvh.GatherBvhPack.from_arrays(arrays, torch.device("cpu"))
+    m = arrays["n_rows"]
+    perm = np.arange(m)
+    perm[[1, m - 1]] = perm[[m - 1, 1]]  # the last leaf row where the second node was
+    with pytest.raises(ValueError, match="nodes"):
+        gather_bvh.GatherBvhPack.from_arrays(dict(arrays, rows=arrays["rows"][:, perm]),
+                                             torch.device("cpu"))
+    for col, value in ((48, 1.5), (48, float("nan")), (72, -2.0)):
+        rows = arrays["rows"].copy()
+        rows[col, 0 if col == 48 else m - 1] = value
+        with pytest.raises(ValueError, match="whole numbers"):
+            gather_bvh.GatherBvhPack.from_arrays(dict(arrays, rows=rows), torch.device("cpu"))
+
+
+def test_kernel_constants_match_the_module():
+    """The kernels' row width, staged rows, bitstack and round limit are the
+    module's ROW, TOP_ROWS, MAX_LEVELS and MAX_ROUNDS."""
+    csrc = os.path.join(os.path.dirname(gather_bvh.__file__), os.pardir, "csrc")
+    want = {"kRow": gather_bvh.ROW, "kMaxLevels": gather_bvh.MAX_LEVELS,
+            "kMaxRounds": gather_bvh.MAX_ROUNDS}
+    for name, extra in (("gather_walk.cu", {"kTopRows": gather_bvh.TOP_ROWS}),
+                        ("gather_walk_v1.cu", {})):
+        with open(os.path.join(csrc, name)) as f:
+            src = f.read()
+        for const, value in {**want, **extra}.items():
+            assert re.search(rf"constexpr int {const} = {value};", src), (name, const)
+
+
+def _pmin(a, b):  # torch.minimum / maximum on scalars: NaN wherever either is
+    return a if (a < b or a != a) else b
+
+
+def _pmax(a, b):
+    return a if (a > b or a != a) else b
+
+
+def _walk_scalar(rows, root, levels, o, d, tnear, tfar, latched):
+    """One lane of `_phase` in numpy float32 scalars, round by round, written
+    from the JAX loop and not from the twin: the nearest hit child (lowest
+    slot on ties) is the cursor and the second nearest is stored on the
+    pushed level; a pop descends to the stored child (direct), consumes it
+    and re-runs the row (prune), or re-gathers the parent. -> (t, prim, u,
+    v, (the row, whether it re-runs after a prune) of each round)."""
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        return _walk_scalar_f32(rows, root, levels, o, d, tnear, tfar, latched)
+
+
+def _walk_scalar_f32(rows, root, levels, o, d, tnear, tfar, latched):
+    f4 = np.float32
+    inv = [f4(1.0) / (x if x != 0.0 else f4(1e-30)) for x in d]
+    best, prim, bu, bv = tfar, -1, f4(0.0), f4(0.0)
+    cur, pend, stack, visited = (root if tfar > tnear else -1), 0xFF, [], []
+    rerun = False
+    for _ in range(gather_bvh.MAX_ROUNDS):
+        if cur < 0:
+            break
+        visited.append((cur, rerun))
+        rerun = False
+        r = rows[cur]
+        pop = True
+        if r[gather_bvh.COL_FLAG] <= 0.5:
+            hits = []
+            for j in range(8):
+                t0 = [(r[8 * a + j] - o[a]) * inv[a] for a in range(3)]
+                t1 = [(r[24 + 8 * a + j] - o[a]) * inv[a] for a in range(3)]
+                lo = _pmax(_pmax(_pmin(t0[0], t1[0]), _pmin(t0[1], t1[1])), _pmin(t0[2], t1[2]))
+                hi = _pmin(_pmin(_pmax(t0[0], t1[0]), _pmax(t0[1], t1[1])), _pmax(t0[2], t1[2]))
+                code = int(r[48 + j])
+                if (pend >> j) & 1 and code >= 0 and lo <= hi and hi >= tnear and lo < best:
+                    hits.append((lo, j, code))
+            if hits:
+                first = min(hits)  # by tmin, then slot
+                rest = [h for h in hits if h[1] != first[1]]
+                if rest:
+                    second = min(rest)
+                    mask = sum(1 << h[1] for h in rest if h[1] != second[1])
+                    if len(stack) < levels:
+                        stack.append([cur, mask, second[2], second[0]])
+                cur, pend, pop = first[2], 0xFF, False
+        else:
+            found = []
+            for j in range(8):
+                v0, e1, e2 = ([r[8 * (3 * q + a) + j] for a in range(3)] for q in range(3))
+                p = [d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
+                     d[0] * e2[1] - d[1] * e2[0]]
+                det = e1[0] * p[0] + e1[1] * p[1] + e1[2] * p[2]
+                if not abs(det) > f4(1e-12):
+                    continue
+                inv_det = f4(1.0) / det
+                tv = [o[a] - v0[a] for a in range(3)]
+                u = (tv[0] * p[0] + tv[1] * p[1] + tv[2] * p[2]) * inv_det
+                q = [tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+                     tv[0] * e1[1] - tv[1] * e1[0]]
+                v = (d[0] * q[0] + d[1] * q[1] + d[2] * q[2]) * inv_det
+                t = (e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2]) * inv_det
+                if (r[72 + j] >= 0 and u >= 0 and v >= 0 and u + v <= f4(1.0) and t > tnear
+                        and t < best):
+                    found.append((t, j, u, v, int(r[72 + j])))
+            if found:
+                best, _, bu, bv, prim = min(found, key=lambda h: (h[0], h[1]))
+            if latched and prim >= 0:
+                cur, pop = -1, False
+        if not pop:
+            continue
+        if not stack:
+            cur = -1
+        elif stack[-1][2] >= 0:
+            parent, mask, child, tmin = stack[-1]
+            stack[-1][2] = -1
+            if mask == 0:
+                stack.pop()
+            if tmin < best:
+                cur, pend = child, 0xFF
+            else:
+                rerun = True
+        else:
+            cur, pend = stack[-1][0], stack[-1][1]
+            stack.pop()
+    return best, prim, bu, bv, visited
+
+
+def test_twin_against_a_scalar_walk():
+    """The twin's t, prim, u and v equal a scalar walk's bit for bit, lane by
+    lane, in a mixed latch batch with finite, infinite and dead lanes, and its
+    `.work` counts equal the scalar walk's rounds: node and leaf; the node
+    and leaf rounds that re-run a row after a pruned pop ("prune_node",
+    "prune_leaf"); and "top", the other rounds on the rows the kernel stages
+    (id < min(TOP_ROWS, n_nodes))."""
+    v0, e1, e2 = _scene(9, 400)
+    _, pack = _packs(v0, e1, e2)
+    assert pack.n_nodes > gather_bvh.TOP_ROWS  # the staged rows are a proper part
+    o, d, tnear, tfar = _rays(19, 96, (v0, e1, e2))
+    tfar[1::5] = np.random.default_rng(19).uniform(0.5, 4.0, len(tfar[1::5]))
+    latch = np.arange(96) % 3 == 0
+    out = gather_bvh.walk_twin(pack, *(torch.as_tensor(a) for a in (o, d, tnear, tfar)),
+                               torch.as_tensor(latch))
+    work = dict(gather_bvh.walk_twin.work)
+    rows = pack.rows.numpy()
+    node = leaf = top = prune_node = prune_leaf = 0
+    for i in range(96):
+        t, prim, u, v, visited = _walk_scalar(rows, pack.root, pack.depth + 2, o[i], d[i],
+                                              tnear[i], tfar[i], bool(latch[i]))
+        for got, want in zip((x[i] for x in out), (t, prim, u, v)):
+            assert np.asarray(got.item(), got.numpy().dtype).tobytes() == \
+                np.asarray(want, got.numpy().dtype).tobytes(), (i, got, want)
+        node += sum(c < pack.n_nodes for c, _ in visited)
+        leaf += sum(c >= pack.n_nodes for c, _ in visited)
+        prune_node += sum(c < pack.n_nodes for c, again in visited if again)
+        prune_leaf += sum(c >= pack.n_nodes for c, again in visited if again)
+        top += sum(c < pack.top for c, again in visited if not again)
+    assert (work["node"], work["leaf"], work["prune_node"], work["prune_leaf"], work["top"]) \
+        == (node, leaf, prune_node, prune_leaf, top)
+    assert 0 < top < node and leaf > 0 and prune_node + prune_leaf > 0
 
 
 def test_walk_picks_by_device():

@@ -15,9 +15,12 @@ K_ROW = 81 floats, stored transposed (K_ROW, M) as the JAX pack stores them:
 
 `GatherBvhPack.from_arrays` takes those rows and the pack's statics (root,
 n_rows, depth, n_tris) and keeps them row-major, (M, 84): one row is 21
-16-byte pieces, which the kernel reads with vector loads. It refuses a pack
-whose bitstack (depth + 2 levels, `_phase`'s L) would not fit the kernel's
-MAX_LEVELS.
+16-byte pieces, which the kernel reads with vector loads. Both builds number
+the node rows first (breadth first from the root) and the leaf rows after
+them, so `from_arrays` records `n_nodes`, the count of node rows, and the
+kernel knows a leaf by its id (>= n_nodes) without reading its flag; it
+refuses a pack whose rows are not nodes first, and one whose bitstack
+(depth + 2 levels, `_phase`'s L) would not fit the kernel's MAX_LEVELS.
 
 Kernel half: `walk_twin` is `_phase` (:216-466) in plain PyTorch, run to a
 full drain: every lane on its own cursor, one row a round. A node round
@@ -31,9 +34,16 @@ parent and re-tests its mask. A leaf round runs 8 Moller-Trumbore tests
 (|det| > 1e-12, tnear < t < best t, the lowest slot on equal t). A latched
 lane ends on its first hit; active = tfar > tnear; at most 16,384 rounds.
 `walk_cuda` launches csrc/gather_walk.cu, which computes the same thing per
-thread and agrees with the twin bit for bit; `walk` picks by the rays'
-device (CUDA: the kernel or an error, CPU: the twin). Each keeps a
-`.launches` count, the twin also `.work`: its node and leaf rounds.
+thread and agrees with the twin bit for bit: one row load a round, the top
+TOP_ROWS node rows (the root and its children) served from shared memory,
+a persistent grid whose threads take a new lane from a counter when theirs
+ends. `walk_cuda_v1` launches its first form (csrc/gather_walk_v1.cu: the
+row's flag read before the row, 124 registers), kept for measurement: no
+query launches it, and it equals the new form bit for bit. `walk` picks by
+the rays' device (CUDA: the kernel or an error, CPU: the twin). Each keeps
+a `.launches` count, the twin also `.work`: its node and leaf rounds, those
+of them that re-run a row after a pruned pop ("prune_node", "prune_leaf"),
+and the other rounds on the kernel's staged rows ("top").
 
 Not carried: `_traverse`'s straggler compaction (`_compact_indices`, its
 phases and the TUNGSTEN_PHASE_DIV / MIN_PHASE / TRAV_UNROLL knobs), a TPU
@@ -61,6 +71,7 @@ K_ROW = 81  # unified row width
 COL_FLAG = 80
 ROW = 84  # the kernel's row: K_ROW padded to 16-byte pieces
 MAX_LEVELS = 32  # the kernel's bitstack (csrc/gather_walk.cu kMaxLevels)
+TOP_ROWS = 9  # node rows the kernel serves from shared memory (kTopRows): the root, 8 children
 MAX_ROUNDS = 16384  # _traverse's max_rounds (csrc/gather_walk.cu kMaxRounds)
 DEAD = -1
 
@@ -194,17 +205,26 @@ class GatherBvhPack:
     n_rows: int
     depth: int  # 8-ary depth: the bitstack takes depth + 2 levels
     n_tris: int
+    n_nodes: int  # rows [0, n_nodes) are nodes, the rest leaves
+
+    @property
+    def top(self) -> int:
+        """The node rows the kernel serves from shared memory, [0, top): the
+        twin's work count and chip_smoke's reports read it; the kernel's
+        launcher computes the same from n_nodes."""
+        return min(TOP_ROWS, self.n_nodes)
 
     @staticmethod
     def from_arrays(arrays: dict, device) -> "GatherBvhPack":
         """From the JAX pack's transposed rows (K_ROW, M) and its statics
         (root, n_rows, depth, n_tris), under those names. Raises on a pack
-        the kernel cannot walk: its bitstack deeper than MAX_LEVELS, or child
-        ids and prim ids out of range."""
+        the kernel cannot walk: its bitstack deeper than MAX_LEVELS, its rows
+        not nodes first, or child ids and prim ids that are not whole numbers
+        in range."""
         rows_t = np.asarray(arrays["rows"], np.float32)
         root, m = int(np.asarray(arrays["root"])), int(np.asarray(arrays["n_rows"]))
         depth, n_tris = int(np.asarray(arrays["depth"])), int(np.asarray(arrays["n_tris"]))
-        if rows_t.shape != (K_ROW, m) or not 0 <= root < m:
+        if rows_t.shape != (K_ROW, m) or not 0 <= root < m or m >= 1 << 24:
             raise ValueError(f"gather pack rows {rows_t.shape}, n_rows {m}, root {root}")
         if depth + 2 > MAX_LEVELS:
             raise ValueError(f"gather pack of depth {depth} needs a bitstack of {depth + 2} "
@@ -212,11 +232,20 @@ class GatherBvhPack:
         rows = np.zeros((m, ROW), np.float32)
         rows[:, :K_ROW] = rows_t.T
         leaf = rows[:, COL_FLAG] > 0.5
+        n_nodes = int((rows[:, COL_FLAG] == 0.0).sum())
+        if leaf[:n_nodes].any() or not leaf[n_nodes:].all():
+            raise ValueError(f"gather pack: rows [0, {n_nodes}) must be its {n_nodes} nodes "
+                             f"and the rest leaves")
         kids, prims = rows[~leaf, 48:56], rows[leaf, 72:80]
-        if (kids >= m).any() or (prims >= n_tris).any():
-            raise ValueError("gather pack: child rows or prim ids out of range")
+        if not (_whole_in(kids, m) and _whole_in(prims, n_tris)):
+            raise ValueError("gather pack: child rows or prim ids not whole numbers in range")
         return GatherBvhPack(rows=torch.as_tensor(rows, device=device), root=root, n_rows=m,
-                             depth=depth, n_tris=n_tris)
+                             depth=depth, n_tris=n_tris, n_nodes=n_nodes)
+
+
+def _whole_in(ids, hi):
+    """Every id a whole number in [-1, hi)."""
+    return bool(((ids == np.round(ids)) & (ids >= -1) & (ids < hi)).all())
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +336,12 @@ def walk_twin(pack: GatherBvhPack, o, d, tnear, tfar, latch=None):
     """Plain PyTorch `_phase` to a full drain. latch: None (closest hit), True
     (every lane latched) or a per-lane bool tensor. Returns (t, prim (i64,
     -1 = miss), u, v): t = tfar and u = v = 0 where no hit was found.
-    `.work` records the call's node and leaf rounds (lane-rounds) and the
-    slab and triangle tests they run, 8 a round ("box", "tri")."""
+    `.work` records the call's node and leaf rounds (lane-rounds), the
+    slab and triangle tests they run, 8 a round ("box", "tri"), the node
+    and leaf rounds among them that re-run a row after a pruned pop
+    ("prune_node", "prune_leaf": they change nothing, and the kernel counts
+    them without running them), and the other rounds on the rows the kernel
+    stages in shared memory, id < pack.top ("top")."""
     walk_twin.launches += 1
     n, dev = o.shape[0], o.device
     L = pack.depth + 2
@@ -326,16 +359,21 @@ def walk_twin(pack: GatherBvhPack, o, d, tnear, tfar, latch=None):
     pmask = torch.zeros((n, L), dtype=torch.int64, device=dev)
     nc = torch.full((n, L), -1, dtype=torch.int64, device=dev)
     nt = torch.zeros((n, L), dtype=torch.float32, device=dev)
-    node_rounds = leaf_rounds = 0
+    rerun = torch.zeros((n,), dtype=torch.bool, device=dev)  # the row re-runs after a prune
+    node_rounds = leaf_rounds = top_rounds = prune_node = prune_leaf = 0
     for _ in range(MAX_ROUNDS):
         live = torch.nonzero(cur >= 0).squeeze(1)
         if live.numel() == 0:
             break
+        top_rounds += int(((cur[live] < pack.top) & ~rerun[live]).sum())
         r = rows[cur[live]]
         is_leaf = r[:, COL_FLAG] > 0.5
         ni, li = live[~is_leaf], live[is_leaf]
         node_rounds += ni.numel()
         leaf_rounds += li.numel()
+        prune_node += int(rerun[ni].sum())
+        prune_leaf += int(rerun[li].sum())
+        rerun[live] = False
         pops = []
         if ni.numel():
             descend, child, rem2, child2, t2, push = _node_step(
@@ -374,17 +412,20 @@ def walk_twin(pack: GatherBvhPack, o, d, tnear, tfar, latch=None):
         cur[p] = torch.where(direct, top_nc, torch.where(parent, top_c,
                                                          torch.where(can, cur[p], DEAD)))
         pend[p] = torch.where(direct, 0xFF, torch.where(parent, top_m, pend[p]))
+        rerun[p] = prune
         consume = direct | prune
         ci = p[consume]
         nc[ci, top[consume]] = -1
         lvl[p] = torch.where((consume & (top_m == 0)) | parent, lv - 1, lv)
     walk_twin.work = {"node": node_rounds, "leaf": leaf_rounds, "box": 8 * node_rounds,
-                      "tri": 8 * leaf_rounds}
+                      "tri": 8 * leaf_rounds, "prune_node": prune_node,
+                      "prune_leaf": prune_leaf, "top": top_rounds}
     return best, prim, bu, bv
 
 
 walk_twin.launches = 0
-walk_twin.work = {"node": 0, "leaf": 0, "box": 0, "tri": 0}
+walk_twin.work = {"node": 0, "leaf": 0, "box": 0, "tri": 0, "prune_node": 0, "prune_leaf": 0,
+                  "top": 0}
 
 
 def check_rays(o, d, tnear, tfar):
@@ -395,44 +436,84 @@ def check_rays(o, d, tnear, tfar):
     _build.check_cuda("tfar", tfar, torch.float32, (n,), like=o)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # gather_walk(o, d, tnear, tfar, latch, mode, rows, n_rows, n_nodes, root,
+    # n, next (the kernel's lane counter, one int), out_t, out_prim (int64),
+    # out_u, out_v, stream) of csrc/gather_walk.cu
+    "gather_walk": [_P] * 5 + [_I] + [_P] + [_I] * 4 + [_P] * 6,
+    # gather_walk_v1(o, d, tnear, tfar, latch, mode, rows, n_rows, root, n,
+    # out_t, out_prim (int32), out_u, out_v, stream) of csrc/gather_walk_v1.cu
+    "gather_walk_v1": [_P] * 5 + [_I] + [_P] + [_I] * 3 + [_P] * 5,
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """gather_walk(o, d, tnear, tfar, latch, mode, rows, n_rows, root, n,
-    out_t, out_prim, out_u, out_v, stream) of csrc/gather_walk.cu."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.load_library("gather_walk").gather_walk
-    fn.restype = i
-    fn.argtypes = [p] * 5 + [i] + [p] + [i] * 3 + [p] * 5
+def _kernel_fn(name):
+    """The launcher `name` of csrc/<name>.cu, with its argument types."""
+    fn = getattr(_build.load_library(name), name)
+    fn.restype = _I
+    fn.argtypes = _ARGTYPES[name]
     return fn
+
+
+def _launch_args(pack: GatherBvhPack, o, d, tnear, tfar, latch):
+    """Check the rays and the pack -> (the per-lane latch bytes or None, mode:
+    0 closest hit, 1 every lane latched, 2 per lane)."""
+    n = o.shape[0]
+    check_rays(o, d, tnear, tfar)
+    _build.check_cuda("pack.rows", pack.rows, torch.float32, (pack.n_rows, ROW), like=o)
+    if pack.depth + 2 > MAX_LEVELS:
+        raise ValueError(f"gather pack of depth {pack.depth}: the kernel keeps {MAX_LEVELS} levels")
+    if not 0 < pack.n_nodes < pack.n_rows:
+        raise ValueError(f"gather pack of {pack.n_rows} rows with {pack.n_nodes} nodes")
+    if not isinstance(latch, torch.Tensor):
+        return None, int(latch is True)
+    lane_latch = latch.to(torch.bool).contiguous()  # one byte a lane, 0 or 1
+    _build.check_cuda("latch", lane_latch, torch.bool, (n,), like=o)
+    return lane_latch, 2
 
 
 def walk_cuda(pack: GatherBvhPack, o, d, tnear, tfar, latch=None):
     """Launch the CUDA K1 walk (csrc/gather_walk.cu) on the current stream.
     Returns (t, prim (i64, -1 = miss), u, v), as walk_twin."""
     n = o.shape[0]
-    check_rays(o, d, tnear, tfar)
-    _build.check_cuda("pack.rows", pack.rows, torch.float32, (pack.n_rows, ROW), like=o)
-    if pack.depth + 2 > MAX_LEVELS:
-        raise ValueError(f"gather pack of depth {pack.depth}: the kernel keeps {MAX_LEVELS} levels")
-    if isinstance(latch, torch.Tensor):
-        lane_latch = latch.to(torch.uint8).contiguous()
-        _build.check_cuda("latch", lane_latch, torch.uint8, (n,), like=o)
-        mode = 2
-    else:
-        lane_latch, mode = None, int(latch is True)
+    lane_latch, mode = _launch_args(pack, o, d, tnear, tfar, latch)
     out = torch.empty((3, n), dtype=torch.float32, device=o.device)  # t, u, v
-    out_prim = torch.empty((n,), dtype=torch.int32, device=o.device)
+    prim = torch.empty((n,), dtype=torch.int64, device=o.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=o.device)  # set to 0 by the launcher
     p = _build.ptr
-    err = _kernel_fn()(p(o), p(d), p(tnear), p(tfar), p(lane_latch), mode, p(pack.rows),
-                       pack.n_rows, pack.root, n, p(out[0]), p(out_prim),
-                       p(out[1]), p(out[2]), _build.stream_of(o))
+    err = _kernel_fn("gather_walk")(
+        p(o), p(d), p(tnear), p(tfar), p(lane_latch), mode, p(pack.rows), pack.n_rows,
+        pack.n_nodes, pack.root, n, p(counter), p(out[0]), p(prim), p(out[1]), p(out[2]),
+        _build.stream_of(o))
     if err != 0:
         raise RuntimeError(f"gather_walk launch failed: CUDA error {err}")
-    walk_cuda.launches += 1
-    return out[0], out_prim.long(), out[1], out[2]
+    walk_cuda.launches += 1 if n else 0
+    return out[0], prim, out[1], out[2]
 
 
 walk_cuda.launches = 0
+
+
+def walk_cuda_v1(pack: GatherBvhPack, o, d, tnear, tfar, latch=None):
+    """Launch the first CUDA form of K1 (csrc/gather_walk_v1.cu), kept for
+    measurement. Returns what walk_cuda returns, bit for bit."""
+    n = o.shape[0]
+    lane_latch, mode = _launch_args(pack, o, d, tnear, tfar, latch)
+    out = torch.empty((3, n), dtype=torch.float32, device=o.device)  # t, u, v
+    out_prim = torch.empty((n,), dtype=torch.int32, device=o.device)
+    p = _build.ptr
+    err = _kernel_fn("gather_walk_v1")(
+        p(o), p(d), p(tnear), p(tfar), p(lane_latch), mode, p(pack.rows), pack.n_rows,
+        pack.root, n, p(out[0]), p(out_prim), p(out[1]), p(out[2]), _build.stream_of(o))
+    if err != 0:
+        raise RuntimeError(f"gather_walk_v1 launch failed: CUDA error {err}")
+    walk_cuda_v1.launches += 1 if n else 0
+    return out[0], out_prim.long(), out[1], out[2]
+
+
+walk_cuda_v1.launches = 0
 
 
 def walk(pack: GatherBvhPack, o, d, tnear, tfar, latch=None):
