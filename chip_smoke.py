@@ -869,7 +869,7 @@ def check_forward_launches(label, n_fast, n_exact, calls, passes, max_bounces,
     closest-hit steps (with media two: the volume NEE's and the surface
     NEE's, walks_per_bounce); every closest-hit walk is a fast launch with
     its repair launch, and no shadow walk runs. `calls` holds the bounces
-    (shading) and crossing walks counted by `tracer_calls`."""
+    (shading) and crossing walks counted by `iteration_counts`."""
     from tungsten_tpu_torch.integrators.path_tracer import MAX_CROSSINGS
 
     bounces, walks = calls["shading"], calls["crossing"]
@@ -882,73 +882,39 @@ def check_forward_launches(label, n_fast, n_exact, calls, passes, max_bounces,
     return bounces
 
 
-@contextlib.contextmanager
-def tracer_calls():
-    """Counts, while open, of the path tracer's once-an-iteration calls:
-    "shading" (`_shading_data`: one a regen iteration or a lockstep bounce)
-    and "crossing" (`_trace_transparent`: one 2N crossing walk a forward
+def iteration_counts(rec):
+    """The path tracer's iterations in a recording (tungsten_tpu_torch/
+    utils/trace.py): "shading" (pt.iter: a regen iteration or a lockstep
+    bounce) and "crossing" (pt.crossing: one 2N crossing walk a forward
     bounce that runs NEE)."""
-    from tungsten_tpu_torch.integrators import path_tracer as pt
-
-    out = {"shading": 0, "crossing": 0}
-    saved = pt._shading_data, pt._trace_transparent
-
-    def shading(*a):
-        out["shading"] += 1
-        return saved[0](*a)
-
-    def crossing(*a):
-        out["crossing"] += 1
-        return saved[1](*a)
-
-    pt._shading_data, pt._trace_transparent = shading, crossing
-    try:
-        yield out
-    finally:
-        pt._shading_data, pt._trace_transparent = saved
+    return {"shading": len(rec.intervals("pt.iter")),
+            "crossing": len(rec.intervals("pt.crossing"))}
 
 
 def profile_window(label, fn, card, tag="9 profile", iterations=None):
-    """fn() timed bare, then again under torch.profiler with CUDA activity
-    only (host-side op records would slow the host-bound loop the window
-    measures): the CUDA kernels launched per iteration (per `_shading_data`
-    call), the device-busy share (the union of the device's activity
-    intervals over the window's wall, under the profiler and over the bare
-    wall), and the five kernel names of most device time. The device events
-    are read from the profiler's raw results: building its Python event tree
-    for ~10^6 kernels took minutes. `iterations`: what fn runs (a BDPT
-    pass: 1), where `_shading_data`'s calls do not count it. Returns a dict
-    of them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """fn() timed bare, then again under the benchmark's profile
+    (port_bench/harness/trace.py `profiled`: CUDA activity only, the raw
+    kineto events) and a recording of the program's spans: the CUDA kernels
+    launched per iteration (per pt.iter span), the device-busy share (the
+    union of the device's activity intervals over the window's wall, under
+    the profiler and over the bare wall), and the five kernel names of most
+    device time. `iterations`: what fn runs (a BDPT pass: 1), where the
+    pt.iter spans do not count it. Returns a dict of them."""
+    sys.path.insert(0, os.path.join(REPO, "port_bench"))
+    from harness import trace as bench_trace
+    from tungsten_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     bare = time.perf_counter() - t0
-    with tracer_calls() as calls:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+    with trace.recording(counters=()) as rec, bench_trace.profiled() as prof:
+        fn()
+    calls = iteration_counts(rec)
+    wall = (prof["host_end_ns"] - prof["host_start_ns"]) / 1e9
     t0 = time.perf_counter()
-    spans, by_name, kernels = [], {}, 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        name = e.name()
-        spans.append((e.start_ns(), e.end_ns()))
-        n, ns = by_name.get(name, (0, 0))
-        by_name[name] = (n + 1, ns + e.duration_ns())
-        low = name.lower()
-        kernels += "memcpy" not in low and "memset" not in low
-    busy, end = 0, -1
-    for a, b in sorted(spans):  # the union of the intervals, ns
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy, by_name, kernels, _ = bench_trace.device_summary(prof["events"])
     iters = iterations or max(calls["shading"], 1)
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
     out = {"iterations": iterations or calls["shading"], "wall_s": wall, "bare_wall_s": bare,
@@ -958,7 +924,7 @@ def profile_window(label, fn, card, tag="9 profile", iterations=None):
            "top5": [[k[:120], n, round(ns / 1e6, 4)] for k, (n, ns) in top],
            "read_s": time.perf_counter() - t0}
     log(f"[{tag}] {label} on {card}: {json.dumps(out)}")
-    check(bool(spans), f"{label}: the profiler saw the device's activity")
+    check(bool(prof["events"]), f"{label}: the profiler saw the device's activity")
     return out
 
 
@@ -1425,6 +1391,7 @@ def surfaces_phase(work, dev, card):
     from tungsten_tpu_torch.integrators.path_tracer import count_bsdf_hits
     from tungsten_tpu_torch.models.bsdfs.dispatch import type_name
     from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
+    from tungsten_tpu_torch.utils import trace
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
 
@@ -1485,9 +1452,10 @@ def surfaces_phase(work, dev, card):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
-        with tracer_calls() as calls, count_bsdf_hits(dev) as h:
+        with trace.recording(counters=()) as rec, count_bsdf_hits(dev) as h:
             img = render_flat(sc, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
         dt = time.time() - t0
+        calls = iteration_counts(rec)
         label = f"{size} {wavefront}"
         check_hits(f"the {label} render ({spp} spp)", size, h)
         c = launches[label] = counts()
@@ -1641,6 +1609,7 @@ def media_phase(work, dev, card):
     from tungsten_tpu_torch.renderer.render import DEFAULT_SEED, render_flat
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.load import load_scene
+    from tungsten_tpu_torch.utils import trace
 
     def walks_only(label, c, cloud):
         k6 = c["grid_walk.walk_cuda"]
@@ -1749,9 +1718,10 @@ def media_phase(work, dev, card):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
-        with tracer_calls() as calls:
+        with trace.recording(counters=()) as rec:
             img = render_flat(sc, spp=spp, seed=DEFAULT_SEED, wavefront=wavefront)
         dt = time.time() - t0
+        calls = iteration_counts(rec)
         c = launches[label] = counts()
         walks_only(label, c, variant == "cloud")
         if m.has_forward:

@@ -31,6 +31,12 @@ ProgressivePhotonMapIntegrator.cpp drives the iterations, renderer/render.py
 The loops stop once no lane lives (the JAX fori_loops run their last
 bounces on dead lanes, which deposit nothing). The TUNGSTEN_PHOTON_CELL_CAP
 knob is not carried: MAX_PER_CELL is 32.
+
+Spans (utils/trace.py): `sppm.photons` (trace_photons), `sppm.grid`
+(build_photon_grid, run by `sppm.grid.sort`, `.ranges` and `.compensate`),
+`sppm.gather` (gather_pass: `sppm.gather.camera`, the camera chain;
+`sppm.gather.k7` and `sppm.gather.bsdf`, the surface gather's walk and its
+pairs' physics); `sync.sppm.photons` / `sync.sppm.camera` the loops' reads.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from ..ops.photon_walk import (GRID_SIZE, MAX_PER_CELL, MAX_VOL_STEPS, _f32,  # 
 from ..sampling import warps
 from ..sampling.sampler import MASK32, Sampler, _mul32
 from ..scene.flatten import DEFAULT_EPSILON, FlatScene
+from ..utils import trace
 from .path_tracer import (DIMS_PER_BOUNCE, INF, SHADOW_FUDGE, _deposit, _intersect,
                           _local_frame, _occluded_raw, _shading_data)
 
@@ -90,6 +97,7 @@ def _lum(x):
 # the photon pass
 
 
+@trace.spanned("sppm.photons")
 def trace_photons(scene: FlatScene, seed, lane_ids, k_max=6, want_planes=False):
     """One photon path a lane (photon_map.py:50-350); seed: the (s0, s1)
     pair. Returns (surf, vol, beams, planes) as the JAX package does, each
@@ -140,7 +148,7 @@ def trace_photons(scene: FlatScene, seed, lane_ids, k_max=6, want_planes=False):
     near = torch.full((n,), DEFAULT_EPSILON, device=dev)
     base_dim = sampler.dim
     for k in range(k_max):
-        if not bool(alive.any()):
+        if not trace.to_host("sync.sppm.photons", alive.any()):
             break
         smp = Sampler(seed, sampler.lane_id, base_dim + k * DIMS_PER_BOUNCE)
         hit = _intersect(scene, o, d, near, torch.where(alive, INF, 0.0))
@@ -301,34 +309,40 @@ def _ranges(key_s):
     return starts.to(torch.int32), (ends - starts).to(torch.int32)
 
 
+@trace.spanned("sppm.grid")
 def build_photon_grid(pos, power, wi, valid, cell_size, bounce=None):
     """Sort the photons by hash cell (photon_map.py:353-395): returns (pack
     (M, 10) [pos power wi bounce], starts, counts, overflow). Invalid
     photons take key GRID_SIZE and sort last. The first MAX_PER_CELL rows of
     an overflowing cell (its first photons in emission order: the sort is
-    stable) carry the cell's whole power."""
+    stable) carry the cell's whole power. Spans: sppm.grid.sort, .ranges
+    and .compensate."""
     dev = pos.device
-    cs = _f32(cell_size, dev)
-    cell = torch.where(valid[:, None], cell_of(pos, cs), 1 << 28)
-    key = torch.where(valid, hash_cell(cell[:, 0], cell[:, 1], cell[:, 2]), GRID_SIZE)
-    order = torch.argsort(key, stable=True)
-    key_s = key[order]
-    if bounce is None:
-        bounce = torch.zeros((pos.shape[0],), dtype=torch.int32, device=dev)
-    pack = torch.cat([pos, power, wi, bounce.to(torch.float32)[:, None]], dim=1)[order]
-    starts, counts = _ranges(key_s)
-    overflow = torch.sum(torch.clamp(counts - MAX_PER_CELL, min=0))
-    ks = torch.clamp(key_s, max=GRID_SIZE - 1)
-    cnt_of = counts[ks].to(torch.int64)
-    st_of = starts[ks].to(torch.int64)
-    en_of = st_of + cnt_of
-    rank = torch.arange(pack.shape[0], device=dev) - st_of
-    csum = torch.cat([torch.zeros((1, 3), device=dev), torch.cumsum(pack[:, 3:6], dim=0)], 0)
-    tot_c = csum[en_of] - csum[st_of]
-    kept_c = csum[torch.minimum(st_of + MAX_PER_CELL, en_of)] - csum[st_of]
-    comp = (rank < MAX_PER_CELL) & (cnt_of > MAX_PER_CELL) & (key_s < GRID_SIZE)
-    scale = torch.where(comp[:, None], tot_c / torch.clamp(kept_c, min=1e-30), 1.0)
-    pack[:, 3:6] = pack[:, 3:6] * scale
+    with trace.span("sppm.grid.sort"):
+        cs = _f32(cell_size, dev)
+        cell = torch.where(valid[:, None], cell_of(pos, cs), 1 << 28)
+        key = torch.where(valid, hash_cell(cell[:, 0], cell[:, 1], cell[:, 2]), GRID_SIZE)
+        order = torch.argsort(key, stable=True)
+        key_s = key[order]
+        if bounce is None:
+            bounce = torch.zeros((pos.shape[0],), dtype=torch.int32, device=dev)
+        pack = torch.cat([pos, power, wi, bounce.to(torch.float32)[:, None]], dim=1)[order]
+    with trace.span("sppm.grid.ranges"):
+        starts, counts = _ranges(key_s)
+        overflow = torch.sum(torch.clamp(counts - MAX_PER_CELL, min=0))
+    with trace.span("sppm.grid.compensate"):
+        ks = torch.clamp(key_s, max=GRID_SIZE - 1)
+        cnt_of = counts[ks].to(torch.int64)
+        st_of = starts[ks].to(torch.int64)
+        en_of = st_of + cnt_of
+        rank = torch.arange(pack.shape[0], device=dev) - st_of
+        csum = torch.cat([torch.zeros((1, 3), device=dev), torch.cumsum(pack[:, 3:6], dim=0)],
+                         0)
+        tot_c = csum[en_of] - csum[st_of]
+        kept_c = csum[torch.minimum(st_of + MAX_PER_CELL, en_of)] - csum[st_of]
+        comp = (rank < MAX_PER_CELL) & (cnt_of > MAX_PER_CELL) & (key_s < GRID_SIZE)
+        scale = torch.where(comp[:, None], tot_c / torch.clamp(kept_c, min=1e-30), 1.0)
+        pack[:, 3:6] = pack[:, 3:6] * scale
     return pack, starts, counts, overflow
 
 
@@ -691,31 +705,35 @@ def _surface_gather(scene, gp, gn, gt, gb, gwi, gmat, guv, gbounce, gathered, pa
     r2_max = r_t * r_t
     gb32 = gbounce.to(torch.int32)
     args = (pack, starts, counts, gp.contiguous(), None)
-    if knn_count is not None:
-        B = photon_walk.N_BINS
-        hist = photon_walk.walk("hist", *args, r2_max.expand(n).contiguous(), gb32, gathered, rad,
-                                0.0, meta.min_bounces, meta.max_bounces)
-        cum = torch.cumsum(hist, dim=-1)
-        reach = cum >= knn_count
-        bin_k = torch.argmax(reach.to(torch.int32), dim=-1)
-        r2_use = torch.where(torch.any(reach, dim=-1),
-                             (bin_k + 1).to(torch.float32) / B * r2_max, r2_max)
-    else:
-        r2_use = r2_max.expand(n)
-    lane, row = photon_walk.walk("surface", *args, r2_use.contiguous(), gb32, gathered, rad, 0.0,
-                                 meta.min_bounces, meta.max_bounces)
-    wi_l = vo.to_local(gt, gb, gn, gwi)
-    contrib = torch.zeros((n, 3), device=dev)
-    for sl in _pair_chunks(lane.shape[0]):
-        pl, ph = lane[sl], pack[row[sl]]
-        wo_ph = vo.to_local(gt[pl], gb[pl], gn[pl], ph[:, 6:9])
-        pre = gather(mats, texs, gmat[pl], guv[pl])
-        f = bsdf_eval(mats, pre, guv[pl], wi_l[pl], wo_ph, nonspecular_only=True, textures=texs)
-        f = f / torch.clamp(torch.abs(wo_ph[:, 2]), min=1e-6)[:, None]
-        _deposit(contrib, pl, f * ph[:, 3:6])
+    with trace.span("sppm.gather.k7"):
+        if knn_count is not None:
+            B = photon_walk.N_BINS
+            hist = photon_walk.walk("hist", *args, r2_max.expand(n).contiguous(), gb32, gathered,
+                                    rad, 0.0, meta.min_bounces, meta.max_bounces)
+            cum = torch.cumsum(hist, dim=-1)
+            reach = cum >= knn_count
+            bin_k = torch.argmax(reach.to(torch.int32), dim=-1)
+            r2_use = torch.where(torch.any(reach, dim=-1),
+                                 (bin_k + 1).to(torch.float32) / B * r2_max, r2_max)
+        else:
+            r2_use = r2_max.expand(n)
+        lane, row = photon_walk.walk("surface", *args, r2_use.contiguous(), gb32, gathered, rad,
+                                     0.0, meta.min_bounces, meta.max_bounces)
+    with trace.span("sppm.gather.bsdf"):
+        wi_l = vo.to_local(gt, gb, gn, gwi)
+        contrib = torch.zeros((n, 3), device=dev)
+        for sl in _pair_chunks(lane.shape[0]):
+            pl, ph = lane[sl], pack[row[sl]]
+            wo_ph = vo.to_local(gt[pl], gb[pl], gn[pl], ph[:, 6:9])
+            pre = gather(mats, texs, gmat[pl], guv[pl])
+            f = bsdf_eval(mats, pre, guv[pl], wi_l[pl], wo_ph, nonspecular_only=True,
+                          textures=texs)
+            f = f / torch.clamp(torch.abs(wo_ph[:, 2]), min=1e-6)[:, None]
+            _deposit(contrib, pl, f * ph[:, 3:6])
     return contrib, r2_use
 
 
+@trace.spanned("sppm.gather")
 def gather_pass(scene: FlatScene, seed, lane_ids, px, py, pack, starts, counts, radius,
                 n_emitted, vpack=None, vstarts=None, vcounts=None, v_radius=None,
                 scene_far=None, bpack=None, bstarts=None, bcounts=None, b_radius=None,
@@ -757,84 +775,85 @@ def gather_pass(scene: FlatScene, seed, lane_ids, px, py, pack, starts, counts, 
     medium = torch.full((n,), meta.camera_medium, dtype=torch.int64, device=dev)
     ones = torch.ones((n,), dtype=torch.bool, device=dev)
     base_dim = sampler.dim
-    for k in range(min(meta.max_bounces, 8)):
-        if not bool(alive.any()):
-            break
-        smp = Sampler(seed, sampler.lane_id, base_dim + k * DIMS_PER_BOUNCE)
-        thr_in = throughput
-        o, d = o.contiguous(), d.contiguous()
-        hit = _intersect(scene, o, d, near, torch.where(alive, INF, 0.0))
-        did_hit = (hit.prim >= 0) & alive
+    with trace.span("sppm.gather.camera"):
+        for k in range(min(meta.max_bounces, 8)):
+            if not trace.to_host("sync.sppm.camera", alive.any()):
+                break
+            smp = Sampler(seed, sampler.lane_id, base_dim + k * DIMS_PER_BOUNCE)
+            thr_in = throughput
+            o, d = o.contiguous(), d.contiguous()
+            hit = _intersect(scene, o, d, near, torch.where(alive, INF, 0.0))
+            did_hit = (hit.prim >= 0) & alive
 
-        if do_volume or do_beams or do_planes:
-            seg = torch.where(did_hit, hit.t, far_t)
-            in_med = alive & (medium >= 0)
-            if do_volume:
-                est = _volume_beam_gather(scene, o, d, seg, medium, in_med, vpack, vstarts,
-                                          vcounts, v_radius, k + 1)
-                emission = emission + throughput * est / n_em
-            if do_beams:
-                est_b = _beam1d_gather(scene, o, d, seg, medium, in_med, bpack, bstarts,
-                                       bcounts, b_radius, k + 1)
-                emission = emission + throughput * est_b / n_em
-            if do_planes:
-                su = (seed[1] ^ ((k * 0x9E37) & MASK32)) & MASK32
-                if p1d_radius is not None:
-                    est_p = _plane1d_gather(scene, o, d, seg, medium, in_med, prows, pmask,
-                                            p1d_radius, k + 1, seed_u=su)
-                else:
-                    est_p = _plane0d_gather(scene, o, d, seg, medium, in_med, prows, pmask,
-                                            k + 1, seed_u=su)
-                emission = emission + throughput * est_p / n_em
-            tr = medium_transmittance(scene.media, torch.where(in_med, medium, -1), seg, ones,
-                                      ones, o, d)
-            throughput = throughput * torch.where(in_med[..., None], tr, 1.0)
+            if do_volume or do_beams or do_planes:
+                seg = torch.where(did_hit, hit.t, far_t)
+                in_med = alive & (medium >= 0)
+                if do_volume:
+                    est = _volume_beam_gather(scene, o, d, seg, medium, in_med, vpack, vstarts,
+                                              vcounts, v_radius, k + 1)
+                    emission = emission + throughput * est / n_em
+                if do_beams:
+                    est_b = _beam1d_gather(scene, o, d, seg, medium, in_med, bpack, bstarts,
+                                           bcounts, b_radius, k + 1)
+                    emission = emission + throughput * est_b / n_em
+                if do_planes:
+                    su = (seed[1] ^ ((k * 0x9E37) & MASK32)) & MASK32
+                    if p1d_radius is not None:
+                        est_p = _plane1d_gather(scene, o, d, seg, medium, in_med, prows, pmask,
+                                                p1d_radius, k + 1, seed_u=su)
+                    else:
+                        est_p = _plane0d_gather(scene, o, d, seg, medium, in_med, prows, pmask,
+                                                k + 1, seed_u=su)
+                    emission = emission + throughput * est_p / n_em
+                tr = medium_transmittance(scene.media, torch.where(in_med, medium, -1), seg, ones,
+                                          ones, o, d)
+                throughput = throughput * torch.where(in_med[..., None], tr, 1.0)
 
-        if meta.has_env or meta.esc_caps:
-            miss = alive & ~did_hit
-            emission = emission + torch.where(miss[..., None],
-                                              throughput * L.infinite_radiance(scene, d), 0.0)
+            if meta.has_env or meta.esc_caps:
+                miss = alive & ~did_hit
+                emission = emission + torch.where(miss[..., None],
+                                                  throughput * L.infinite_radiance(scene, d), 0.0)
 
-        p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
-        mat_pre = gather(mats, texs, mat_id, uv)
-        lobes = mat_pre[3]
-        frame, wi_l = _local_frame(scene, hit.prim, ns, d, lobes)
-        if scene.lights.has_surface:
-            geo_front = vo.dot(d, ng) < 0.0
-            e_hit = eval_texture(texs, scene.lights.tex[torch.clamp(light_id, min=0)], uv,
-                                 may=scene.lights.emit_kinds)
-            emission = emission + torch.where((did_hit & (light_id >= 0) & geo_front)[..., None],
-                                              throughput * e_hit, 0.0)
+            p, ng, ns, uv, mat_id, light_id = _shading_data(scene, hit, o, d)
+            mat_pre = gather(mats, texs, mat_id, uv)
+            lobes = mat_pre[3]
+            frame, wi_l = _local_frame(scene, hit.prim, ns, d, lobes)
+            if scene.lights.has_surface:
+                geo_front = vo.dot(d, ng) < 0.0
+                e_hit = eval_texture(texs, scene.lights.tex[torch.clamp(light_id, min=0)], uv,
+                                     may=scene.lights.emit_kinds)
+                lit = did_hit & (light_id >= 0) & geo_front
+                emission = emission + torch.where(lit[..., None], throughput * e_hit, 0.0)
 
-        # the gather point: the first non-pure-specular hit, with the
-        # throughput that entered this bounce (photon_map.py:1141-1185)
-        is_spec = Lobes.is_pure_specular(lobes)
-        record = did_hit & ~is_spec & (lobes != 0)
-        gp = vo.where3(record, p, gp)
-        gn = vo.where3(record, frame[2], gn)
-        gt = vo.where3(record, frame[0], gt)
-        gb = vo.where3(record, frame[1], gb)
-        gwi = vo.where3(record, -d, gwi)
-        gmat = torch.where(record, mat_id, gmat)
-        guv = torch.where(record[..., None], uv, guv)
-        gbounce = torch.where(record, k + 1, gbounce)
-        gthr = vo.where3(record & ~gathered, thr_in, gthr)
-        gathered = gathered | record
+            # the gather point: the first non-pure-specular hit, with the
+            # throughput that entered this bounce (photon_map.py:1141-1185)
+            is_spec = Lobes.is_pure_specular(lobes)
+            record = did_hit & ~is_spec & (lobes != 0)
+            gp = vo.where3(record, p, gp)
+            gn = vo.where3(record, frame[2], gn)
+            gt = vo.where3(record, frame[0], gt)
+            gb = vo.where3(record, frame[1], gb)
+            gwi = vo.where3(record, -d, gwi)
+            gmat = torch.where(record, mat_id, gmat)
+            guv = torch.where(record[..., None], uv, guv)
+            gbounce = torch.where(record, k + 1, gbounce)
+            gthr = vo.where3(record & ~gathered, thr_in, gthr)
+            gathered = gathered | record
 
-        u2, smp = smp.next_2d()
-        u1, smp = smp.next_1d()
-        bs = bsdf_sample(mats, mat_pre, uv, wi_l, u2, u1, textures=texs)
-        wo_w = vo.to_global(*frame, bs.wo)
-        throughput = throughput * torch.where((did_hit & is_spec)[..., None], bs.weight, 1.0)
-        alive = did_hit & is_spec & bs.valid & ~record
-        if meta.has_media:
-            tri = torch.clamp(hit.prim, min=0)
-            backside_new = vo.dot(wo_w, ng) < 0.0
-            override = scene.tri_med_override[tri] & did_hit
-            new_med = torch.where(backside_new, scene.tri_med_int[tri], scene.tri_med_ext[tri])
-            medium = torch.where(override, new_med, medium)
-        o, d = p, wo_w
-        near = torch.full((n,), DEFAULT_EPSILON, device=dev)
+            u2, smp = smp.next_2d()
+            u1, smp = smp.next_1d()
+            bs = bsdf_sample(mats, mat_pre, uv, wi_l, u2, u1, textures=texs)
+            wo_w = vo.to_global(*frame, bs.wo)
+            throughput = throughput * torch.where((did_hit & is_spec)[..., None], bs.weight, 1.0)
+            alive = did_hit & is_spec & bs.valid & ~record
+            if meta.has_media:
+                tri = torch.clamp(hit.prim, min=0)
+                backside_new = vo.dot(wo_w, ng) < 0.0
+                override = scene.tri_med_override[tri] & did_hit
+                new_med = torch.where(backside_new, scene.tri_med_int[tri], scene.tri_med_ext[tri])
+                medium = torch.where(override, new_med, medium)
+            o, d = p, wo_w
+            near = torch.full((n,), DEFAULT_EPSILON, device=dev)
 
     contrib, r2_use = _surface_gather(scene, gp, gn, gt, gb, gwi, gmat, guv, gbounce, gathered,
                                       pack, starts, counts, radius, knn_count)

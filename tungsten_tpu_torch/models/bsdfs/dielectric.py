@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from .common import BsdfSample, Lobes
 from .fresnel import dielectric_reflectance
 
@@ -49,7 +50,9 @@ def sample(ctx, params, albedo, uv, wi, u2, u1, nonspecular_only=False):
     reflect_prob = torch.where(enable_t, f, 1.0)
     reflect = u1 < reflect_prob
 
-    wo_r = wi * torch.tensor([-1.0, -1.0, 1.0], device=wi.device)
+    with trace.span("sync.h2d.dielectric"):  # a host list copied up: the stream waits
+        flip = torch.tensor([-1.0, -1.0, 1.0], device=wi.device)
+    wo_r = wi * flip
     wo_t = torch.stack([-wi[..., 0] * eta, -wi[..., 1] * eta, -torch.sign(wiz) * cos_t],
                        dim=-1)
     wo = torch.where(reflect[..., None], wo_r, wo_t)

@@ -75,6 +75,7 @@ import functools
 import torch
 
 from . import _build
+from ..utils import trace
 
 MAX_PER_CELL = 32  # the rows a hash cell gives the gather (photon_map.py:36)
 GRID_SIZE = 1 << 20  # hash table size (photon_map.py:37)
@@ -136,7 +137,8 @@ def least_at_least(c, cell):
 
 
 def _f32(v, dev):
-    return torch.tensor(float(v), dtype=torch.float32, device=dev)
+    with trace.span("sync.h2d.f32"):  # a host number copied up: the stream waits
+        return torch.tensor(float(v), dtype=torch.float32, device=dev)
 
 
 def _dot3(a, b):
@@ -387,7 +389,7 @@ def walk_cuda(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, 
     if volume and n:
         _raise_on(rounds_fn(p(o), p(d), p(lim), p(lane_mask), n, float(cell), p(ctr), stream),
                   "rounds")
-        rounds = int(ctr[0])
+        rounds = trace.to_host("sync.k7.rounds", ctr[0])
     hist = (torch.zeros((n, N_BINS), dtype=torch.int32, device=dev) if mode == "hist"
             else None)
     lane_total = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -410,11 +412,13 @@ def walk_cuda(mode, pack, starts, counts, o, d, lim, bounce, mask, cell, r=0.0, 
     cap = int(pages_hint[mode] * 1.25 * n) + 1
     stg_row, stg, table = run(cap)
     ends = torch.cumsum(lane_total, 0, dtype=torch.int64)
-    total, pages = (torch.stack([ends[-1], ctr[1].to(torch.int64)]).tolist() if n
-                    else (0, 0))
+    total, pages = (trace.to_host("sync.k7.pairs",
+                                  torch.stack([ends[-1], ctr[1].to(torch.int64)])).tolist()
+                    if n else (0, 0))
     if pages > cap:  # the pages ran out: the walk again, with the exact number
         walk_cuda.relaunches += 1
-        ctr[1] = 0
+        with trace.span("sync.h2d.k7"):
+            ctr[1] = 0
         stg_row, stg, table = run(pages)
     if pages:
         pages_hint[mode] = pages / n

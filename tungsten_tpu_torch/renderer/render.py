@@ -31,6 +31,11 @@ splatting integrators agree up to the reassociated sums. The regenerating
 wavefront refills its lanes from a shared pixel queue and runs on one
 device only (wavefront="regen" under a mesh raises).
 
+Spans (utils/trace.py): `frame` a render_buffers or render_sppm call, in it
+`driver.lanes` (the lane -> pixel maps, uploaded under `sync.h2d.lanes`),
+`driver.readback` (a batch's sums read to the host, `sync.readback`) and
+`driver.accumulate` (OutputBuffers' numpy), and SPPM's `sppm.iter`.
+
 The resume state's extra carries `res` ([w, h]) beside `next_pass`, which
 the denoiser's full-NFOR mode reads (a departure from the JAX package,
 whose renderer leaves it out and whose denoiser cannot read its own
@@ -48,6 +53,7 @@ from ..models.cameras.tonemap import tonemap
 from ..parallel import mesh as pm
 from ..scene.flatten import FlatScene, flatten_scene
 from ..scene.load import load_scene
+from ..utils import trace
 from .framebuffer import OutputBuffers
 
 DEFAULT_SEED = 0xBA5EBA11
@@ -77,11 +83,16 @@ def _gather_out(mesh, out, n):
     return pm.all_gather_lanes(mesh, out, n)
 
 
-def _numpy(aux):
-    """The tracers' AOV sums on the host (None without AOVs)."""
-    return None if aux is None else {k: v.cpu().numpy() for k, v in aux.items()}
+def _readback(rad, aux=None):
+    """A batch's sums on the host, numpy (aux: the tracers' AOV sums, None
+    without AOVs): the span driver.readback, one sync.readback a tensor."""
+    with trace.span("driver.readback"):
+        return (trace.to_host("sync.readback", rad).numpy(),
+                None if aux is None else {k: trace.to_host("sync.readback", v).numpy()
+                                          for k, v in aux.items()})
 
 
+@trace.spanned("frame")
 def render_buffers(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SEED,
                    verbose: bool = False, mesh=None, samples_per_pass: int = 1,
                    passes_per_batch: int = 32, adaptive: bool = False,
@@ -119,12 +130,14 @@ def render_buffers(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT
 
     scene = pm.replicate(mesh, scene)
     dev = scene.shade_pack.device
-    lanes = _lane_arrays(meta, m)
-    pix_map = lanes[2]
-    px, py, pix = (torch.as_tensor(a, device=dev) for a in lanes)
-    lane = torch.arange(px.shape[0], device=dev)
-    n_lanes = lane.shape[0]
-    lane, px, py = pm.shard_lanes(mesh, lane, px, py)
+    with trace.span("driver.lanes"):
+        lanes = _lane_arrays(meta, m)
+        pix_map = lanes[2]
+        with trace.span("sync.h2d.lanes"):  # host arrays copied up: the stream waits
+            px, py, pix = (torch.as_tensor(a, device=dev) for a in lanes)
+        lane = torch.arange(px.shape[0], device=dev)
+        n_lanes = lane.shape[0]
+        lane, px, py = pm.shard_lanes(mesh, lane, px, py)
     seed_pair = (seed & 0xFFFFFFFF, 0)
     total_passes = (spp + m - 1) // m
     done = start_pass
@@ -142,21 +155,25 @@ def render_buffers(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT
             lane_a, px_a, py_a = pm.shard_lanes(mesh, torch.arange(len(pix_sel), device=dev),
                                                 px_a, py_a)
             out = trace_batch(scene, seed_pair, lane_a, px_a, py_a, done, n_passes=1)
-            rad = pm.all_gather_lanes(mesh, out[0] if aov_names else out, len(pix_sel))
-            bufs.add_batch_sparse(rad.cpu().numpy(), pix_sel)
+            rad, _ = _readback(pm.all_gather_lanes(mesh, out[0] if aov_names else out,
+                                                   len(pix_sel)))
+            with trace.span("driver.accumulate"):
+                bufs.add_batch_sparse(rad, pix_sel)
             done += 1
         elif use_regen:
             nb = max(1, min(passes_per_batch, total_passes - done))
             out = trace_regen_batch(scene, seed_pair, px, py, pix, done, n_passes=nb)
-            rad, aux = out if aov_names else (out, None)
-            bufs.add_pixel_sums(rad.cpu().numpy(), nb * m, _numpy(aux))
+            rad, aux = _readback(*(out if aov_names else (out,)))
+            with trace.span("driver.accumulate"):
+                bufs.add_pixel_sums(rad, nb * m, aux)
             done += nb
         else:
             nb = max(1, min(passes_per_batch, total_passes - done))
             out = _gather_out(mesh, trace_batch(scene, seed_pair, lane, px, py, done,
                                                 n_passes=nb), n_lanes)
-            rad, aux = out if aov_names else (out, None)
-            bufs.add_batch(rad.cpu().numpy(), nb, m, n_pix, _numpy(aux), pix_map=pix_map)
+            rad, aux = _readback(*(out if aov_names else (out,)))
+            with trace.span("driver.accumulate"):
+                bufs.add_batch(rad, nb, m, n_pix, aux, pix_map=pix_map)
             done += nb
         if verbose:
             dt = time.time() - t0
@@ -318,10 +335,12 @@ def _scene_diagonal(scene: FlatScene) -> float:
     root BVH box (render.py:450-451), which holds the triangles' corners."""
     tris = scene.tris
     corners = torch.cat([tris.v0, tris.v0 + tris.e1, tris.v0 + tris.e2])
-    ext = (corners.amax(0) - corners.amin(0)).cpu().numpy().astype(np.float32)
+    ext = trace.to_host("sync.sppm.diagonal",
+                        corners.amax(0) - corners.amin(0)).numpy().astype(np.float32)
     return float(np.linalg.norm(ext))
 
 
+@trace.spanned("frame")
 def render_sppm(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SEED,
                 photons_per_iter: int = 1 << 18, initial_radius: float | None = None,
                 volume_radius: float | None = None, alpha: float = 0.3, verbose: bool = False,
@@ -389,50 +408,51 @@ def render_sppm(scene: FlatScene, spp: int | None = None, seed: int = DEFAULT_SE
     acc = None
     ovf_total = 0
     for it in range(iters):
-        surf, vol, beams, plane_recs = trace_photons(
-            scene, (seed & 0xFFFFFFFF, 0x30000 + it), lane_ph, k_max=k_ph, want_planes=planes)
-        surf, vol, beams = (gathered(r, k_ph) for r in (surf, vol, beams))
-        plane_recs = gathered(plane_recs, k_ph * 2)
-        radius = float(np.sqrt(r2))
-        pack, starts, counts, ovf = build_photon_grid(*surf[:4], radius, bounce=surf[4])
-        ovf_total += int(ovf)
-        vargs = {}
-        if vol is not None and volume_photon_type == "points":
-            vpack, vstarts, vcounts, ovf_v = build_photon_grid(*vol[:4], 2.0 * r_vol,
-                                                               bounce=vol[4])
-            ovf_total += int(ovf_v)
-            vargs = dict(vpack=vpack, vstarts=vstarts, vcounts=vcounts, v_radius=r_vol,
-                         scene_far=diag * 2.0)
-        elif beams is not None:
-            bpack, bstarts, bcounts, ovf_b, _ = build_beam_grid(*beams, r_vol)
-            ovf_total += int(ovf_b)
-            vargs = dict(bpack=bpack, bstarts=bstarts, bcounts=bcounts, b_radius=r_vol,
-                         scene_far=diag * 2.0)
-            if plane_recs is not None:
-                # beyond MAX_PLANES the table is thinned with power
-                # compensation (unbiased): nothing is lost to report
-                prows, pmask, _ = build_plane_list(*plane_recs, seed=it)
-                vargs.update(prows=prows, pmask=pmask)
-                if volume_photon_type == "planes_1d":
-                    vargs.update(p1d_radius=r_vol)
-        img = gather_pass(scene, (seed & 0xFFFFFFFF, 0x40000 + it), lane_cam, px, py, pack,
-                          starts, counts, radius, photons_per_iter, knn_count=gather_count,
-                          **vargs)
-        img = pm.all_gather_lanes(cam_mesh, img, n)
-        acc = img if acc is None else acc + img
-        gamma_it = (it + 1 + alpha) / (it + 2)
-        r2 = r2 * gamma_it
-        if volume_photon_type in ("beams", "planes", "planes_1d"):
-            r_vol = r_vol * gamma_it
-        else:
-            r_vol = r_vol * gamma_it ** (1.0 / 3.0)
-        if verbose:
-            print(f"  sppm iter {it + 1}/{iters} r={radius:.4f} r_vol={r_vol:.4f}")
+        with trace.span("sppm.iter"):
+            surf, vol, beams, plane_recs = trace_photons(
+                scene, (seed & 0xFFFFFFFF, 0x30000 + it), lane_ph, k_max=k_ph, want_planes=planes)
+            surf, vol, beams = (gathered(r, k_ph) for r in (surf, vol, beams))
+            plane_recs = gathered(plane_recs, k_ph * 2)
+            radius = float(np.sqrt(r2))
+            pack, starts, counts, ovf = build_photon_grid(*surf[:4], radius, bounce=surf[4])
+            ovf_total += trace.to_host("sync.sppm.overflow", ovf)
+            vargs = {}
+            if vol is not None and volume_photon_type == "points":
+                vpack, vstarts, vcounts, ovf_v = build_photon_grid(*vol[:4], 2.0 * r_vol,
+                                                                   bounce=vol[4])
+                ovf_total += trace.to_host("sync.sppm.overflow", ovf_v)
+                vargs = dict(vpack=vpack, vstarts=vstarts, vcounts=vcounts, v_radius=r_vol,
+                             scene_far=diag * 2.0)
+            elif beams is not None:
+                bpack, bstarts, bcounts, ovf_b, _ = build_beam_grid(*beams, r_vol)
+                ovf_total += trace.to_host("sync.sppm.overflow", ovf_b)
+                vargs = dict(bpack=bpack, bstarts=bstarts, bcounts=bcounts, b_radius=r_vol,
+                             scene_far=diag * 2.0)
+                if plane_recs is not None:
+                    # beyond MAX_PLANES the table is thinned with power
+                    # compensation (unbiased): nothing is lost to report
+                    prows, pmask, _ = build_plane_list(*plane_recs, seed=it)
+                    vargs.update(prows=prows, pmask=pmask)
+                    if volume_photon_type == "planes_1d":
+                        vargs.update(p1d_radius=r_vol)
+            img = gather_pass(scene, (seed & 0xFFFFFFFF, 0x40000 + it), lane_cam, px, py, pack,
+                              starts, counts, radius, photons_per_iter, knn_count=gather_count,
+                              **vargs)
+            img = pm.all_gather_lanes(cam_mesh, img, n)
+            acc = img if acc is None else acc + img
+            gamma_it = (it + 1 + alpha) / (it + 2)
+            r2 = r2 * gamma_it
+            if volume_photon_type in ("beams", "planes", "planes_1d"):
+                r_vol = r_vol * gamma_it
+            else:
+                r_vol = r_vol * gamma_it ** (1.0 / 3.0)
+            if verbose:
+                print(f"  sppm iter {it + 1}/{iters} r={radius:.4f} r_vol={r_vol:.4f}")
     if ovf_total and verbose:
         print(f"  note: {ovf_total} photons beyond MAX_PER_CELL were folded into their cell's "
               f"kept photons (energy-preserving compensation)")
     render_sppm.last_overflow = int(ovf_total)
-    return acc.cpu().numpy().reshape(h, w, 3) / iters
+    return _readback(acc)[0].reshape(h, w, 3) / iters
 
 
 render_sppm.last_overflow = 0

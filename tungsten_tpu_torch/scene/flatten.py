@@ -26,6 +26,10 @@ them None otherwise; the port's own flatten always builds them, and a
 FlatScene without them (the JAX package's, or `dataclasses.replace(scene,
 pbvh8=None, ...)`) renders through the next pack of the fall-through.
 
+Spans (utils/trace.py): `setup.flatten` (flatten_scene), in it
+`flatten.bvh`, `flatten.packs` (ptris, pbvh8, pbvh3, pbvh), `flatten.gbvh`,
+`flatten.materials` and `flatten.upload` (from_arrays).
+
 `from_arrays(arrays, meta, device)` is the one constructor of FlatScene. It
 takes the arrays under the JAX FlatScene's own attribute paths (ARRAY_KEYS),
 so the JAX package's flattened scene can be carried across as numpy arrays
@@ -89,6 +93,7 @@ from ..ops.gather_bvh import GatherBvhPack, build_gather_pack
 from ..ops.intersect import TriangleSoA
 from ..ops.intersect_stream import TriPack, build_tri_pack
 from ..sampling.distributions import Distribution2D
+from ..utils import trace
 from .load import SceneDocument
 
 DEFAULT_EPSILON = 5e-4  # TraceableScene.hpp:39
@@ -672,7 +677,9 @@ def flatten_arrays(doc: SceneDocument):
     n2 = np.where(missing, tri_ng, n2)
 
     # ---- BVH leaf order (the binary leaf-4 tree fixes the permutation) ----
-    bvh = build_bvh_best(np.minimum(np.minimum(p0, p1), p2), np.maximum(np.maximum(p0, p1), p2))
+    with trace.span("flatten.bvh"):
+        bvh = build_bvh_best(np.minimum(np.minimum(p0, p1), p2),
+                             np.maximum(np.maximum(p0, p1), p2))
     perm = bvh.prim_order
 
     def permute(a):
@@ -691,7 +698,8 @@ def flatten_arrays(doc: SceneDocument):
 
     # ---- materials, textures, lights (flatten.py:606-920, in its order, so
     # the texture ids come out the same) ----
-    mats = pack_materials(bsdfs, tex_builder)
+    with trace.span("flatten.materials"):
+        mats = pack_materials(bsdfs, tex_builder)
 
     def prim_origin(name):
         """The transform origin of the named primitive (an atmosphere's
@@ -845,10 +853,11 @@ def flatten_arrays(doc: SceneDocument):
         lights[k] = [np.asarray(v, np.float64) if v is not None else zero3 for v in lights[k]]
     lights.update({k: np.asarray(lights[k], dt) for k, dt in LIGHT_FIELDS})
 
-    rough_kinds = np.asarray(tex_builder.kinds_of(tex_builder.rough_ids), np.int32)
-    tex = tex_builder.build_arrays()
-    gpack2 = build_gpack2(mats, tex["tpack"])
-    gpack3 = build_gpack3(mats, gpack2)
+    with trace.span("flatten.materials"):
+        rough_kinds = np.asarray(tex_builder.kinds_of(tex_builder.rough_ids), np.int32)
+        tex = tex_builder.build_arrays()
+        gpack2 = build_gpack2(mats, tex["tpack"])
+        gpack3 = build_gpack3(mats, gpack2)
 
     # ---- camera (flatten.py:948-1000) ----
     cam = doc.camera
@@ -859,17 +868,20 @@ def flatten_arrays(doc: SceneDocument):
     camera, ap_kind, ap_blades = _camera_arrays(doc, cam_m)
 
     e1, e2 = p1 - p0, p2 - p0
-    tree = tri_tree(p0, e1, e2, leaf_size=128)
-    packs = {
-        **{f"ptris.{k}": v for k, v in build_tri_pack(p0, e1, e2).items()},
-        **{f"pbvh8.{k}": v for k, v in build_bvh_pack8(p0, e1, e2, tree, 128).items()},
-        **{f"pbvh3.{k}": v for k, v in build_bvh_pack3(tree).items()},
-        **{f"pbvh.{k}": v for k, v in build_bvh_pack(p0, e1, e2, tree).items()},
-        "pbvh.n_nodes": len(tree.count),
-    }
+    with trace.span("flatten.bvh"):
+        tree = tri_tree(p0, e1, e2, leaf_size=128)
+    with trace.span("flatten.packs"):
+        packs = {
+            **{f"ptris.{k}": v for k, v in build_tri_pack(p0, e1, e2).items()},
+            **{f"pbvh8.{k}": v for k, v in build_bvh_pack8(p0, e1, e2, tree, 128).items()},
+            **{f"pbvh3.{k}": v for k, v in build_bvh_pack3(tree).items()},
+            **{f"pbvh.{k}": v for k, v in build_bvh_pack(p0, e1, e2, tree).items()},
+            "pbvh.n_nodes": len(tree.count),
+        }
 
     if len(p0) > 64:  # the gather pack, over 64 triangles (flatten.py:1073-1077)
-        packs.update({f"gbvh.{k}": v for k, v in build_gather_pack(p0, e1, e2).items()})
+        with trace.span("flatten.gbvh"):
+            packs.update({f"gbvh.{k}": v for k, v in build_gather_pack(p0, e1, e2).items()})
 
     # ---- analytic prim table + virtual-id rows (flatten.py:922-946): the
     # shading rows grow by one row per analytic prim (its material, its
@@ -964,6 +976,7 @@ def _group(key: str) -> str:
     return key.split(".", 1)[0]
 
 
+@trace.spanned("flatten.upload")
 def from_arrays(arrays: dict, meta, device) -> FlatScene:
     """FlatScene on `device` from numpy arrays under ARRAY_KEYS (and the env
     lights under "envs", each a dict under ENV_KEYS) and a meta object with
@@ -1058,6 +1071,7 @@ def from_arrays(arrays: dict, meta, device) -> FlatScene:
     )
 
 
+@trace.spanned("setup.flatten")
 def flatten_scene(doc: SceneDocument, device) -> FlatScene:
     arrays, meta = flatten_arrays(doc)
     return from_arrays(arrays, meta, device)

@@ -16,6 +16,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from ..utils import trace
+
 
 DEFAULT_RENDERER = {
     "output_file": "TungstenRender.png",
@@ -78,6 +80,7 @@ def _with_defaults(d: Optional[dict], defaults: dict) -> dict:
     return out
 
 
+@trace.spanned("setup.load")
 def load_scene(path: str) -> SceneDocument:
     with open(path) as f:
         raw = json.load(f)
